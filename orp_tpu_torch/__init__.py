@@ -1,0 +1,20 @@
+"""orp_tpu_torch: the PyTorch / CUDA (H100) port of the orp_tpu deep-hedging framework.
+
+A package of its own beside the JAX reference ``orp_tpu``: it imports
+``torch`` and never ``jax``, and nothing of ``orp_tpu``. Its layout mirrors
+the reference (``qmc/``, ``sde/``, ``models/``, ``train/``, ``parallel/``,
+``risk/``, ``api/``, ``serve/``, ``utils/``). Hand-written CUDA kernels for
+``sm_90a`` live in ``csrc/`` and are built with ``nvcc`` on first use.
+
+Entry points run on the card (``device=None`` means ``cuda``) unless the
+caller passes ``device="cpu"``:
+
+- ``orp_tpu_torch.api.european_oos(policy, euro, sim, train, device=...)``
+- ``orp_tpu_torch.serve.load_bundle(dir)``
+- ``orp_tpu_torch.serve.HedgeEngine(policy, device=...)``
+"""
+
+import pathlib
+
+#: the committed north-star policy bundle (trained by the JAX package)
+NORTH_STAR_POLICY = pathlib.Path(__file__).parent / "_data" / "north_star_policy"

@@ -1,0 +1,137 @@
+"""Risk analytics: VaR ledgers, residual P&L, fan charts, holdings (counterpart of
+``orp_tpu/risk/analytics.py``).
+
+Reductions run on the ledgers' device; the report holds host numpy arrays and
+Python floats, exactly the JAX package's ``HedgeReport``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from orp_tpu_torch.parallel.quantiles import quantile, sort_quantile
+
+DEFAULT_VAR_QS = (0.98, 0.99, 0.995)
+DEFAULT_FAN_QS = (0.01, 0.05, 0.10, 0.90, 0.95, 0.99)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _columnwise_quantiles(x: torch.Tensor, qs, method: str) -> np.ndarray:
+    """Quantiles per column of ``x (n_paths, n_cols)`` -> ``(n_cols, n_q)``."""
+    qs_t = torch.as_tensor(qs, dtype=x.dtype)
+    if method == "sort":
+        return _np(sort_quantile(x, qs_t, dim=0).T)
+    return np.stack([_np(quantile(x[:, j], qs_t, method=method))
+                     for j in range(x.shape[1])])
+
+
+def var_by_date(residuals: torch.Tensor, qs=DEFAULT_VAR_QS, method: str = "sort") -> np.ndarray:
+    """Per-date VaR quantiles of ``(n_paths, n_dates)`` residuals -> ``(n_dates, n_q)``."""
+    return _columnwise_quantiles(residuals, qs, method)
+
+
+def var_overall(residuals: torch.Tensor, qs=DEFAULT_VAR_QS, method: str = "sort") -> np.ndarray:
+    """Pooled VaR over all dates and paths."""
+    return _np(quantile(residuals.reshape(-1), qs, method=method))
+
+
+@dataclasses.dataclass
+class FanChart:
+    """Quantile bands of portfolio value over time."""
+
+    qs: np.ndarray      # (n_q,)
+    bands: np.ndarray   # (n_knots, n_q)
+    mean: np.ndarray    # (n_knots,)
+
+
+def fan_chart(values: torch.Tensor, qs=DEFAULT_FAN_QS, method: str = "sort") -> FanChart:
+    """Per-knot quantile bands and mean of ``values (n_paths, n_knots)``."""
+    return FanChart(qs=np.asarray(qs), bands=_columnwise_quantiles(values, qs, method),
+                    mean=_np(torch.mean(values, dim=0)))
+
+
+def residual_pnl_stats(residual: torch.Tensor) -> dict[str, float]:
+    """Mean / std (population) / min / max of terminal hedge residuals."""
+    return {
+        "mean": float(torch.mean(residual)),
+        "std": float(torch.std(residual, correction=0)),
+        "min": float(torch.min(residual)),
+        "max": float(torch.max(residual)),
+    }
+
+
+def holdings_summary(phi: torch.Tensor, psi: torch.Tensor,
+                     adjustment_factor: float = 1.0) -> dict:
+    """Per-date mean holdings x ``adjustment_factor`` and the t=0 answer."""
+    phi_mean = _np(torch.mean(phi, dim=0)) * adjustment_factor
+    psi_mean = _np(torch.mean(psi, dim=0)) * adjustment_factor
+    return {"phi_by_date": phi_mean, "psi_by_date": psi_mean,
+            "phi0": float(phi_mean[0]), "psi0": float(psi_mean[0])}
+
+
+@dataclasses.dataclass
+class HedgeReport:
+    """The outputs of one hedge run (field for field the JAX package's report)."""
+
+    v0: float
+    phi0: float
+    psi0: float
+    discounted_payoff: float
+    var_by_date: np.ndarray
+    var_overall: np.ndarray
+    var_qs: tuple
+    residual_stats: dict
+    fan: FanChart
+    holdings: dict
+    train_loss: np.ndarray
+    train_mae: np.ndarray
+    train_mape: np.ndarray
+    epochs_ran: np.ndarray
+    v0_plain: float | None = None
+    v0_cv: float | None = None
+    cv_std: float | None = None
+    v0_acv: float | None = None
+    acv_std: float | None = None
+    times: np.ndarray | None = None
+
+
+def build_report(result, *, terminal_payoff: torch.Tensor, r: float, times,
+                 adjustment_factor: float = 1.0, holdings_adjustment: float | None = None,
+                 var_qs=DEFAULT_VAR_QS, fan_qs=DEFAULT_FAN_QS,
+                 quantile_method: str = "sort") -> HedgeReport:
+    """Assemble a :class:`HedgeReport` from a replayed ``BackwardResult``.
+
+    ``adjustment_factor`` scales values; ``holdings_adjustment`` scales phi/psi
+    (defaults to the same factor; the European pipeline passes 1.0)."""
+    if holdings_adjustment is None:
+        holdings_adjustment = adjustment_factor
+    holdings = holdings_summary(result.phi, result.psi, holdings_adjustment)
+    T = float(np.asarray(times)[-1])
+    adj = adjustment_factor
+    disc = float(torch.mean(terminal_payoff)) * float(np.exp(-r * T)) * adj
+    fan = fan_chart(result.values, fan_qs, method=quantile_method)
+    fan = FanChart(qs=fan.qs, bands=fan.bands * adj, mean=fan.mean * adj)
+    resid = residual_pnl_stats(result.var_residuals[:, -1])
+    return HedgeReport(
+        v0=float(torch.mean(result.v0)) * adj,
+        phi0=holdings["phi0"],
+        psi0=holdings["psi0"],
+        discounted_payoff=disc,
+        var_by_date=var_by_date(result.var_residuals, var_qs, method=quantile_method) * adj,
+        var_overall=var_overall(result.var_residuals, var_qs, method=quantile_method) * adj,
+        var_qs=tuple(var_qs),
+        residual_stats={k: v * adj for k, v in resid.items()},
+        fan=fan,
+        holdings=holdings,
+        train_loss=result.train_loss,
+        train_mae=result.train_mae,
+        train_mape=result.train_mape,
+        epochs_ran=result.epochs_ran,
+        times=np.asarray(times),
+    )

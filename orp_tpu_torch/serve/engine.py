@@ -1,0 +1,217 @@
+"""Batched policy evaluation with power-of-two buckets (counterpart of ``orp_tpu/serve/engine.py``).
+
+``HedgeEngine(policy).evaluate(date_idx, states[, prices])`` pads a request up
+to its power-of-two bucket, evaluates it and slices the padding off. The
+per-date forward is the training walk's ``_date_outputs_core`` in plain
+PyTorch (the JAX package computes it outside Pallas too), so a served
+``(phi, psi, value)`` is the ``european_oos`` ledger column on the same inputs.
+``evaluate_mixed_async(dates, states[, prices])`` takes one date per ROW and
+runs the whole block through the mixed-date kernel (``serve/megakernel.py``).
+
+f32 tier, one device. The bf16/int8 tiers, AOT executables, mesh serving,
+the guard's circuit breaker and the telemetry spans are not ported yet.
+Buckets bound the set of shapes a request can take, which keeps the kernel's
+launch shapes and the caching allocator's block sizes to a small fixed set.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from orp_tpu_torch.serve.megakernel import (
+    _eval_core_mixed,
+    check_head_shape,
+    pack_head_params,
+)
+from orp_tpu_torch.train.backward import (
+    _date_outputs_core,
+    _split_holdings,
+    date_params,
+    params_to,
+)
+from orp_tpu_torch.utils.device import resolve_device
+from orp_tpu_torch.utils.precision import full_f32
+
+
+def _eval_core(model, p1_all, p2_all, date_idx: int, feats, prices, cost_of_capital, *,
+               dual_mode, holdings_combine):
+    """One bucket-shaped evaluation at one date: gather the date's params and
+    run the walk's per-date outputs (``prices_t1 = 0``, target 0)."""
+    p1, p2 = date_params(p1_all, date_idx), date_params(p2_all, date_idx)
+    g_pre = (model.value(p1, feats, prices) if dual_mode == "shared"
+             else torch.zeros((), dtype=model.dtype, device=feats.device))
+    v, comb, _ = _date_outputs_core(
+        model, p1, p2, feats, prices, torch.zeros_like(prices),
+        torch.zeros(feats.shape[:1], dtype=model.dtype, device=feats.device),
+        cost_of_capital, g_pre, dual_mode=dual_mode, holdings_combine=holdings_combine)
+    phi, psi = _split_holdings(comb)
+    return phi, psi, v
+
+
+def next_bucket(n: int, *, min_bucket: int = 8) -> int:
+    """Smallest power of two >= n, floored at ``min_bucket``."""
+    if n < 1:
+        raise ValueError(f"batch of {n} rows never dispatches — empty requests "
+                         "short-circuit before bucketing")
+    return max(min_bucket, 1 << (n - 1).bit_length())
+
+
+class PendingEval:
+    """A launched evaluation: the device owns it until :meth:`result` copies
+    the rows back to the host and slices the padding off."""
+
+    __slots__ = ("_phi", "_psi", "_v", "_n", "_has_prices", "bucket")
+
+    def __init__(self, phi, psi, v, n: int, has_prices: bool, bucket: int):
+        self._phi, self._psi, self._v = phi, psi, v
+        self._n = int(n)
+        self._has_prices = has_prices
+        self.bucket = int(bucket)
+
+    def result(self):
+        """``(phi, psi, value)`` host arrays of the requested rows (``value``
+        None when the request carried no prices). Waits for the device."""
+        n = self._n
+        phi = self._phi[:n].cpu().numpy()
+        psi = self._psi[:n].cpu().numpy()
+        value = self._v[:n].cpu().numpy() if self._has_prices else None
+        return phi, psi, value
+
+
+class HedgeEngine:
+    """Evaluate a hedge policy (a ``PolicyBundle`` or a result carrying its
+    model) for arbitrary request sizes on one device.
+
+    ``hits``/``misses`` count bucket reuse: a miss is the first request that
+    lands in a bucket."""
+
+    def __init__(self, policy, *, min_bucket: int = 8, max_bucket: int = 1 << 20,
+                 device=None):
+        model = getattr(policy, "model", None)
+        if model is None:
+            raise ValueError("policy carries no model — pass a PolicyBundle")
+        bw = policy.backward
+        if bw.params1_by_date is None:
+            raise ValueError("policy has no per-date params to serve")
+        self.device = resolve_device(device)
+        full_f32()
+        self.model = model
+        self.dual_mode = policy.dual_mode
+        self.holdings_combine = policy.holdings_combine
+        self.cost_of_capital = float(policy.cost_of_capital)
+        self.min_bucket = min_bucket
+        self.max_bucket = max_bucket
+        self._p1 = params_to(bw.params1_by_date, self.device, model.dtype)
+        p2 = params_to(bw.params2_by_date, self.device, model.dtype)
+        self._p2 = self._p1 if p2 is None else p2
+        self.n_dates = int(self._p1["w0"].shape[0])
+        # price legs per row: risky legs then bond
+        self.n_instruments = 2 if model.constrain_self_financing else model.n_outputs
+        self._np_dt = np.dtype(str(model.dtype).removeprefix("torch."))
+        self._packed = None  # the mixed-date kernel's (D, P) params, built on first use
+        self.hits = 0
+        self.misses = 0
+        self._buckets: set[int] = set()
+        self._mixed_buckets: set[int] = set()
+
+    def bucket_for(self, n_rows: int) -> int:
+        b = next_bucket(n_rows, min_bucket=self.min_bucket)
+        if b > self.max_bucket:
+            raise ValueError(f"batch of {n_rows} rows exceeds max_bucket={self.max_bucket}; "
+                             "split the request (or raise max_bucket)")
+        return b
+
+    def _check_rows(self, states, prices):
+        states = np.asarray(states)
+        if states.ndim == 1:
+            states = states[None, :]
+        n, f = states.shape
+        if f != self.model.n_features:
+            raise ValueError(f"states have {f} features; this policy was trained on "
+                             f"{self.model.n_features}")
+        if prices is not None:
+            prices = np.asarray(prices)
+            if prices.ndim == 1:
+                prices = prices[None, :]
+            if prices.shape != (n, self.n_instruments):
+                raise ValueError(f"prices shape {prices.shape} != {(n, self.n_instruments)} "
+                                 "(risky legs then bond, one row per state)")
+        return states, prices, n
+
+    def _pad(self, states, prices, n: int, b: int):
+        feats = np.zeros((b, states.shape[1]), self._np_dt)
+        feats[:n] = states
+        pr = np.zeros((b, self.n_instruments), self._np_dt)
+        if prices is not None:
+            pr[:n] = prices
+        return (torch.from_numpy(feats).to(self.device),
+                torch.from_numpy(pr).to(self.device))
+
+    def _count(self, seen: set, b: int) -> None:
+        if b in seen:
+            self.hits += 1
+        else:
+            self.misses += 1
+            seen.add(b)
+
+    @staticmethod
+    def _empty(has_prices: bool) -> PendingEval:
+        z = torch.zeros(0, dtype=torch.float32)
+        return PendingEval(z, z, z, 0, has_prices, 0)
+
+    def evaluate(self, date_idx: int, states, prices=None):
+        """``(phi, psi, value)`` host arrays for ``states (n, n_features)`` at
+        rebalance date ``date_idx`` (negative counts from the end)."""
+        return self.evaluate_async(date_idx, states, prices).result()
+
+    def evaluate_async(self, date_idx: int, states, prices=None) -> PendingEval:
+        """Validate, pad and launch without waiting for the device."""
+        states, prices, n = self._check_rows(states, prices)
+        idx = int(date_idx)
+        if not -self.n_dates <= idx < self.n_dates:
+            raise IndexError(f"date_idx {date_idx} out of range for {self.n_dates} dates")
+        idx %= self.n_dates
+        if n == 0:
+            return self._empty(prices is not None)
+        b = self.bucket_for(n)
+        feats, pr = self._pad(states, prices, n, b)
+        phi, psi, v = _eval_core(
+            self.model, self._p1, self._p2, idx, feats, pr, self.cost_of_capital,
+            dual_mode=self.dual_mode, holdings_combine=self.holdings_combine)
+        self._count(self._buckets, b)
+        return PendingEval(phi, psi, v, n, prices is not None, b)
+
+    def evaluate_mixed_async(self, dates, states, prices=None) -> PendingEval:
+        """One date index per ROW; the whole block runs through the mixed-date
+        kernel in one launch per param set (two for dual policies)."""
+        states, prices, n = self._check_rows(states, prices)
+        dates = np.asarray(dates).reshape(-1)
+        if dates.shape[0] != n:
+            raise ValueError(f"dates has {dates.shape[0]} entries for {n} rows "
+                             "(one rebalance-date index per row)")
+        if n and not ((-self.n_dates <= dates) & (dates < self.n_dates)).all():
+            raise IndexError(f"date indices out of range for {self.n_dates} dates")
+        if n == 0:
+            return self._empty(prices is not None)
+        dates = (dates.astype(np.int64) % self.n_dates).astype(np.int32)
+        b = self.bucket_for(n)
+        feats, pr = self._pad(states, prices, n, b)
+        dcol = np.zeros(b, np.int32)
+        dcol[:n] = dates  # padded rows use date 0 and are sliced off
+        if self._packed is None and self.device.type == "cuda":
+            check_head_shape(self.model, self.n_dates)
+            self._packed = (pack_head_params(self.model, self._p1),
+                            pack_head_params(self.model, self._p2))
+        packed1, packed2 = self._packed or (None, None)
+        phi, psi, v = _eval_core_mixed(
+            self.model, self._p1, self._p2, torch.from_numpy(dcol).to(self.device),
+            feats, pr, self.cost_of_capital, dual_mode=self.dual_mode,
+            holdings_combine=self.holdings_combine, packed1=packed1, packed2=packed2)
+        self._count(self._mixed_buckets, b)
+        return PendingEval(phi, psi, v, n, prices is not None, b)
+
+    def cache_info(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses,
+                "buckets": sorted(self._buckets),
+                "mixed_buckets": sorted(self._mixed_buckets)}

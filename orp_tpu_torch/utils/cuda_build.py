@@ -1,0 +1,114 @@
+"""Build the port's CUDA sources with ``nvcc`` and load them through ``ctypes``.
+
+Each ``orp_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and is
+compiled on first use into ``build/orp_tpu_torch/lib<name>-<hash>.so`` at the
+root of the checkout (``.gitignore`` lists ``build/``). The file name carries
+a hash of the source, so an edited kernel is rebuilt and a stale library is
+never loaded. :func:`build_all` starts one ``nvcc`` per source at once and
+waits for all of them, so the build costs the slowest source, not their sum.
+
+Flags: ``-gencode arch=compute_90a,code=sm_90a -O3`` and deliberately no
+``--use_fast_math``: ``__logf``/``__expf`` would move the AS241 tail and the
+knots' ``exp`` away from the reference.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "orp_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+SOURCES = ("fused_gbm", "mixed_head")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The ``nvcc`` binary: ``$CUDA_HOME/bin``, then ``PATH``, then ``/usr/local/cuda``."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([pathlib.Path(home) / "bin" / "nvcc"] if home else []):
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def _start(name: str, nvcc: str):
+    """Start ``nvcc`` for one source into a temp file; None when already built."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def build_all(names=SOURCES) -> dict[str, str]:
+    """Compile every missing library in parallel; returns ``{name: ptxas report}``.
+
+    Raises with the compiler's output when any source fails to build."""
+    with _lock:
+        nvcc = nvcc_path()
+        jobs = {n: _start(n, nvcc) for n in names}
+        reports, failed = {}, []
+        for n, job in jobs.items():
+            if job is None:
+                reports[n] = "cached"
+                continue
+            proc, tmp, out = job
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"--- {n}.cu (nvcc rc {proc.returncode}) ---\n{log}")
+                tmp.unlink(missing_ok=True)
+                continue
+            os.replace(tmp, out)
+            reports[n] = log
+        if failed:
+            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build_all((name,))
+    with _lock:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+        return _libs[name]
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launch function.
+
+    Every source exports ``orp_cuda_error_string`` for the message."""
+    if rc == 0:
+        return
+    fn = lib.orp_cuda_error_string
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    raise RuntimeError(f"{what}: CUDA launch failed: {fn(rc).decode()} (cudaError_t {rc})")

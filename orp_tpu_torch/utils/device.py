@@ -1,0 +1,21 @@
+"""Device resolution shared by every entry point of the port.
+
+The port runs on the card: ``device=None`` means ``cuda``. With no card and no
+explicit ``device="cpu"`` an entry point raises instead of carrying on quietly
+on the CPU, where every kernel would silently become its plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``cuda`` (raises when no card is present); else ``device``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "orp_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch versions"
+        )
+    return dev

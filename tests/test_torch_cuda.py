@@ -1,0 +1,101 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is false
+(decided inside the fixture, never at import). This file imports neither JAX
+nor ``orp_tpu``, so it runs on a machine without them::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from orp_tpu_torch import NORTH_STAR_POLICY
+from orp_tpu_torch.models import HedgeMLP
+from orp_tpu_torch.qmc import fused_gbm
+from orp_tpu_torch.serve import HedgeEngine, load_bundle, loop_of_buckets, megakernel
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU or interpret mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n_paths, n_steps, store", [(1, 28, 7), (1000, 28, 1),
+                                                     (4097, 364, 7)])
+def test_fused_gbm_matches_plain(cuda, n_paths, n_steps, store):
+    kw = dict(s0=100.0, drift=0.08, sigma=0.15, dt=1.0 / n_steps, seed=1235,
+              store_every=store, device=cuda)
+    before = fused_gbm.gbm_log_fused.launches
+    got = fused_gbm.gbm_log_fused(n_paths, n_steps, **kw)
+    torch.cuda.synchronize()
+    assert fused_gbm.gbm_log_fused.launches == before + 1
+    want = fused_gbm.gbm_log_plain(n_paths, n_steps, **kw)
+    assert got.shape == (n_paths, n_steps // store + 1)
+    torch.testing.assert_close(got, want, rtol=3e-5, atol=0.0)
+
+
+def test_fused_gbm_validates_on_card(cuda):
+    with pytest.raises(ValueError, match="must divide"):
+        fused_gbm.gbm_log_fused(128, 10, s0=1.0, drift=0.0, sigma=0.1, dt=0.1,
+                                store_every=3, device=cuda)
+
+
+def _params(model, n_dates, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    sizes = model.layer_sizes
+    p = {}
+    for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:])):
+        p[f"w{i}"] = (0.5 * torch.randn(n_dates, a, b, generator=g)).to(device)
+        p[f"b{i}"] = (0.1 * torch.randn(n_dates, b, generator=g)).to(device)
+    return p
+
+
+@pytest.mark.parametrize("model", [
+    HedgeMLP(n_features=1),
+    HedgeMLP(n_features=1, constrain_self_financing=True),
+    HedgeMLP(n_features=3, n_hedge_assets=2),
+    HedgeMLP(n_features=2, hidden=(16, 4, 8)),
+])
+@pytest.mark.parametrize("n_rows", [1, 257, 100_003])
+def test_mixed_head_matches_plain(cuda, model, n_rows):
+    p = _params(model, 52, 3, cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    dates = torch.randint(0, 52, (n_rows,), device=cuda, generator=g, dtype=torch.int32)
+    feats = 1.0 + 0.1 * torch.randn(n_rows, model.n_features, device=cuda, generator=g)
+    got = megakernel.mixed_head_forward(model, p, dates, feats)
+    torch.cuda.synchronize()
+    want = megakernel.mixed_head_plain(model, p, dates, feats)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_mixed_head_refuses_bad_inputs(cuda):
+    model = HedgeMLP(n_features=1)
+    p = _params(model, 4, 0, cuda)
+    feats = torch.ones(8, 1, device=cuda)
+    with pytest.raises(ValueError, match="dates must be"):
+        megakernel.mixed_head_forward(model, p, torch.zeros(8, dtype=torch.int64,
+                                                            device=cuda), feats)
+    with pytest.raises(ValueError, match="feats must be"):
+        megakernel.mixed_head_forward(model, p, torch.zeros(4, dtype=torch.int32, device=cuda),
+                                      torch.ones(1, 8, device=cuda).T[::2])
+    with pytest.raises(ValueError, match="layers of width"):
+        big = HedgeMLP(n_features=1, hidden=(32,))
+        megakernel.mixed_head_forward(big, _params(big, 4, 0, cuda),
+                                      torch.zeros(8, dtype=torch.int32, device=cuda), feats)
+
+
+def test_engine_on_card_mixed_equals_loop_of_buckets(cuda):
+    engine = HedgeEngine(load_bundle(NORTH_STAR_POLICY))
+    assert engine.device.type == "cuda"
+    with np.load(NORTH_STAR_POLICY / "reference.npz") as z:
+        dates, states, prices = z["dates"], z["states"], z["prices"]
+    mixed = engine.evaluate_mixed_async(dates, states, prices).result()
+    loop = loop_of_buckets(engine, dates, states, prices)
+    for a, b in zip(mixed, loop):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)

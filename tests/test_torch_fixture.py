@@ -1,0 +1,235 @@
+"""The committed north-star policy fixture (``orp_tpu_torch/_data/north_star_policy``).
+
+The card's machine has no JAX, so the smoke run serves a policy trained by
+the JAX package and stored in the repository with the JAX package's own
+outputs beside it. This file holds that fixture against what the JAX package
+computes from it today, holds the port's CPU path against the stored JAX
+outputs, and is the fixture's generator::
+
+    python tests/test_torch_fixture.py --write
+
+The generator trains the north-star configuration at 65,536 paths with the
+default Gauss-Newton settings (``european_hedge``), writes ``bundle.json`` +
+``policy.npz``, then stores ``reference.npz`` (a 4,096-row request block with
+the JAX ``HedgeEngine``'s ``(phi, psi, v)``) and ``reference.json`` (the JAX
+``european_oos`` report at 4,096 fresh paths on the Pallas engine, and under
+``"scan"`` the same report on the scan engine).
+
+The in-suite recompute runs the scan engine: the Pallas interpreter takes
+~25 s on a CPU for 4,096 paths x 364 steps, the scan engine under one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import pathlib
+import sys
+import time
+
+import numpy as np
+import pytest
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from orp_tpu import api as japi  # noqa: E402
+from orp_tpu.models.mlp import HedgeMLP as JHedgeMLP  # noqa: E402
+from orp_tpu.serve import HedgeEngine as JHedgeEngine  # noqa: E402
+from orp_tpu.serve.bundle import PolicyBundle as JPolicyBundle  # noqa: E402
+from orp_tpu.train.backward import BackwardResult as JBackwardResult  # noqa: E402
+from orp_tpu_torch import NORTH_STAR_POLICY  # noqa: E402
+from orp_tpu_torch import api as tapi  # noqa: E402
+from orp_tpu_torch.serve import HedgeEngine, load_bundle, save_bundle  # noqa: E402
+from orp_tpu_torch.serve.bundle import model_meta  # noqa: E402
+from orp_tpu_torch.models.mlp import HedgeMLP  # noqa: E402
+
+N_TRAIN = 1 << 16
+N_OOS = 4096
+N_BLOCK = 4096
+OOS_SEED = 4321
+BLOCK_SEED = 20261016
+REPORT_KEYS = ("v0", "phi0", "psi0", "v0_plain", "v0_cv", "cv_std", "v0_acv", "acv_std")
+
+
+def _jax_policy(directory) -> JPolicyBundle:
+    """The committed bundle as the JAX package's PolicyBundle (same numpy params)."""
+    meta = json.loads((pathlib.Path(directory) / "bundle.json").read_text())
+    with np.load(pathlib.Path(directory) / "policy.npz") as z:
+        p1 = {k.split("/", 1)[1]: jnp.asarray(z[k], jnp.float32)
+              for k in z.files if k.startswith("params1/")}
+        metrics = {k: z[k] for k in ("train_loss", "train_mae", "train_mape", "epochs_ran")}
+    m = meta["model"]
+    model = JHedgeMLP(n_features=m["n_features"], hidden=tuple(m["hidden"]),
+                      negative_slope=m["negative_slope"],
+                      constrain_self_financing=m["constrain_self_financing"],
+                      init_scale=m["init_scale"], dtype=jnp.float32,
+                      n_hedge_assets=m["n_hedge_assets"])
+    return JPolicyBundle(
+        model=model, backward=JBackwardResult.from_policy_state(
+            {"params1_by_date": p1, **metrics}),
+        times=np.asarray(meta["times"]), adjustment_factor=meta["adjustment_factor"],
+        dual_mode=meta["dual_mode"], holdings_combine=meta["holdings_combine"],
+        cost_of_capital=meta["cost_of_capital"], sim_seed=meta["sim_seed"], fingerprint="")
+
+
+def request_block(times, r: float = 0.08, sigma: float = 0.15, n: int = N_BLOCK):
+    """Seeded rows over every date: ``dates``, states ``S/S0`` and prices
+    ``(S/S0, B_t/S0)`` with ``S`` drawn from the risk-neutral lognormal at
+    the date's time and ``B_t = exp(r t)``."""
+    rng = np.random.default_rng(BLOCK_SEED)
+    n_dates = len(times) - 1
+    dates = rng.integers(0, n_dates, size=n).astype(np.int32)
+    t = np.asarray(times, np.float64)[dates]
+    s = np.exp((r - 0.5 * sigma**2) * t + sigma * np.sqrt(t) * rng.standard_normal(n))
+    states = s.astype(np.float32)[:, None]
+    prices = np.stack([states[:, 0], (np.exp(r * t) / 100.0).astype(np.float32)], axis=1)
+    return dates, states, prices
+
+
+def oos_configs():
+    euro = japi.EuropeanConfig(constrain_self_financing=False)
+    sim = japi.SimConfig(n_paths=N_OOS, T=1.0, dt=1 / 364, rebalance_every=7,
+                         seed_fund=OOS_SEED, engine="pallas")
+    return euro, sim, japi.TrainConfig(dual_mode="mse_only")
+
+
+def jax_reference(directory, engine: str = "pallas"):
+    """What the JAX package computes from the bundle in ``directory``: the
+    engine's outputs on the request block and the ``european_oos`` report on
+    the given path engine."""
+    policy = _jax_policy(directory)
+    dates, states, prices = request_block(policy.times)
+    phi, psi, v = JHedgeEngine(policy, use_aot=False).evaluate_mixed_async(
+        dates, states, prices).result()
+    euro, sim, train = oos_configs()
+    res = japi.european_oos(policy, euro, dataclasses.replace(sim, engine=engine), train)
+    report = {k: float(getattr(res.report, k)) for k in REPORT_KEYS}
+    report["var_overall"] = [float(x) for x in res.report.var_overall]
+    block = {"dates": dates, "states": states, "prices": prices,
+             "phi": np.asarray(phi), "psi": np.asarray(psi), "v": np.asarray(v)}
+    return block, report
+
+
+def write_fixture(directory=NORTH_STAR_POLICY) -> dict:
+    """Train the north-star policy with the JAX package and store it with its outputs."""
+    directory = pathlib.Path(directory)
+    euro = japi.EuropeanConfig(constrain_self_financing=False)
+    sim = japi.SimConfig(n_paths=N_TRAIN, T=1.0, dt=1 / 364, rebalance_every=7)
+    train = japi.TrainConfig(dual_mode="mse_only", optimizer="gauss_newton")
+    t0 = time.perf_counter()
+    res = japi.european_hedge(euro, sim, train)
+    train_s = time.perf_counter() - t0
+    state = res.backward.policy_state()
+    model = HedgeMLP(n_features=1, hidden=tuple(res.model.hidden),
+                     negative_slope=res.model.negative_slope,
+                     constrain_self_financing=res.model.constrain_self_financing,
+                     init_scale=res.model.init_scale)
+    meta = {
+        "model": model_meta(model),
+        "times": np.asarray(res.times, np.float64).tolist(),
+        "adjustment_factor": float(res.adjustment_factor),
+        "dual_mode": res.dual_mode, "holdings_combine": res.holdings_combine,
+        "cost_of_capital": float(res.cost_of_capital), "sim_seed": res.sim_seed,
+        "trained_with": {"pipeline": "orp_tpu.api.european_hedge", "n_paths": N_TRAIN,
+                         "optimizer": train.optimizer, "gn_iters_first": train.gn_iters_first,
+                         "gn_iters_warm": train.gn_iters_warm, "T": sim.T, "dt": sim.dt,
+                         "rebalance_every": sim.rebalance_every, "seed_fund": sim.seed_fund,
+                         "train_seconds_cpu": round(train_s, 1),
+                         "in_sample_v0_acv": float(res.report.v0_acv)},
+    }
+    params1 = {k: np.asarray(v, np.float32) for k, v in state["params1_by_date"].items()}
+    metrics = {k: np.asarray(state[k]) for k in
+               ("train_loss", "train_mae", "train_mape", "epochs_ran")}
+    save_bundle(directory, meta, params1, None, metrics)
+    block, report = jax_reference(directory)
+    np.savez(directory / "reference.npz", **block)
+    report["oos"] = {"n_paths": N_OOS, "seed_fund": OOS_SEED, "engine": "pallas"}
+    report["scan"] = jax_reference(directory, engine="scan")[1]
+    (directory / "reference.json").write_text(json.dumps(report, indent=1, sort_keys=True))
+    return {"train_seconds_cpu": train_s, **report}
+
+
+@pytest.fixture(scope="module")
+def stored():
+    with np.load(NORTH_STAR_POLICY / "reference.npz") as z:
+        block = {k: z[k] for k in z.files}
+    report = json.loads((NORTH_STAR_POLICY / "reference.json").read_text())
+    return block, report
+
+
+def test_fixture_matches_jax_today(stored):
+    """The JAX package, run today on the committed params, reproduces the
+    stored outputs: the engine block bitwise and the scan-engine report at
+    ``rtol=1e-6`` (same programs, same backend); the stored Pallas-engine
+    report agrees with today's scan-engine report at ``rtol=1e-5`` and within
+    0.05bp on ``v0_acv`` (the two JAX engines' paths agree to ~3e-5)."""
+    block, report = stored
+    got_block, got_scan = jax_reference(NORTH_STAR_POLICY, engine="scan")
+    for k in ("dates", "states", "prices", "phi", "psi", "v"):
+        np.testing.assert_array_equal(got_block[k], block[k], err_msg=k)
+    for k in (*REPORT_KEYS, "var_overall"):
+        np.testing.assert_allclose(got_scan[k], report["scan"][k], rtol=1e-6, err_msg=k)
+    for k in (*REPORT_KEYS, "var_overall"):
+        np.testing.assert_allclose(report[k], got_scan[k], rtol=1e-5, err_msg=k)
+    assert abs(report["v0_acv"] - got_scan["v0_acv"]) / report["v0_acv"] * 1e4 <= 0.05
+
+
+def test_fixture_bundle_shape_and_provenance():
+    policy = load_bundle(NORTH_STAR_POLICY)
+    assert policy.n_dates == 52 and policy.dual_mode == "mse_only"
+    assert policy.model.n_outputs == 2 and policy.model.hidden == (8, 8)
+    assert policy.backward.params1_by_date["w1"].shape == (52, 8, 8)
+    meta = json.loads((NORTH_STAR_POLICY / "bundle.json").read_text())
+    assert meta["trained_with"]["n_paths"] == N_TRAIN
+    assert policy.sim_seed == meta["trained_with"]["seed_fund"] != OOS_SEED
+
+
+def test_port_serves_fixture_block_on_cpu(stored):
+    """The port's mixed-date path and its bucketed path reproduce the stored
+    JAX engine outputs. Tolerance rtol 1e-5 / atol 1e-6: the same f32 ops,
+    reduced in another order by another library."""
+    block, _ = stored
+    engine = HedgeEngine(load_bundle(NORTH_STAR_POLICY), device="cpu")
+    phi, psi, v = engine.evaluate_mixed_async(
+        block["dates"], block["states"], block["prices"]).result()
+    for got, k in ((phi, "phi"), (psi, "psi"), (v, "v")):
+        np.testing.assert_allclose(got, block[k], rtol=1e-5, atol=1e-6, err_msg=k)
+    d = int(block["dates"][0])
+    m = block["dates"] == d
+    phi_d, psi_d, v_d = engine.evaluate(d, block["states"][m], block["prices"][m])
+    np.testing.assert_allclose(phi_d, block["phi"][m], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(v_d, block["v"][m], rtol=1e-5, atol=1e-6)
+
+
+def test_port_oos_matches_stored_report_on_cpu(stored):
+    """The port's ``european_oos`` (plain path on the CPU) against the stored
+    JAX report at 4,096 paths. Tolerances: ``rtol 1e-4`` on the report fields
+    (f32 reductions in another order; paths agree to ~3e-5); the
+    OLS-martingale price within 0.05bp (``eigh`` on 6x6 Grams per date)."""
+    _, report = stored
+    euro, sim, train = oos_configs()
+    res = tapi.european_oos(
+        load_bundle(NORTH_STAR_POLICY),
+        tapi.EuropeanConfig(constrain_self_financing=euro.constrain_self_financing),
+        tapi.SimConfig(n_paths=sim.n_paths, T=sim.T, dt=sim.dt,
+                       rebalance_every=sim.rebalance_every, seed_fund=sim.seed_fund,
+                       engine="pallas"),
+        tapi.TrainConfig(dual_mode=train.dual_mode), device="cpu")
+    for k in ("v0", "phi0", "v0_plain", "v0_cv", "cv_std", "acv_std"):
+        np.testing.assert_allclose(getattr(res.report, k), report[k], rtol=1e-4, err_msg=k)
+    np.testing.assert_allclose(res.report.psi0, report["psi0"], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(res.report.var_overall, report["var_overall"], rtol=1e-4)
+    assert abs(res.report.v0_acv - report["v0_acv"]) / report["v0_acv"] * 1e4 <= 0.05
+
+
+if __name__ == "__main__":
+    if "--write" not in sys.argv[1:]:
+        sys.exit("usage: python tests/test_torch_fixture.py --write")
+    # the suite's JAX settings (tests/conftest.py), so the in-suite recompute
+    # runs the same programs as the generator
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    print(json.dumps(write_fixture(), indent=1, default=float))

@@ -1,0 +1,98 @@
+"""The port stands alone: ``orp_tpu_torch`` and ``chip_smoke.py`` import neither
+JAX nor the JAX package, and the port's entry points refuse to run quietly on
+the CPU when no card is present.
+
+Note the prefix: ``orp_tpu_torch`` starts with ``orp_tpu``, so "imports the JAX
+package" means ``name == "orp_tpu" or name.startswith("orp_tpu.")``."""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "orp_tpu_torch"
+
+
+def _is_forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith("jax.") or name.startswith("jaxlib")
+            or name == "orp_tpu" or name.startswith("orp_tpu."))
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tools" / "torch_profile_paths.py"]
+
+
+def test_prefix_rule():
+    assert _is_forbidden("orp_tpu") and _is_forbidden("orp_tpu.qmc.sobol")
+    assert not _is_forbidden("orp_tpu_torch") and not _is_forbidden("orp_tpu_torch.qmc")
+    assert _is_forbidden("jax.numpy") and not _is_forbidden("jaxtyping")
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax_and_no_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _is_forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            if _is_forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import orp_tpu_torch\n"
+        "for m in pkgutil.walk_packages(orp_tpu_torch.__path__, 'orp_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
+        "       or n == 'orp_tpu' or n.startswith('orp_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print(len([n for n in sys.modules if n.startswith('orp_tpu_torch')]))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20  # every module was imported
+
+
+def test_entry_points_default_to_the_card():
+    """Without ``device=`` an entry point means the card, and raises without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable here")
+    from orp_tpu_torch import NORTH_STAR_POLICY
+    from orp_tpu_torch.api import european_oos
+    from orp_tpu_torch.qmc import gbm_log_fused
+    from orp_tpu_torch.serve import HedgeEngine, load_bundle
+
+    policy = load_bundle(NORTH_STAR_POLICY)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        HedgeEngine(policy)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        european_oos(policy)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gbm_log_fused(128, 8, s0=1.0, drift=0.0, sigma=0.1, dt=0.1)
+    assert HedgeEngine(policy, device="cpu").device.type == "cpu"
+
+
+def test_chip_smoke_refuses_without_card_and_alone(tmp_path):
+    """``chip_smoke.py`` exits non-zero and prints no result line with no card,
+    and in a directory holding nothing else of the repository."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the smoke would run")
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    for cwd in (ROOT, tmp_path):
+        out = subprocess.run([sys.executable, str(cwd / "chip_smoke.py")], cwd=cwd,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout
