@@ -7,22 +7,41 @@ Phases (any failed check raises and the script exits non-zero before its
 last line):
 
 1. card: ``nvidia-smi`` name and power limit; a CUDA device is required;
-2. build: both CUDA kernels from ``orp_tpu_torch/csrc`` with ``nvcc`` for
-   ``sm_90a``, in parallel;
-3. kernel vs plain version on the card: K1 (fused Sobol-GBM) at 65,536 and at
-   1,048,576 paths x 364 steps, store 7, ``rtol=3e-5``; K2 (mixed-date head)
-   on 1,048,576 rows over 52 dates under the fixture policy,
-   ``rtol=1e-5, atol=1e-6``;
-4. serve: the committed north-star policy through ``HedgeEngine``: mixed-date
-   blocks of 1, 7 and 4,096 rows (held against the stored JAX outputs) and one
-   bucketed ``evaluate``; then the main path, one 1,048,576-row request, with
-   the launch counts set to 0 just before it: K2's count must move, K1's not;
+2. build: every CUDA kernel from ``orp_tpu_torch/csrc`` with ``nvcc`` for
+   ``sm_90a``, one ``nvcc`` per source, all at once;
+3. kernel vs plain version on the card: K1 (fused Sobol-GBM) at 65,536 and
+   1,048,576 paths x 364 steps, store 7, ``rtol=3e-5``; K3b (Heston QE-M) and
+   K3a (Heston Euler) at the same shapes (S ``rtol=3e-5``; QE v ``rtol=2e-3,
+   atol=1e-6``; Euler v ``rtol=3e-5, atol=3e-6``); K2 (mixed-date head) on
+   1,048,576 rows over 52 dates, ``rtol=1e-5, atol=1e-6``;
+4. serve: the committed north-star policy through ``HedgeEngine`` (blocks of
+   1, 7 and 4,096 rows held against the stored JAX outputs), then its main
+   path, one 1,048,576-row request: K2 moves, no other kernel;
 5. replay: ``european_oos`` at 4,096 paths (held against the stored JAX
-   report); then the main path, 1,048,576 fresh paths x 364 steps on the fused
-   kernel with the counts set to 0 just before it: |bp error| of the
-   OLS-martingale price vs Black-Scholes < 1bp, K1's count must move, K2's not;
-6. times: each kernel and its plain version with CUDA events at the main
-   path's shapes, beside the kernel's bound.
+   report), then its main path at 1,048,576 fresh paths: |bp error| of the
+   OLS-martingale price vs Black-Scholes < 1bp; K1 moves, no other kernel;
+6. fixture walk: ``heston_hedge`` at 4,096 paths from the stored JAX initial
+   params, held against the stored JAX report inside the walk's band
+   (``tools/torch_walk_spread.py``); the stored JAX walk's per-date params
+   replayed on the card's in-sample paths, ``v0_cv`` and ``v0_acv`` within
+   0.5bp of the stored report and ``v0`` at rtol 1e-3; then the same walk in
+   float64 on the card and on the CPU, on the same paths: the same limits,
+   the same accepted iterations on every date, per-date losses at rtol 1e-7;
+7. main path A: ``heston_hedge`` at 1,048,576 paths x 364 steps (QE-M, the
+   Gauss-Newton walk), then ``heston_oos`` on 1,048,576 fresh paths: the
+   hedged-CV and OLS-martingale prices within 3 standard errors of the
+   Heston characteristic-function price, in and out of sample; K3b moves in
+   each run, no other kernel;
+8. the Euler scheme: ``heston_oos`` of the trained policy on 1,048,576 fresh
+   Euler paths, the same checks; K3a moves, no other kernel;
+9. main path B: ``european_hedge`` at 1,048,576 paths with the GN walk:
+   |v0_acv - BS| < 1bp (the north star); K1 moves, no other kernel;
+10. serve the trained Heston policy: ``save_bundle`` -> ``load_bundle`` ->
+    ``HedgeEngine.evaluate_mixed_async`` on 4,096 rows over all 52 dates,
+    held against ``mixed_head_plain`` at ``rtol=1e-5, atol=1e-6``; K2 moves;
+11. times: each kernel and its plain version with CUDA events at the main
+    paths' shapes, beside the kernel's bound; the GN walk's wall at 1M paths
+    and the median time of one GN iteration there.
 
 Output: a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -45,8 +64,16 @@ F32_FLOP_PER_S = 67e12          # 132 SMs x 128 lanes x 2 (FMA) x 1.98 GHz
 INT32_OP_PER_S = 16.7e12        # 132 SMs x 64 INT32 lanes x 1.98 GHz
 
 N_FULL = 1 << 20
+N_FIXTURE = 4096
 N_STEPS, STORE = 364, 7
 OOS_SEED = 4321
+EULER_SEED = 5432
+HESTON = dict(s0=100.0, mu=0.08, v0=0.0225, kappa=1.5, theta=0.0225, xi=0.25, rho=-0.6)
+# the 4,096-path walk's band around the stored JAX report: about twice the
+# largest gap of 16 one-ulp-perturbed runs (tools/torch_walk_spread.py;
+# tests/test_torch_fixture.py holds the CPU port to the same band)
+FIXTURE_BAND_BP = {"v0_cv": 5.0, "v0_acv": 30.0}
+FIXTURE_V0_RTOL = 5e-2
 
 
 def check(ok: bool, what: str) -> None:
@@ -83,21 +110,47 @@ def max_err(got, want) -> float:
     return float((got.double() - want.double()).abs().max())
 
 
-def k1_bound_ms(n_paths: int, n_steps: int, store_every: int) -> tuple[float, str]:
-    """Least time for the fused GBM: bytes (direction table in, knots out)
-    against operations (int32 Sobol/scramble work, f32 AS241 + update)."""
-    n_knots = n_steps // store_every + 1
-    bytes_ = n_steps * 32 * 4 + n_knots * n_paths * 4
-    # the XOR chain needs one op per set index bit: sum of popcounts of 0..n-1
+def sobol_int_ops(n_paths: int, n_dims: int) -> int:
+    """int32 operations of ``n_dims`` scrambled Sobol words per path: the XOR
+    chain needs one op per set index bit (the popcounts of 0..n-1), then two
+    bit reversals, the Laine-Karras hash (add + 4 mul/xor) and the bucket shift."""
     popcounts = sum(bin(i).count("1") for i in range(n_paths))
-    # per path-step: 2 bit reversals, Laine-Karras (add + 4 mul/xor), bucket shift
-    int_ops = n_steps * (popcounts + 12 * n_paths)
-    # per path-step: bucket centre (3), update (3), AS241: central 33 ops on
-    # 85% of draws (|u - 0.5| <= 0.425), tail 37 on 15%; per knot exp + mul
-    f32_ops = n_paths * (n_steps * (6 + 0.85 * 33 + 0.15 * 37) + 2 * (n_knots - 1))
+    return n_dims * (popcounts + 12 * n_paths)
+
+
+# f32 operations of one AS241 draw: central 33 on 85% of uniforms
+# (|u - 0.5| <= 0.425), tail 37 on 15%
+AS241_OPS = 0.85 * 33 + 0.15 * 37
+
+
+def bound(bytes_: float, int_ops: float, f32_ops: float) -> tuple[float, str]:
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = max(int_ops / INT32_OP_PER_S, f32_ops / F32_FLOP_PER_S) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k1_bound_ms(n_paths: int, n_steps: int, store_every: int) -> tuple[float, str]:
+    """Least time for the fused GBM: the direction table in and the knots out,
+    against the Sobol int32 work and the f32 AS241 + update (6) per
+    path-step, exp + mul per knot."""
+    n_knots = n_steps // store_every + 1
+    bytes_ = n_steps * 32 * 4 + n_knots * n_paths * 4
+    f32_ops = n_paths * (n_steps * (6 + AS241_OPS) + 2 * (n_knots - 1))
+    return bound(bytes_, sobol_int_ops(n_paths, n_steps), f32_ops)
+
+
+def k3_bound_ms(n_paths: int, n_steps: int, store_every: int, scheme: str) -> tuple[float, str]:
+    """Least time for the fused Heston: the direction table in and the S and v
+    knots out, against two Sobol words per path-step and the f32 work: the
+    asset's AS241 plus, for Euler, the variance's AS241 and 20 update ops; for
+    QE-M 38 ops shared by both variance branches plus the cheaper branch's 15
+    (the exponential one: no inverse normal), so a lower bound whatever the
+    branch mix; exp + mul per knot of S."""
+    n_knots = n_steps // store_every + 1
+    bytes_ = n_steps * 2 * 32 * 4 + 2 * n_knots * n_paths * 4
+    step_ops = AS241_OPS + (AS241_OPS + 20 if scheme == "euler" else 38 + 15)
+    f32_ops = n_paths * (n_steps * step_ops + 2 * (n_knots - 1))
+    return bound(bytes_, sobol_int_ops(n_paths, 2 * n_steps), f32_ops)
 
 
 def k2_bound_ms(model, n_rows: int, n_dates: int) -> tuple[float, str]:
@@ -108,9 +161,77 @@ def k2_bound_ms(model, n_rows: int, n_dates: int) -> tuple[float, str]:
     flops = 0
     for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:])):
         flops += 2 * a * b + b + (2 * b if i < len(sizes) - 2 else 0)
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = n_rows * flops / F32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return bound(bytes_, 0, n_rows * flops)
+
+
+class Counts:
+    """The kernels' launch counters: set to 0 just before a main path's run,
+    read just after it."""
+
+    def __init__(self, **fns):
+        self.fns = fns
+
+    def reset(self) -> None:
+        for fn in self.fns.values():
+            fn.launches = 0
+
+    def read(self) -> dict[str, int]:
+        return {k: fn.launches for k, fn in self.fns.items()}
+
+    def only(self, name: str, what: str) -> int:
+        """Check that the run launched kernel ``name`` and no other."""
+        got = self.read()
+        check(got[name] > 0, f"{name} launched on {what} ({got})")
+        check(all(v == 0 for k, v in got.items() if k != name),
+              f"{what} launches no kernel but {name} ({got})")
+        return got[name]
+
+
+def report_fields(rep) -> list[float]:
+    return [rep.v0, rep.phi0, rep.psi0, rep.v0_plain, rep.v0_cv, rep.cv_std, rep.v0_acv,
+            rep.acv_std, *rep.var_overall]
+
+
+def check_heston_price(rep, price: float, n: int, what: str) -> str:
+    """The hedged-CV and OLS-martingale prices within 3 standard errors of the
+    characteristic-function price; all report fields finite."""
+    check(all(math.isfinite(x) for x in report_fields(rep)), f"{what}: report fields finite")
+    parts = []
+    for name, v, std in (("v0_cv", rep.v0_cv, rep.cv_std), ("v0_acv", rep.v0_acv,
+                                                             rep.acv_std)):
+        lim = 3.0 * std / math.sqrt(n)
+        check(abs(v - price) < lim, f"{what}: |{name} - heston_call| = {abs(v - price):.5f} "
+              f"< 3 SE = {lim:.5f}")
+        parts.append(f"{name} {v:.6f} ({(v - price) / price * 1e4:+.3f}bp, 3 SE "
+                     f"{lim / price * 1e4:.2f}bp)")
+    return ", ".join(parts)
+
+
+def f64_heston_walk(paths: dict, h, init: dict, device):
+    """``heston_hedge``'s walk (Gauss-Newton, ``mse_only``, from ``init``) and
+    report in float64 on ``device``, on given paths ``{"S", "v"}`` of the
+    364-step grid stored weekly."""
+    import torch
+
+    from orp_tpu_torch.api import TrainConfig, pipelines
+    from orp_tpu_torch.models import HedgeMLP
+    from orp_tpu_torch.sde import TimeGrid, bond_curve, payoffs
+    from orp_tpu_torch.train import backward
+
+    f64 = torch.float64
+    s = paths["S"].to(device=device, dtype=f64)
+    v = paths["v"].to(device=device, dtype=f64)
+    coarse = TimeGrid(1.0, N_STEPS).reduced(STORE)
+    b = bond_curve(coarse, h.r, f64, device)
+    payoff = payoffs.european(s[:, -1], h.strike, h.option_type)
+    cfg = pipelines._backward_cfg(TrainConfig(dual_mode="mse_only", optimizer="gauss_newton"))
+    res = backward.backward_induction(HedgeMLP(n_features=2, dtype=f64),
+                                      torch.stack([s / h.s0, v], dim=-1), s / h.s0, b / h.s0,
+                                      payoff / h.s0, cfg, initial_params=(init, None))
+    times = coarse.times(f64).numpy()
+    report = pipelines._report(res, s, payoff, h.r, h.strike, h.s0, times, "sort")
+    return pipelines.PipelineResult(report=report, backward=res, times=times,
+                                    adjustment_factor=h.s0)
 
 
 def main() -> int:
@@ -127,23 +248,29 @@ def main() -> int:
     sys.path.insert(0, str(HERE))
     import numpy as np
 
-    from orp_tpu_torch import NORTH_STAR_POLICY
-    from orp_tpu_torch.api import EuropeanConfig, SimConfig, TrainConfig, european_oos
-    from orp_tpu_torch.qmc import fused_gbm
-    from orp_tpu_torch.serve import HedgeEngine, load_bundle, megakernel
-    from orp_tpu_torch.utils import bs_call, cuda_build
+    from orp_tpu_torch import HESTON_WALK, NORTH_STAR_POLICY
+    from orp_tpu_torch.api import (EuropeanConfig, HestonConfig, SimConfig, TrainConfig,
+                                   european_hedge, european_oos, heston_hedge, heston_oos)
+    from orp_tpu_torch.models import HedgeMLP
+    from orp_tpu_torch.qmc import fused_gbm, fused_mf
+    from orp_tpu_torch.serve import HedgeEngine, load_bundle, megakernel, save_bundle
+    from orp_tpu_torch.serve.bundle import model_meta
+    from orp_tpu_torch.train import backward, gn
+    from orp_tpu_torch.utils import bs_call, cuda_build, heston_call
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
+    counts = Counts(fused_gbm=fused_gbm.gbm_log_fused, mixed_head=megakernel.mixed_head_forward,
+                    heston_qe=fused_mf.heston_qe_fused, heston_euler=fused_mf.heston_log_fused)
+    launches = {}
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     reports = cuda_build.build_all()
-    build_s = time.perf_counter() - t0
-    print(f"[build] {sorted(reports)} in {build_s:.2f} s", flush=True)
+    print(f"[build] {sorted(reports)} in {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in reports.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -164,6 +291,28 @@ def main() -> int:
         print(f"[K1] {n} x {N_STEPS} store {STORE}: max|kernel - plain| = "
               f"{max_err(got, want):.3e} (rtol 3e-5)", flush=True)
     del got, want
+
+    heston_kw = dict(HESTON, dt=1.0 / N_STEPS, seed=OOS_SEED, store_every=STORE, device=dev)
+    k3_err = {"qe": 0.0, "euler": 0.0}
+    for scheme, fused, plain in (("qe", fused_mf.heston_qe_fused, fused_mf.heston_qe_plain),
+                                 ("euler", fused_mf.heston_log_fused,
+                                  fused_mf.heston_log_plain)):
+        v_tol = dict(rtol=2e-3, atol=1e-6) if scheme == "qe" else dict(rtol=3e-5, atol=3e-6)
+        for n in (65_536, N_FULL):
+            got = fused(n, N_STEPS, **heston_kw)
+            torch.cuda.synchronize()
+            want = plain(n, N_STEPS, **heston_kw)
+            torch.cuda.synchronize()
+            for k in ("S", "v"):
+                check(got[k].shape == (n, N_STEPS // STORE + 1), f"K3 {scheme} {k} shape")
+            torch.testing.assert_close(got["S"], want["S"], rtol=3e-5,
+                                       atol=3e-6 if scheme == "euler" else 0.0)
+            torch.testing.assert_close(got["v"], want["v"], **v_tol)
+            errs = {k: max_err(got[k], want[k]) for k in ("S", "v")}
+            k3_err[scheme] = max(k3_err[scheme], *errs.values())
+            print(f"[K3 {scheme}] {n} x {N_STEPS} store {STORE}: max|kernel - plain| S "
+                  f"{errs['S']:.3e}, v {errs['v']:.3e} (S rtol 3e-5; v {v_tol})", flush=True)
+        del got, want
 
     policy = load_bundle(NORTH_STAR_POLICY)
     model, n_dates = policy.model, policy.n_dates
@@ -217,98 +366,317 @@ def main() -> int:
                                         ref["prices"][:n]).result()
             walls.append((time.perf_counter() - t1) * 1e3)
         lat_ms[n] = sorted(walls)[len(walls) // 2]
-    # the main path's run: one 1M-row request, counts set to 0 just before it
-    megakernel.mixed_head_forward.launches = 0
-    fused_gbm.gbm_log_fused.launches = 0
+    counts.reset()
     t1 = time.perf_counter()
     phi, psi, v = engine.evaluate_mixed_async(big_dates, big_states, big_prices).result()
     serve_s = [time.perf_counter() - t1]
-    serve_launches = megakernel.mixed_head_forward.launches
-    check(serve_launches > 0, "K2 (mixed_head) launched on the serve path")
-    check(fused_gbm.gbm_log_fused.launches == 0, "serve path launches no K1")
+    launches["mixed_head"] = counts.only("mixed_head", "the 1M-row serve request")
     check(phi.shape == (N_FULL,) and bool(np.isfinite(phi).all() and np.isfinite(v).all()),
           "1M-row serve block finite")
     for _ in range(2):
         t1 = time.perf_counter()
         engine.evaluate_mixed_async(big_dates, big_states, big_prices).result()
         serve_s.append(time.perf_counter() - t1)
-    serve_wall = time.perf_counter() - t0
     rows_s = N_FULL / sorted(serve_s)[1]
     print(f"[serve] blocks 1/7/4096/1048576 + evaluate(date {d0}): 4096-row block "
           f"matches the stored JAX outputs (rtol 1e-5, atol 1e-6); 1M-row block "
           f"{rows_s:,.0f} rows/s host-to-host (median of 3); request latency host-to-"
           f"host (median of 31): 1 row {lat_ms[1]:.3f} ms, 4096 rows {lat_ms[4096]:.3f} ms; "
-          f"K2 launches in the 1M-row request {serve_launches}; {serve_wall:.2f} s", flush=True)
+          f"K2 launches in the 1M-row request {launches['mixed_head']}; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # -- 5. replay (main path: K1) --------------------------------------------
     stored = json.loads((NORTH_STAR_POLICY / "reference.json").read_text())
     euro = EuropeanConfig(constrain_self_financing=False)
-    train = TrainConfig(dual_mode="mse_only")
+    oos_train = TrainConfig(dual_mode="mse_only")
     small = european_oos(policy, euro, SimConfig(n_paths=4096, T=1.0, dt=1 / 364,
                                                  rebalance_every=7, seed_fund=OOS_SEED,
-                                                 engine="pallas"), train)
+                                                 engine="pallas"), oos_train)
     for k in ("v0", "phi0", "v0_plain", "v0_cv", "cv_std", "acv_std"):
         np.testing.assert_allclose(getattr(small.report, k), stored[k], rtol=1e-4, err_msg=k)
     np.testing.assert_allclose(small.report.var_overall, stored["var_overall"], rtol=1e-4)
     small_bp = abs(small.report.v0_acv - stored["v0_acv"]) / stored["v0_acv"] * 1e4
     check(small_bp <= 0.05, f"4096-path v0_acv within 0.05bp of JAX ({small_bp:.4f}bp)")
     torch.cuda.synchronize()
-    # the main path's run: counts set to 0 just before it
-    fused_gbm.gbm_log_fused.launches = 0
-    megakernel.mixed_head_forward.launches = 0
+    counts.reset()
     t1 = time.perf_counter()
     res = european_oos(policy, euro, SimConfig(n_paths=N_FULL, T=1.0, dt=1 / 364,
                                                rebalance_every=7, seed_fund=OOS_SEED,
-                                               engine="pallas"), train)
+                                               engine="pallas"), oos_train)
     torch.cuda.synchronize()
     oos_s = time.perf_counter() - t1
-    replay_launches = fused_gbm.gbm_log_fused.launches
-    check(replay_launches > 0, "K1 (fused_gbm) launched on the replay path")
-    check(megakernel.mixed_head_forward.launches == 0, "replay path launches no K2")
+    replay_k1 = counts.only("fused_gbm", "the 1M-path european_oos")
     rep = res.report
     bs, _ = bs_call(100.0, 100.0, 0.08, 0.15, 1.0)
     bp_err = (rep.v0_acv - bs) / bs * 1e4
-    var99 = float(rep.var_overall[rep.var_qs.index(0.99)])
-    fields = [rep.v0, rep.phi0, rep.psi0, rep.v0_plain, rep.v0_cv, rep.cv_std, rep.v0_acv,
-              rep.acv_std, *rep.var_overall]
-    check(all(math.isfinite(x) for x in fields), "report fields finite")
+    check(all(math.isfinite(x) for x in report_fields(rep)), "replay report fields finite")
     check(res.backward.values.shape == (N_FULL, n_dates + 1), "replayed ledger shape")
     check(abs(bp_err) < 1.0, f"|bp_err| {bp_err:.4f} < 1bp")
     print(f"[replay] 4096 paths match the stored JAX report (|dv0_acv| {small_bp:.4f}bp); "
           f"{N_FULL} paths x {N_STEPS} steps: v0_acv {rep.v0_acv:.6f} vs BS {bs:.6f} "
           f"bp_err {bp_err:+.4f}, cv_std {rep.cv_std:.4f}, acv_std {rep.acv_std:.4f}, "
-          f"var99 {var99:.4f}, v0_network {rep.v0:.4f}; wall {oos_s:.2f} s; K1 launches "
-          f"{replay_launches}", flush=True)
-    del res
+          f"v0_network {rep.v0:.4f}; wall {oos_s:.2f} s; K1 launches {replay_k1}", flush=True)
+    del res, engine
 
-    # -- 6. times at the main path's shapes -----------------------------------
+    # -- 6. the fixture walk: 4,096 paths from the stored JAX initial params --
+    hcfg = HestonConfig()
+    gn_train = TrainConfig(dual_mode="mse_only", optimizer="gauss_newton")
+    h_ref = json.loads((HESTON_WALK / "reference.json").read_text())
+    with np.load(HESTON_WALK / "init.npz") as z:
+        h_init = {k: z[k] for k in z.files}
+
+    def heston_sim(n: int, seed: int = 1235) -> SimConfig:
+        return SimConfig(n_paths=n, T=1.0, dt=1 / 364, rebalance_every=STORE, seed_fund=seed,
+                         engine="pallas")
+
+    t1 = time.perf_counter()
+    fx = heston_hedge(hcfg, heston_sim(N_FIXTURE), gn_train, warm_start=(h_init, None))
+    torch.cuda.synchronize()
+    fx_s = time.perf_counter() - t1
+    gaps = {k: (getattr(fx.report, k) - h_ref[k]) / h_ref[k] * 1e4 for k in FIXTURE_BAND_BP}
+    for k, lim in FIXTURE_BAND_BP.items():
+        check(abs(gaps[k]) <= lim, f"fixture walk {k} within {lim}bp of JAX ({gaps[k]:+.3f}bp)")
+    v0_rel = fx.report.v0 / h_ref["v0"] - 1
+    check(abs(v0_rel) <= FIXTURE_V0_RTOL, f"fixture walk v0 within rtol {FIXTURE_V0_RTOL} "
+          f"of JAX ({v0_rel:+.4%})")
+    first_rel = fx.report.train_loss[-1] / h_ref["train_loss"][-1] - 1
+    check(all(math.isfinite(x) for x in report_fields(fx.report)), "fixture report finite")
+    print(f"[fixture] heston_hedge {N_FIXTURE} paths from the stored JAX init: v0_cv "
+          f"{gaps['v0_cv']:+.3f}bp, v0_acv {gaps['v0_acv']:+.3f}bp, v0 {v0_rel:+.4%} vs JAX "
+          f"(bands {FIXTURE_BAND_BP}, v0 {FIXTURE_V0_RTOL:.0%}); first fitted date's loss "
+          f"{first_rel:+.2e} vs JAX; wall {fx_s:.2f} s", flush=True)
+    del fx
+    # the stored JAX walk's own per-date params replayed on the card's in-sample
+    # K3b paths: no training, so no chaos, and the report must land where JAX's did
+    jax_walk = load_bundle(HESTON_WALK)
+    rp = heston_oos(jax_walk, hcfg, heston_sim(N_FIXTURE, jax_walk.sim_seed), gn_train,
+                    allow_in_sample=True).report
+    rp_bp = {k: (getattr(rp, k) - h_ref[k]) / h_ref[k] * 1e4 for k in ("v0_cv", "v0_acv")}
+    for k, gap in rp_bp.items():
+        check(abs(gap) <= 0.5, f"replayed JAX walk {k} within 0.5bp of JAX ({gap:+.4f}bp)")
+    rp_v0 = rp.v0 / h_ref["v0"] - 1
+    check(abs(rp_v0) <= 1e-3, f"replayed JAX walk v0 within rtol 1e-3 of JAX ({rp_v0:+.2e})")
+    check(all(math.isfinite(x) for x in report_fields(rp)), "replayed report finite")
+    print(f"[fixture] the stored JAX walk's params replayed on the card's {N_FIXTURE} "
+          f"in-sample paths: v0_cv {rp_bp['v0_cv']:+.4f}bp, v0_acv {rp_bp['v0_acv']:+.4f}bp, "
+          f"v0 {rp_v0:+.2e} vs the stored JAX report (limits 0.5bp, 0.5bp, 1e-3)", flush=True)
+    # the same walk in float64 on the card and on the CPU, on the same paths (the
+    # card's K3b run, widened): f64 leaves no borderline accept/reject, so both run
+    # the same LM iterations and the prices agree far inside 0.5bp (the CPU port
+    # is held to the JAX package in f64 the same way, tests/test_torch_walk.py)
+    fx_paths = fused_mf.heston_qe_fused(N_FIXTURE, N_STEPS, **dict(heston_kw, seed=1235))
+    t1 = time.perf_counter()
+    f64 = {d.type: f64_heston_walk(fx_paths, hcfg, h_init, d)
+           for d in (dev, torch.device("cpu"))}
+    f64_s = time.perf_counter() - t1
+    card64, cpu64 = f64["cuda"], f64["cpu"]
+    f64_bp = {k: (getattr(card64.report, k) - getattr(cpu64.report, k))
+              / getattr(cpu64.report, k) * 1e4 for k in ("v0_cv", "v0_acv")}
+    for k, gap in f64_bp.items():
+        check(abs(gap) <= 0.5, f"f64 walk {k}: card within 0.5bp of the CPU ({gap:+.2e}bp)")
+    f64_v0 = card64.report.v0 / cpu64.report.v0 - 1
+    check(abs(f64_v0) <= 1e-3, f"f64 walk v0: card within rtol 1e-3 of the CPU ({f64_v0:+.2e})")
+    check(np.array_equal(card64.backward.epochs_ran, cpu64.backward.epochs_ran),
+          "f64 walk: the same accepted LM iterations on every date")
+    loss_rel = float(np.max(np.abs(card64.backward.train_loss / cpu64.backward.train_loss - 1)))
+    check(loss_rel <= 1e-7, f"f64 walk: per-date losses within rtol 1e-7 ({loss_rel:.2e})")
+    print(f"[fixture] the same walk in float64 on the card and on the CPU, same paths: "
+          f"v0_cv {f64_bp['v0_cv']:+.2e}bp, v0_acv {f64_bp['v0_acv']:+.2e}bp, v0 "
+          f"{f64_v0:+.2e} (limits 0.5bp, 0.5bp, 1e-3); accepted iterations equal on all "
+          f"{n_dates} dates ({int(cpu64.backward.epochs_ran.sum())}); per-date losses "
+          f"{loss_rel:.2e} apart (rtol 1e-7); {f64_s:.2f} s", flush=True)
+    del f64, card64, cpu64
+
+    # -- 7. main path A: heston_hedge + heston_oos at 1M (K3b) -----------------
+    price = heston_call(hcfg.s0, hcfg.strike, hcfg.r, 1.0, v0=hcfg.v0, kappa=hcfg.kappa,
+                        theta=hcfg.theta, xi=hcfg.xi, rho=hcfg.rho)
+    torch.cuda.synchronize()
+    counts.reset()
+    t1 = time.perf_counter()
+    trained = heston_hedge(hcfg, heston_sim(N_FULL), gn_train)
+    torch.cuda.synchronize()
+    hedge_s = time.perf_counter() - t1
+    launches["heston_qe"] = counts.only("heston_qe", "the 1M-path heston_hedge")
+    bw = trained.backward
+    check(bw.values.shape == (N_FULL, n_dates + 1) and bw.phi.shape == (N_FULL, n_dates),
+          "heston ledger shapes (n, 53) / (n, 52)")
+    check(bool(torch.isfinite(bw.values).all()), "heston ledgers finite")
+    in_sample = check_heston_price(trained.report, price, N_FULL, "heston_hedge")
+    print(f"[heston] heston_hedge {N_FULL} paths x {N_STEPS} steps (QE-M, GN mse_only): "
+          f"{in_sample} vs heston_call {price:.6f}; v0_network {trained.report.v0:.4f}; "
+          f"wall {hedge_s:.2f} s; K3b launches {launches['heston_qe']}", flush=True)
+    print(f"[heston] accepted GN iterations per date (0..51): {bw.epochs_ran.tolist()}")
+    print(f"[heston] final loss per date (0..51): "
+          f"{[float(f'{x:.4e}') for x in bw.train_loss]}", flush=True)
+    torch.cuda.synchronize()
+    counts.reset()
+    t1 = time.perf_counter()
+    oos = heston_oos(trained, hcfg, heston_sim(N_FULL, OOS_SEED), gn_train)
+    torch.cuda.synchronize()
+    heston_oos_s = time.perf_counter() - t1
+    oos_k3b = counts.only("heston_qe", "the 1M-path heston_oos")
+    check(oos.backward.values.shape == (N_FULL, n_dates + 1), "heston_oos ledger shape")
+    out_sample = check_heston_price(oos.report, price, N_FULL, "heston_oos")
+    print(f"[heston] heston_oos {N_FULL} fresh paths (seed {OOS_SEED}): {out_sample}; "
+          f"wall {heston_oos_s:.2f} s; K3b launches {oos_k3b}", flush=True)
+    del oos
+
+    # -- 8. the Euler scheme: heston_oos on Euler paths (K3a) -----------------
+    torch.cuda.synchronize()
+    counts.reset()
+    t1 = time.perf_counter()
+    eul = heston_oos(trained, HestonConfig(scheme="euler"), heston_sim(N_FULL, EULER_SEED),
+                     gn_train)
+    torch.cuda.synchronize()
+    euler_s = time.perf_counter() - t1
+    launches["heston_euler"] = counts.only("heston_euler", "the 1M-path Euler heston_oos")
+    euler_out = check_heston_price(eul.report, price, N_FULL, "heston_oos (euler)")
+    print(f"[euler] heston_oos {N_FULL} fresh Euler paths (seed {EULER_SEED}): {euler_out}; "
+          f"wall {euler_s:.2f} s; K3a launches {launches['heston_euler']}", flush=True)
+    del eul
+
+    # -- 9. main path B: european_hedge at 1M with the GN walk (K1) -----------
+    torch.cuda.synchronize()
+    counts.reset()
+    t1 = time.perf_counter()
+    eh = european_hedge(euro, SimConfig(n_paths=N_FULL, T=1.0, dt=1 / 364, rebalance_every=7,
+                                        engine="pallas"), gn_train)
+    torch.cuda.synchronize()
+    euro_s = time.perf_counter() - t1
+    launches["fused_gbm"] = counts.only("fused_gbm", "the 1M-path european_hedge")
+    erep = eh.report
+    euro_bp = (erep.v0_acv - bs) / bs * 1e4
+    check(all(math.isfinite(x) for x in report_fields(erep)), "european_hedge report finite")
+    check(eh.backward.values.shape == (N_FULL, n_dates + 1), "european_hedge ledger shape")
+    check(abs(euro_bp) < 1.0, f"european_hedge |v0_acv - BS| {euro_bp:+.4f}bp < 1bp")
+    print(f"[euro] european_hedge {N_FULL} paths x {N_STEPS} steps (GN mse_only): v0_acv "
+          f"{erep.v0_acv:.6f} vs BS {bs:.6f} bp_err {euro_bp:+.4f}, v0_cv {erep.v0_cv:.6f}, "
+          f"cv_std {erep.cv_std:.4f}, acv_std {erep.acv_std:.4f}, v0_network {erep.v0:.4f}; "
+          f"accepted GN iterations {int(eh.backward.epochs_ran.sum())} over 52 dates; "
+          f"wall {euro_s:.2f} s; K1 launches {launches['fused_gbm']}", flush=True)
+    del eh
+
+    # -- 10. serve the card-trained Heston policy (K2) ------------------------
+    hp = {k: v.detach().cpu().numpy() for k, v in bw.params1_by_date.items()}
+    bundle_dir = HERE / "build" / "chip_smoke" / "heston_policy"
+    meta = {"model": model_meta(trained.model), "times": trained.times.tolist(),
+            "adjustment_factor": trained.adjustment_factor, "dual_mode": trained.dual_mode,
+            "holdings_combine": trained.holdings_combine,
+            "cost_of_capital": trained.cost_of_capital, "sim_seed": trained.sim_seed}
+    save_bundle(bundle_dir, meta, hp, None, {"train_loss": bw.train_loss,
+                                             "train_mae": bw.train_mae,
+                                             "train_mape": bw.train_mape,
+                                             "epochs_ran": bw.epochs_ran})
+    hpolicy = load_bundle(bundle_dir)
+    hengine = HedgeEngine(hpolicy)
+    rng = np.random.default_rng(13)
+    n_rows = 4096
+    hd = np.concatenate([np.arange(n_dates), rng.integers(0, n_dates, n_rows - n_dates)])
+    t_d = np.asarray(trained.times)[hd]
+    hs = np.exp(0.15 * np.sqrt(t_d) * rng.standard_normal(n_rows) + 0.06 * t_d)
+    hv = 0.0225 * rng.gamma(4.0, 0.25, n_rows)
+    hstates = np.stack([hs, hv], 1).astype(np.float32)
+    hprices = np.stack([hs, np.exp(0.08 * t_d) / 100.0], 1).astype(np.float32)
+    counts.reset()
+    phi, psi, v = hengine.evaluate_mixed_async(hd.astype(np.int32), hstates, hprices).result()
+    serve_k2 = counts.only("mixed_head", "the trained Heston policy's serve block")
+    hp_dev = {k: t.to(dev) for k, t in hpolicy.backward.params1_by_date.items()}
+    plain = megakernel.mixed_head_plain(
+        hpolicy.model, hp_dev, torch.from_numpy(hd.astype(np.int32)).to(dev),
+        torch.from_numpy(hstates).to(dev)).cpu().numpy()
+    np.testing.assert_allclose(phi, plain[:, 0], rtol=1e-5, atol=1e-6, err_msg="phi")
+    np.testing.assert_allclose(psi, plain[:, 1], rtol=1e-5, atol=1e-6, err_msg="psi")
+    np.testing.assert_allclose(v, (plain * hprices).sum(1), rtol=1e-5, atol=1e-6, err_msg="v")
+    check(len(np.unique(hd)) == n_dates, "the serve block covers all 52 dates")
+    print(f"[serve-heston] card-trained policy -> save_bundle -> load_bundle -> HedgeEngine: "
+          f"{n_rows} rows over {n_dates} dates match mixed_head_plain (rtol 1e-5, atol "
+          f"1e-6); K2 launches {serve_k2}", flush=True)
+
+    # -- 11. times at the main paths' shapes ----------------------------------
     k1 = lambda: fused_gbm.gbm_log_fused(N_FULL, N_STEPS, **gbm_kw)  # noqa: E731
     k1_plain = lambda: fused_gbm.gbm_log_plain(N_FULL, N_STEPS, **gbm_kw)  # noqa: E731
     k2 = lambda: megakernel.mixed_head_forward(model, p1, dates, feats,  # noqa: E731
                                                packed=packed)
     k2_plain = lambda: megakernel.mixed_head_plain(model, p1, dates, feats)  # noqa: E731
-    k1_plain_ms = cuda_ms(k1_plain, reps=1, rounds=3)
-    k1_ms = cuda_ms(k1, reps=10)
-    k1_ms_2 = cuda_ms(k1, reps=10)
-    k2_plain_ms = cuda_ms(k2_plain, reps=2, rounds=3)
-    k2_ms = cuda_ms(k2, reps=200)
-    k2_ms_2 = cuda_ms(k2, reps=200)
-    k1_bound, k1_by = k1_bound_ms(N_FULL, N_STEPS, STORE)
-    k2_bound, k2_by = k2_bound_ms(model, N_FULL, n_dates)
-    print(f"[times] K1 {k1_ms:.4f} / {k1_ms_2:.4f} ms (bound {k1_bound:.4f} ms by {k1_by}, "
-          f"plain {k1_plain_ms:.2f} ms); K2 {k2_ms:.5f} / {k2_ms_2:.5f} ms (bound "
-          f"{k2_bound:.5f} ms by {k2_by}, plain {k2_plain_ms:.3f} ms); inputs L2-warm",
-          flush=True)
+    qe = lambda: fused_mf.heston_qe_fused(N_FULL, N_STEPS, **heston_kw)  # noqa: E731
+    qe_plain = lambda: fused_mf.heston_qe_plain(N_FULL, N_STEPS, **heston_kw)  # noqa: E731
+    eu = lambda: fused_mf.heston_log_fused(N_FULL, N_STEPS, **heston_kw)  # noqa: E731
+    eu_plain = lambda: fused_mf.heston_log_plain(N_FULL, N_STEPS, **heston_kw)  # noqa: E731
+    ms = {}
+    ms["fused_gbm_plain"] = cuda_ms(k1_plain, reps=1, rounds=3)
+    ms["fused_gbm"] = cuda_ms(k1, reps=10)
+    ms["mixed_head_plain"] = cuda_ms(k2_plain, reps=2, rounds=3)
+    ms["mixed_head"] = cuda_ms(k2, reps=200)
+    ms["heston_qe_plain"] = cuda_ms(qe_plain, reps=1, rounds=3)
+    ms["heston_qe"] = cuda_ms(qe, reps=10)
+    ms["heston_euler_plain"] = cuda_ms(eu_plain, reps=1, rounds=3)
+    ms["heston_euler"] = cuda_ms(eu, reps=10)
+    ms["heston_qe_2"] = cuda_ms(qe, reps=10)
+    ms["fused_gbm_2"] = cuda_ms(k1, reps=10)
+    bounds = {"fused_gbm": k1_bound_ms(N_FULL, N_STEPS, STORE),
+              "mixed_head": k2_bound_ms(model, N_FULL, n_dates),
+              "heston_qe": k3_bound_ms(N_FULL, N_STEPS, STORE, "qe"),
+              "heston_euler": k3_bound_ms(N_FULL, N_STEPS, STORE, "euler")}
+    for name, (b_ms, by) in bounds.items():
+        again = f" / {ms[name + '_2']:.4f}" if name + "_2" in ms else ""
+        print(f"[times] {name} {ms[name]:.4f}{again} ms (bound {b_ms:.4f} ms by {by}, plain "
+              f"{ms[name + '_plain']:.2f} ms)", flush=True)
+
+    # the GN walk alone at 1M (date-ascending features from one more K3b run)
+    traj = fused_mf.heston_qe_fused(N_FULL, N_STEPS, **dict(heston_kw, seed=1235))
+    s_n = traj["S"] / hcfg.s0
+    h_feats = torch.stack([s_n, traj["v"]], dim=-1)
+    b_n = torch.exp(hcfg.r * torch.linspace(0.0, 1.0, n_dates + 1, device=dev)) / hcfg.s0
+    payoff_n = torch.clamp(traj["S"][:, -1] - hcfg.strike, min=0.0) / hcfg.s0
+    walk_cfg = backward.BackwardConfig(dual_mode="mse_only", optimizer="gauss_newton")
+    walk_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        backward.backward_induction(trained.model, h_feats, s_n, b_n, payoff_n, walk_cfg,
+                                    bias_init=(float(payoff_n.mean()), 0.0))
+        torch.cuda.synchronize()
+        walk_s.append(time.perf_counter() - t1)
+    # one LM iteration at date 0's regression, from its trained params
+    prices_all = backward._stack_prices(s_n, b_n)
+    problem = gn._GNProblem(trained.model, h_feats[:, 0], prices_all[:, 1],
+                            bw.values[:, 1], gn.GNConfig())
+    theta = trained.model.flatten({k: v[0] for k, v in bw.params1_by_date.items()})
+    state = (torch.tensor(1e-4, device=dev), problem.loss(theta),
+             torch.zeros((), dtype=torch.bool, device=dev))
+    iter_ms = cuda_ms(lambda: gn._lm_step(problem, theta, *state), reps=5, rounds=7)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[times] GN walk at {N_FULL} paths x 52 dates (Heston, 30 + 51 x 10 iterations): "
+          f"{walk_s[0]:.3f} / {walk_s[1]:.3f} s host wall; one LM iteration at 1M rows, "
+          f"P = {trained.model.n_params()}: {iter_ms:.3f} ms (median of 7 rounds of 5); "
+          f"peak device memory {peak_gb:.1f} GB", flush=True)
 
     kernels = {"kernels": [
         {"name": "fused_gbm", "route": "cuda", "source": "orp_tpu_torch/csrc/fused_gbm.cu",
-         "replaces": "orp_tpu/qmc/pallas_sobol.py:199", "launches": replay_launches,
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
+         "replaces": "orp_tpu/qmc/pallas_sobol.py:199", "launches": launches["fused_gbm"],
+         "max_abs_err": k1_err, "ms": ms["fused_gbm"], "plain_ms": ms["fused_gbm_plain"],
+         "bound_ms": bounds["fused_gbm"][0], "bound_by": bounds["fused_gbm"][1],
+         "library_ms": None},
         {"name": "mixed_head", "route": "cuda", "source": "orp_tpu_torch/csrc/mixed_head.cu",
-         "replaces": "orp_tpu/serve/megakernel.py:85", "launches": serve_launches,
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None},
+         "replaces": "orp_tpu/serve/megakernel.py:85", "launches": launches["mixed_head"],
+         "max_abs_err": k2_err, "ms": ms["mixed_head"], "plain_ms": ms["mixed_head_plain"],
+         "bound_ms": bounds["mixed_head"][0], "bound_by": bounds["mixed_head"][1],
+         "library_ms": None},
+        # both Heston entries are steps of one templated driver, mf_kernel<Step>, the
+        # port of the generic driver _run_mf (orp_tpu/qmc/pallas_mf.py:106)
+        {"name": "heston_qe", "route": "cuda",
+         "source": "orp_tpu_torch/csrc/fused_mf.cu (mf_kernel<HestonQE>; driver _run_mf :106)",
+         "replaces": "orp_tpu/qmc/pallas_mf.py:202", "launches": launches["heston_qe"],
+         "max_abs_err": k3_err["qe"], "ms": ms["heston_qe"], "plain_ms": ms["heston_qe_plain"],
+         "bound_ms": bounds["heston_qe"][0], "bound_by": bounds["heston_qe"][1],
+         "library_ms": None},
+        {"name": "heston_euler", "route": "cuda",
+         "source": "orp_tpu_torch/csrc/fused_mf.cu (mf_kernel<HestonEuler>; driver _run_mf "
+                   ":106)",
+         "replaces": "orp_tpu/qmc/pallas_mf.py:155", "launches": launches["heston_euler"],
+         "max_abs_err": k3_err["euler"], "ms": ms["heston_euler"],
+         "plain_ms": ms["heston_euler_plain"], "bound_ms": bounds["heston_euler"][0],
+         "bound_by": bounds["heston_euler"][1], "library_ms": None},
     ]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels))

@@ -9,7 +9,11 @@ the reference (``qmc/``, ``sde/``, ``models/``, ``train/``, ``parallel/``,
 Entry points run on the card (``device=None`` means ``cuda``) unless the
 caller passes ``device="cpu"``:
 
-- ``orp_tpu_torch.api.european_oos(policy, euro, sim, train, device=...)``
+- ``orp_tpu_torch.api.european_hedge(euro, sim, train, device=...)`` and
+  ``orp_tpu_torch.api.heston_hedge(heston, sim, train, device=...)``: the
+  Gauss-Newton backward walk (``train.optimizer="gauss_newton"``,
+  ``dual_mode="mse_only"``)
+- ``orp_tpu_torch.api.european_oos(policy, ...)`` and ``heston_oos(policy, ...)``
 - ``orp_tpu_torch.serve.load_bundle(dir)``
 - ``orp_tpu_torch.serve.HedgeEngine(policy, device=...)``
 """
@@ -18,3 +22,5 @@ import pathlib
 
 #: the committed north-star policy bundle (trained by the JAX package)
 NORTH_STAR_POLICY = pathlib.Path(__file__).parent / "_data" / "north_star_policy"
+#: a 4,096-path JAX Heston walk: its initial params, per-date params and report
+HESTON_WALK = pathlib.Path(__file__).parent / "_data" / "heston_walk"

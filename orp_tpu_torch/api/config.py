@@ -1,8 +1,11 @@
-"""Run configs of the European inference path (counterpart of ``orp_tpu/api/config.py``).
+"""Run configs of the European and Heston pipelines (counterpart of ``orp_tpu/api/config.py``).
 
 Frozen dataclasses with the JAX package's field names and defaults, cut to
-the fields ``european_oos`` reads. The training knobs (epochs, optimizer,
-Gauss-Newton iterations, ...) arrive with the training walk.
+the fields the ported pipelines read. ``TrainConfig`` carries the
+Gauss-Newton walk's fields; the fields of walks not ported yet (Adam's
+epochs and schedule, the quantile leg) are absent, and the walk refuses the
+JAX defaults that would select them (``optimizer="adam"``, ``fused``,
+``checkpoint_dir``, ``nan_guard``) instead of running something else.
 """
 
 from __future__ import annotations
@@ -43,11 +46,20 @@ class SimConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The training run's combine semantics, which a replay must match."""
+    """The walk's training policy and the combine semantics a replay must match."""
 
     cost_of_capital: float = 0.1
     dual_mode: str = "separate"     # "separate" | "shared" | "mse_only"
     holdings_combine: str = "single"
+    final_solve: bool = False       # closed-form ridge readout after each fit
+    optimizer: str = "adam"         # "adam" | "gauss_newton" (only GN is ported)
+    gn_iters_first: int = 30
+    gn_iters_warm: int = 10
+    gn_block_rows: int | None = None  # blocked Gram accumulation (O(block*P) memory)
+    seed: int = 1234                # the walk's init generator
+    checkpoint_dir: str | None = None
+    fused: bool = False
+    nan_guard: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,3 +72,22 @@ class EuropeanConfig:
     sigma: float = 0.15
     option_type: str = "call"
     constrain_self_financing: bool = True  # psi = 1 - phi head
+
+
+@dataclasses.dataclass(frozen=True)
+class HestonConfig:
+    """Risk-neutral Heston dynamics for the European hedge; ``v`` is *variance*.
+
+    ``scheme``: ``"qe"`` (Andersen QE-M), ``"euler"`` (full truncation) or
+    ``None`` (= ``"qe"``), resolved by ``api.pipelines.resolve_heston_scheme``."""
+
+    s0: float = 100.0
+    strike: float = 100.0
+    r: float = 0.08
+    v0: float = 0.0225
+    kappa: float = 1.5
+    theta: float = 0.0225
+    xi: float = 0.25
+    rho: float = -0.6
+    option_type: str = "call"
+    scheme: str | None = None

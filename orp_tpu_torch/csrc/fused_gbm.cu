@@ -17,88 +17,21 @@
 //   steps and only knots reach device memory (the TPU kernel's VMEM-resident
 //   carry, without its (8, 128) tiling, its power-of-two block rule or its
 //   64-knot chunk chain, which exist only for the TPU);
-// - the index bits are fixed for the whole path, so the XOR is branch-free
-//   (bit -> all-ones mask); the direction row of step t is read by every
-//   thread of the warp, so its eight 16-byte __ldg loads are broadcasts from
-//   L1 and the table never needs staging (a 10-year daily grid is 467 KB);
-// - __brev does each bit reversal in one instruction;
-// - AS241's constants are f-suffixed, so the polynomials stay in f32 (a bare
-//   double literal would promote them to f64 and change the bits); only the
-//   branch a draw needs is evaluated (warps diverge on ~15% tail draws);
+// - the Sobol draw and AS241 are sobol_device.cuh's (shared with
+//   fused_mf.cu): the index bits are fixed for the whole path, so their
+//   all-ones masks are built once and the XOR is branch-free; the direction
+//   row of step t is a warp-wide broadcast __ldg (a 10-year daily grid is
+//   467 KB and never needs staging); __brev does each bit reversal in one
+//   instruction; only the AS241 branch a draw needs is evaluated (warps
+//   diverge on ~15% tail draws);
 // - no fast math: logf/sqrtf/expf and the divisions are the IEEE-accurate
 //   versions. nvcc still contracts a*b+c into FMA, which the CPU reference
 //   does not, so paths agree at rtol 3e-5, not bitwise.
 // - knots are stored knot-major, so a warp's stores are coalesced.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sobol_device.cuh"
 
 namespace {
-
-__device__ __forceinline__ uint32_t hash_combine(uint32_t a, uint32_t b) {
-  uint32_t x = a ^ (b + 0x9E3779B9u + (a << 6) + (a >> 2));
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ uint32_t laine_karras(uint32_t x, uint32_t seed) {
-  x += seed;
-  x ^= x * 0x6C50B47Cu;
-  x ^= x * 0xB82F1E52u;
-  x ^= x * 0xC7AFE638u;
-  x ^= x * 0x8D22F6E6u;
-  return x;
-}
-
-__device__ __forceinline__ float ndtri_as241(float u) {
-  const float q = u - 0.5f;
-  if (fabsf(q) <= 0.425f) {
-    const float r = 0.180625f - q * q;
-    float num = ((2.5090809287301226727e3f * r + 3.3430575583588128105e4f) * r
-                 + 6.7265770927008700853e4f) * r + 4.5921953931549871457e4f;
-    num = (num * r + 1.3731693765509461125e4f) * r + 1.9715909503065514427e3f;
-    num = (num * r + 1.3314166789178437745e2f) * r + 3.3871328727963666080e0f;
-    float den = ((5.2264952788528545610e3f * r + 2.8729085735721942674e4f) * r
-                 + 3.9307895800092710610e4f) * r + 2.1213794301586595867e4f;
-    den = (den * r + 5.3941960214247511077e3f) * r + 6.8718700749205790830e2f;
-    den = (den * r + 4.2313330701600911252e1f) * r + 1.0f;
-    return q * num / den;
-  }
-  const float p = fminf(u, 1.0f - u);
-  const float rt = sqrtf(-logf(fmaxf(p, 1e-38f)));
-  float t;
-  if (rt <= 5.0f) {
-    const float r = rt - 1.6f;
-    float num = ((7.74545014278341407640e-4f * r + 2.27238449892691845833e-2f) * r
-                 + 2.41780725177450611770e-1f) * r + 1.27045825245236838258e0f;
-    num = (num * r + 3.64784832476320460504e0f) * r + 5.76949722146069140550e0f;
-    num = (num * r + 4.63033784615654529590e0f) * r + 1.42343711074968357734e0f;
-    float den = ((1.05075007164441684324e-9f * r + 5.47593808499534494600e-4f) * r
-                 + 1.51986665636164571966e-2f) * r + 1.48103976427480074590e-1f;
-    den = (den * r + 6.89767334985100004550e-1f) * r + 1.67638483018380384940e0f;
-    den = (den * r + 2.05319162663775882187e0f) * r + 1.0f;
-    t = num / den;
-  } else {
-    const float r = rt - 5.0f;
-    float num = ((2.01033439929228813265e-7f * r + 2.71155556874348757815e-5f) * r
-                 + 1.24266094738807843860e-3f) * r + 2.65321895265761230930e-2f;
-    num = (num * r + 2.96560571828504891230e-1f) * r + 1.78482653991729133580e0f;
-    num = (num * r + 5.46378491116411436990e0f) * r + 6.65790464350110377720e0f;
-    float den = ((2.04426310338993978564e-15f * r + 1.42151175831644588870e-7f) * r
-                 + 1.84631831751005468180e-5f) * r + 7.86869131145613259100e-4f;
-    den = (den * r + 1.48753612908506148525e-2f) * r + 1.36929880922735805310e-1f;
-    den = (den * r + 5.99832206555887937690e-1f) * r + 1.0f;
-    t = num / den;
-  }
-  return q < 0.0f ? -t : t;
-}
-
-__device__ __forceinline__ uint32_t bit_mask(uint32_t i, int k) {
-  return 0u - ((i >> k) & 1u);
-}
 
 __global__ void __launch_bounds__(256)
 fused_gbm_kernel(const uint32_t* __restrict__ dirs, float* __restrict__ out,
@@ -107,24 +40,14 @@ fused_gbm_kernel(const uint32_t* __restrict__ dirs, float* __restrict__ out,
   const unsigned long long g =
       (unsigned long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= n_paths) return;
-  const uint32_t i = (uint32_t)g;  // the Sobol point index of this path
+  uint32_t mask[32];
+  orp::index_masks((uint32_t)g, mask);  // the Sobol point index of this path
   float logs = 0.0f;
   out[g] = s0;  // knot 0: s0 * exp(0)
   unsigned long long knot = 1;
   for (int t = 1; t <= n_steps; ++t) {
-    const uint4* row = reinterpret_cast<const uint4*>(dirs + (size_t)(t - 1) * 32);
-    uint32_t x = 0u;
-#pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      const uint4 v = __ldg(row + w);
-      x ^= v.x & bit_mask(i, 4 * w + 0);
-      x ^= v.y & bit_mask(i, 4 * w + 1);
-      x ^= v.z & bit_mask(i, 4 * w + 2);
-      x ^= v.w & bit_mask(i, 4 * w + 3);
-    }
-    x = __brev(laine_karras(__brev(x), hash_combine(seed, (uint32_t)(t - 1))));
-    const float u = ((float)(x >> 9) + 0.5f) * 1.1920928955078125e-7f;  // 2^-23
-    logs = logs + c0 + vol_sdt * ndtri_as241(u);
+    const float u = orp::sobol_uniform(dirs, mask, (uint32_t)(t - 1), seed);
+    logs = logs + c0 + vol_sdt * orp::ndtri_as241(u);
     if (t % store_every == 0) {
       out[knot * n_paths + g] = s0 * expf(logs);
       ++knot;

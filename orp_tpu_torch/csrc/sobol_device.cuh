@@ -1,0 +1,109 @@
+// Device helpers shared by the fused path kernels (fused_gbm.cu, fused_mf.cu):
+// the Owen-scrambled Sobol draw and the AS241 inverse normal, bit for bit the
+// chain of orp_tpu/qmc/pallas_sobol.py (_sobol_u, _sobol_z, _ndtri_f32).
+//
+// A path's index bits are fixed for the whole path, so callers build the 32
+// all-ones/all-zeros masks of its bits once (index_masks) and every Sobol
+// word is then a branch-free masked XOR of one direction row. The row is read
+// by every thread of the warp, so its eight 16-byte __ldg loads are
+// broadcasts from L1 and the table never needs staging.
+//
+// AS241's constants are f-suffixed so the polynomials stay in f32 (a double
+// literal would promote them and change the bits); only the branch a draw
+// needs is evaluated. No fast math: logf/sqrtf and the divisions are the
+// IEEE-accurate versions.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace orp {
+
+__device__ __forceinline__ uint32_t hash_combine(uint32_t a, uint32_t b) {
+  uint32_t x = a ^ (b + 0x9E3779B9u + (a << 6) + (a >> 2));
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+__device__ __forceinline__ uint32_t laine_karras(uint32_t x, uint32_t seed) {
+  x += seed;
+  x ^= x * 0x6C50B47Cu;
+  x ^= x * 0xB82F1E52u;
+  x ^= x * 0xC7AFE638u;
+  x ^= x * 0x8D22F6E6u;
+  return x;
+}
+
+__device__ __forceinline__ void index_masks(uint32_t i, uint32_t (&mask)[32]) {
+#pragma unroll
+  for (int k = 0; k < 32; ++k) mask[k] = 0u - ((i >> k) & 1u);
+}
+
+// Scrambled-Sobol uniform of dimension `dim` for the path whose index masks
+// are `mask`: XOR of the direction row, Owen scramble keyed by
+// hash(seed, dim) between bit reversals, centre of one of 2^23 buckets.
+__device__ __forceinline__ float sobol_uniform(const uint32_t* __restrict__ dirs,
+                                               const uint32_t (&mask)[32], uint32_t dim,
+                                               uint32_t seed) {
+  const uint4* row = reinterpret_cast<const uint4*>(dirs + (size_t)dim * 32);
+  uint32_t x = 0u;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    const uint4 v = __ldg(row + w);
+    x ^= v.x & mask[4 * w + 0];
+    x ^= v.y & mask[4 * w + 1];
+    x ^= v.z & mask[4 * w + 2];
+    x ^= v.w & mask[4 * w + 3];
+  }
+  x = __brev(laine_karras(__brev(x), hash_combine(seed, dim)));
+  return ((float)(x >> 9) + 0.5f) * 1.1920928955078125e-7f;  // 2^-23
+}
+
+__device__ __forceinline__ float ndtri_as241(float u) {
+  const float q = u - 0.5f;
+  if (fabsf(q) <= 0.425f) {
+    const float r = 0.180625f - q * q;
+    float num = ((2.5090809287301226727e3f * r + 3.3430575583588128105e4f) * r
+                 + 6.7265770927008700853e4f) * r + 4.5921953931549871457e4f;
+    num = (num * r + 1.3731693765509461125e4f) * r + 1.9715909503065514427e3f;
+    num = (num * r + 1.3314166789178437745e2f) * r + 3.3871328727963666080e0f;
+    float den = ((5.2264952788528545610e3f * r + 2.8729085735721942674e4f) * r
+                 + 3.9307895800092710610e4f) * r + 2.1213794301586595867e4f;
+    den = (den * r + 5.3941960214247511077e3f) * r + 6.8718700749205790830e2f;
+    den = (den * r + 4.2313330701600911252e1f) * r + 1.0f;
+    return q * num / den;
+  }
+  const float p = fminf(u, 1.0f - u);
+  const float rt = sqrtf(-logf(fmaxf(p, 1e-38f)));
+  float t;
+  if (rt <= 5.0f) {
+    const float r = rt - 1.6f;
+    float num = ((7.74545014278341407640e-4f * r + 2.27238449892691845833e-2f) * r
+                 + 2.41780725177450611770e-1f) * r + 1.27045825245236838258e0f;
+    num = (num * r + 3.64784832476320460504e0f) * r + 5.76949722146069140550e0f;
+    num = (num * r + 4.63033784615654529590e0f) * r + 1.42343711074968357734e0f;
+    float den = ((1.05075007164441684324e-9f * r + 5.47593808499534494600e-4f) * r
+                 + 1.51986665636164571966e-2f) * r + 1.48103976427480074590e-1f;
+    den = (den * r + 6.89767334985100004550e-1f) * r + 1.67638483018380384940e0f;
+    den = (den * r + 2.05319162663775882187e0f) * r + 1.0f;
+    t = num / den;
+  } else {
+    const float r = rt - 5.0f;
+    float num = ((2.01033439929228813265e-7f * r + 2.71155556874348757815e-5f) * r
+                 + 1.24266094738807843860e-3f) * r + 2.65321895265761230930e-2f;
+    num = (num * r + 2.96560571828504891230e-1f) * r + 1.78482653991729133580e0f;
+    num = (num * r + 5.46378491116411436990e0f) * r + 6.65790464350110377720e0f;
+    float den = ((2.04426310338993978564e-15f * r + 1.42151175831644588870e-7f) * r
+                 + 1.84631831751005468180e-5f) * r + 7.86869131145613259100e-4f;
+    den = (den * r + 1.48753612908506148525e-2f) * r + 1.36929880922735805310e-1f;
+    den = (den * r + 5.99832206555887937690e-1f) * r + 1.0f;
+    t = num / den;
+  }
+  return q < 0.0f ? -t : t;
+}
+
+}  // namespace orp

@@ -1,4 +1,4 @@
-"""Hedge networks (forward only)."""
+"""The hedge network (forward, init, closed-form readout and Jacobian)."""
 
 from orp_tpu_torch.models.mlp import HedgeMLP
 

@@ -1,8 +1,11 @@
-"""Path simulation on the Sobol stream (GBM slice)."""
+"""Path simulation on the Sobol stream (GBM and Heston)."""
 
 from orp_tpu_torch.sde import payoffs
 from orp_tpu_torch.sde.grid import TimeGrid, bond_curve, reduce_grid
-from orp_tpu_torch.sde.kernels import scan_sde, simulate_gbm_log
+from orp_tpu_torch.sde.kernels import (qe_mgf_argument, qe_step_constants, scan_sde,
+                                       simulate_gbm_log, simulate_heston_log,
+                                       simulate_heston_qe)
 
-__all__ = ["TimeGrid", "bond_curve", "payoffs", "reduce_grid", "scan_sde",
-           "simulate_gbm_log"]
+__all__ = ["TimeGrid", "bond_curve", "payoffs", "qe_mgf_argument", "qe_step_constants",
+           "reduce_grid", "scan_sde", "simulate_gbm_log", "simulate_heston_log",
+           "simulate_heston_qe"]

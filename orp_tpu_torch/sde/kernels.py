@@ -1,13 +1,17 @@
-"""SDE simulation on the Sobol stream, GBM slice (counterpart of ``orp_tpu/sde/kernels.py``).
+"""SDE simulation on the Sobol stream: GBM and Heston (counterpart of ``orp_tpu/sde/kernels.py``).
 
 Time is a Python loop (the JAX package's ``lax.scan``); paths are a flat
 vector axis. Step ``t`` (1-based) consumes Sobol dimensions
 ``(t-1)*n_factors + f``, so the full ``(n_paths, n_steps)`` increment matrix
 never materialises, and ``store_every`` keeps only the rebalance knots.
+The Heston steps are shared with the fused kernel's plain twins
+(``qmc/fused_mf.py``), which differ only in the inverse normal and in the
+variance factor's uniform.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable
 
 import torch
@@ -70,3 +74,160 @@ def simulate_gbm_log(indices, grid: TimeGrid, s0: float, drift: float, sigma: fl
     _, traj = scan_sde(step, state0, lambda x: x, indices, grid, n_factors, seed,
                        scramble=scramble, store_every=store_every, dtype=dtype)
     return torch.tensor(s0, dtype=dtype, device=indices.device) * torch.exp(traj)
+
+
+# ---------------------------------------------------------------------------
+# Heston: full-truncation Euler and Andersen QE-M (v is variance)
+# ---------------------------------------------------------------------------
+
+
+def heston_euler_step(*, mu: float, kappa: float, theta: float, xi: float, rho: float,
+                      sdt) -> StepFn:
+    """Full-truncation Euler step on ``(logs, v)``; ``z[:, 0]`` is the asset's
+    own normal, ``z[:, 1]`` the variance's. ``sdt`` is ``sqrt(dt)``: a device
+    f32 scalar on the scan path, a host-f64 float in the fused kernel's twin."""
+    rho_c = (1.0 - rho * rho) ** 0.5
+
+    def step(state, z, t, dt):
+        logs, v = state
+        vp = torch.clamp(v, min=0.0)
+        zs = rho * z[:, 1] + rho_c * z[:, 0]
+        logs = logs + (mu - 0.5 * vp) * dt + torch.sqrt(vp) * sdt * zs
+        v = v + kappa * (theta - vp) * dt + xi * torch.sqrt(vp) * sdt * z[:, 1]
+        return (logs, v)
+
+    return step
+
+
+def _heston_out(s0: float, traj: torch.Tensor) -> dict[str, torch.Tensor]:
+    """``(n, knots, 2)`` stacked ``(logs, v)`` -> ``{"S": s0 exp(logs), "v": v}``."""
+    return {"S": s0 * torch.exp(traj[..., 0]), "v": traj[..., 1]}
+
+
+def _heston_state0(n: int, v0: float, dtype, device):
+    # log-return accumulator (state0 = 0, S = s0 exp): no device log(s0) (SCALING.md §6d)
+    return (torch.zeros(n, dtype=dtype, device=device),
+            torch.full((n,), v0, dtype=dtype, device=device))
+
+
+def _stack_state(s):
+    return torch.stack(s, dim=-1)
+
+
+def simulate_heston_log(indices, grid: TimeGrid, *, s0: float, mu: float, v0: float,
+                        kappa: float, theta: float, xi: float, rho: float = 0.0,
+                        seed: int = 1234, scramble: str = "owen", store_every: int = 1,
+                        dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """Full-truncation-Euler Heston: ``dv = kappa(theta-v)dt + xi sqrt(v dt) Zv``,
+    ``dlogS = (mu - v/2)dt + sqrt(v dt)(rho Zv + sqrt(1-rho^2) Zs)``; returns
+    ``{"S", "v"}`` of ``(n_paths, n_knots)``."""
+    indices = torch.as_tensor(indices).to(torch.int64)
+    sdt = (torch.tensor(grid.dt, dtype=dtype) ** 0.5).to(indices.device)
+    step = heston_euler_step(mu=mu, kappa=kappa, theta=theta, xi=xi, rho=rho, sdt=sdt)
+    _, traj = scan_sde(step, _heston_state0(indices.shape[0], v0, dtype, indices.device),
+                       _stack_state, indices, grid, 2, seed, scramble=scramble,
+                       store_every=store_every, dtype=dtype)
+    return _heston_out(s0, traj)
+
+
+_QE_G1 = 0.5  # central integrated-variance weights (gamma1 = gamma2)
+
+
+def qe_step_constants(kappa: float, theta: float, xi: float, rho: float,
+                      dt: float) -> dict[str, float]:
+    """The QE-M per-step constants in HOST f64, shared by the scan step and
+    the fused kernel: ``E`` (mean-reversion factor), ``c1``/``c2``
+    (conditional variance ``s^2 = c1*v + c2``), ``k1..k4`` (Andersen's
+    integrated-variance weights at the central gammas) and ``A = k2 + k4/2``
+    (the MGF argument whose sign decides the martingale correction)."""
+    E = math.exp(-kappa * dt)
+    g1 = g2 = _QE_G1
+    k2 = g2 * dt * (kappa * rho / xi - 0.5) + rho / xi
+    k4 = g2 * dt * (1.0 - rho * rho)
+    return {
+        "E": E,
+        "c1": xi * xi * E * (1.0 - E) / kappa,
+        "c2": theta * xi * xi * (1.0 - E) ** 2 / (2.0 * kappa),
+        "k1": g1 * dt * (kappa * rho / xi - 0.5) - rho / xi,
+        "k2": k2,
+        "k3": g1 * dt * (1.0 - rho * rho),
+        "k4": k4,
+        "A": k2 + 0.5 * k4,
+    }
+
+
+def qe_mgf_argument(kappa: float, xi: float, rho: float, dt: float) -> float:
+    """``A = K2 + K4/2``, the argument of ``E[exp(A v')]`` in QE-M's martingale
+    correction; the correction exists when ``A <= 0``. (A is theta-free.)"""
+    return qe_step_constants(kappa, 0.0, xi, rho, dt)["A"]
+
+
+def heston_qe_step(*, mu: float, kappa: float, theta: float, xi: float, rho: float,
+                   dt: float, psi_c: float = 1.5, variance_draw) -> StepFn:
+    """Andersen QE-M step on ``(logs, v)`` with the host-f64 constants.
+
+    ``z[:, 0]`` is the asset's normal; ``variance_draw(z[:, 1])`` returns
+    ``(zv, u_comp)``, the variance normal and the exponential branch's uniform
+    complement ``1 - U``: ``(zv, ndtr(-zv))`` on the scan path, ``(AS241(u),
+    1 - u)`` from the raw uniform in the fused kernel's twin. Both branches are
+    computed with guarded inputs and selected per path."""
+    C = qe_step_constants(kappa, theta, xi, rho, dt)
+    E, c1, c2 = C["E"], C["c1"], C["c2"]
+    k1, k2, k3, k4, A = C["k1"], C["k2"], C["k3"], C["k4"], C["A"]
+    mu_dt = mu * dt
+    tiny = 1e-12
+
+    def step(state, z, t, dt_):
+        logs, v = state
+        zs = z[:, 0]
+        zv, u_comp = variance_draw(z[:, 1])
+        m = theta + (v - theta) * E                 # exact conditional mean
+        s2 = v * c1 + c2                            # exact conditional variance
+        psi = s2 / torch.clamp(m * m, min=tiny)
+        # quadratic branch (psi <= psi_c): v' = a (b + Zv)^2
+        invpsi = 2.0 / torch.clamp(psi, min=tiny)
+        tq = torch.clamp(invpsi - 1.0, min=0.0)
+        b2 = tq + torch.sqrt(invpsi) * torch.sqrt(tq)
+        a = m / (1.0 + b2)
+        v_q = a * torch.square(torch.sqrt(b2) + zv)
+        # exponential branch (psi > psi_c): P[v' = 0] = p, else rate beta
+        p = torch.clamp((psi - 1.0) / (psi + 1.0), 0.0, 1.0 - 1e-6)
+        beta = (1.0 - p) / torch.clamp(m, min=tiny)
+        v_e = torch.where(u_comp >= 1.0 - p, 0.0, torch.log((1.0 - p) / u_comp) / beta)
+        quad = psi <= psi_c
+        v_next = torch.where(quad, v_q, v_e)
+        if A <= 0.0:
+            # martingale correction K0* = -ln E[exp(A v')|v] - (k1 + k3/2) v
+            den_q = torch.clamp(1.0 - 2.0 * A * a, min=1e-6)
+            ln_m_q = A * b2 * a / den_q - 0.5 * torch.log(den_q)
+            ln_m_e = torch.log(torch.clamp(
+                p + beta * (1.0 - p) / torch.clamp(beta - A, min=tiny), min=tiny))
+            k0s = -torch.where(quad, ln_m_q, ln_m_e) - (k1 + 0.5 * k3) * v
+        else:
+            # A > 0: K0* does not exist; plain-QE drift (Andersen §3.2.4)
+            k0s = -rho * kappa * theta * dt / xi
+        gauss = torch.sqrt(torch.clamp(k3 * v + k4 * v_next, min=0.0)) * zs
+        logs = logs + mu_dt + k0s + k1 * v + k2 * v_next + gauss
+        return (logs, v_next)
+
+    return step
+
+
+def simulate_heston_qe(indices, grid: TimeGrid, *, s0: float, mu: float, v0: float,
+                       kappa: float, theta: float, xi: float, rho: float = 0.0,
+                       seed: int = 1234, scramble: str = "owen", store_every: int = 1,
+                       dtype=torch.float32, psi_c: float = 1.5) -> dict[str, torch.Tensor]:
+    """Andersen QE-M Heston (moment-matched variance draw + martingale-corrected
+    log step); the exponential branch's uniform is ``ndtr(-Zv)`` of the same
+    Sobol normal that feeds the quadratic branch. Returns ``{"S", "v"}``."""
+    indices = torch.as_tensor(indices).to(torch.int64)
+
+    def draw(zv):
+        return zv, torch.clamp(torch.special.ndtr(-zv), min=1e-12)
+
+    step = heston_qe_step(mu=mu, kappa=kappa, theta=theta, xi=xi, rho=rho, dt=grid.dt,
+                          psi_c=psi_c, variance_draw=draw)
+    _, traj = scan_sde(step, _heston_state0(indices.shape[0], v0, dtype, indices.device),
+                       _stack_state, indices, grid, 2, seed, scramble=scramble,
+                       store_every=store_every, dtype=dtype)
+    return _heston_out(s0, traj)

@@ -1,11 +1,15 @@
-"""Backward-walk result types and the per-date outputs, inference subset.
+"""The backward hedge-training walk and its result types (counterpart of ``orp_tpu/train/backward.py``).
 
-Counterpart of the parts of ``orp_tpu/train/backward.py`` that replay and
-serving read: :func:`_stack_prices`, :func:`_date_outputs_core` (all three
-``dual_mode`` combines and both ``holdings_combine`` conventions),
-:func:`_split_holdings`, the :class:`BackwardConfig` fields a replay reads and
-:class:`BackwardResult`. The Gauss-Newton walk that produces the per-date
-params is training and is not ported yet.
+For each rebalance date t from the last down to 0 the walk fits the date's
+network to replicate the next-date portfolio value (Gauss-Newton,
+``train/gn.fit_gn``, warm-started from the previous date's params), then
+records the date's value, holdings and next-date replication residual
+(:func:`_date_outputs_core`, shared with replay and serving). Ported:
+``dual_mode="mse_only"`` with ``optimizer="gauss_newton"`` on the host loop
+(one host read per date, for the date's fit metrics). Adam (``fit_core``),
+the quantile leg, the fused one-program walk, checkpoint/resume and the NaN
+guard are not ported; :func:`backward_induction` refuses the configs that
+ask for them.
 
 ``dual_mode``: ``"separate"`` (two param sets, ``v = g + i(h - g)``),
 ``"shared"`` (one param set; the ledger holdings read the quantile weights)
@@ -21,6 +25,9 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from orp_tpu_torch.train.gn import GNConfig, fit_gn
+from orp_tpu_torch.utils.precision import full_f32
 
 DUAL_MODES = ("separate", "shared", "mse_only")
 HOLDINGS_COMBINES = ("single", "py")
@@ -79,20 +86,30 @@ def date_params(params_by_date: dict, t: int) -> dict:
 
 
 def params_to(params_by_date: dict | None, device, dtype) -> dict | None:
-    """Per-date params (numpy arrays or tensors) as contiguous tensors on ``device``."""
+    """Params (numpy arrays, e.g. a JAX run's, or tensors) as contiguous tensors on ``device``."""
     if params_by_date is None:
         return None
-    return {k: torch.as_tensor(v).to(device=device, dtype=dtype).contiguous()
-            for k, v in params_by_date.items()}
+    return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v)))
+            .to(device=device, dtype=dtype).contiguous() for k, v in params_by_date.items()}
 
 
 @dataclasses.dataclass(frozen=True)
 class BackwardConfig:
-    """The walk's combine semantics: the fields a replay reads."""
+    """The walk's combine semantics (the fields a replay reads) and its
+    training policy, with the JAX package's names and defaults."""
 
     cost_of_capital: float = 0.1
     dual_mode: str = "separate"
     holdings_combine: str = "single"
+    final_solve: bool = False
+    optimizer: str = "adam"
+    gn_iters_first: int = 30
+    gn_iters_warm: int = 10
+    gn_block_rows: int | None = None
+    seed: int = 1234
+    checkpoint_dir: str | None = None
+    fused: bool = False
+    nan_guard: bool = False
 
     def __post_init__(self):
         if self.dual_mode not in DUAL_MODES:
@@ -137,3 +154,81 @@ class BackwardResult:
             params1_by_date=state["params1_by_date"],
             params2_by_date=state.get("params2_by_date"),
         )
+
+
+def _check_walk(cfg: BackwardConfig) -> None:
+    """Refuse what the port cannot train yet, instead of training something else."""
+    if cfg.optimizer != "gauss_newton":
+        raise ValueError(f"optimizer={cfg.optimizer!r}: the port trains with the Gauss-Newton "
+                         "walk only (optimizer='gauss_newton'); Adam's fit_core is ROADMAP A8, "
+                         "not ported yet")
+    if cfg.dual_mode != "mse_only":
+        raise ValueError(f"dual_mode={cfg.dual_mode!r}: the port's walk trains 'mse_only'; the "
+                         "quantile leg (fit_gn_pinball, 'separate'/'shared') is ROADMAP A8, "
+                         "not ported yet")
+    for name, on in (("fused=True", cfg.fused),
+                     ("checkpoint_dir", cfg.checkpoint_dir is not None),
+                     ("nan_guard=True", cfg.nan_guard)):
+        if on:
+            raise ValueError(f"{name}: not ported yet (ROADMAP A8 and 'Next'); the port runs "
+                             "the host-loop walk without it")
+
+
+def backward_induction(model, features: torch.Tensor, y_prices: torch.Tensor,
+                       b_prices: torch.Tensor, terminal_values: torch.Tensor,
+                       cfg: BackwardConfig, *, bias_init: tuple[float, ...] | None = None,
+                       initial_params=None) -> BackwardResult:
+    """Run the backward hedge-training walk on ``y_prices``'s device.
+
+    ``features (n, n_dates+1, n_features)``, ``y_prices (n, n_dates+1)``,
+    ``b_prices (n_dates+1,)``, ``terminal_values (n,)``. The first params are
+    ``model.init`` from a generator seeded with ``cfg.seed`` and the output
+    bias ``bias_init``; ``initial_params = (params1, params2)`` (numpy arrays
+    or tensors, e.g. a JAX run's initial params) replaces them (``params2`` is
+    not read under ``mse_only``). The first fitted date runs
+    ``cfg.gn_iters_first`` iterations, the rest ``cfg.gn_iters_warm``."""
+    _check_walk(cfg)
+    full_f32()
+    dev, dtype = y_prices.device, model.dtype
+    n_paths, n_knots = y_prices.shape[:2]
+    n_dates = n_knots - 1
+    params = model.init(torch.Generator().manual_seed(cfg.seed), bias_init=bias_init)
+    if initial_params is not None:
+        params = {k: v.reshape(params[k].shape)
+                  for k, v in params_to(initial_params[0], "cpu", dtype).items()}
+    params = params_to(params, dev, dtype)
+    prices_all = _stack_prices(y_prices.to(dtype), b_prices.to(device=dev, dtype=dtype))
+    values = torch.zeros((n_paths, n_knots), dtype=dtype, device=dev)
+    values[:, -1] = terminal_values.to(dtype)
+    phi_cols, psi_cols, var_cols, snaps, metrics = [], [], [], [], []
+    for step_i, t in enumerate(range(n_dates - 1, -1, -1)):
+        gn_cfg = GNConfig(n_iters=cfg.gn_iters_first if step_i == 0 else cfg.gn_iters_warm,
+                          block_rows=cfg.gn_block_rows)
+        feats_t, prices_t, prices_t1 = features[:, t], prices_all[:, t], prices_all[:, t + 1]
+        target = values[:, t + 1]
+        params, aux = fit_gn(model, params, feats_t, prices_t1, target, cfg=gn_cfg,
+                             final_solve=cfg.final_solve)
+        v_t, comb, var_resid = _date_outputs_core(
+            model, params, params, feats_t, prices_t, prices_t1, target, cfg.cost_of_capital,
+            None, dual_mode="mse_only", holdings_combine=cfg.holdings_combine)
+        values[:, t] = v_t
+        phi_t, psi_t = _split_holdings(comb)
+        phi_cols.append(phi_t)
+        psi_cols.append(psi_t)
+        var_cols.append(var_resid)
+        snaps.append(params)
+        # the date's one host read: its fit metrics
+        metrics.append(torch.stack([aux["final_loss"], aux["mae"], aux["mape"],
+                                    aux["n_epochs_ran"].to(dtype)]).cpu())
+    # walked t downward; stored date-ascending
+    m = torch.stack(metrics[::-1]).double().numpy()
+
+    def asc(cols):
+        return torch.stack(cols[::-1], dim=1)
+
+    return BackwardResult(
+        values=values, phi=asc(phi_cols), psi=asc(psi_cols), var_residuals=asc(var_cols),
+        train_loss=m[:, 0], train_mae=m[:, 1], train_mape=m[:, 2],
+        epochs_ran=m[:, 3].astype(np.int64), params1=params, params2=params,
+        params1_by_date={k: torch.stack([p[k] for p in snaps[::-1]]) for k in params},
+        params2_by_date=None)

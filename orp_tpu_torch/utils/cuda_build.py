@@ -3,8 +3,8 @@
 Each ``orp_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled on first use into ``build/orp_tpu_torch/lib<name>-<hash>.so`` at the
 root of the checkout (``.gitignore`` lists ``build/``). The file name carries
-a hash of the source, so an edited kernel is rebuilt and a stale library is
-never loaded. :func:`build_all` starts one ``nvcc`` per source at once and
+a hash of the source and of the shared ``csrc/*.cuh`` headers, so an edited
+kernel is rebuilt and a stale library is never loaded. :func:`build_all` starts one ``nvcc`` per source at once and
 waits for all of them, so the build costs the slowest source, not their sum.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3`` and deliberately no
@@ -26,7 +26,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "orp_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
-SOURCES = ("fused_gbm", "mixed_head")
+SOURCES = ("fused_gbm", "mixed_head", "fused_mf")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -48,8 +48,10 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    # the shared headers are part of every source's identity
+    text = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                             *sorted(CSRC.glob("*.cuh"))])
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

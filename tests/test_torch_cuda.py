@@ -13,7 +13,8 @@ import torch
 
 from orp_tpu_torch import NORTH_STAR_POLICY
 from orp_tpu_torch.models import HedgeMLP
-from orp_tpu_torch.qmc import fused_gbm
+from orp_tpu_torch.qmc import fused_gbm, fused_mf
+from orp_tpu_torch.train.gn import GNConfig, fit_gn
 from orp_tpu_torch.serve import HedgeEngine, load_bundle, loop_of_buckets, megakernel
 
 pytestmark = pytest.mark.cuda
@@ -99,3 +100,62 @@ def test_engine_on_card_mixed_equals_loop_of_buckets(cuda):
     loop = loop_of_buckets(engine, dates, states, prices)
     for a, b in zip(mixed, loop):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+
+
+HESTON = dict(s0=100.0, mu=0.08, v0=0.0225, kappa=1.5, theta=0.0225, xi=0.25, rho=-0.6)
+# A > 0 (strongly positive rho): QE's uncorrected-drift branch
+HESTON_POS_RHO = dict(HESTON, rho=0.9)
+
+
+@pytest.mark.parametrize("n_paths, n_steps, store", [(1, 28, 7), (1000, 28, 1),
+                                                     (4097, 364, 7)])
+@pytest.mark.parametrize("scheme", ["euler", "qe", "qe_uncorrected"])
+def test_fused_heston_matches_plain(cuda, n_paths, n_steps, store, scheme):
+    """Tolerances of tests/test_pallas.py: Euler S and v at rtol 3e-5, atol
+    3e-6; QE S at rtol 3e-5, v at rtol 2e-3, atol 1e-6 (the AS241 tail and
+    FMA contraction move the variance's quadratic branch)."""
+    fused = fused_mf.heston_log_fused if scheme == "euler" else fused_mf.heston_qe_fused
+    plain = fused_mf.heston_log_plain if scheme == "euler" else fused_mf.heston_qe_plain
+    kw = dict(HESTON_POS_RHO if scheme == "qe_uncorrected" else HESTON,
+              dt=1.0 / n_steps, seed=1235, store_every=store)
+    before = fused.launches
+    got = fused(n_paths, n_steps, device=cuda, **kw)
+    torch.cuda.synchronize()
+    assert fused.launches == before + 1
+    want = plain(n_paths, n_steps, device=cuda, **kw)
+    for k in ("S", "v"):
+        assert got[k].shape == (n_paths, n_steps // store + 1)
+    torch.testing.assert_close(got["S"], want["S"], rtol=3e-5, atol=3e-6 if scheme == "euler"
+                               else 0.0)
+    torch.testing.assert_close(got["v"], want["v"], rtol=3e-5 if scheme == "euler" else 2e-3,
+                               atol=3e-6 if scheme == "euler" else 1e-6)
+
+
+def test_fused_heston_validates_on_card(cuda):
+    with pytest.raises(ValueError, match="must divide"):
+        fused_mf.heston_qe_fused(128, 10, dt=0.1, store_every=3, device=cuda, **HESTON)
+    with pytest.raises(ValueError, match="direction table"):
+        fused_mf.heston_log_fused(128, 8193, dt=0.1, device=cuda, **HESTON)
+
+
+def test_fit_gn_on_card_matches_cpu(cuda):
+    """The same fit on the card and on the CPU in float64, where the two run
+    the same LM iterations (in f32 the trajectories can part on a borderline
+    accept/reject): final loss at rtol 1e-9, history at rtol 1e-8. The CPU
+    side is held to the JAX package the same way (tests/test_torch_gn.py)."""
+    rng = np.random.default_rng(5)
+    model = HedgeMLP(n_features=2, dtype=torch.float64)
+    n = 4096
+    feats = np.stack([np.exp(0.2 * rng.standard_normal(n)), 0.02 + 0.01 * rng.random(n)], 1)
+    prices = np.stack([feats[:, 0], np.full(n, 1.08)], 1)
+    y = np.maximum(feats[:, 0] - 1.0, 0.0) + 0.01 * rng.standard_normal(n)
+    params = model.init(torch.Generator().manual_seed(3), bias_init=(0.1, 0.0))
+    out = {}
+    for dev in ("cpu", cuda):
+        t = [torch.as_tensor(a, dtype=torch.float64, device=dev) for a in (feats, prices, y)]
+        _, aux = fit_gn(model, {k: v.to(dev) for k, v in params.items()}, *t,
+                        cfg=GNConfig(n_iters=30))
+        out[str(dev)] = {k: aux[k].cpu().numpy() for k in ("final_loss", "loss_history")}
+    np.testing.assert_allclose(out["cuda"]["final_loss"], out["cpu"]["final_loss"], rtol=1e-9)
+    np.testing.assert_allclose(out["cuda"]["loss_history"], out["cpu"]["loss_history"],
+                               rtol=1e-8)

@@ -26,7 +26,8 @@ def _is_forbidden(name: str) -> bool:
 
 def _sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tools" / "torch_profile_paths.py"]
+                                         ROOT / "tools" / "torch_profile_paths.py",
+                                         ROOT / "tools" / "torch_walk_spread.py"]
 
 
 def test_prefix_rule():
@@ -63,25 +64,33 @@ def test_importing_every_module_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20  # every module was imported
+    assert int(out.stdout.strip()) >= 28  # every module was imported
 
 
 def test_entry_points_default_to_the_card():
     """Without ``device=`` an entry point means the card, and raises without one."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable here")
-    from orp_tpu_torch import NORTH_STAR_POLICY
-    from orp_tpu_torch.api import european_oos
-    from orp_tpu_torch.qmc import gbm_log_fused
+    from orp_tpu_torch import HESTON_WALK, NORTH_STAR_POLICY
+    from orp_tpu_torch.api import (SimConfig, TrainConfig, european_hedge, european_oos,
+                                   heston_hedge, heston_oos)
+    from orp_tpu_torch.qmc import gbm_log_fused, heston_log_fused, heston_qe_fused
     from orp_tpu_torch.serve import HedgeEngine, load_bundle
 
     policy = load_bundle(NORTH_STAR_POLICY)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        HedgeEngine(policy)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        european_oos(policy)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        gbm_log_fused(128, 8, s0=1.0, drift=0.0, sigma=0.1, dt=0.1)
+    sim = SimConfig(n_paths=64, T=1.0, dt=0.25, rebalance_every=1)
+    train = TrainConfig(dual_mode="mse_only", optimizer="gauss_newton")
+    heston = dict(s0=1.0, mu=0.0, v0=0.04, kappa=1.0, theta=0.04, xi=0.3, rho=-0.5, dt=0.1)
+    calls = [lambda: HedgeEngine(policy), lambda: european_oos(policy),
+             lambda: gbm_log_fused(128, 8, s0=1.0, drift=0.0, sigma=0.1, dt=0.1),
+             lambda: european_hedge(sim=sim, train=train),
+             lambda: heston_hedge(sim=sim, train=train),
+             lambda: heston_oos(load_bundle(HESTON_WALK)),
+             lambda: heston_qe_fused(128, 8, **heston),
+             lambda: heston_log_fused(128, 8, **heston)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
     assert HedgeEngine(policy, device="cpu").device.type == "cpu"
 
 

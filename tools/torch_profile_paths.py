@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time goes on the port's two served paths, on one NVIDIA card.
+"""Where the time goes on the port's served and trained paths, on one NVIDIA card.
 
     python3 tools/torch_profile_paths.py [--out build/profile_paths.json]
 
@@ -9,7 +9,9 @@ Runs each path once to warm up (kernel build, allocator), then once under
 - ``serve``: one 1,048,576-row mixed-date block of the committed north-star
   policy through ``HedgeEngine.evaluate_mixed_async(...).result()``;
 - ``replay``: ``european_oos`` at 1,048,576 fresh paths x 364 steps on the
-  fused kernel.
+  fused kernel;
+- ``train``: ``heston_hedge`` at 1,048,576 paths x 364 steps (the QE-M
+  kernel, the 52-date Gauss-Newton walk, the report).
 
 For each path it prints the host wall, the summed device time of all GPU
 activity, the device's idle share (1 - device time / wall) and the top
@@ -22,6 +24,7 @@ CUDA device; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -119,7 +122,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from orp_tpu_torch import NORTH_STAR_POLICY
-    from orp_tpu_torch.api import EuropeanConfig, SimConfig, TrainConfig, european_oos
+    from orp_tpu_torch.api import (EuropeanConfig, HestonConfig, SimConfig, TrainConfig,
+                                   european_oos, heston_hedge)
     from orp_tpu_torch.serve import HedgeEngine, load_bundle
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -140,6 +144,9 @@ def main() -> int:
         profile("replay", lambda: european_oos(
             policy, EuropeanConfig(constrain_self_financing=False), sim,
             TrainConfig(dual_mode="mse_only"))),
+        profile("train", lambda: heston_hedge(
+            HestonConfig(), dataclasses.replace(sim, seed_fund=1235),
+            TrainConfig(dual_mode="mse_only", optimizer="gauss_newton"))),
     ]
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
