@@ -14,6 +14,14 @@ last line):
    K3a (Heston Euler) at the same shapes (S ``rtol=3e-5``; QE v ``rtol=2e-3,
    atol=1e-6``; Euler v ``rtol=3e-5, atol=3e-6``); K2 (mixed-date head) on
    1,048,576 rows over 52 dates, ``rtol=1e-5, atol=1e-6``;
+3b. K3c (the pension system) against ``pension_plain`` on the card at 65,536
+    paths x 1,000 steps, store 25, in all four variants (constant-vol or SV
+    fund, ``normal`` or ``inversion`` thinning), and at 1,048,576 paths in the
+    main path's variant (constant vol, inversion): Y / v / lambda at
+    ``rtol=3e-5`` (lambda ``atol=3e-8``; SV ``atol=3e-7``), the survivors N
+    equal on >= 99.9% of knots and never more than one death apart; the
+    population and fund laws from the kernel's 1M paths (``|E[N_T] - 8616| <
+    40``, ``|sd(N_T) - 132| < 30``, ``|E[Y_T] - e^0.8| < 0.02``);
 4. serve: the committed north-star policy through ``HedgeEngine`` (blocks of
    1, 7 and 4,096 rows held against the stored JAX outputs), then its main
    path, one 1,048,576-row request: K2 moves, no other kernel;
@@ -39,9 +47,33 @@ last line):
 10. serve the trained Heston policy: ``save_bundle`` -> ``load_bundle`` ->
     ``HedgeEngine.evaluate_mixed_async`` on 4,096 rows over all 52 dates,
     held against ``mixed_head_plain`` at ``rtol=1e-5, atol=1e-6``; K2 moves;
-11. times: each kernel and its plain version with CUDA events at the main
-    paths' shapes, beside the kernel's bound; the GN walk's wall at 1M paths
-    and the median time of one GN iteration there.
+11. the pension fixture (4,096 paths, ``_data/pension_walk``): (a) the stored
+    JAX per-date params replayed by ``pension_oos`` on the card's in-sample
+    paths, V0 / phi0 / psi0 within 1e-5 of the stored JAX replay; (b) the
+    same walk in float64 on the card and on the CPU from the card's paths:
+    the same accepted iterations in both legs on every date, V0 within 1e-9;
+    (c) the f32 card walk from the stored JAX initial params against the
+    stored JAX report, inside the band of the walk on the card's paths
+    (``tools/torch_walk_spread.py --walk pension --device cuda``), and
+    against the same f32 walk on the CPU from the card's paths, inside the
+    CPU's one-ulp band;
+12. main path C: ``pension_hedge`` at 1,048,576 paths x 1,000 steps (40
+    dates, ``shared`` + ``py``, GN 60/30 with the IRLS quantile leg), V0
+    within 4% of the reference's 981,038 and ``|phi0 + psi0 - V0| < 2% V0``,
+    then ``pension_oos`` on 1,048,576 fresh paths (phi0 / psi0 equal to
+    training's at rtol 1e-5: the t=0 features are the same on every path);
+    K3c moves by one in each run, no other kernel; then ``separate`` mode at
+    262,144 paths (V0 in the same band, two param sets) and the SV fund at
+    65,536 paths (finite; phi0 + psi0 printed beside PARITY.md's 981,732);
+13. serve the card-trained pension policy: ``save_bundle`` -> ``load_bundle``
+    -> one 1,048,576-row mixed-date block (3 features, 40 dates, the shared
+    combine) through K2, held against ``mixed_head_plain`` at ``rtol=1e-5,
+    atol=1e-6``;
+14. times: each kernel and its plain version with CUDA events at the main
+    paths' shapes, beside the kernel's bound (K2 also at the pension
+    policy's 3 features and 40 dates); the GN walks' walls at 1M
+    paths and the median time of one LM iteration there (MSE and, for the
+    pension, the IRLS pinball leg).
 
 Output: a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -69,6 +101,28 @@ N_STEPS, STORE = 364, 7
 OOS_SEED = 4321
 EULER_SEED = 5432
 HESTON = dict(s0=100.0, mu=0.08, v0=0.0225, kappa=1.5, theta=0.0225, xi=0.25, rho=-0.6)
+# the reference's multi-step pension (Multi Time Step.ipynb#25-26): T=10, dt=0.01,
+# quarterly rebalancing, 4 factors
+PENSION_STEPS, PENSION_STORE = 1000, 25
+PENSION = dict(y0=1.0, mu=0.08, sigma=0.15, l0=0.01, mort_c=0.075, eta=0.000597, n0=10000.0)
+PENSION_SV = dict(PENSION, sigma=None, sv=True, v0=0.15, cir_a=0.00336, cir_b=0.15431,
+                  cir_c=0.01583)  # StochVolConfig()
+N_SEPARATE, N_SV, N_K3C_CHECK = 1 << 18, 1 << 16, 1 << 16
+PENSION_V0_REF = 981_038.0   # Multi#26(out), 4,096 paths
+PENSION_V0_BAND = 0.04       # test_golden_pension_gn_irls_three_seed_mean's loose band
+PENSION_SV_REF = 981_732.0   # PARITY.md:44, Adam at 4,096 paths, c = 0.01583
+# the 4,096-path pension walk's bands, V0 relative, phi0 and psi0 as shares of V0.
+# Around the stored JAX report: about twice the largest gap of 8 one-ulp-perturbed
+# runs on the card (tools/torch_walk_spread.py --walk pension --device cuda: 3.89%,
+# 12.85%, 16.82%). The card's paths are another sample of the survivors than the
+# JAX package's: the reference's f32 CDF walk saturates (a 128-death step) where
+# its cdf plateaus below 1, and one ulp of exp(-lam dt) moves the plateau, so N
+# parts on ~38% of knots and the fits land apart. Against the same walk in f32 on
+# the CPU from the card's own paths: about twice the largest gap of 16 such runs on
+# the CPU (0.40%, 1.20%, 1.48%; tests/test_torch_fixture.py holds the CPU port to
+# that band around the JAX report).
+PENSION_FIXTURE_BAND = {"v0": 0.08, "phi0": 0.26, "psi0": 0.34}
+PENSION_SAME_PATHS_BAND = {"v0": 0.01, "phi0": 0.03, "psi0": 0.03}
 # the 4,096-path walk's band around the stored JAX report: about twice the
 # largest gap of 16 one-ulp-perturbed runs (tools/torch_walk_spread.py;
 # tests/test_torch_fixture.py holds the CPU port to the same band)
@@ -153,6 +207,32 @@ def k3_bound_ms(n_paths: int, n_steps: int, store_every: int, scheme: str) -> tu
     return bound(bytes_, sobol_int_ops(n_paths, 2 * n_steps), f32_ops)
 
 
+# f32 operations of the pension step besides its AS241 draws (exp, sqrt and a
+# division count one each, so the count is a lower bound): the constant-vol
+# fund 3, the SV fund 18; mortality and survival 7; inversion thinning 11 and
+# 7 per walk trip; normal thinning 11
+K3C_FUND_OPS = {False: 3, True: 18}
+K3C_MORT_OPS, K3C_INV_OPS, K3C_TRIP_OPS, K3C_NORMAL_OPS = 7, 11, 7, 11
+
+
+def k3c_bound_ms(n_paths: int, n_steps: int, store_every: int, sv: bool, inversion: bool,
+                 walk_trips: float) -> tuple[float, str]:
+    """Least time for the fused pension system: the direction table in and the
+    3 (4 with SV) state slots' knots out, against one Sobol word per used
+    factor per path-step, the AS241 of each normal factor and the step's f32
+    work, with the CDF walk's trips counted from this run's deaths
+    (``walk_trips``, one per death)."""
+    n_knots = n_steps // store_every + 1
+    slots = 4 if sv else 3
+    bytes_ = n_steps * 4 * 32 * 4 + slots * n_knots * n_paths * 4
+    words = (4 if sv else 3) * n_steps
+    normals = (3 if sv else 2) + (0 if inversion else 1)
+    step = normals * AS241_OPS + K3C_FUND_OPS[sv] + K3C_MORT_OPS + (
+        K3C_INV_OPS if inversion else K3C_NORMAL_OPS)
+    f32_ops = n_paths * n_steps * step + walk_trips * K3C_TRIP_OPS
+    return bound(bytes_, sobol_int_ops(n_paths, words), f32_ops)
+
+
 def k2_bound_ms(model, n_rows: int, n_dates: int) -> tuple[float, str]:
     """Least time for the mixed-date head: rows in/out and params once, against
     the forward's f32 operations (2 per FMA, bias adds, LeakyReLU)."""
@@ -234,6 +314,340 @@ def f64_heston_walk(paths: dict, h, init: dict, device):
                                     adjustment_factor=h.s0)
 
 
+def event_ms(fn):
+    """``(fn(), ms)`` of one call, timed with CUDA events."""
+    import torch
+
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def check_pension_paths(got: dict, want: dict, what: str) -> tuple[float, float, float]:
+    """K3c's tolerances against its plain version; returns (max |error| of the
+    float outputs, the share of knots where N differs, the largest |dN|)."""
+    import torch
+
+    sv = "v" in want
+    check(sorted(got) == sorted(want), f"{what}: outputs {sorted(got)}")
+    atol = 3e-7 if sv else 3e-8
+    torch.testing.assert_close(got["Y"], want["Y"], rtol=3e-5, atol=atol if sv else 0.0)
+    torch.testing.assert_close(got["lam"], want["lam"], rtol=3e-5, atol=atol)
+    if sv:
+        torch.testing.assert_close(got["v"], want["v"], rtol=3e-5, atol=atol)
+    d_n = (got["N"] - want["N"]).abs()
+    share, worst = float((d_n > 0).double().mean()), float(d_n.max())
+    check(share < 1e-3 and worst <= 1.0, f"{what}: N differs on {share:.2e} of knots "
+          f"(< 1e-3) by at most {worst} (<= 1)")
+    err = max(max_err(got[k], want[k]) for k in got if k != "N")
+    return err, share, worst
+
+
+def k3c_checks(dev) -> dict:
+    """K3c against ``pension_plain`` on the card in four variants at 65,536
+    paths and in the main variant at 1M, then the laws from the 1M paths."""
+    import torch
+
+    from orp_tpu_torch.qmc import fused_mf
+
+    out = {"err": 0.0, "share": 0.0, "worst": 0.0}
+    grid = dict(dt=10.0 / PENSION_STEPS, seed=1234, store_every=PENSION_STORE, device=dev)
+    runs = [(N_K3C_CHECK, sv, mode) for sv in (False, True) for mode in ("normal", "inversion")]
+    for n, sv, mode in runs + [(N_FULL, False, "inversion")]:
+        kw = dict(PENSION_SV if sv else PENSION, binomial_mode=mode, **grid)
+        got = fused_mf.pension_fused(n, PENSION_STEPS, **kw)
+        torch.cuda.synchronize()
+        want, plain_ms = event_ms(lambda: fused_mf.pension_plain(n, PENSION_STEPS, **kw))
+        for k, v in got.items():
+            check(v.shape == (n, PENSION_STEPS // PENSION_STORE + 1), f"K3c {k} shape")
+        what = f"K3c {'sv' if sv else 'const-vol'} {mode} {n}"
+        err, share, worst = check_pension_paths(got, want, what)
+        out["err"] = max(out["err"], err)
+        out["share"], out["worst"] = max(out["share"], share), max(out["worst"], worst)
+        print(f"[K3c] {'sv' if sv else 'const-vol'} {mode}, {n} x {PENSION_STEPS} store "
+              f"{PENSION_STORE}: max|kernel - plain| {err:.3e} (Y/v/lam rtol 3e-5); N differs "
+              f"on {share:.3e} of knots, largest |dN| {worst:.0f}; plain version "
+              f"{plain_ms / 1e3:.2f} s", flush=True)
+        del want
+    out["plain_ms"] = plain_ms  # the main variant at the main path's shape, timed once
+    n_t, y_t = got["N"][:, -1].double(), got["Y"][:, -1].double()
+    laws = (float(n_t.mean()), float(n_t.std()), float(y_t.mean()))
+    check(abs(laws[0] - 8616) < 40 and abs(laws[1] - 132) < 30,
+          f"population law E[N_T] {laws[0]:.1f} (8616 +- 40), sd {laws[1]:.1f} (132 +- 30)")
+    check(abs(laws[2] - math.exp(0.8)) < 0.02, f"fund law E[Y_T] {laws[2]:.5f} vs e^0.8")
+    # deaths over the run = the CDF walk's trips (one per death; no CLT draws at dt=0.01)
+    out["trips"] = float((got["N"][:, 0].double() - got["N"][:, -1].double()).sum())
+    print(f"[K3c] laws from the kernel's {N_FULL} paths: E[N_T] {laws[0]:.2f} (8616), sd "
+          f"{laws[1]:.2f} (132), E[Y_T] {laws[2]:.5f} (e^0.8 = {math.exp(0.8):.5f}); deaths "
+          f"(walk trips) {out['trips']:.0f}", flush=True)
+    return out
+
+
+def pension_walk(cfg, paths: dict, init: dict, device, dtype: str):
+    """The fixture's dual walk and report in ``dtype`` (``"float32"`` or
+    ``"float64"``) on ``device``, on given paths ``{"Y", "lam", "N"}`` and from
+    ``init``."""
+    import dataclasses
+
+    import torch
+
+    from orp_tpu_torch.api import pipelines
+    from orp_tpu_torch.models import HedgeMLP
+    from orp_tpu_torch.train import backward
+
+    cfg = dataclasses.replace(cfg, sim=dataclasses.replace(cfg.sim, dtype=dtype))
+    on = {k: v.to(device=device, dtype=pipelines._DTYPES[dtype]) for k, v in paths.items()}
+    inp = pipelines.pension_inputs(cfg, dtype, torch.device(device), paths=on)
+    model = HedgeMLP(n_features=3, dtype=pipelines._DTYPES[dtype])
+    res = backward.backward_induction(model, inp.features, inp.y, inp.b, inp.terminal,
+                                      pipelines._backward_cfg(cfg.train),
+                                      initial_params=(init, None))
+    return pipelines._pension_result(cfg, inp, res, model, "sort")
+
+
+def pension_gaps(rep, ref) -> dict[str, float]:
+    """V0 relative, phi0 and psi0 as shares of V0, of ``rep`` against ``ref``."""
+    get = (lambda k: ref[k]) if isinstance(ref, dict) else (lambda k: getattr(ref, k))
+    return {"v0": rep.v0 / get("v0") - 1, "phi0": (rep.phi0 - get("phi0")) / get("v0"),
+            "psi0": (rep.psi0 - get("psi0")) / get("v0")}
+
+
+def pension_fields(rep) -> list[float]:
+    return [rep.v0, rep.phi0, rep.psi0, rep.discounted_payoff, *rep.var_overall]
+
+
+def pension_phases(dev, counts, launches) -> dict:
+    """Phases 11-13: the pension fixture, the main path (train 1M, replay 1M),
+    the separate and SV walks, and serving the card-trained policy."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from orp_tpu_torch import PENSION_WALK
+    from orp_tpu_torch.api import (HedgeRunConfig, SimConfig, StochVolConfig, TrainConfig,
+                                   pension_hedge, pension_oos, pipelines)
+    from orp_tpu_torch.models import HedgeMLP
+    from orp_tpu_torch.serve import HedgeEngine, load_bundle, megakernel, save_bundle
+    from orp_tpu_torch.serve.bundle import model_meta
+    from orp_tpu_torch.train import backward, gn, losses
+
+    out = {}
+    train = TrainConfig(dual_mode="shared", holdings_combine="py", optimizer="gauss_newton",
+                        gn_iters_first=60, gn_iters_warm=30)
+    sim = SimConfig(n_paths=N_FULL, T=10.0, dt=0.01, rebalance_every=PENSION_STORE, seed=1234,
+                    engine="pallas", binomial_mode="inversion")
+    main_cfg = HedgeRunConfig(sim=sim, train=train)
+
+    def with_sim(cfg, **kw):
+        return dataclasses.replace(cfg, sim=dataclasses.replace(cfg.sim, **kw))
+
+    # -- 11. the pension fixture ------------------------------------------------
+    ref = json.loads((PENSION_WALK / "reference.json").read_text())
+    with np.load(PENSION_WALK / "init.npz") as z:
+        init = {k: z[k] for k in z.files}
+    jax_walk = load_bundle(PENSION_WALK)
+    fx_cfg = with_sim(main_cfg, n_paths=N_FIXTURE)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="replay_walk with dual_mode='shared'")
+        rp = pension_oos(jax_walk, fx_cfg, allow_in_sample=True).report
+    rp_rel = {k: getattr(rp, k) / ref["oos"][k] - 1 for k in ("v0", "phi0", "psi0")}
+    for k, rel in rp_rel.items():
+        check(abs(rel) <= 1e-5, f"replayed JAX pension walk {k} within 1e-5 of JAX ({rel:+.2e})")
+    print(f"[pension-fixture] the stored JAX walk's params replayed on the card's {N_FIXTURE} "
+          f"in-sample paths: V0 {rp_rel['v0']:+.2e}, phi0 {rp_rel['phi0']:+.2e}, psi0 "
+          f"{rp_rel['psi0']:+.2e} vs the stored JAX replay (limit 1e-5)", flush=True)
+    fx_paths = pipelines._simulate_pension_paths(
+        fx_cfg, pipelines.TimeGrid(10.0, PENSION_STEPS), "fixture", dev)
+    cpu = torch.device("cpu")
+    t1 = time.perf_counter()
+    card64, cpu64 = (pension_walk(fx_cfg, fx_paths, init, d, "float64") for d in (dev, cpu))
+    f64_s = time.perf_counter() - t1
+    v0_64 = card64.report.v0 / cpu64.report.v0 - 1
+    check(abs(v0_64) <= 1e-9, f"f64 pension walk: card V0 within 1e-9 of the CPU ({v0_64:+.2e})")
+    for leg in ("epochs_ran", "quantile_epochs_ran"):
+        check(np.array_equal(getattr(card64.backward, leg), getattr(cpu64.backward, leg)),
+              f"f64 pension walk: the same accepted iterations ({leg}) on every date")
+    print(f"[pension-fixture] the same walk in float64 on the card and on the CPU, same paths: "
+          f"V0 {v0_64:+.2e} apart (limit 1e-9); accepted iterations equal on all 40 dates, "
+          f"MSE leg {int(cpu64.backward.epochs_ran.sum())}, quantile leg "
+          f"{int(cpu64.backward.quantile_epochs_ran.sum())}; {f64_s:.2f} s", flush=True)
+    del card64, cpu64
+    # (c) the f32 walk on the card from the stored JAX init, against the stored
+    # JAX report and against the same f32 walk on the CPU from the card's paths
+    t1 = time.perf_counter()
+    fx = pension_walk(fx_cfg, fx_paths, init, dev, "float32").report
+    torch.cuda.synchronize()
+    fx_s = time.perf_counter() - t1
+    fx_cpu = pension_walk(fx_cfg, fx_paths, init, cpu, "float32").report
+    for rep_, what in ((fx, "card"), (fx_cpu, "CPU")):
+        check(all(math.isfinite(x) for x in pension_fields(rep_)),
+              f"pension fixture f32 walk on the {what}: report finite")
+    gaps, same = pension_gaps(fx, ref), pension_gaps(fx, fx_cpu)
+    for name, got, band in (("the stored JAX report", gaps, PENSION_FIXTURE_BAND),
+                            ("the CPU's f32 walk on the same paths", same,
+                             PENSION_SAME_PATHS_BAND)):
+        for k, lim in band.items():
+            check(abs(got[k]) <= lim, f"pension fixture f32 walk {k} within {lim} of {name} "
+                  f"({got[k]:+.4f})")
+    print(f"[pension-fixture] the f32 walk on the card from the stored JAX init: V0 "
+          f"{gaps['v0']:+.4%}, phi0 {gaps['phi0']:+.4%} of V0, psi0 {gaps['psi0']:+.4%} of V0 "
+          f"vs the stored JAX report (bands {PENSION_FIXTURE_BAND}); vs the same f32 walk on "
+          f"the CPU from the card's paths: V0 {same['v0']:+.4%}, phi0 {same['phi0']:+.4%}, "
+          f"psi0 {same['psi0']:+.4%} (bands {PENSION_SAME_PATHS_BAND}); accepted iterations "
+          f"on the card: MSE leg {int(fx.epochs_ran.sum())}; wall {fx_s:.2f} s", flush=True)
+    del fx_paths
+
+    # -- 12. main path C: pension_hedge + pension_oos at 1M (K3c) ----------------
+    torch.cuda.synchronize()
+    counts.reset()
+    t1 = time.perf_counter()
+    ph = pension_hedge(main_cfg)
+    torch.cuda.synchronize()
+    out["hedge_s"] = time.perf_counter() - t1
+    launches["pension"] = counts.only("pension", "the 1M-path pension_hedge")
+    check(launches["pension"] == 1, f"pension_hedge launches K3c once ({launches['pension']})")
+    rep, bw = ph.report, ph.backward
+    n_dates = PENSION_STEPS // PENSION_STORE
+    check(bw.values.shape == (N_FULL, n_dates + 1) and bw.phi.shape == (N_FULL, n_dates),
+          "pension ledger shapes (n, 41) / (n, 40)")
+    check(all(math.isfinite(x) for x in pension_fields(rep)), "pension report fields finite")
+    v0_gap = rep.v0 / PENSION_V0_REF - 1
+    check(abs(v0_gap) < PENSION_V0_BAND, f"pension V0 {rep.v0:.0f} within 4% of 981,038 "
+          f"({v0_gap:+.3%})")
+    split = abs(rep.phi0 + rep.psi0 - rep.v0) / rep.v0
+    check(split < 0.02, f"|phi0 + psi0 - V0| / V0 = {split:.4f} < 2%")
+    print(f"[pension] pension_hedge {N_FULL} paths x {PENSION_STEPS} steps (shared + py, GN "
+          f"60/30 + IRLS quantile leg): V0 {rep.v0:.1f} ({v0_gap:+.3%} vs 981,038), phi0 "
+          f"{rep.phi0:.1f}, psi0 {rep.psi0:.1f}, |phi0 + psi0 - V0| {split:.4%} of V0; wall "
+          f"{out['hedge_s']:.2f} s; K3c launches {launches['pension']}", flush=True)
+    print(f"[pension] accepted iterations per date (0..39), MSE leg: {bw.epochs_ran.tolist()}")
+    print(f"[pension] accepted iterations per date (0..39), quantile leg: "
+          f"{bw.quantile_epochs_ran.tolist()}")
+    print(f"[pension] final MSE loss per date: {[float(f'{x:.4e}') for x in bw.train_loss]}")
+    print(f"[pension] final pinball loss per date: "
+          f"{[float(f'{x:.4e}') for x in bw.quantile_loss]}", flush=True)
+    torch.cuda.synchronize()
+    counts.reset()
+    t1 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        oos = pension_oos(ph, with_sim(main_cfg, seed=OOS_SEED))
+    torch.cuda.synchronize()
+    oos_s = time.perf_counter() - t1
+    oos_k3c = counts.only("pension", "the 1M-path pension_oos")
+    check(oos_k3c == 1, f"pension_oos launches K3c once ({oos_k3c})")
+    check(any("dual_mode='shared'" in str(w.message) for w in caught),
+          "pension_oos warns about the shared replay")
+    check(all(math.isfinite(x) for x in pension_fields(oos.report)), "pension_oos finite")
+    np.testing.assert_allclose([oos.report.phi0, oos.report.psi0], [rep.phi0, rep.psi0],
+                               rtol=1e-5)
+    print(f"[pension] pension_oos {N_FULL} fresh paths (seed {OOS_SEED}): V0 {oos.report.v0:.1f}"
+          f" (the quantile leg's value, the shared replay), phi0 {oos.report.phi0:.1f} and psi0 "
+          f"{oos.report.psi0:.1f} equal training's (rtol 1e-5); wall {oos_s:.2f} s; K3c "
+          f"launches {oos_k3c}", flush=True)
+    del oos
+    # separate mode: two param sets
+    sep_cfg = dataclasses.replace(with_sim(main_cfg, n_paths=N_SEPARATE), train=dataclasses.replace(
+        train, dual_mode="separate", holdings_combine="single"))
+    t1 = time.perf_counter()
+    sep = pension_hedge(sep_cfg)
+    torch.cuda.synchronize()
+    out["separate_s"] = time.perf_counter() - t1
+    sep_gap = sep.report.v0 / PENSION_V0_REF - 1
+    check(all(math.isfinite(x) for x in pension_fields(sep.report)), "separate report finite")
+    check(abs(sep_gap) < PENSION_V0_BAND, f"separate V0 within 4% of 981,038 ({sep_gap:+.3%})")
+    check(sep.backward.params2_by_date is not None
+          and sep.backward.params2_by_date["w0"].shape == (n_dates, 3, 8),
+          "separate mode keeps the second param set per date")
+    print(f"[pension] separate + single at {N_SEPARATE} paths: V0 {sep.report.v0:.1f} "
+          f"({sep_gap:+.3%} vs 981,038), phi0 {sep.report.phi0:.1f}, psi0 {sep.report.psi0:.1f};"
+          f" params2_by_date present; wall {out['separate_s']:.2f} s", flush=True)
+    del sep
+    # the CIR-vol fund (K3c's 4-output SV step on the main path)
+    sv_cfg = dataclasses.replace(with_sim(main_cfg, n_paths=N_SV), sv=StochVolConfig())
+    t1 = time.perf_counter()
+    svr = pension_hedge(sv_cfg)
+    torch.cuda.synchronize()
+    out["sv_s"] = time.perf_counter() - t1
+    check(all(math.isfinite(x) for x in pension_fields(svr.report)), "SV report finite")
+    total = svr.report.phi0 + svr.report.psi0
+    print(f"[pension] SV fund (StochVolConfig()) at {N_SV} paths: V0 {svr.report.v0:.1f}, "
+          f"phi0 + psi0 {total:.1f} (PARITY.md:44, Adam at 4,096 paths: 981,732; no band: "
+          f"GN-IRLS has no anchor there); wall {out['sv_s']:.2f} s", flush=True)
+    del svr
+
+    # -- 13. serve the card-trained pension policy (K2) --------------------------
+    p1 = {k: v.detach().cpu().numpy() for k, v in bw.params1_by_date.items()}
+    bundle_dir = HERE / "build" / "chip_smoke" / "pension_policy"
+    meta = {"model": model_meta(ph.model), "times": ph.times.tolist(),
+            "adjustment_factor": ph.adjustment_factor, "dual_mode": ph.dual_mode,
+            "holdings_combine": ph.holdings_combine, "cost_of_capital": ph.cost_of_capital,
+            "sim_seed": ph.sim_seed}
+    save_bundle(bundle_dir, meta, p1, None, {"train_loss": bw.train_loss,
+                                             "train_mae": bw.train_mae,
+                                             "train_mape": bw.train_mape,
+                                             "epochs_ran": bw.epochs_ran})
+    policy = load_bundle(bundle_dir)
+    engine = HedgeEngine(policy)
+    rng = np.random.default_rng(17)
+    dates = rng.integers(0, n_dates, N_FULL).astype(np.int32)
+    t_d = np.asarray(ph.times)[dates]
+    y = np.exp(0.15 * np.sqrt(t_d) * rng.standard_normal(N_FULL) + 0.07 * t_d)
+    pop_n = 1.0 - 0.014 * t_d + 0.002 * rng.standard_normal(N_FULL)
+    lam = 0.01 * np.exp(0.075 * t_d) + 6e-5 * np.sqrt(t_d) * rng.standard_normal(N_FULL)
+    states = np.stack([y, pop_n, lam], 1).astype(np.float32)
+    prices = np.stack([y, np.exp(0.03 * t_d)], 1).astype(np.float32)
+    counts.reset()
+    phi, psi, v = engine.evaluate_mixed_async(dates, states, prices).result()
+    serve_k2 = counts.only("mixed_head", "the pension policy's 1M-row serve block")
+    p_dev = {k: t.to(dev) for k, t in policy.backward.params1_by_date.items()}
+    plain = megakernel.mixed_head_plain(policy.model, p_dev, torch.from_numpy(dates).to(dev),
+                                        torch.from_numpy(states).to(dev)).cpu().numpy()
+    np.testing.assert_allclose(phi, plain[:, 0], rtol=1e-5, atol=1e-6, err_msg="phi")
+    np.testing.assert_allclose(psi, plain[:, 1], rtol=1e-5, atol=1e-6, err_msg="psi")
+    np.testing.assert_allclose(v, (plain * prices).sum(1), rtol=1e-5, atol=1e-6, err_msg="v")
+    check(policy.dual_mode == "shared" and len(np.unique(dates)) == n_dates,
+          "the shared policy's block covers all 40 dates")
+    print(f"[serve-pension] card-trained policy -> save_bundle -> load_bundle -> HedgeEngine: "
+          f"{N_FULL} rows x 3 features over {n_dates} dates (shared combine) match "
+          f"mixed_head_plain (rtol 1e-5, atol 1e-6); K2 launches {serve_k2}", flush=True)
+    # K2 alone at this policy's shape (the engine launches it once per param set)
+    d_dev, s_dev = torch.from_numpy(dates).to(dev), torch.from_numpy(states).to(dev)
+    packed = megakernel.pack_head_params(policy.model, p_dev)
+    out["k2_ms"] = cuda_ms(lambda: megakernel.mixed_head_forward(policy.model, p_dev, d_dev,
+                                                                 s_dev, packed=packed), reps=200)
+    out["k2_plain_ms"] = cuda_ms(lambda: megakernel.mixed_head_plain(policy.model, p_dev,
+                                                                      d_dev, s_dev),
+                                 reps=2, rounds=3)
+    out["k2_bound"] = k2_bound_ms(policy.model, N_FULL, n_dates)
+
+    # -- one LM iteration of each leg at 1M (the last date's regression) -------
+    inp = pipelines.pension_inputs(main_cfg, "times", dev)
+    t = n_dates - 1
+    prices_all = backward._stack_prices(inp.y, inp.b)
+    model = ph.model
+    theta = model.flatten({k: v[t] for k, v in bw.params1_by_date.items()})
+    for leg, problem in (
+            ("mse", gn._GNProblem(model, inp.features[:, t], prices_all[:, t + 1], inp.terminal,
+                                  gn.GNConfig())),
+            ("pinball", gn._GNProblem(model, inp.features[:, t], prices_all[:, t + 1],
+                                      inp.terminal, gn.GNPinballConfig(),
+                                      loss_fn=losses.make_loss("pinball"),
+                                      weights=(0.99, 0.01, 1e-3)))):
+        state = (torch.tensor(1e-2, device=dev), problem.loss(theta),
+                 torch.zeros((), dtype=torch.bool, device=dev))
+        out[f"iter_{leg}_ms"] = cuda_ms(lambda: gn._lm_step(problem, theta, *state), reps=5,
+                                        rounds=7)
+        del problem
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -264,7 +678,8 @@ def main() -> int:
     print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     counts = Counts(fused_gbm=fused_gbm.gbm_log_fused, mixed_head=megakernel.mixed_head_forward,
-                    heston_qe=fused_mf.heston_qe_fused, heston_euler=fused_mf.heston_log_fused)
+                    heston_qe=fused_mf.heston_qe_fused, heston_euler=fused_mf.heston_log_fused,
+                    pension=fused_mf.pension_fused)
     launches = {}
 
     # -- 2. build ------------------------------------------------------------
@@ -313,6 +728,7 @@ def main() -> int:
             print(f"[K3 {scheme}] {n} x {N_STEPS} store {STORE}: max|kernel - plain| S "
                   f"{errs['S']:.3e}, v {errs['v']:.3e} (S rtol 3e-5; v {v_tol})", flush=True)
         del got, want
+    k3c = k3c_checks(dev)
 
     policy = load_bundle(NORTH_STAR_POLICY)
     model, n_dates = policy.model, policy.n_dates
@@ -592,7 +1008,9 @@ def main() -> int:
           f"{n_rows} rows over {n_dates} dates match mixed_head_plain (rtol 1e-5, atol "
           f"1e-6); K2 launches {serve_k2}", flush=True)
 
-    # -- 11. times at the main paths' shapes ----------------------------------
+    pension = pension_phases(dev, counts, launches)
+
+    # -- 14. times at the main paths' shapes ----------------------------------
     k1 = lambda: fused_gbm.gbm_log_fused(N_FULL, N_STEPS, **gbm_kw)  # noqa: E731
     k1_plain = lambda: fused_gbm.gbm_log_plain(N_FULL, N_STEPS, **gbm_kw)  # noqa: E731
     k2 = lambda: megakernel.mixed_head_forward(model, p1, dates, feats,  # noqa: E731
@@ -613,14 +1031,39 @@ def main() -> int:
     ms["heston_euler"] = cuda_ms(eu, reps=10)
     ms["heston_qe_2"] = cuda_ms(qe, reps=10)
     ms["fused_gbm_2"] = cuda_ms(k1, reps=10)
+    pen_kw = dict(PENSION, dt=10.0 / PENSION_STEPS, store_every=PENSION_STORE, device=dev)
+    pen = lambda: fused_mf.pension_fused(N_FULL, PENSION_STEPS,  # noqa: E731
+                                         binomial_mode="inversion", **pen_kw)
+    pen_sv = lambda: fused_mf.pension_fused(  # noqa: E731
+        N_FULL, PENSION_STEPS, binomial_mode="inversion", **dict(pen_kw, **PENSION_SV))
+    ms["pension"] = cuda_ms(pen, reps=5)
+    ms["pension_plain"] = k3c["plain_ms"]
+    ms["pension_sv"] = cuda_ms(pen_sv, reps=5)
+    sv_n = pen_sv()["N"]
+    sv_trips = float((sv_n[:, 0].double() - sv_n[:, -1].double()).sum())
+    ms["pension_2"] = cuda_ms(pen, reps=5)
     bounds = {"fused_gbm": k1_bound_ms(N_FULL, N_STEPS, STORE),
               "mixed_head": k2_bound_ms(model, N_FULL, n_dates),
               "heston_qe": k3_bound_ms(N_FULL, N_STEPS, STORE, "qe"),
-              "heston_euler": k3_bound_ms(N_FULL, N_STEPS, STORE, "euler")}
+              "heston_euler": k3_bound_ms(N_FULL, N_STEPS, STORE, "euler"),
+              "pension": k3c_bound_ms(N_FULL, PENSION_STEPS, PENSION_STORE, False, True,
+                                      k3c["trips"])}
     for name, (b_ms, by) in bounds.items():
         again = f" / {ms[name + '_2']:.4f}" if name + "_2" in ms else ""
         print(f"[times] {name} {ms[name]:.4f}{again} ms (bound {b_ms:.4f} ms by {by}, plain "
               f"{ms[name + '_plain']:.2f} ms)", flush=True)
+    sv_bound = k3c_bound_ms(N_FULL, PENSION_STEPS, PENSION_STORE, True, True, sv_trips)
+    print(f"[times] pension (SV fund, inversion) {ms['pension_sv']:.4f} ms (bound "
+          f"{sv_bound[0]:.4f} ms by {sv_bound[1]})", flush=True)
+    print(f"[times] mixed_head at the pension policy's shape ({N_FULL} rows x 3 features, 40 "
+          f"dates) {pension['k2_ms']:.4f} ms (bound {pension['k2_bound'][0]:.4f} ms by "
+          f"{pension['k2_bound'][1]}, plain {pension['k2_plain_ms']:.2f} ms)", flush=True)
+    print(f"[times] pension walls at {N_FULL} paths: pension_hedge {pension['hedge_s']:.2f} s "
+          f"(40 dates, 60 + 39 x 30 iterations a leg); separate at {N_SEPARATE} "
+          f"{pension['separate_s']:.2f} s; SV at {N_SV} {pension['sv_s']:.2f} s; one LM "
+          f"iteration at 1M rows, P = 122: MSE {pension['iter_mse_ms']:.3f} ms, IRLS pinball "
+          f"{pension['iter_pinball_ms']:.3f} ms (median of 7 rounds of 5); peak device memory "
+          f"{pension['peak_gb']:.1f} GB", flush=True)
 
     # the GN walk alone at 1M (date-ascending features from one more K3b run)
     traj = fused_mf.heston_qe_fused(N_FULL, N_STEPS, **dict(heston_kw, seed=1235))
@@ -677,6 +1120,13 @@ def main() -> int:
          "max_abs_err": k3_err["euler"], "ms": ms["heston_euler"],
          "plain_ms": ms["heston_euler_plain"], "bound_ms": bounds["heston_euler"][0],
          "bound_by": bounds["heston_euler"][1], "library_ms": None},
+        {"name": "pension", "route": "cuda",
+         "source": "orp_tpu_torch/csrc/fused_mf.cu (mf_kernel<Pension<kSV, kInversion>>; "
+                   "driver _run_mf :106)",
+         "replaces": "orp_tpu/qmc/pallas_mf.py:294", "launches": launches["pension"],
+         "max_abs_err": k3c["err"], "ms": ms["pension"], "plain_ms": ms["pension_plain"],
+         "bound_ms": bounds["pension"][0], "bound_by": bounds["pension"][1],
+         "library_ms": None},
     ]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels))

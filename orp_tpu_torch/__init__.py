@@ -13,7 +13,11 @@ caller passes ``device="cpu"``:
   ``orp_tpu_torch.api.heston_hedge(heston, sim, train, device=...)``: the
   Gauss-Newton backward walk (``train.optimizer="gauss_newton"``,
   ``dual_mode="mse_only"``)
-- ``orp_tpu_torch.api.european_oos(policy, ...)`` and ``heston_oos(policy, ...)``
+- ``orp_tpu_torch.api.pension_hedge(cfg, device=...)``: the pension liability
+  with the dual walk (``dual_mode="shared"`` or ``"separate"``, the quantile
+  leg by IRLS Gauss-Newton)
+- ``orp_tpu_torch.api.european_oos(policy, ...)``, ``heston_oos(policy, ...)``
+  and ``pension_oos(policy, cfg, ...)``
 - ``orp_tpu_torch.serve.load_bundle(dir)``
 - ``orp_tpu_torch.serve.HedgeEngine(policy, device=...)``
 """
@@ -24,3 +28,5 @@ import pathlib
 NORTH_STAR_POLICY = pathlib.Path(__file__).parent / "_data" / "north_star_policy"
 #: a 4,096-path JAX Heston walk: its initial params, per-date params and report
 HESTON_WALK = pathlib.Path(__file__).parent / "_data" / "heston_walk"
+#: a 4,096-path JAX pension dual walk: initial params, per-date params, report, replay
+PENSION_WALK = pathlib.Path(__file__).parent / "_data" / "pension_walk"

@@ -1,9 +1,15 @@
-"""Config-driven entry points (the European and Heston pipelines)."""
+"""Config-driven entry points (the European, Heston and pension pipelines)."""
 
-from orp_tpu_torch.api.config import EuropeanConfig, HestonConfig, SimConfig, TrainConfig
+from orp_tpu_torch.api.config import (ActuarialConfig, EuropeanConfig, HedgeRunConfig,
+                                      HestonConfig, MarketConfig, SimConfig, StochVolConfig,
+                                      TrainConfig)
 from orp_tpu_torch.api.pipelines import (PipelineResult, european_hedge, european_oos,
-                                         heston_hedge, heston_oos, resolve_heston_scheme)
+                                         heston_hedge, heston_oos, pension_hedge, pension_oos,
+                                         replicating_portfolio, replicating_portfolio_sv,
+                                         resolve_heston_scheme, sigma_sweep)
 
-__all__ = ["EuropeanConfig", "HestonConfig", "PipelineResult", "SimConfig", "TrainConfig",
-           "european_hedge", "european_oos", "heston_hedge", "heston_oos",
-           "resolve_heston_scheme"]
+__all__ = ["ActuarialConfig", "EuropeanConfig", "HedgeRunConfig", "HestonConfig",
+           "MarketConfig", "PipelineResult", "SimConfig", "StochVolConfig", "TrainConfig",
+           "european_hedge", "european_oos", "heston_hedge", "heston_oos", "pension_hedge",
+           "pension_oos", "replicating_portfolio", "replicating_portfolio_sv",
+           "resolve_heston_scheme", "sigma_sweep"]

@@ -1,17 +1,63 @@
-"""Run configs of the European and Heston pipelines (counterpart of ``orp_tpu/api/config.py``).
+"""Run configs of the European, Heston and pension pipelines (counterpart of ``orp_tpu/api/config.py``).
 
 Frozen dataclasses with the JAX package's field names and defaults, cut to
 the fields the ported pipelines read. ``TrainConfig`` carries the
-Gauss-Newton walk's fields; the fields of walks not ported yet (Adam's
-epochs and schedule, the quantile leg) are absent, and the walk refuses the
-JAX defaults that would select them (``optimizer="adam"``, ``fused``,
-``checkpoint_dir``, ``nan_guard``) instead of running something else.
+Gauss-Newton walk's fields and the quantile leg's; the fields of walks not
+ported yet (Adam's epochs and schedule) are absent, and the walk refuses the
+JAX defaults that would select them (``optimizer="adam"``,
+``gn_quantile=False``, ``fused``, ``checkpoint_dir``, ``nan_guard``) instead
+of running something else. ``SimConfig.binomial_mode`` keeps the JAX default
+``"exact"`` (threefry); the port's simulators refuse it rather than run
+another mode in its place.
+
+Every sub-model owns its namespace (``sv.c`` vs ``actuarial.mort_c``), so the
+reference's ``'c'`` key collision (RP.py:249 vs :257) cannot be written
+down; the flat-dict shims of ``api.pipelines`` document the fix.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+
+
+@dataclasses.dataclass(frozen=True)
+class MarketConfig:
+    """Fund / underlying dynamics and the money-market rate."""
+
+    y0: float = 1.0          # initial fund level (Y in RP.py:31)
+    mu: float = 0.08         # real-world drift (RP.py:34)
+    r: float = 0.03          # risk-free rate -> bond curve (RP.py:35)
+    sigma: float = 0.15      # constant vol (RP.py:36); ignored when sv is set
+
+
+@dataclasses.dataclass(frozen=True)
+class ActuarialConfig:
+    """Pension-liability population and mortality (RP.py:38-45); ``mort_c`` is
+    the reference's mortality drift ``c``."""
+
+    n0: int = 10_000         # initial policyholders N(0)
+    premium: float = 100.0   # P per policyholder
+    guarantee: float = 1.0   # K floor per unit fund (payoff max(Y_T, K))
+    age: int = 55            # x, carried for reporting only
+    l0: float = 0.01         # lambda(0) initial mortality intensity
+    mort_c: float = 0.075    # intensity drift
+    eta: float = 0.000597    # intensity vol
+
+
+@dataclasses.dataclass(frozen=True)
+class StochVolConfig:
+    """CIR stochastic-vol parameters (v is *vol*, not variance, RP.py:280-289)."""
+
+    a: float = 0.00336       # mean-reversion speed
+    b: float = 0.15431       # long-run vol level
+    c: float = 0.01583       # vol-of-vol (the parameter RP.py:285 lost to the collision)
+    v0: float = 0.15         # initial vol
+    drift_times_dt: bool = False  # False reproduces RP.py:285 omitting dt on the drift
+
+    def feller_ok(self) -> bool:
+        """The ``2ab >= c^2`` condition of the reference's CIRParams."""
+        return 2 * self.a * self.b >= self.c * self.c
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,8 +68,11 @@ class SimConfig:
     T: float = 10.0
     dt: float = 0.01
     rebalance_every: int = 25
+    seed: int = 1234             # the pension system's Sobol stream (every factor)
     seed_fund: int = 1235        # the risky asset's Sobol stream
     scramble: str = "owen"
+    binomial_mode: str = "exact"  # "exact" (threefry, refused by the port) |
+    # "inversion" (exact-in-law Sobol CDF inversion) | "normal" (moment-matched)
     dtype: str = "float32"
     engine: str = "scan"         # "scan" (plain per-step) | "pallas" (fused kernel)
 
@@ -49,12 +98,16 @@ class TrainConfig:
     """The walk's training policy and the combine semantics a replay must match."""
 
     cost_of_capital: float = 0.1
+    quantile: float = 0.99
+    quantile_loss: str = "pinball"  # or "smoothed_pinball"
     dual_mode: str = "separate"     # "separate" | "shared" | "mse_only"
     holdings_combine: str = "single"
-    final_solve: bool = False       # closed-form ridge readout after each fit
+    final_solve: bool = False       # closed-form ridge readout after each MSE fit
     optimizer: str = "adam"         # "adam" | "gauss_newton" (only GN is ported)
     gn_iters_first: int = 30
     gn_iters_warm: int = 10
+    gn_quantile: bool = True        # the quantile leg by IRLS Gauss-Newton (False,
+    # the Adam leg, is not ported)
     gn_block_rows: int | None = None  # blocked Gram accumulation (O(block*P) memory)
     seed: int = 1234                # the walk's init generator
     checkpoint_dir: str | None = None
@@ -91,3 +144,14 @@ class HestonConfig:
     rho: float = -0.6
     option_type: str = "call"
     scheme: str | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class HedgeRunConfig:
+    """The pension run: market + actuarial + optional SV + sim + train."""
+
+    market: MarketConfig = MarketConfig()
+    actuarial: ActuarialConfig = ActuarialConfig()
+    sv: StochVolConfig | None = None
+    sim: SimConfig = SimConfig()
+    train: TrainConfig = TrainConfig()

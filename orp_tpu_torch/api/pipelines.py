@@ -1,4 +1,4 @@
-"""The European and Heston pipelines (counterpart of ``orp_tpu/api/pipelines.py``).
+"""The European, Heston and pension pipelines (counterpart of ``orp_tpu/api/pipelines.py``).
 
 Each pipeline simulates (``engine="pallas"`` -> the fused CUDA kernels,
 ``"scan"`` -> the plain per-step simulators), trains (``*_hedge``: the
@@ -10,7 +10,14 @@ OLS-martingale price.
 - :func:`european_hedge` / :func:`european_oos`: GBM paths (K1), one feature
   ``S/S0``;
 - :func:`heston_hedge` / :func:`heston_oos`: Heston paths (K3, the QE-M or
-  Euler scheme), features ``(S/S0, v)``.
+  Euler scheme), features ``(S/S0, v)``;
+- :func:`pension_hedge` / :func:`pension_oos`: the pension liability
+  (``Replicating_Portfolio``, RP.py:29-235, and with ``cfg.sv`` its SV
+  variant, :237-459) on the coupled fund-mortality-population paths (K3c),
+  features ``(Y_t, N_t/N0, lambda_t)``, prices ``(Y_t, B_t)``, usually with
+  the dual walk; no martingale prices (the fund drifts at ``mu``, not ``r``).
+  :func:`sigma_sweep`, :func:`replicating_portfolio` and
+  :func:`replicating_portfolio_sv` are the reference's entry points on top.
 
 The JAX package's ops-plane hooks (run manifest, telemetry spans, the
 model-health baseline, ``export_dir``) change no number and are not ported.
@@ -23,16 +30,18 @@ import dataclasses
 import numpy as np
 import torch
 
-from orp_tpu_torch.api.config import EuropeanConfig, HestonConfig, SimConfig, TrainConfig
+from orp_tpu_torch.api.config import (ActuarialConfig, EuropeanConfig, HedgeRunConfig,
+                                      HestonConfig, MarketConfig, SimConfig, StochVolConfig,
+                                      TrainConfig)
 from orp_tpu_torch.models.mlp import HedgeMLP
 from orp_tpu_torch.qmc.fused_gbm import gbm_log_fused
-from orp_tpu_torch.qmc.fused_mf import heston_log_fused, heston_qe_fused
+from orp_tpu_torch.qmc.fused_mf import heston_log_fused, heston_qe_fused, pension_fused
 from orp_tpu_torch.risk.analytics import HedgeReport, build_report
 from orp_tpu_torch.risk.controls import martingale_ols_price
 from orp_tpu_torch.sde import (TimeGrid, bond_curve, payoffs, simulate_gbm_log,
-                               simulate_heston_log, simulate_heston_qe)
-from orp_tpu_torch.train.backward import (BackwardConfig, BackwardResult, backward_induction,
-                                          params_to)
+                               simulate_heston_log, simulate_heston_qe, simulate_pension)
+from orp_tpu_torch.train.backward import (BackwardConfig, BackwardResult, _check_walk,
+                                          backward_induction, params_to)
 from orp_tpu_torch.train.replay import replay_walk
 from orp_tpu_torch.utils.device import resolve_device
 from orp_tpu_torch.utils.fingerprint import verify_policy_compat
@@ -335,3 +344,211 @@ def heston_oos(trained, heston: HestonConfig | None = None,
     times = coarse.times().numpy()
     report = _report(res, s, payoff, h.r, h.strike, s0, times, quantile_method)
     return _result(report, res, times, s0, sim, train, model)
+
+
+# ---------------------------------------------------------------------------
+# Pension-liability pipeline (Replicating_Portfolio / _SV)
+# ---------------------------------------------------------------------------
+
+
+def _simulate_pension_paths(cfg: HedgeRunConfig, grid: TimeGrid, name: str,
+                            device: torch.device) -> dict[str, torch.Tensor]:
+    """The pension path sim, ``{"Y", "lam", "N"}`` (+ ``"v"``) of
+    ``(n_paths, n_knots)``; every factor draws from ``sim.seed``'s stream."""
+    m, a, s, sv = cfg.market, cfg.actuarial, cfg.sim, cfg.sv
+    kw = dict(y0=m.y0, mu=m.mu, sigma=None if sv else m.sigma, l0=a.l0, mort_c=a.mort_c,
+              eta=a.eta, n0=float(a.n0), seed=s.seed, store_every=s.rebalance_every,
+              sv=sv is not None, v0=sv.v0 if sv else 0.0, cir_a=sv.a if sv else 0.0,
+              cir_b=sv.b if sv else 0.0, cir_c=sv.c if sv else 0.0,
+              cir_drift_times_dt=sv.drift_times_dt if sv else False,
+              binomial_mode=s.binomial_mode)
+    if s.engine == "pallas":
+        _check_pallas(s, name)
+        return pension_fused(s.n_paths, s.n_steps, dt=grid.dt, device=device, **kw)
+    idx = torch.arange(s.n_paths, dtype=torch.int64, device=device)
+    return simulate_pension(idx, grid, scramble=s.scramble, dtype=_DTYPES[s.dtype], **kw)
+
+
+@dataclasses.dataclass
+class PensionInputs:
+    """What both pension entry points build from one path sim."""
+
+    features: torch.Tensor     # (n, knots, 3): Y_t, N_t/N0, lambda_t
+    y: torch.Tensor            # (n, knots) the fund, the risky price
+    b: torch.Tensor            # (knots,) the bond curve
+    terminal: torch.Tensor     # (n,) max(Y_T, K) N_T/N0, the normalised liability
+    bias_init: tuple[float, float]  # (1 - otm, otm), otm = P(Y_T < Y0) (RP.py:89, :150)
+    adjustment: float          # N0 * P (RP.py:46, :230)
+    times: np.ndarray
+
+
+def pension_inputs(cfg: HedgeRunConfig, name: str, device: torch.device,
+                   paths: dict | None = None) -> PensionInputs:
+    """Simulate the pension paths (or take ``paths``, ``{"Y", "lam", "N"}`` on
+    ``device`` in ``cfg.sim.dtype``) and build the walk's inputs (RP.py:182-184).
+
+    ``N / N0`` divides by a device tensor: on a card a division by a Python
+    scalar becomes a multiplication by its rounded reciprocal."""
+    m, a, s = cfg.market, cfg.actuarial, cfg.sim
+    dtype = _DTYPES[s.dtype]
+    grid = TimeGrid(s.T, s.n_steps)
+    traj = paths if paths is not None else _simulate_pension_paths(cfg, grid, name, device)
+    y, lam, pop = traj["Y"], traj["lam"], traj["N"]
+    coarse = grid.reduced(s.rebalance_every)
+    pop_n = pop / torch.tensor(float(a.n0), dtype=pop.dtype, device=pop.device)
+    terminal = payoffs.pension_floor(y[:, -1], a.guarantee) * pop_n[:, -1]
+    otm = float(payoffs.out_of_money_prob(y[:, -1], m.y0))
+    return PensionInputs(features=torch.stack([y, pop_n, lam], dim=-1), y=y,
+                         b=bond_curve(coarse, m.r, dtype, device), terminal=terminal,
+                         bias_init=(1.0 - otm, otm), adjustment=a.n0 * a.premium,
+                         times=coarse.times().numpy())
+
+
+def _pension_result(cfg: HedgeRunConfig, inp: PensionInputs, res: BackwardResult, model,
+                    quantile_method: str) -> PipelineResult:
+    report = build_report(res, terminal_payoff=inp.terminal, r=cfg.market.r, times=inp.times,
+                          adjustment_factor=inp.adjustment, quantile_method=quantile_method)
+    t = cfg.train
+    return PipelineResult(report=report, backward=res, times=inp.times,
+                          adjustment_factor=inp.adjustment, sim_seed=cfg.sim.seed,
+                          dual_mode=t.dual_mode, holdings_combine=t.holdings_combine,
+                          cost_of_capital=t.cost_of_capital, model=model)
+
+
+def pension_hedge(cfg: HedgeRunConfig = HedgeRunConfig(), *, quantile_method: str = "sort",
+                  device=None) -> PipelineResult:
+    """Dynamic pension-liability hedge (RP.py:29-235; the SV variant, :237-459,
+    when ``cfg.sv`` is set), trained by the backward walk.
+
+    The model ``HedgeMLP(n_features=3)`` sees ``(Y_t, N_t/N0, lambda_t)`` and
+    prices ``(Y_t, B_t)``; the terminal value is ``max(Y_T, K) N_T/N0`` and the
+    output bias starts at ``(1 - otm, otm)``; the reported phi/psi/V0 are
+    scaled by ``N0 * premium``. The walk trains with
+    ``train.optimizer="gauss_newton"`` (the quantile leg by IRLS,
+    ``gn_quantile=True``) and refuses other settings before simulating.
+    ``device=None`` is the card."""
+    dev = resolve_device(device)
+    full_f32()
+    _check_quantile_method(quantile_method)
+    bcfg = _backward_cfg(cfg.train)
+    _check_walk(bcfg)
+    inp = pension_inputs(cfg, "pension_hedge", dev)
+    model = HedgeMLP(n_features=3)
+    res = backward_induction(model, inp.features, inp.y, inp.b, inp.terminal, bcfg,
+                             bias_init=inp.bias_init)
+    return _pension_result(cfg, inp, res, model, quantile_method)
+
+
+def pension_oos(trained, cfg: HedgeRunConfig = HedgeRunConfig(), *,
+                quantile_method: str = "sort", allow_in_sample: bool = False,
+                device=None) -> PipelineResult:
+    """Out-of-sample evaluation of a trained pension hedge on fresh paths.
+
+    ``cfg.sim.seed`` must differ from the training run's (it seeds every
+    factor's stream) unless ``allow_in_sample``; everything else in ``cfg``
+    must match the training run. In ``shared`` mode the replayed values carry
+    the post-quantile snapshot caveat of ``train/replay.py`` (it warns).
+    ``device=None`` is the card."""
+    dev = resolve_device(device)
+    full_f32()
+    _check_quantile_method(quantile_method)
+    _check_oos_args("pension_oos", trained, cfg.sim.seed, cfg.train, allow_in_sample,
+                    seed_field="seed")
+    model = _check_policy_compat("pension_oos", trained, HedgeMLP(n_features=3),
+                                 cfg.sim.n_rebalance)
+    inp = pension_inputs(cfg, "pension_oos", dev)
+    res = replay_walk(model, _backward_on(trained.backward, dev, model.dtype), inp.features,
+                      inp.y, inp.b, inp.terminal, _backward_cfg(cfg.train))
+    return _pension_result(cfg, inp, res, model, quantile_method)
+
+
+def sigma_sweep(sigmas, base: HedgeRunConfig = HedgeRunConfig(), *,
+                device=None) -> list[dict[str, float]]:
+    """Volatility sweep (``Multi Time Step.ipynb#29-30``): the pension hedge per
+    sigma, tabulating ``(sigma, phi0, psi0, phi0 + psi0)``. ``base.train``
+    must select the Gauss-Newton walk (the JAX default, Adam, is refused)."""
+    if base.sv is not None:
+        raise ValueError("sigma_sweep varies the constant vol, which the SV fund ignores; "
+                         "sweep StochVolConfig fields instead")
+    rows = []
+    for sg in sigmas:
+        cfg = dataclasses.replace(base, market=dataclasses.replace(base.market, sigma=sg))
+        res = pension_hedge(cfg, device=device)
+        rows.append({"sigma": sg, "phi": res.phi0, "psi": res.psi0,
+                     "total": res.phi0 + res.psi0})
+    return rows
+
+
+def _cfg_from_params(params: dict, sv_c: float | None = None) -> HedgeRunConfig:
+    """The reference's flat params dict (``Multi Time Step.ipynb#28``) as
+    namespaced configs. ``rebalancing`` is the rebalance interval in years;
+    ``n_paths`` is the Sobol log2 exponent (RP.py:49). SV mode is selected by
+    ``sv_c`` alone (set by the SV shim); extra keys are ignored, like the
+    reference's positional unpacking. ``'c'`` is the mortality drift."""
+    T, dt = float(params["T"]), float(params["dt"])
+    n_steps = int(np.ceil(T / dt - 1e-9))
+    # epsilon: quotients like 364/(1/(3/365)) land at 2.9999999999999996
+    reduction = int(np.floor(n_steps / (T / params["rebalancing"]) + 1e-9))
+    if reduction < 1:
+        raise ValueError(f"rebalancing interval {params['rebalancing']} is shorter than dt={dt}")
+    n_steps -= n_steps % reduction  # keep the coarse grid exact
+    sv = None
+    if sv_c is not None:
+        sv = StochVolConfig(
+            a=float(params.get("a", StochVolConfig.a)),
+            b=float(params.get("b", StochVolConfig.b)),
+            c=float(sv_c),
+            # the SV notebook names the initial vol 's0' (Multi#32)
+            v0=float(params.get("v0", params.get("s0", params.get("sigma",
+                                                                  StochVolConfig.v0)))))
+    return HedgeRunConfig(
+        market=MarketConfig(
+            y0=float(params["Y"]), mu=float(params["mu"]), r=float(params["r"]),
+            # the SV dict carries no 'sigma' (unused under SV); constant vol needs it
+            sigma=float(params.get("sigma", MarketConfig.sigma) if sv_c is not None
+                        else params["sigma"])),
+        actuarial=ActuarialConfig(
+            n0=int(params["N"]), premium=float(params["P"]), guarantee=float(params["K"]),
+            age=int(params.get("x", 55)), l0=float(params["l0"]),
+            mort_c=float(params["c"]), eta=float(params["ita"])),
+        sv=sv,
+        sim=SimConfig(n_paths=2 ** int(params["n_paths"]), T=n_steps * dt, dt=dt,
+                      rebalance_every=reduction))
+
+
+def _shim_cfg(cfg: HedgeRunConfig, train: TrainConfig | None,
+              binomial_mode: str) -> HedgeRunConfig:
+    if train is None:
+        raise ValueError("the reference shims train with the JAX default TrainConfig (Adam), "
+                         "which the port does not run; pass a Gauss-Newton train, e.g. "
+                         "TrainConfig(optimizer='gauss_newton')")
+    return dataclasses.replace(cfg, train=train, sim=dataclasses.replace(
+        cfg.sim, binomial_mode=binomial_mode))
+
+
+def replicating_portfolio(params: dict, train: TrainConfig | None = None, *,
+                          binomial_mode: str = "exact", device=None) -> tuple[float, float]:
+    """Reference entry point ``Replicating_Portfolio(params) -> (phi, psi)``
+    (RP.py:29-235), on the key set of ``Multi Time Step.ipynb#28``.
+
+    The JAX package's default training (Adam, 500/100 epochs) is not ported:
+    ``train`` is required and must select ``optimizer="gauss_newton"``. The
+    reference draws exact binomial survivors; the port refuses the threefry
+    ``"exact"`` mode, so pass ``binomial_mode="inversion"`` (exact in law)."""
+    res = pension_hedge(_shim_cfg(_cfg_from_params(params), train, binomial_mode),
+                        device=device)
+    return res.phi0, res.psi0
+
+
+def replicating_portfolio_sv(params: dict, sv_c: float | None = None,
+                             train: TrainConfig | None = None, *, binomial_mode: str = "exact",
+                             device=None) -> tuple[float, float]:
+    """SV-variant entry point (RP.py:237-459). The reference read the CIR
+    vol-of-vol from ``params['c']`` and then overwrote it with the mortality
+    drift (RP.py:249 vs :257), so its SV runs used c = 0.075. Pass ``sv_c``
+    for the intended vol-of-vol, or omit it for the calibrated default
+    0.01583; the mortality drift stays ``params['c']``. ``train`` and
+    ``binomial_mode`` as for :func:`replicating_portfolio`."""
+    cfg = _cfg_from_params(params, sv_c=sv_c if sv_c is not None else StochVolConfig.c)
+    res = pension_hedge(_shim_cfg(cfg, train, binomial_mode), device=device)
+    return res.phi0, res.psi0

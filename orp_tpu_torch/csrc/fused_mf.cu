@@ -1,42 +1,58 @@
 // Fused multi-factor scrambled-Sobol path kernels for sm_90a: 2-factor Heston
-// under full-truncation Euler and under Andersen QE-M.
+// under full-truncation Euler and under Andersen QE-M, and the 4-factor
+// coupled pension system.
 //
 // Replaces the TPU kernels of orp_tpu/qmc/pallas_mf.py: the generic driver
 // _run_mf / _mf_kernel (:106, :49) as the template mf_kernel<Step>, with
-// heston_log_pallas (:155) as Step = HestonEuler and heston_qe_pallas (:202)
-// as Step = HestonQE. Plain-PyTorch twins: orp_tpu_torch/qmc/fused_mf.py
-// (heston_log_plain, heston_qe_plain).
+// heston_log_pallas (:155) as Step = HestonEuler, heston_qe_pallas (:202) as
+// Step = HestonQE and pension_pallas (:294) as Step = Pension<kSV, kInversion>.
+// Plain-PyTorch twins: orp_tpu_torch/qmc/fused_mf.py (heston_log_plain,
+// heston_qe_plain, pension_plain).
 //
 // Semantics: at step t (1-based) factor f draws Sobol dimension
 // (t-1)*kFactors + f of the path's own index, as the scrambled uniform; the
-// step turns it into a normal (AS241) or, for QE's variance factor, also
-// uses it raw, so the exponential branch's complement is the exact 1 - u.
-// The output slots are stored every store_every steps, knot-major.
+// step turns it into a normal (AS241) or uses it raw (QE's variance factor,
+// the pension's inversion sampler). Only the factors in Step::kUsed are drawn
+// (constant-vol pension skips factor 2 of its 4-factor layout). The kSlots
+// state values are stored every store_every steps, knot-major.
 //
-// What bounds it on the H100: arithmetic. Per path-step: two Sobol words
-// (32-term masked XOR, two bit reversals, the Laine-Karras hash each), two
-// AS241 evaluations, and for QE about forty f32 operations with four square
-// roots and one or two logarithms. Against that the kernel stores 8 bytes per
-// path per knot: at 1M paths x 364 steps, 53 knots, 444 MB (~0.13 ms at
-// 3.35 TB/s), while the operations take about a millisecond at the card's
-// peak rates.
+// What bounds it on the H100: arithmetic. Per path-step: one Sobol word per
+// used factor (32-term masked XOR, two bit reversals, the Laine-Karras hash
+// each), an AS241 per normal, and the step's f32 work: for QE about forty
+// operations with four square roots and one or two logarithms; for the
+// pension an exp, and the population draw (one walk trip per death under
+// inversion, about two at dt = 0.01). Against that the kernel stores 4 bytes
+// per slot per path per knot: Heston at 1M paths x 364 steps, 53 knots, 444 MB
+// (~0.13 ms at 3.35 TB/s); the pension at 1M x 1,000 steps, 41 knots, 3
+// slots, 516 MB (~0.15 ms), while their operations take about 1 and 3 ms at
+// the card's peak rates.
 //
 // What the design does about it:
 // - one thread per path, the whole state in registers for all steps, only
 //   knots reach device memory (the TPU kernel's VMEM carry, without its
 //   power-of-two block rule, its (rows, 128) tiling or its static/dynamic
 //   knot-store split, which exist only for the TPU; any n_paths up to 2^32);
-// - the path's index masks are built once and shared by both factors' XORs;
-//   the direction rows (728 x 128 B = 93 KB at 364 steps) are warp-wide
-//   broadcast __ldg loads (sobol_device.cuh);
-// - QE's A <= 0 martingale correction is the template flag kCorrected, not a
-//   per-element test, as it is a trace-time branch in JAX; only the selected
-//   variance branch (and its log) is evaluated, which leaves the result
-//   unchanged;
-// - the host-f64 constants (qe_step_constants) arrive as f32 values rounded
-//   once, the rule fused_gbm.cu follows; constants in the code are
-//   f-suffixed. No fast math; nvcc contracts a*b+c into FMA, so paths agree
-//   with the plain version to f32 tolerance, not bitwise.
+// - the path's index masks are built once and shared by every factor's XOR;
+//   the direction rows are warp-wide broadcast __ldg loads (sobol_device.cuh);
+// - QE's A <= 0 martingale correction and the pension's fund (constant vol or
+//   SV) and population sampler are template flags, not per-element tests, as
+//   they are trace-time branches in JAX; only the selected QE variance branch
+//   (and its log) is evaluated, which leaves the result unchanged;
+// - the pension's CDF walk stops at the first k with cdf >= u (cdf never
+//   falls, so JAX's remaining fixed trips change no count), and runs only
+//   where the mean death count is <= 45; the CLT draw and its AS241 only
+//   where it is above;
+// - the host-f64 constants arrive as f32 values rounded once, the rule
+//   fused_gbm.cu follows; constants in the code are f-suffixed. No fast math;
+//   nvcc contracts a*b+c into FMA, so the Heston paths agree with the plain
+//   version to f32 tolerance, not bitwise. The pension step writes its
+//   arithmetic, its AS241 draws included (ndtri_as241_rn), with __fmul_rn /
+//   __fadd_rn / __fdiv_rn, which are never contracted, because its roundings
+//   decide integers (the survivors N): round-half-even rintf as jnp.round /
+//   torch.round, the plain version's operation order, IEEE division. One ulp
+//   of lambda moves q = 1 - p by up to 4e-4 relative, which moves where the
+//   reference's f32 CDF walk saturates (its cdf plateaus up to ~2e-4 below 1,
+//   and a uniform above the plateau takes all 128 trips).
 
 #include "sobol_device.cuh"
 
@@ -66,7 +82,9 @@ mf_kernel(const uint32_t* __restrict__ dirs, Outs outs, unsigned long long n_pat
     float u[Step::kFactors];
 #pragma unroll
     for (int f = 0; f < Step::kFactors; ++f) {
-      u[f] = orp::sobol_uniform(dirs, mask, (uint32_t)((t - 1) * Step::kFactors + f), seed);
+      if ((Step::kUsed >> f) & 1u) {
+        u[f] = orp::sobol_uniform(dirs, mask, (uint32_t)((t - 1) * Step::kFactors + f), seed);
+      }
     }
     step.advance(state, u);
     if (t % store_every == 0) {
@@ -81,6 +99,7 @@ mf_kernel(const uint32_t* __restrict__ dirs, Outs outs, unsigned long long n_pat
 struct HestonEuler {
   static constexpr int kFactors = 2;
   static constexpr int kSlots = 2;
+  static constexpr unsigned kUsed = 0x3u;
   float v0, mu, kappa, theta, xi, rho, rho_c, dt, sdt;
 
   __device__ void init(float (&s)[kSlots]) const {
@@ -104,6 +123,7 @@ template <bool kCorrected>
 struct HestonQE {
   static constexpr int kFactors = 2;
   static constexpr int kSlots = 2;
+  static constexpr unsigned kUsed = 0x3u;
   float v0, theta, E, c1, c2, k1, k2, k3, k4, A, k13, mu_dt, k0, psi_c;
 
   __device__ void init(float (&s)[kSlots]) const {
@@ -148,18 +168,114 @@ struct HestonQE {
   }
 };
 
+// state (y, lam, N), or (log-return, v, lam, N) when kSV; factor 0 the fund's
+// normal, 1 the mortality's, 2 the CIR vol's (kSV only), 3 the population's:
+// its AS241 normal, or the raw uniform of the CDF inversion when kInversion
+template <bool kSV, bool kInversion>
+struct Pension {
+  static constexpr int kFactors = 4;
+  static constexpr int kSlots = kSV ? 4 : 3;
+  static constexpr unsigned kUsed = kSV ? 0xFu : 0xBu;
+  static constexpr int kWalk = 128;        // sde/kernels.py _INVERSION_K
+  static constexpr float kMeanMax = 45.0f;  // _INVERSION_MEAN_MAX
+  // fund_a = 1 + mu dt, fund_b = sigma sqrt(dt), eta_sdt = eta sqrt(dt) (host f64)
+  float y0, v0, l0, n0, fund_a, fund_b, mu, sdt, cir_a, cir_b, cir_c, drift_scale, mort_c,
+      dt, eta_sdt;
+
+  __device__ void init(float (&s)[kSlots]) const {
+    if constexpr (kSV) {
+      s[0] = 0.0f;  // log-return accumulator: Y = y0 exp(.) on the host side
+      s[1] = v0;
+      s[2] = l0;
+      s[3] = n0;
+    } else {
+      s[0] = y0;
+      s[1] = l0;
+      s[2] = n0;
+    }
+  }
+
+  // D ~ Binomial(pop, q) by the CDF walk, or the CLT draw past kMeanMax
+  __device__ float deaths_inversion(float pop, float lam, float p, float u) const {
+    const float q = __fsub_rn(1.0f, p);
+    const float mean_d = __fmul_rn(pop, q);
+    if (mean_d <= kMeanMax) {
+      const float ratio = __fdiv_rn(q, fmaxf(__fsub_rn(1.0f, q), 1e-30f));
+      float pmf = expf(__fmul_rn(__fmul_rn(-pop, lam), dt));  // pmf(0) = p^pop
+      float cdf = pmf;
+      float d = 0.0f;
+      for (int k = 1; k <= kWalk && cdf < u; ++k) {
+        const float kf = (float)k;
+        pmf = fmaxf(__fmul_rn(__fdiv_rn(__fmul_rn(pmf, __fsub_rn(pop, kf - 1.0f)), kf), ratio),
+                    0.0f);
+        d = kf;
+        cdf = __fadd_rn(cdf, pmf);
+      }
+      return d;
+    }
+    const float sd = sqrtf(fmaxf(__fmul_rn(__fmul_rn(pop, q), __fsub_rn(1.0f, q)), 0.0f));
+    const float draw = rintf(__fadd_rn(mean_d, __fmul_rn(sd, orp::ndtri_as241_rn(u))));
+    return fminf(fmaxf(draw, 0.0f), pop);
+  }
+
+  __device__ void advance(float (&s)[kSlots], const float (&u)[kFactors]) const {
+    constexpr int L = kSV ? 2 : 1;  // slots of lam and N
+    constexpr int N = L + 1;
+    const float z0 = orp::ndtri_as241_rn(u[0]);
+    if constexpr (kSV) {
+      const float v = s[1];
+      const float zv = orp::ndtri_as241_rn(u[2]);
+      const float drift = __fmul_rn(__fmul_rn(cir_a, __fsub_rn(cir_b, v)), drift_scale);
+      const float shock = __fmul_rn(__fmul_rn(cir_c, sqrtf(fmaxf(__fmul_rn(v, dt), 0.0f))), zv);
+      const float vn = __fadd_rn(__fadd_rn(v, drift), shock);
+      const float ito = __fmul_rn(__fsub_rn(mu, __fmul_rn(__fmul_rn(0.5f, vn), vn)), dt);
+      s[0] = __fadd_rn(__fadd_rn(s[0], ito), __fmul_rn(__fmul_rn(vn, sdt), z0));
+      s[1] = vn;
+    } else {
+      s[0] = __fmul_rn(s[0], __fadd_rn(fund_a, __fmul_rn(fund_b, z0)));
+    }
+    float lam = s[L];
+    lam = __fadd_rn(__fadd_rn(lam, __fmul_rn(__fmul_rn(mort_c, lam), dt)),
+                    __fmul_rn(eta_sdt, orp::ndtri_as241_rn(u[1])));
+    const float p = expf(__fmul_rn(-lam, dt));
+    const float pop = s[N];
+    if constexpr (kInversion) {
+      s[N] = fmaxf(__fsub_rn(pop, deaths_inversion(pop, lam, p, u[3])), 0.0f);
+    } else {
+      const float mean = __fmul_rn(pop, p);
+      const float var = __fmul_rn(__fmul_rn(pop, p), __fsub_rn(1.0f, p));
+      const float draw =
+          rintf(__fadd_rn(mean, __fmul_rn(sqrtf(fmaxf(var, 0.0f)), orp::ndtri_as241_rn(u[3]))));
+      s[N] = fminf(fmaxf(draw, 0.0f), pop);
+    }
+    s[L] = lam;
+  }
+};
+
 template <class Step>
-int launch(const Step& step, const void* dirs, void* out_logs, void* out_v,
-           unsigned long long n_paths, int n_steps, int store_every, uint32_t seed,
-           void* stream) {
-  Outs outs{};
-  outs.p[0] = static_cast<float*>(out_logs);
-  outs.p[1] = static_cast<float*>(out_v);
+int launch(const Step& step, const void* dirs, const Outs& outs, unsigned long long n_paths,
+           int n_steps, int store_every, uint32_t seed, void* stream) {
   const unsigned threads = 256;
   const unsigned long long blocks = (n_paths + threads - 1) / threads;
   mf_kernel<Step><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       static_cast<const uint32_t*>(dirs), outs, n_paths, n_steps, store_every, seed, step);
   return (int)cudaGetLastError();
+}
+
+Outs two_slots(void* out0, void* out1) {
+  Outs outs{};
+  outs.p[0] = static_cast<float*>(out0);
+  outs.p[1] = static_cast<float*>(out1);
+  return outs;
+}
+
+template <bool kSV, bool kInversion>
+int launch_pension(const float* c, const void* dirs, const Outs& outs,
+                   unsigned long long n_paths, int n_steps, int store_every, uint32_t seed,
+                   void* stream) {
+  const Pension<kSV, kInversion> step{c[0], c[1], c[2],  c[3],  c[4],  c[5],  c[6], c[7],
+                                      c[8], c[9], c[10], c[11], c[12], c[13], c[14]};
+  return launch(step, dirs, outs, n_paths, n_steps, store_every, seed, stream);
 }
 
 }  // namespace
@@ -170,7 +286,8 @@ extern "C" int orp_heston_euler_launch(const void* dirs, void* out_logs, void* o
                                        int store_every, uint32_t seed, const float* c,
                                        void* stream) {
   const HestonEuler step{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8]};
-  return launch(step, dirs, out_logs, out_v, n_paths, n_steps, store_every, seed, stream);
+  return launch(step, dirs, two_slots(out_logs, out_v), n_paths, n_steps, store_every, seed,
+                stream);
 }
 
 // c: v0, theta, E, c1, c2, k1, k2, k3, k4, A, k1 + k3/2, mu*dt, k0, psi_c
@@ -181,11 +298,39 @@ extern "C" int orp_heston_qe_launch(const void* dirs, void* out_logs, void* out_
   if (corrected) {
     const HestonQE<true> step{c[0], c[1], c[2], c[3], c[4], c[5], c[6],
                               c[7], c[8], c[9], c[10], c[11], c[12], c[13]};
-    return launch(step, dirs, out_logs, out_v, n_paths, n_steps, store_every, seed, stream);
+    return launch(step, dirs, two_slots(out_logs, out_v), n_paths, n_steps, store_every, seed,
+                  stream);
   }
   const HestonQE<false> step{c[0], c[1], c[2], c[3], c[4], c[5], c[6],
                              c[7], c[8], c[9], c[10], c[11], c[12], c[13]};
-  return launch(step, dirs, out_logs, out_v, n_paths, n_steps, store_every, seed, stream);
+  return launch(step, dirs, two_slots(out_logs, out_v), n_paths, n_steps, store_every, seed,
+                stream);
+}
+
+// c: y0, v0, l0, n0, 1 + mu dt, sigma sqrt(dt), mu, sqrt(dt), cir_a, cir_b, cir_c,
+//    drift scale (dt or 1), mort_c, dt, eta sqrt(dt); out: kSlots knot-major
+//    (n_knots, n_paths) f32 arrays, (y, lam, N) or (log-return, v, lam, N)
+extern "C" int orp_pension_launch(const void* dirs, void* out0, void* out1, void* out2,
+                                  void* out3, unsigned long long n_paths, int n_steps,
+                                  int store_every, uint32_t seed, const float* c, int sv,
+                                  int inversion, void* stream) {
+  Outs outs{};
+  outs.p[0] = static_cast<float*>(out0);
+  outs.p[1] = static_cast<float*>(out1);
+  outs.p[2] = static_cast<float*>(out2);
+  outs.p[3] = static_cast<float*>(out3);
+  if (sv) {
+    return inversion
+               ? launch_pension<true, true>(c, dirs, outs, n_paths, n_steps, store_every, seed,
+                                            stream)
+               : launch_pension<true, false>(c, dirs, outs, n_paths, n_steps, store_every, seed,
+                                             stream);
+  }
+  return inversion
+             ? launch_pension<false, true>(c, dirs, outs, n_paths, n_steps, store_every, seed,
+                                           stream)
+             : launch_pension<false, false>(c, dirs, outs, n_paths, n_steps, store_every, seed,
+                                            stream);
 }
 
 extern "C" const char* orp_cuda_error_string(int e) {

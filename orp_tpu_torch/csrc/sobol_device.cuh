@@ -11,7 +11,10 @@
 // AS241's constants are f-suffixed so the polynomials stay in f32 (a double
 // literal would promote them and change the bits); only the branch a draw
 // needs is evaluated. No fast math: logf/sqrtf and the divisions are the
-// IEEE-accurate versions.
+// IEEE-accurate versions. ndtri_as241 lets nvcc contract the Horner steps
+// into FMAs; ndtri_as241_rn rounds every multiply and add on its own, the
+// plain PyTorch version's rounding (qmc/fused_gbm.ndtri_as241), for steps
+// whose roundings decide integers (the pension's survivors).
 
 #pragma once
 
@@ -102,6 +105,57 @@ __device__ __forceinline__ float ndtri_as241(float u) {
     den = (den * r + 1.48753612908506148525e-2f) * r + 1.36929880922735805310e-1f;
     den = (den * r + 5.99832206555887937690e-1f) * r + 1.0f;
     t = num / den;
+  }
+  return q < 0.0f ? -t : t;
+}
+
+// Horner with separately rounded steps: ((c[0] r + c[1]) r + c[2]) ... + c[7]
+__device__ __forceinline__ float horner8_rn(float r, const float (&c)[8]) {
+  float acc = c[0];
+#pragma unroll
+  for (int i = 1; i < 8; ++i) acc = __fadd_rn(__fmul_rn(acc, r), c[i]);
+  return acc;
+}
+
+__device__ __forceinline__ float ndtri_as241_rn(float u) {
+  const float q = __fsub_rn(u, 0.5f);
+  if (fabsf(q) <= 0.425f) {
+    const float r = __fsub_rn(0.180625f, __fmul_rn(q, q));
+    const float num[8] = {2.5090809287301226727e3f, 3.3430575583588128105e4f,
+                          6.7265770927008700853e4f, 4.5921953931549871457e4f,
+                          1.3731693765509461125e4f, 1.9715909503065514427e3f,
+                          1.3314166789178437745e2f, 3.3871328727963666080e0f};
+    const float den[8] = {5.2264952788528545610e3f, 2.8729085735721942674e4f,
+                          3.9307895800092710610e4f, 2.1213794301586595867e4f,
+                          5.3941960214247511077e3f, 6.8718700749205790830e2f,
+                          4.2313330701600911252e1f, 1.0f};
+    return __fdiv_rn(__fmul_rn(q, horner8_rn(r, num)), horner8_rn(r, den));
+  }
+  const float p = fminf(u, __fsub_rn(1.0f, u));
+  const float rt = sqrtf(-logf(fmaxf(p, 1e-38f)));
+  float t;
+  if (rt <= 5.0f) {
+    const float r = __fsub_rn(rt, 1.6f);
+    const float num[8] = {7.74545014278341407640e-4f, 2.27238449892691845833e-2f,
+                          2.41780725177450611770e-1f, 1.27045825245236838258e0f,
+                          3.64784832476320460504e0f, 5.76949722146069140550e0f,
+                          4.63033784615654529590e0f, 1.42343711074968357734e0f};
+    const float den[8] = {1.05075007164441684324e-9f, 5.47593808499534494600e-4f,
+                          1.51986665636164571966e-2f, 1.48103976427480074590e-1f,
+                          6.89767334985100004550e-1f, 1.67638483018380384940e0f,
+                          2.05319162663775882187e0f, 1.0f};
+    t = __fdiv_rn(horner8_rn(r, num), horner8_rn(r, den));
+  } else {
+    const float r = __fsub_rn(rt, 5.0f);
+    const float num[8] = {2.01033439929228813265e-7f, 2.71155556874348757815e-5f,
+                          1.24266094738807843860e-3f, 2.65321895265761230930e-2f,
+                          2.96560571828504891230e-1f, 1.78482653991729133580e0f,
+                          5.46378491116411436990e0f, 6.65790464350110377720e0f};
+    const float den[8] = {2.04426310338993978564e-15f, 1.42151175831644588870e-7f,
+                          1.84631831751005468180e-5f, 7.86869131145613259100e-4f,
+                          1.48753612908506148525e-2f, 1.36929880922735805310e-1f,
+                          5.99832206555887937690e-1f, 1.0f};
+    t = __fdiv_rn(horner8_rn(r, num), horner8_rn(r, den));
   }
   return q < 0.0f ? -t : t;
 }

@@ -1,12 +1,12 @@
-"""SDE simulation on the Sobol stream: GBM and Heston (counterpart of ``orp_tpu/sde/kernels.py``).
+"""SDE simulation on the Sobol stream: GBM, Heston and the pension system (counterpart of ``orp_tpu/sde/kernels.py``).
 
 Time is a Python loop (the JAX package's ``lax.scan``); paths are a flat
 vector axis. Step ``t`` (1-based) consumes Sobol dimensions
 ``(t-1)*n_factors + f``, so the full ``(n_paths, n_steps)`` increment matrix
 never materialises, and ``store_every`` keeps only the rebalance knots.
-The Heston steps are shared with the fused kernel's plain twins
+The Heston and pension steps are shared with the fused kernel's plain twins
 (``qmc/fused_mf.py``), which differ only in the inverse normal and in the
-variance factor's uniform.
+raw uniform that QE's variance draw and the pension's inversion sampler read.
 """
 
 from __future__ import annotations
@@ -231,3 +231,171 @@ def simulate_heston_qe(indices, grid: TimeGrid, *, s0: float, mu: float, v0: flo
                        _stack_state, indices, grid, 2, seed, scramble=scramble,
                        store_every=store_every, dtype=dtype)
     return _heston_out(s0, traj)
+
+
+# ---------------------------------------------------------------------------
+# Pension model: fund + mortality + binomial population (coupled system)
+# ---------------------------------------------------------------------------
+
+
+_INVERSION_K = 128  # the CDF walk's trip count (terms D = 0..128)
+_INVERSION_MEAN_MAX = 45.0  # per-element switch to the CLT draw: the walk covers
+# mean death counts with mean + 12 sd <= K and pmf(0) = e^-m far above f32 underflow
+
+
+def binomial_inversion_deaths(u: torch.Tensor, n: torch.Tensor, q: torch.Tensor,
+                              pmf0: torch.Tensor, z_clt: torch.Tensor) -> torch.Tensor:
+    """Invert ``D ~ Binomial(n, q)`` from the uniform ``u`` by the CDF walk
+    ``pmf_k = pmf_{k-1} (n-k+1)/k q/(1-q)``, ``D = #{k : cdf_{k-1} < u}`` over
+    ``k = 1..128``, with the CLT draw ``clip(round(n q + sd z_clt), 0, n)``
+    where the mean death count exceeds ``_INVERSION_MEAN_MAX``.
+
+    The walk stops once every walking element has ``cdf >= u`` or a stuck
+    ``cdf``, with the counts of the JAX function's fixed 128 trips: ``cdf``
+    never falls (``pmf >= 0``), so past ``cdf >= u`` no count changes. In f32
+    ``q`` carries the cancellation of ``1 - p``, so the cdf can plateau below 1
+    and a ``u`` above the plateau takes all 128 trips. A trip that leaves
+    ``cdf`` unchanged while the next multiplier ``(n-k)/(k+1) q/(1-q)`` is at
+    most 1/2 marks the element stuck: every later ``pmf`` is smaller, so no
+    later trip moves ``cdf`` either, and a stuck element below ``u`` ends at
+    128. The division by ``k`` is by a device tensor, so a CUDA run divides
+    and does not multiply by a rounded reciprocal."""
+    mean_d = n * q
+    ratio = q / torch.clamp(1.0 - q, min=1e-30)
+    cdf, pmf = pmf0, pmf0
+    deaths = torch.zeros_like(n)
+    walking = mean_d <= _INVERSION_MEAN_MAX
+    stuck = torch.zeros_like(walking)
+    ks = torch.arange(1, _INVERSION_K + 2, dtype=n.dtype, device=n.device)
+    for k in range(1, _INVERSION_K + 1):
+        below = cdf < u
+        if not bool((below & walking & ~stuck).any()):
+            break
+        pmf = torch.clamp(pmf * (n - (k - 1.0)) / ks[k - 1] * ratio, min=0.0)
+        deaths = torch.where(below, ks[k - 1], deaths)
+        moved = cdf + pmf
+        stuck |= (moved == cdf) & ((n - float(k)) / ks[k] * ratio <= 0.5)
+        cdf = moved
+    deaths = torch.where(stuck & (cdf < u), ks[_INVERSION_K - 1], deaths)
+    sd_d = torch.sqrt(torch.clamp(n * q * (1.0 - q), min=0.0))
+    deaths_clt = torch.clamp(torch.round(mean_d + sd_d * z_clt), min=0.0)
+    deaths_clt = torch.minimum(deaths_clt, n)
+    return torch.where(walking, deaths, deaths_clt)
+
+
+def thin_normal(pop: torch.Tensor, lam: torch.Tensor, p: torch.Tensor, z: torch.Tensor,
+                dt: float) -> torch.Tensor:
+    """Moment-matched normal thinning ``clip(round(n p + sqrt(n p (1-p)) z), 0, n)``
+    (round half to even, as ``jnp.round``)."""
+    mean = pop * p
+    var = pop * p * (1 - p)
+    draw = torch.round(mean + torch.sqrt(torch.clamp(var, min=0.0)) * z)
+    return torch.minimum(torch.clamp(draw, min=0.0), pop)
+
+
+def thin_inversion(pop: torch.Tensor, lam: torch.Tensor, p: torch.Tensor, z: torch.Tensor,
+                   dt: float) -> torch.Tensor:
+    """The scan path's inversion thinning: ``u = ndtr(z)`` of the step's
+    normal, ``pmf(0) = exp(-n lam dt)`` from the analytic ``-log p = lam dt``,
+    and ``z`` itself as the CLT normal."""
+    u = torch.special.ndtr(z)
+    q = torch.clamp(1.0 - p, 0.0, 1.0)
+    pmf0 = torch.exp(-pop * (lam * dt))
+    deaths = binomial_inversion_deaths(u, pop, q, pmf0, z)
+    return torch.clamp(pop - deaths, min=0.0)
+
+
+def pension_step(*, mu: float, sigma: float | None, mort_c: float, eta: float, sdt,
+                 thin, sv: bool = False, cir_a: float = 0.0, cir_b: float = 0.0,
+                 cir_c: float = 0.0, cir_drift_times_dt: bool = False) -> StepFn:
+    """One step of the coupled system on ``(y, lam, N)`` or, with ``sv``,
+    ``(log-return, v, lam, N)``. Factor 0 is the fund's normal, 1 the
+    mortality's, 2 the CIR vol's (``sv`` only), 3 the population's draw,
+    which ``thin(pop, lam, p, z3, dt)`` turns into the survivors.
+
+    Fund: ``y (1 + mu dt + sigma sdt z0)`` (RP.py:64-65), or the CIR-vol log
+    fund ``v' = v + a(b - v)[dt] + c sqrt(v dt) z2``, ``logy += (mu - v'^2/2) dt
+    + v' sdt z0`` (RP.py:280-289; ``cir_drift_times_dt=False`` keeps the
+    reference's missing dt). Mortality ``lam + c lam dt + eta sdt z1``
+    (RP.py:75-76), survival ``p = exp(-lam dt)``. ``sdt`` is ``sqrt(dt)``: a
+    device f32 scalar on the scan path, a host-f64 float in the fused
+    kernel's twin."""
+    if not sv and sigma is None:
+        raise ValueError("sigma is required when sv=False (constant-vol fund)")
+
+    def step(state, z, t, dt):
+        if sv:
+            logy, v, lam, pop = state
+            drift_scale = dt if cir_drift_times_dt else 1.0
+            v_new = (v + cir_a * (cir_b - v) * drift_scale
+                     + cir_c * torch.sqrt(torch.clamp(v * dt, min=0.0)) * z[:, 2])
+            logy = logy + (mu - 0.5 * v_new * v_new) * dt + v_new * sdt * z[:, 0]
+        else:
+            y, lam, pop = state
+            y = y * (1 + mu * dt + sigma * sdt * z[:, 0])
+        lam = lam + mort_c * lam * dt + eta * sdt * z[:, 1]
+        p = torch.exp(-lam * dt)
+        pop = thin(pop, lam, p, z[:, 3], dt)
+        return (logy, v_new, lam, pop) if sv else (y, lam, pop)
+
+    return step
+
+
+def pension_state0(n: int, *, y0: float, l0: float, n0: float, sv: bool, v0: float,
+                   dtype, device) -> tuple:
+    """Initial state; in SV mode the fund is a log-return accumulator (0) and
+    ``y0`` scales the output, so no device log of ``y0`` is taken."""
+    def full(x):
+        return torch.full((n,), x, dtype=dtype, device=device)
+
+    return (full(0.0), full(v0), full(l0), full(n0)) if sv else (full(y0), full(l0), full(n0))
+
+
+def pension_out(traj: torch.Tensor, *, y0: float, sv: bool) -> dict[str, torch.Tensor]:
+    """``(n, knots, slots)`` stacked state -> ``{"Y", "lam", "N"}`` (+ ``"v"``)."""
+    if sv:
+        return {"Y": y0 * torch.exp(traj[..., 0]), "v": traj[..., 1], "lam": traj[..., 2],
+                "N": traj[..., 3]}
+    return {"Y": traj[..., 0], "lam": traj[..., 1], "N": traj[..., 2]}
+
+
+def check_binomial_mode(binomial_mode: str, name: str) -> None:
+    """The port runs ``normal`` and ``inversion``; ``exact`` needs JAX's threefry."""
+    if binomial_mode == "exact":
+        raise ValueError(
+            f"{name}: binomial_mode='exact' draws with JAX's threefry generator, which "
+            "the port cannot reproduce; use 'inversion' (exact in law) or 'normal'")
+    if binomial_mode not in ("inversion", "normal"):
+        raise ValueError(f"{name}: binomial_mode={binomial_mode!r}: expected 'exact', "
+                         "'inversion' or 'normal'")
+
+
+def simulate_pension(indices, grid: TimeGrid, *, y0: float, mu: float,
+                     sigma: float | None = None, l0: float, mort_c: float, eta: float,
+                     n0: float, seed: int = 1234, scramble: str = "owen", store_every: int = 1,
+                     dtype=torch.float32, binomial_mode: str = "exact", sv: bool = False,
+                     v0: float = 0.0, cir_a: float = 0.0, cir_b: float = 0.0,
+                     cir_c: float = 0.0,
+                     cir_drift_times_dt: bool = False) -> dict[str, torch.Tensor]:
+    """Coupled pension system, fund Y, mortality intensity lambda, survivors N,
+    on the Sobol stream (4 factors per step; :func:`pension_step`).
+
+    ``binomial_mode``: ``"inversion"`` (exact-in-law CDF inversion of the
+    death count from ``ndtr`` of the step's normal) or ``"normal"``
+    (moment-matched; biased about -0.9% in survivors at fine grids).
+    ``"exact"``, the JAX default, raises: it draws from threefry.
+    Returns ``(n_paths, n_knots)`` tensors ``Y``, ``lam``, ``N`` (+ ``v`` when
+    ``sv``)."""
+    check_binomial_mode(binomial_mode, "simulate_pension")
+    indices = torch.as_tensor(indices).to(torch.int64)
+    dev = indices.device
+    sdt = (torch.tensor(grid.dt, dtype=dtype) ** 0.5).to(dev)
+    step = pension_step(mu=mu, sigma=sigma, mort_c=mort_c, eta=eta, sdt=sdt,
+                        thin=thin_inversion if binomial_mode == "inversion" else thin_normal,
+                        sv=sv, cir_a=cir_a, cir_b=cir_b, cir_c=cir_c,
+                        cir_drift_times_dt=cir_drift_times_dt)
+    state0 = pension_state0(indices.shape[0], y0=y0, l0=l0, n0=n0, sv=sv, v0=v0, dtype=dtype,
+                            device=dev)
+    _, traj = scan_sde(step, state0, _stack_state, indices, grid, 4, seed, scramble=scramble,
+                       store_every=store_every, dtype=dtype)
+    return pension_out(traj, y0=y0, sv=sv)

@@ -1,21 +1,25 @@
 """The backward hedge-training walk and its result types (counterpart of ``orp_tpu/train/backward.py``).
 
 For each rebalance date t from the last down to 0 the walk fits the date's
-network to replicate the next-date portfolio value (Gauss-Newton,
-``train/gn.fit_gn``, warm-started from the previous date's params), then
-records the date's value, holdings and next-date replication residual
-(:func:`_date_outputs_core`, shared with replay and serving). Ported:
-``dual_mode="mse_only"`` with ``optimizer="gauss_newton"`` on the host loop
-(one host read per date, for the date's fit metrics). Adam (``fit_core``),
-the quantile leg, the fused one-program walk, checkpoint/resume and the NaN
-guard are not ported; :func:`backward_induction` refuses the configs that
-ask for them.
+network to replicate the next-date portfolio value (the MSE leg,
+``train/gn.fit_gn``), then, unless ``dual_mode="mse_only"``, the
+0.99-quantile leg (``train/gn.fit_gn_pinball``, IRLS), each warm-started
+from the previous date's params, and records the date's value, holdings and
+next-date replication residual (:func:`_date_outputs_core`, shared with
+replay and serving). Ported: the three dual modes with
+``optimizer="gauss_newton"`` and ``gn_quantile=True`` on the host loop (one
+host read per date, for the date's MSE-fit metrics). Adam (``fit_core``, and
+with it the Adam quantile leg), the fused one-program walk,
+checkpoint/resume and the NaN guard are not ported;
+:func:`backward_induction` refuses the configs that ask for them.
 
 ``dual_mode``: ``"separate"`` (two param sets, ``v = g + i(h - g)``),
-``"shared"`` (one param set; the ledger holdings read the quantile weights)
+``"shared"`` (one param set, RP.py:172's weight sharing: the quantile fit
+continues from the MSE fit's weights, ``g`` is the MSE-fit value
+snapshotted before it, and the ledger holdings read the quantile weights)
 and ``"mse_only"`` (quantile branch off). ``holdings_combine``: ``"single"``
 (``phi1 + i(phi2 - phi1)``) or ``"py"`` (the reference's sign quirk
-``phi1 + i(phi1 - phi2)``).
+``phi1 + i(phi1 - phi2)``, RP.py:114).
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from orp_tpu_torch.train.gn import GNConfig, fit_gn
+from orp_tpu_torch.train.gn import GNConfig, GNPinballConfig, fit_gn, fit_gn_pinball
+from orp_tpu_torch.train.losses import make_loss
 from orp_tpu_torch.utils.precision import full_f32
 
 DUAL_MODES = ("separate", "shared", "mse_only")
@@ -99,12 +104,15 @@ class BackwardConfig:
     training policy, with the JAX package's names and defaults."""
 
     cost_of_capital: float = 0.1
+    quantile: float = 0.99
+    quantile_loss: str = "pinball"  # or "smoothed_pinball"
     dual_mode: str = "separate"
     holdings_combine: str = "single"
     final_solve: bool = False
     optimizer: str = "adam"
     gn_iters_first: int = 30
     gn_iters_warm: int = 10
+    gn_quantile: bool = True
     gn_block_rows: int | None = None
     seed: int = 1234
     checkpoint_dir: str | None = None
@@ -136,6 +144,8 @@ class BackwardResult:
     params2: Any = None
     params1_by_date: Any = None  # {name: (n_dates, ...)} the per-date policy
     params2_by_date: Any = None
+    quantile_loss: np.ndarray | None = None       # (n_dates,) the quantile leg's final
+    quantile_epochs_ran: np.ndarray | None = None  # loss and accepted iterations
 
     @property
     def v0(self) -> torch.Tensor:
@@ -162,16 +172,36 @@ def _check_walk(cfg: BackwardConfig) -> None:
         raise ValueError(f"optimizer={cfg.optimizer!r}: the port trains with the Gauss-Newton "
                          "walk only (optimizer='gauss_newton'); Adam's fit_core is ROADMAP A8, "
                          "not ported yet")
-    if cfg.dual_mode != "mse_only":
-        raise ValueError(f"dual_mode={cfg.dual_mode!r}: the port's walk trains 'mse_only'; the "
-                         "quantile leg (fit_gn_pinball, 'separate'/'shared') is ROADMAP A8, "
-                         "not ported yet")
+    if cfg.dual_mode != "mse_only" and not cfg.gn_quantile:
+        raise ValueError("gn_quantile=False: the Adam quantile leg is ROADMAP A8, not ported "
+                         "yet; the port trains the quantile leg with fit_gn_pinball "
+                         "(gn_quantile=True)")
     for name, on in (("fused=True", cfg.fused),
                      ("checkpoint_dir", cfg.checkpoint_dir is not None),
                      ("nan_guard=True", cfg.nan_guard)):
         if on:
             raise ValueError(f"{name}: not ported yet (ROADMAP A8 and 'Next'); the port runs "
                              "the host-loop walk without it")
+
+
+def _initial_params(model, cfg: BackwardConfig, bias_init, initial_params, dev, dtype):
+    """``(params1, params2)``: ``params1`` then, in ``separate`` mode,
+    ``params2`` drawn from one generator seeded with ``cfg.seed`` (JAX draws
+    them from two keys of one split); ``initial_params = (p1, p2)`` replaces
+    them, ``p2=None`` keeping the seeded ``params2``. ``params2`` is
+    ``params1`` under ``shared`` and unused under ``mse_only``."""
+    gen = torch.Generator().manual_seed(cfg.seed)
+    params1 = model.init(gen, bias_init=bias_init)
+    params2 = model.init(gen, bias_init=bias_init) if cfg.dual_mode == "separate" else None
+    if initial_params is not None:
+        w1, w2 = initial_params
+        shapes = {k: v.shape for k, v in params1.items()}
+        params1 = {k: v.reshape(shapes[k]) for k, v in params_to(w1, "cpu", dtype).items()}
+        if params2 is not None and w2 is not None:
+            params2 = {k: v.reshape(shapes[k]) for k, v in params_to(w2, "cpu", dtype).items()}
+    params1 = params_to(params1, dev, dtype)
+    params2 = params1 if params2 is None else params_to(params2, dev, dtype)
+    return params1, params2
 
 
 def backward_induction(model, features: torch.Tensor, y_prices: torch.Tensor,
@@ -183,52 +213,73 @@ def backward_induction(model, features: torch.Tensor, y_prices: torch.Tensor,
     ``features (n, n_dates+1, n_features)``, ``y_prices (n, n_dates+1)``,
     ``b_prices (n_dates+1,)``, ``terminal_values (n,)``. The first params are
     ``model.init`` from a generator seeded with ``cfg.seed`` and the output
-    bias ``bias_init``; ``initial_params = (params1, params2)`` (numpy arrays
-    or tensors, e.g. a JAX run's initial params) replaces them (``params2`` is
-    not read under ``mse_only``). The first fitted date runs
-    ``cfg.gn_iters_first`` iterations, the rest ``cfg.gn_iters_warm``."""
+    bias ``bias_init`` (:func:`_initial_params`); ``initial_params =
+    (params1, params2)`` (numpy arrays or tensors, e.g. a JAX run's initial
+    params) replaces them. The first fitted date runs ``cfg.gn_iters_first``
+    iterations in each leg, the rest ``cfg.gn_iters_warm``."""
     _check_walk(cfg)
     full_f32()
     dev, dtype = y_prices.device, model.dtype
     n_paths, n_knots = y_prices.shape[:2]
     n_dates = n_knots - 1
-    params = model.init(torch.Generator().manual_seed(cfg.seed), bias_init=bias_init)
-    if initial_params is not None:
-        params = {k: v.reshape(params[k].shape)
-                  for k, v in params_to(initial_params[0], "cpu", dtype).items()}
-    params = params_to(params, dev, dtype)
+    params1, params2 = _initial_params(model, cfg, bias_init, initial_params, dev, dtype)
+    q_loss = make_loss(cfg.quantile_loss, q=cfg.quantile)
     prices_all = _stack_prices(y_prices.to(dtype), b_prices.to(device=dev, dtype=dtype))
     values = torch.zeros((n_paths, n_knots), dtype=dtype, device=dev)
     values[:, -1] = terminal_values.to(dtype)
-    phi_cols, psi_cols, var_cols, snaps, metrics = [], [], [], [], []
+    phi_cols, psi_cols, var_cols, snaps1, snaps2, metrics = [], [], [], [], [], []
     for step_i, t in enumerate(range(n_dates - 1, -1, -1)):
-        gn_cfg = GNConfig(n_iters=cfg.gn_iters_first if step_i == 0 else cfg.gn_iters_warm,
-                          block_rows=cfg.gn_block_rows)
+        n_iters = cfg.gn_iters_first if step_i == 0 else cfg.gn_iters_warm
         feats_t, prices_t, prices_t1 = features[:, t], prices_all[:, t], prices_all[:, t + 1]
         target = values[:, t + 1]
-        params, aux = fit_gn(model, params, feats_t, prices_t1, target, cfg=gn_cfg,
-                             final_solve=cfg.final_solve)
+        params1, aux = fit_gn(model, params1, feats_t, prices_t1, target,
+                              cfg=GNConfig(n_iters=n_iters, block_rows=cfg.gn_block_rows),
+                              final_solve=cfg.final_solve)
+        g_pre, q_aux = None, None
+        if cfg.dual_mode == "mse_only":
+            params2 = params1
+        else:
+            if cfg.dual_mode == "shared":
+                # the MSE fit's value, before the quantile fit moves the shared
+                # weights (RP.py:212-217 order); a device tensor, no host read
+                g_pre = model.value(params1, feats_t, prices_t)
+                params2 = params1
+            params2, q_aux = fit_gn_pinball(
+                model, params2, feats_t, prices_t1, target, loss_fn=q_loss,
+                cfg=GNPinballConfig(n_iters=n_iters, q=cfg.quantile,
+                                    block_rows=cfg.gn_block_rows))
+            if cfg.dual_mode == "shared":
+                params1 = params2
         v_t, comb, var_resid = _date_outputs_core(
-            model, params, params, feats_t, prices_t, prices_t1, target, cfg.cost_of_capital,
-            None, dual_mode="mse_only", holdings_combine=cfg.holdings_combine)
+            model, params1, params2, feats_t, prices_t, prices_t1, target, cfg.cost_of_capital,
+            g_pre, dual_mode=cfg.dual_mode, holdings_combine=cfg.holdings_combine)
         values[:, t] = v_t
         phi_t, psi_t = _split_holdings(comb)
         phi_cols.append(phi_t)
         psi_cols.append(psi_t)
         var_cols.append(var_resid)
-        snaps.append(params)
-        # the date's one host read: its fit metrics
-        metrics.append(torch.stack([aux["final_loss"], aux["mae"], aux["mape"],
-                                    aux["n_epochs_ran"].to(dtype)]).cpu())
+        snaps1.append(params1)
+        snaps2.append(params2)
+        # the date's one host read: its fit metrics (the quantile leg's last two)
+        row = [aux["final_loss"], aux["mae"], aux["mape"], aux["n_epochs_ran"].to(dtype)]
+        if q_aux is not None:
+            row += [q_aux["final_loss"], q_aux["n_epochs_ran"].to(dtype)]
+        metrics.append(torch.stack(row).cpu())
     # walked t downward; stored date-ascending
     m = torch.stack(metrics[::-1]).double().numpy()
 
     def asc(cols):
         return torch.stack(cols[::-1], dim=1)
 
+    def by_date(snaps):
+        return {k: torch.stack([p[k] for p in snaps[::-1]]) for k in snaps[0]}
+
+    dual = cfg.dual_mode != "mse_only"
     return BackwardResult(
         values=values, phi=asc(phi_cols), psi=asc(psi_cols), var_residuals=asc(var_cols),
         train_loss=m[:, 0], train_mae=m[:, 1], train_mape=m[:, 2],
-        epochs_ran=m[:, 3].astype(np.int64), params1=params, params2=params,
-        params1_by_date={k: torch.stack([p[k] for p in snaps[::-1]]) for k in params},
-        params2_by_date=None)
+        epochs_ran=m[:, 3].astype(np.int64), params1=params1, params2=params2,
+        params1_by_date=by_date(snaps1),
+        params2_by_date=by_date(snaps2) if cfg.dual_mode == "separate" else None,
+        quantile_loss=m[:, 4] if dual else None,
+        quantile_epochs_ran=m[:, 5].astype(np.int64) if dual else None)

@@ -159,3 +159,45 @@ def test_fit_gn_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(out["cuda"]["final_loss"], out["cpu"]["final_loss"], rtol=1e-9)
     np.testing.assert_allclose(out["cuda"]["loss_history"], out["cpu"]["loss_history"],
                                rtol=1e-8)
+
+
+PENSION = dict(y0=1.0, mu=0.08, sigma=0.15, l0=0.01, mort_c=0.075, eta=0.000597, n0=10000.0)
+# the CIR-vol fund at StochVolConfig()'s values (v is vol)
+PENSION_SV = dict(PENSION, sigma=None, sv=True, v0=0.15, cir_a=0.00336, cir_b=0.15431,
+                  cir_c=0.01583)
+
+
+@pytest.mark.parametrize("n_paths, n_steps, store", [(1, 40, 10), (1000, 40, 1),
+                                                     (4097, 1000, 25)])
+@pytest.mark.parametrize("mode", ["normal", "inversion"])
+@pytest.mark.parametrize("sv", [False, True])
+def test_fused_pension_matches_plain(cuda, n_paths, n_steps, store, mode, sv):
+    """Tolerances of tests/test_pallas.py: Y and lambda at rtol 3e-5 (lambda
+    atol 3e-8; with the SV fund Y, v and lambda atol 3e-7); the survivors N
+    equal on >= 99.9% of knots and never more than one death apart."""
+    kw = dict(PENSION_SV if sv else PENSION, dt=10.0 / n_steps, seed=1234, store_every=store,
+              binomial_mode=mode)
+    before = fused_mf.pension_fused.launches
+    got = fused_mf.pension_fused(n_paths, n_steps, device=cuda, **kw)
+    torch.cuda.synchronize()
+    assert fused_mf.pension_fused.launches == before + 1
+    want = fused_mf.pension_plain(n_paths, n_steps, device=cuda, **kw)
+    assert sorted(got) == sorted(want)
+    for k, v in got.items():
+        assert v.shape == (n_paths, n_steps // store + 1), k
+    atol = 3e-7 if sv else 3e-8
+    torch.testing.assert_close(got["Y"], want["Y"], rtol=3e-5, atol=atol if sv else 0.0)
+    torch.testing.assert_close(got["lam"], want["lam"], rtol=3e-5, atol=atol)
+    if sv:
+        torch.testing.assert_close(got["v"], want["v"], rtol=3e-5, atol=atol)
+    diff = (got["N"] - want["N"]).abs()
+    assert float((diff > 0).double().mean()) < 1e-3 and float(diff.max()) <= 1.0
+
+
+def test_fused_pension_validates_on_card(cuda):
+    with pytest.raises(ValueError, match="threefry"):
+        fused_mf.pension_fused(128, 8, dt=0.25, binomial_mode="exact", device=cuda, **PENSION)
+    with pytest.raises(ValueError, match="sigma is required"):
+        fused_mf.pension_fused(128, 8, dt=0.25, device=cuda, **dict(PENSION, sigma=None))
+    with pytest.raises(ValueError, match="direction table"):
+        fused_mf.pension_fused(128, 4097, dt=0.01, device=cuda, **PENSION)

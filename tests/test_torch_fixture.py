@@ -1,12 +1,12 @@
-"""The committed JAX fixtures (``orp_tpu_torch/_data/north_star_policy`` and
-``orp_tpu_torch/_data/heston_walk``).
+"""The committed JAX fixtures (``orp_tpu_torch/_data/north_star_policy``,
+``orp_tpu_torch/_data/heston_walk`` and ``orp_tpu_torch/_data/pension_walk``).
 
 The card's machine has no JAX, so the smoke run holds the card to outputs of
 the JAX package stored in the repository. This file holds each fixture
 against what the JAX package computes today, holds the port's CPU path
 against the stored JAX outputs, and is the fixtures' generator::
 
-    python tests/test_torch_fixture.py --write [north_star | heston_walk]
+    python tests/test_torch_fixture.py --write [north_star | heston_walk | pension_walk]
 
 (no name writes both).
 
@@ -25,6 +25,16 @@ from them with ``warm_start``: it stores ``init.npz``, the per-date params
 as a bundle (``bundle.json`` + ``policy.npz``) and ``reference.json``, the
 report of the Pallas-engine run and, under ``"scan"``, of the scan-engine
 run from the same params.
+
+The pension generator runs ``pension_hedge`` at 4,096 paths of the
+reference's multi-step pension under the Gauss-Newton dual walk
+(``tools/parity_runs.seeds3_gn_cfg(1234)``: ``shared`` mode, ``py`` combine,
+60/30 iterations) on the Pallas engine with ``binomial_mode="inversion"``:
+it stores the walk's initial params as JAX draws them (``init.npz``), the
+per-date params as a bundle, and ``reference.json``: the report, under
+``"oos"`` the ``pension_oos(..., allow_in_sample=True)`` replay of those
+params on the same paths, and under ``"scan"`` the same walk on the scan
+engine.
 
 The in-suite recomputes run the scan engine: the Pallas interpreter takes
 ~25 s (GBM) and ~35 s (Heston) on a CPU for 4,096 paths x 364 steps, the
@@ -52,7 +62,7 @@ from orp_tpu.models.mlp import HedgeMLP as JHedgeMLP  # noqa: E402
 from orp_tpu.serve import HedgeEngine as JHedgeEngine  # noqa: E402
 from orp_tpu.serve.bundle import PolicyBundle as JPolicyBundle  # noqa: E402
 from orp_tpu.train.backward import BackwardResult as JBackwardResult  # noqa: E402
-from orp_tpu_torch import HESTON_WALK, NORTH_STAR_POLICY  # noqa: E402
+from orp_tpu_torch import HESTON_WALK, NORTH_STAR_POLICY, PENSION_WALK  # noqa: E402
 from orp_tpu_torch import api as tapi  # noqa: E402
 from orp_tpu_torch.serve import HedgeEngine, load_bundle, save_bundle  # noqa: E402
 from orp_tpu_torch.serve.bundle import model_meta  # noqa: E402
@@ -242,6 +252,97 @@ def load_heston_init(directory=HESTON_WALK) -> dict:
         return {k: z[k] for k in z.files}
 
 
+PENSION_N = 4096
+PENSION_KEYS = ("v0", "phi0", "psi0", "discounted_payoff")
+# The 4,096-path pension dual walk is chaotic like the Heston one; over 16
+# runs with the fund's knots moved by one ulp (tools/torch_walk_spread.py
+# --walk pension, CPU) the largest gaps to the stored JAX report, as shares
+# of V0, were 0.40% (V0), 1.20% (phi0) and 1.48% (psi0). The bands are about
+# twice the largest gap measured.
+PENSION_BAND = {"v0": 0.01, "phi0": 0.03, "psi0": 0.03}
+
+
+def pension_config(engine: str = "pallas"):
+    """``seeds3_gn_cfg(1234)`` at 4,096 paths on ``engine`` with inversion thinning."""
+    from tools.parity_runs import seeds3_gn_cfg
+
+    cfg = seeds3_gn_cfg(1234)
+    return dataclasses.replace(cfg, sim=dataclasses.replace(
+        cfg.sim, n_paths=PENSION_N, engine=engine, binomial_mode="inversion"))
+
+
+def port_pension_config(cfg):
+    """The JAX config's twin in the port's config classes."""
+    t, s = cfg.train, cfg.sim
+    return tapi.HedgeRunConfig(
+        market=tapi.MarketConfig(**dataclasses.asdict(cfg.market)),
+        actuarial=tapi.ActuarialConfig(**dataclasses.asdict(cfg.actuarial)),
+        sim=tapi.SimConfig(n_paths=s.n_paths, T=s.T, dt=s.dt,
+                           rebalance_every=s.rebalance_every, seed=s.seed,
+                           seed_fund=s.seed_fund, engine=s.engine,
+                           binomial_mode=s.binomial_mode),
+        train=tapi.TrainConfig(dual_mode=t.dual_mode, holdings_combine=t.holdings_combine,
+                               optimizer=t.optimizer, gn_iters_first=t.gn_iters_first,
+                               gn_iters_warm=t.gn_iters_warm, seed=t.seed,
+                               cost_of_capital=t.cost_of_capital, quantile=t.quantile))
+
+
+def pension_jax_init(cfg) -> dict:
+    """The walk's cold-start params as ``backward_induction`` draws them: the
+    first split of ``key(seed)``, output bias ``(1 - otm, otm)``."""
+    grid = japi.pipelines.TimeGrid(cfg.sim.T, cfg.sim.n_steps)
+    y_t = japi.pipelines._simulate_pension_paths(cfg, None, grid, "fixture")["Y"][:, -1]
+    otm = float(jnp.mean(y_t < cfg.market.y0))
+    k1 = jax.random.split(jax.random.key(cfg.train.seed), 3)[0]
+    params = JHedgeMLP(n_features=3, dtype=jnp.float32).init(k1, bias_init=(1.0 - otm, otm))
+    return {k: np.asarray(v, np.float32) for k, v in params.items()}
+
+
+def pension_report(report) -> dict:
+    out = {k: float(getattr(report, k)) for k in PENSION_KEYS}
+    out["var_overall"] = [float(x) for x in report.var_overall]
+    out["train_loss"] = [float(x) for x in report.train_loss]
+    out["epochs_ran"] = [int(x) for x in report.epochs_ran]
+    return out
+
+
+def write_pension_fixture(directory=PENSION_WALK) -> dict:
+    """Run the JAX pension walk (Pallas engine, interpret mode) and store it."""
+    directory = pathlib.Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    cfg = pension_config()
+    init = pension_jax_init(cfg)
+    t0 = time.perf_counter()
+    res = japi.pension_hedge(cfg)
+    train_s = time.perf_counter() - t0
+    state = res.backward.policy_state()
+    s, t = cfg.sim, cfg.train
+    meta = {"model": model_meta(HedgeMLP(n_features=3)),
+            "times": np.asarray(res.times, np.float64).tolist(),
+            "adjustment_factor": float(res.adjustment_factor), "dual_mode": res.dual_mode,
+            "holdings_combine": res.holdings_combine,
+            "cost_of_capital": float(res.cost_of_capital), "sim_seed": res.sim_seed,
+            "trained_with": {"pipeline": "orp_tpu.api.pension_hedge",
+                             "config": "tools/parity_runs.seeds3_gn_cfg(1234)",
+                             "n_paths": PENSION_N, "engine": s.engine,
+                             "binomial_mode": s.binomial_mode, "T": s.T, "dt": s.dt,
+                             "rebalance_every": s.rebalance_every, "seed": s.seed,
+                             "optimizer": t.optimizer, "gn_iters_first": t.gn_iters_first,
+                             "gn_iters_warm": t.gn_iters_warm, "initial_params": "init.npz",
+                             "train_seconds_cpu": round(train_s, 1)}}
+    params1 = {k: np.asarray(v, np.float32) for k, v in state["params1_by_date"].items()}
+    metrics = {k: np.asarray(state[k]) for k in
+               ("train_loss", "train_mae", "train_mape", "epochs_ran")}
+    save_bundle(directory, meta, params1, None, metrics)
+    np.savez(directory / "init.npz", **init)
+    report = pension_report(res.report)
+    oos = japi.pension_oos(res, cfg, allow_in_sample=True)
+    report["oos"] = {k: float(getattr(oos.report, k)) for k in PENSION_KEYS}
+    report["scan"] = pension_report(japi.pension_hedge(pension_config("scan")).report)
+    (directory / "reference.json").write_text(json.dumps(report, indent=1, sort_keys=True))
+    return {"train_seconds_cpu": train_s, **report}
+
+
 @pytest.fixture(scope="module")
 def stored():
     with np.load(NORTH_STAR_POLICY / "reference.npz") as z:
@@ -392,14 +493,89 @@ def test_port_replays_stored_heston_walk_on_cpu():
     np.testing.assert_allclose(res.report.var_overall, report["var_overall"], rtol=1e-4)
 
 
+def load_pension_init(directory=PENSION_WALK) -> dict:
+    with np.load(pathlib.Path(directory) / "init.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+def assert_pension_band(got: dict, want: dict) -> None:
+    """V0 relative, phi0 and psi0 as shares of V0 (the split is weakly identified)."""
+    for k, lim in PENSION_BAND.items():
+        gap = (got[k] - want[k]) / want["v0"]
+        assert abs(gap) <= lim, (k, got[k], want[k], gap)
+
+
+def test_pension_fixture_matches_jax_today():
+    """The JAX package, run today, reproduces the stored scan-engine walk at
+    ``rtol=1e-6`` (same programs, same backend); the stored Pallas-engine run
+    (what the card is held to) lies inside the walk's band of it."""
+    report = json.loads((PENSION_WALK / "reference.json").read_text())
+    got = pension_report(japi.pension_hedge(pension_config("scan")).report)
+    for k in (*PENSION_KEYS, "var_overall", "train_loss"):
+        np.testing.assert_allclose(got[k], report["scan"][k], rtol=1e-6, err_msg=k)
+    assert_pension_band(report, got)
+
+
+def test_pension_fixture_bundle_and_provenance():
+    policy = load_bundle(PENSION_WALK)
+    meta = json.loads((PENSION_WALK / "bundle.json").read_text())
+    assert policy.n_dates == 40 and policy.dual_mode == "shared"
+    assert policy.holdings_combine == "py" and policy.backward.params2_by_date is None
+    assert policy.model.n_features == 3 and policy.model.n_params() == 122
+    assert meta["trained_with"]["n_paths"] == PENSION_N
+    assert meta["trained_with"]["binomial_mode"] == "inversion"
+    init = load_pension_init()
+    assert sorted(init) == ["b0", "b1", "b2", "w0", "w1", "w2"] and init["w0"].shape == (3, 8)
+    assert sum(p.stat().st_size for p in PENSION_WALK.iterdir()) < 1 << 20
+
+
+def test_port_pension_walk_matches_stored_report_on_cpu():
+    """The port's pension dual walk (the K3c plain twin's paths, the GN walk on
+    the CPU) from the stored JAX initial params, against the stored JAX report
+    inside the walk's band. The discounted liability at rtol 1e-3: the paths
+    agree to f32 roundoff except where one ulp of q = 1 - p moves the
+    reference's saturating CDF walk to 128 deaths in a step (measured 1.4e-4)."""
+    report = json.loads((PENSION_WALK / "reference.json").read_text())
+    cfg = port_pension_config(pension_config())
+    inp = tapi.pipelines.pension_inputs(cfg, "fixture", "cpu")
+    res = tapi.pipelines.backward_induction(
+        HedgeMLP(n_features=3), inp.features, inp.y, inp.b, inp.terminal,
+        tapi.pipelines._backward_cfg(cfg.train), initial_params=(load_pension_init(), None))
+    rep = tapi.pipelines._pension_result(cfg, inp, res, HedgeMLP(n_features=3), "sort").report
+    assert_pension_band({k: getattr(rep, k) for k in PENSION_KEYS}, report)
+    np.testing.assert_allclose(rep.discounted_payoff, report["discounted_payoff"], rtol=1e-3)
+    assert res.values.shape == (PENSION_N, 41) and res.quantile_epochs_ran.shape == (40,)
+
+
+def test_port_replays_stored_pension_walk_on_cpu():
+    """The stored JAX walk's own per-date params replayed by the port's
+    ``pension_oos`` on the same in-sample paths: no training, so no chaos.
+    V0, phi0 and psi0 within 1e-5 of the stored JAX replay (t=0 features are
+    the same on every path, so they are one forward pass each); the
+    discounted liability at rtol 1e-3, as above."""
+    report = json.loads((PENSION_WALK / "reference.json").read_text())
+    cfg = port_pension_config(pension_config())
+    with pytest.warns(UserWarning, match="dual_mode='shared'"):
+        res = tapi.pension_oos(load_bundle(PENSION_WALK), cfg, allow_in_sample=True,
+                               device="cpu")
+    for k in ("v0", "phi0", "psi0"):
+        np.testing.assert_allclose(getattr(res.report, k), report["oos"][k], rtol=1e-5,
+                                   err_msg=k)
+    np.testing.assert_allclose(res.report.discounted_payoff, report["oos"]["discounted_payoff"],
+                               rtol=1e-3)
+
+
 if __name__ == "__main__":
     if "--write" not in sys.argv[1:]:
-        sys.exit("usage: python tests/test_torch_fixture.py --write [north_star | heston_walk]")
-    which = [a for a in sys.argv[1:] if a != "--write"] or ["north_star", "heston_walk"]
+        sys.exit("usage: python tests/test_torch_fixture.py --write "
+                 "[north_star | heston_walk | pension_walk]")
+    which = ([a for a in sys.argv[1:] if a != "--write"]
+             or ["north_star", "heston_walk", "pension_walk"])
     # the suite's JAX settings (tests/conftest.py), so the in-suite recompute
     # runs the same programs as the generator
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    writers = {"north_star": write_fixture, "heston_walk": write_heston_fixture}
+    writers = {"north_star": write_fixture, "heston_walk": write_heston_fixture,
+               "pension_walk": write_pension_fixture}
     for name in which:
         print(json.dumps({name: writers[name]()}, indent=1, default=float))

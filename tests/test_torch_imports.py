@@ -71,10 +71,12 @@ def test_entry_points_default_to_the_card():
     """Without ``device=`` an entry point means the card, and raises without one."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable here")
-    from orp_tpu_torch import HESTON_WALK, NORTH_STAR_POLICY
-    from orp_tpu_torch.api import (SimConfig, TrainConfig, european_hedge, european_oos,
-                                   heston_hedge, heston_oos)
-    from orp_tpu_torch.qmc import gbm_log_fused, heston_log_fused, heston_qe_fused
+    from orp_tpu_torch import HESTON_WALK, NORTH_STAR_POLICY, PENSION_WALK
+    from orp_tpu_torch.api import (HedgeRunConfig, SimConfig, TrainConfig, european_hedge,
+                                   european_oos, heston_hedge, heston_oos, pension_hedge,
+                                   pension_oos)
+    from orp_tpu_torch.qmc import (gbm_log_fused, heston_log_fused, heston_qe_fused,
+                                   pension_fused)
     from orp_tpu_torch.serve import HedgeEngine, load_bundle
 
     policy = load_bundle(NORTH_STAR_POLICY)
@@ -87,7 +89,11 @@ def test_entry_points_default_to_the_card():
              lambda: heston_hedge(sim=sim, train=train),
              lambda: heston_oos(load_bundle(HESTON_WALK)),
              lambda: heston_qe_fused(128, 8, **heston),
-             lambda: heston_log_fused(128, 8, **heston)]
+             lambda: heston_log_fused(128, 8, **heston),
+             lambda: pension_hedge(HedgeRunConfig(sim=sim, train=train)),
+             lambda: pension_oos(load_bundle(PENSION_WALK)),
+             lambda: pension_fused(128, 8, y0=1.0, mu=0.08, sigma=0.15, l0=0.01, mort_c=0.075,
+                                   eta=0.000597, n0=1e4, dt=0.25)]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

@@ -103,7 +103,7 @@ def test_walk_in_f32_from_seeded_init(walk_inputs):
 
 @pytest.mark.parametrize("cfg, match", [
     (dict(dual_mode="mse_only"), "ROADMAP A8"),                       # optimizer="adam"
-    (dict(GN, dual_mode="separate"), "quantile leg"),
+    (dict(GN, dual_mode="separate", gn_quantile=False), "quantile leg"),
     (dict(GN, fused=True), "fused=True"),
     (dict(GN, checkpoint_dir="ckpt"), "checkpoint_dir"),
     (dict(GN, nan_guard=True), "nan_guard=True"),
