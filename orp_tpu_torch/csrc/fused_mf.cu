@@ -16,32 +16,43 @@
 // (constant-vol pension skips factor 2 of its 4-factor layout). The kSlots
 // state values are stored every store_every steps, knot-major.
 //
-// What bounds it on the H100: arithmetic. Per path-step: one Sobol word per
-// used factor (32-term masked XOR, two bit reversals, the Laine-Karras hash
-// each), an AS241 per normal, and the step's f32 work: for QE about forty
-// operations with four square roots and one or two logarithms; for the
-// pension an exp, and the population draw (one walk trip per death under
-// inversion, about two at dt = 0.01). Against that the kernel stores 4 bytes
-// per slot per path per knot: Heston at 1M paths x 364 steps, 53 knots, 444 MB
-// (~0.13 ms at 3.35 TB/s); the pension at 1M x 1,000 steps, 41 knots, 3
-// slots, 516 MB (~0.15 ms), while their operations take about 1 and 3 ms at
-// the card's peak rates.
+// What bounds it on the H100: instruction issue. The knots are few bytes
+// (Heston at 1M paths x 364 steps, 53 knots: 444 MB, ~0.13 ms at 3.35 TB/s;
+// the pension at 1M x 1,000 steps, 41 knots, 3 slots: 516 MB, ~0.15 ms),
+// while every path-step issues a few hundred SIMT instructions: a Sobol word
+// per used factor, an AS241 per normal, the step (QE about forty f32
+// operations with four square roots and a log or two; the pension an exp and
+// its population draw) and, for the pension's inversion sampler, the CDF walk.
 //
 // What the design does about it:
 // - one thread per path, the whole state in registers for all steps, only
 //   knots reach device memory (the TPU kernel's VMEM carry, without its
 //   power-of-two block rule, its (rows, 128) tiling or its static/dynamic
 //   knot-store split, which exist only for the TPU; any n_paths up to 2^32);
-// - the path's index masks are built once and shared by every factor's XOR;
-//   the direction rows are warp-wide broadcast __ldg loads (sobol_device.cuh);
+// - warp-shared Sobol words: the 32 lanes of a warp hold 32 consecutive path
+//   indices, so index bits 5-31 are the same on every lane. Every 32
+//   dimensions (8 pension steps, 16 Heston steps) lane j forms the warp part
+//   of dimension base + j (the 27 terms of those bits) and its scramble key
+//   hash(seed, dim); each draw fetches both with __shfl_sync and XORs in the
+//   5 terms of the lane's own bits (sobol_device.cuh). By XOR linearity the
+//   word is bitwise the one of the 32-term XOR. A lane past n_paths runs the
+//   loop without storing, so that every shuffle has all 32 lanes;
+// - the knots are stored by a countdown, not a modulo per step;
+// - the pension's AS241 (ndtri_as241_rn) runs its central and near-tail
+//   branches as one Horner pair with per-lane coefficients, since every warp
+//   has lanes in both (below), and leaves out the far tail, which its
+//   bucket-centred uniforms never reach; the Heston steps keep the contracted, branching
+//   ndtri_as241, where a select per coefficient costs about what it saves;
 // - QE's A <= 0 martingale correction and the pension's fund (constant vol or
 //   SV) and population sampler are template flags, not per-element tests, as
 //   they are trace-time branches in JAX; only the selected QE variance branch
 //   (and its log) is evaluated, which leaves the result unchanged;
 // - the pension's CDF walk stops at the first k with cdf >= u (cdf never
-//   falls, so JAX's remaining fixed trips change no count), and runs only
-//   where the mean death count is <= 45; the CLT draw and its AS241 only
-//   where it is above;
+//   falls, so JAX's remaining fixed trips change no count), and at the first
+//   trip that leaves a cdf below u unchanged while the next multiplier is at
+//   most 1/2 (no later trip can move it: the walk ends at 128, the plain
+//   version's stuck rule); it runs only where the mean death count is <= 45,
+//   the CLT draw and its AS241 only where it is above;
 // - the host-f64 constants arrive as f32 values rounded once, the rule
 //   fused_gbm.cu follows; constants in the code are f-suffixed. No fast math;
 //   nvcc contracts a*b+c into FMA, so the Heston paths agree with the plain
@@ -53,6 +64,15 @@
 //   of lambda moves q = 1 - p by up to 4e-4 relative, which moves where the
 //   reference's f32 CDF walk saturates (its cdf plateaus up to ~2e-4 below 1,
 //   and a uniform above the plateau takes all 128 trips).
+//
+// The divergence that remains is inherent to the bitwise contract. Sobol
+// points on 32 consecutive indices are stratified (one per 1/32 of (0, 1) in
+// every dimension), so every warp-draw has lanes in both AS241 branches, and
+// no lane map changes that: the merged pension AS241 pays for a log and a
+// square root on every lane instead. A warp walks the CDF as long as its lane
+// with the most deaths (about 4.6 trips per warp-step at dt = 0.01 against
+// 1.4 per lane); the walk's count is the integer the reference draws, so it
+// cannot be replaced by a table or a closed form that would round elsewhere.
 
 #include "sobol_device.cuh"
 
@@ -68,29 +88,59 @@ template <class Step>
 __global__ void __launch_bounds__(256)
 mf_kernel(const uint32_t* __restrict__ dirs, Outs outs, unsigned long long n_paths,
           int n_steps, int store_every, uint32_t seed, Step step) {
+  static_assert(32 % Step::kFactors == 0, "a refill covers whole steps");
+  constexpr int kStepsPerRefill = 32 / Step::kFactors;
   const unsigned long long g =
       (unsigned long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n_paths) return;
-  uint32_t mask[32];
-  orp::index_masks((uint32_t)g, mask);  // the Sobol point index of this path
+  // __shfl_sync needs every lane: only a warp wholly past n_paths leaves, the
+  // others' lanes past it compute and store nothing
+  if ((g & ~31ull) >= n_paths) return;
+  const bool live = g < n_paths;
+  const uint32_t lane = threadIdx.x & 31u;
+  const uint32_t hi = (uint32_t)g & ~31u;  // index bits 5-31, the same on the whole warp
+  uint32_t lane_mask[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) lane_mask[k] = orp::bit_mask(lane, k);
+  const uint32_t n_dims = (uint32_t)n_steps * Step::kFactors;
   float state[Step::kSlots];
   step.init(state);
+  unsigned long long at = g;  // this path's element of the current knot
+  if (live) {
 #pragma unroll
-  for (int j = 0; j < Step::kSlots; ++j) outs.p[j][g] = state[j];
-  unsigned long long knot = 1;
+    for (int j = 0; j < Step::kSlots; ++j) outs.p[j][at] = state[j];
+  }
+  // lane j holds the warp part and the scramble key of dimension base + j
+  uint32_t warp_word = 0u, key = 0u, base = 0u;
+  int off = 0;  // the current step's first dimension, relative to base
+  int refill_in = 0, store_in = store_every;
   for (int t = 1; t <= n_steps; ++t) {
+    if (refill_in == 0) {  // every kStepsPerRefill steps: dimensions base .. base + 31
+      if (t > 1) base += 32u;
+      const uint32_t dim = base + lane;
+      warp_word = dim < n_dims ? orp::sobol_warp_part(dirs, dim, hi) : 0u;
+      key = orp::hash_combine(seed, dim);
+      refill_in = kStepsPerRefill;
+      off = 0;
+    }
     float u[Step::kFactors];
 #pragma unroll
     for (int f = 0; f < Step::kFactors; ++f) {
       if ((Step::kUsed >> f) & 1u) {
-        u[f] = orp::sobol_uniform(dirs, mask, (uint32_t)((t - 1) * Step::kFactors + f), seed);
+        const uint32_t x = __shfl_sync(0xFFFFFFFFu, warp_word, off + f) ^
+                           orp::sobol_lane_part(dirs, base + off + f, lane_mask);
+        u[f] = orp::scrambled_uniform(x, __shfl_sync(0xFFFFFFFFu, key, off + f));
       }
     }
     step.advance(state, u);
-    if (t % store_every == 0) {
+    off += Step::kFactors;
+    --refill_in;
+    if (--store_in == 0) {
+      at += n_paths;
+      if (live) {
 #pragma unroll
-      for (int j = 0; j < Step::kSlots; ++j) outs.p[j][knot * n_paths + g] = state[j];
-      ++knot;
+        for (int j = 0; j < Step::kSlots; ++j) outs.p[j][at] = state[j];
+      }
+      store_in = store_every;
     }
   }
 }
@@ -209,7 +259,15 @@ struct Pension {
         pmf = fmaxf(__fmul_rn(__fdiv_rn(__fmul_rn(pmf, __fsub_rn(pop, kf - 1.0f)), kf), ratio),
                     0.0f);
         d = kf;
-        cdf = __fadd_rn(cdf, pmf);
+        const float moved = __fadd_rn(cdf, pmf);
+        // stuck: this trip left cdf (< u) as it was and every later pmf is at
+        // most half the last, so no later trip moves it either and the fixed
+        // 128-trip walk ends at 128 (sde/kernels.binomial_inversion_deaths)
+        if (moved == cdf &&
+            __fmul_rn(__fdiv_rn(__fsub_rn(pop, kf), kf + 1.0f), ratio) <= 0.5f) {
+          return (float)kWalk;
+        }
+        cdf = moved;
       }
       return d;
     }

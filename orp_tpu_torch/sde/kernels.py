@@ -244,7 +244,8 @@ _INVERSION_MEAN_MAX = 45.0  # per-element switch to the CLT draw: the walk cover
 
 
 def binomial_inversion_deaths(u: torch.Tensor, n: torch.Tensor, q: torch.Tensor,
-                              pmf0: torch.Tensor, z_clt: torch.Tensor) -> torch.Tensor:
+                              pmf0: torch.Tensor, z_clt: torch.Tensor,
+                              stuck_at: torch.Tensor | None = None) -> torch.Tensor:
     """Invert ``D ~ Binomial(n, q)`` from the uniform ``u`` by the CDF walk
     ``pmf_k = pmf_{k-1} (n-k+1)/k q/(1-q)``, ``D = #{k : cdf_{k-1} < u}`` over
     ``k = 1..128``, with the CLT draw ``clip(round(n q + sd z_clt), 0, n)``
@@ -259,7 +260,9 @@ def binomial_inversion_deaths(u: torch.Tensor, n: torch.Tensor, q: torch.Tensor,
     most 1/2 marks the element stuck: every later ``pmf`` is smaller, so no
     later trip moves ``cdf`` either, and a stuck element below ``u`` ends at
     128. The division by ``k`` is by a device tensor, so a CUDA run divides
-    and does not multiply by a rounded reciprocal."""
+    and does not multiply by a rounded reciprocal. ``stuck_at``, where given
+    (a tensor like ``n``), receives the trip at which each element became
+    stuck and keeps its value where none did."""
     mean_d = n * q
     ratio = q / torch.clamp(1.0 - q, min=1e-30)
     cdf, pmf = pmf0, pmf0
@@ -274,7 +277,10 @@ def binomial_inversion_deaths(u: torch.Tensor, n: torch.Tensor, q: torch.Tensor,
         pmf = torch.clamp(pmf * (n - (k - 1.0)) / ks[k - 1] * ratio, min=0.0)
         deaths = torch.where(below, ks[k - 1], deaths)
         moved = cdf + pmf
-        stuck |= (moved == cdf) & ((n - float(k)) / ks[k] * ratio <= 0.5)
+        now = (moved == cdf) & ((n - float(k)) / ks[k] * ratio <= 0.5)
+        if stuck_at is not None:
+            stuck_at.copy_(torch.where(now & ~stuck, ks[k - 1], stuck_at))
+        stuck |= now
         cdf = moved
     deaths = torch.where(stuck & (cdf < u), ks[_INVERSION_K - 1], deaths)
     sd_d = torch.sqrt(torch.clamp(n * q * (1.0 - q), min=0.0))

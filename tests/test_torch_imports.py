@@ -27,7 +27,9 @@ def _is_forbidden(name: str) -> bool:
 def _sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "tools" / "torch_profile_paths.py",
-                                         ROOT / "tools" / "torch_walk_spread.py"]
+                                         ROOT / "tools" / "torch_walk_spread.py",
+                                         ROOT / "tools" / "torch_kernel_digest.py",
+                                         ROOT / "tools" / "torch_warp_census.py"]
 
 
 def test_prefix_rule():

@@ -1,0 +1,162 @@
+#!/usr/bin/env python3
+"""SHA-256 digests of the multi-factor path kernels' outputs on the card, with
+their build report and, on request, their times and SASS census.
+
+    python3 tools/torch_kernel_digest.py [--tree DIR] [--time] [--sass]
+
+Runs the kernels of ``orp_tpu_torch/csrc/fused_mf.cu`` at ``chip_smoke.py``'s
+main-path shapes and seeds, each once at 1,048,576 paths: K3a
+(``heston_log_fused``) and K3b (``heston_qe_fused``) over 364 steps stored
+every 7 (seed 4321), and K3c (``pension_fused``) over 1,000 steps stored every
+25 (seed 1234) in its four variants (constant-vol or SV fund, ``normal`` or
+``inversion`` thinning). It prints one line per run: the SHA-256 of the
+wrapper's outputs (each key's name and its float32 bytes, keys sorted), then
+one JSON object. A redesign that must keep every output bitwise is checked by
+running this before and after it on one card: the digests must be equal. A
+digest also depends on nvcc and libdevice, so it is compared within one
+toolkit, never pinned in code.
+
+- ``--tree DIR`` imports ``orp_tpu_torch`` from another checkout (a parent
+  commit unpacked with ``git archive``) and builds its kernels there; the
+  build report is filtered with this checkout's ``chip_smoke.ptxas_lines``.
+  Comparing two trees on one card is one call of this tool per tree, in turns
+  (parent, change, change, parent).
+- ``--time`` adds CUDA-event medians (5 rounds) of each kernel at those
+  shapes, and of K1 (``gbm_log_fused``, 1M x 364, store 7), whose source
+  shares ``sobol_device.cuh``.
+- ``--sass`` adds each ``fused_mf`` kernel's static SASS instruction count
+  and its most frequent opcodes (``cuobjdump -sass``, beside ``nvcc``).
+
+Needs a CUDA card: it raises without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import hashlib
+import importlib.util
+import json
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _module(path: pathlib.Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def runs(smoke, dev) -> dict:
+    """``{name: zero-argument call}`` of the six kernel runs at the smoke's shapes."""
+    from orp_tpu_torch.qmc import fused_mf
+
+    heston = dict(smoke.HESTON, dt=1.0 / smoke.N_STEPS, seed=smoke.OOS_SEED,
+                  store_every=smoke.STORE, device=dev)
+    pension = dict(dt=10.0 / smoke.PENSION_STEPS, seed=1234, store_every=smoke.PENSION_STORE,
+                   device=dev)
+    n = smoke.N_FULL
+    out = {"heston_euler": lambda: fused_mf.heston_log_fused(n, smoke.N_STEPS, **heston),
+           "heston_qe": lambda: fused_mf.heston_qe_fused(n, smoke.N_STEPS, **heston)}
+    for sv in (False, True):
+        for mode in ("inversion", "normal"):
+            kw = dict(smoke.PENSION_SV if sv else smoke.PENSION, binomial_mode=mode, **pension)
+            out[f"pension_{'sv' if sv else 'const'}_{mode}"] = (
+                lambda kw=kw: fused_mf.pension_fused(n, smoke.PENSION_STEPS, **kw))
+    return out
+
+
+def digest(outs: dict) -> tuple[str, dict[str, str]]:
+    """SHA-256 over every output (name, then float32 bytes), and one per output."""
+    import torch
+
+    whole, each = hashlib.sha256(), {}
+    for k in sorted(outs):
+        data = outs[k].contiguous().to(torch.float32).cpu().numpy().tobytes()
+        whole.update(k.encode())
+        whole.update(data)
+        each[k] = hashlib.sha256(data).hexdigest()
+    return whole.hexdigest(), each
+
+
+def sass_census(lib_path: pathlib.Path, nvcc: str) -> dict:
+    """Static SASS instruction count and the 12 most frequent opcodes per kernel."""
+    tool = pathlib.Path(nvcc).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                         check=True, timeout=300).stdout
+    found, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            found[name] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if name and m and m.group(1) != "NOP":
+            found[name][m.group(1).split(".")[0]] += 1
+    return {k: {"instructions": sum(c.values()), "top": dict(c.most_common(12))}
+            for k, c in found.items()}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=str(ROOT), help="checkout to import orp_tpu_torch from")
+    ap.add_argument("--time", action="store_true", help="also time each kernel (CUDA events)")
+    ap.add_argument("--sass", action="store_true", help="also count each kernel's SASS")
+    args = ap.parse_args(argv)
+    tree = pathlib.Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch_kernel_digest needs a CUDA card; none is available")
+    smoke = _module(ROOT / "chip_smoke.py", "_smoke_constants")
+    from orp_tpu_torch.qmc import fused_gbm
+    from orp_tpu_torch.utils import cuda_build
+
+    check = pathlib.Path(cuda_build.__file__).resolve()
+    if not check.is_relative_to(tree):
+        raise RuntimeError(f"orp_tpu_torch came from {check}, not from {tree}")
+    dev = torch.device("cuda")
+    reports = cuda_build.build_all()
+    build = {n: smoke.ptxas_lines(log) for n, log in reports.items()}
+    for n, lines in build.items():
+        for line in lines:
+            print(f"[build] {n}: {line}", flush=True)
+    result = {"tree": str(tree), "card": smoke.card_line(), "digests": {}, "outputs": {},
+              "build": build}
+    calls = runs(smoke, dev)
+    for name, call in calls.items():
+        outs = call()
+        torch.cuda.synchronize()
+        whole, each = digest(outs)
+        result["digests"][name], result["outputs"][name] = whole, each
+        print(f"[digest] {name}: {whole}", flush=True)
+        del outs
+    if args.time:
+        gbm_kw = dict(s0=100.0, drift=0.08, sigma=0.15, dt=1.0 / smoke.N_STEPS,
+                      seed=smoke.OOS_SEED, store_every=smoke.STORE, device=dev)
+        calls["fused_gbm"] = lambda: fused_gbm.gbm_log_fused(smoke.N_FULL, smoke.N_STEPS,
+                                                             **gbm_kw)
+        reps = {"pension": 5}
+        result["ms"] = {}
+        for name, call in calls.items():
+            n = next((v for k, v in reps.items() if name.startswith(k)), 10)
+            result["ms"][name] = smoke.cuda_ms(call, reps=n)
+            print(f"[time] {name}: {result['ms'][name]:.4f} ms (median of 5 rounds of {n})",
+                  flush=True)
+    if args.sass:
+        result["sass"] = sass_census(cuda_build._lib_path("fused_mf"), cuda_build.nvcc_path())
+        for name, c in result["sass"].items():
+            print(f"[sass] {name}: {c['instructions']} instructions; {c['top']}", flush=True)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
