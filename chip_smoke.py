@@ -10,10 +10,14 @@ last line):
 2. build: every CUDA kernel from ``orp_tpu_torch/csrc`` with ``nvcc`` for
    ``sm_90a``, one ``nvcc`` per source, all at once;
 3. kernel vs plain version on the card: K1 (fused Sobol-GBM) at 65,536 and
-   1,048,576 paths x 364 steps, store 7, ``rtol=3e-5``; K3b (Heston QE-M) and
-   K3a (Heston Euler) at the same shapes (S ``rtol=3e-5``; QE v ``rtol=2e-3,
+   1,048,576 paths x 364 steps, store 7, and at 65,536 x 364 stored every
+   step (365 knots, past the reference's single-call cap), ``rtol=3e-5``;
+   K3b (Heston QE-M) and K3a (Heston Euler) at the 1M and 65,536-path
+   shapes, store 7 (S ``rtol=3e-5``; QE v ``rtol=2e-3,
    atol=1e-6``; Euler v ``rtol=3e-5, atol=3e-6``); K2 (mixed-date head) on
-   1,048,576 rows over 52 dates, ``rtol=1e-5, atol=1e-6``;
+   1,048,576 rows over 52 dates, ``rtol=1e-5, atol=1e-6``, and K2's bf16
+   kernel at the same shapes against ``mixed_head_plain`` in bf16 by
+   ``BF16_RULE`` (>= 99.9% of elements bitwise, each within 4 bf16 spacings);
 3b. K3c (the pension system) against ``pension_plain`` on the card at 65,536
     paths x 1,000 steps, store 25, in all four variants (constant-vol or SV
     fund, ``normal`` or ``inversion`` thinning), and at 1,048,576 paths in the
@@ -69,11 +73,21 @@ last line):
     -> one 1,048,576-row mixed-date block (3 features, 40 dates, the shared
     combine) through K2, held against ``mixed_head_plain`` at ``rtol=1e-5,
     atol=1e-6``;
-14. times: each kernel and its plain version with CUDA events at the main
-    paths' shapes, beside the kernel's bound (K2 also at the pension
-    policy's 3 features and 40 dates); the GN walks' walls at 1M
-    paths and the median time of one LM iteration there (MSE and, for the
-    pension, the IRLS pinball leg).
+14. [tiers]: the north-star policy's 1,048,576-row block (phase 4) and the
+    card-trained pension policy's (phase 13) through ``HedgeEngine(policy,
+    precision=tier)`` at f32, bf16 and int8: K2's f32 kernel (f32, int8) or
+    bf16 kernel (bf16) launches once per param set and no other kernel does;
+    outputs finite f32; each tier agrees with the port's CPU tier on the same
+    rows (f32 and int8 at ``rtol=1e-5, atol=1e-6``, bf16 by ``BF16_RULE``),
+    which ``tests/test_torch_precision.py`` holds to the JAX package's
+    engine; max |dphi|, |dpsi|, |dv| against the f32 tier printed beside
+    ``PRECISION_BANDS`` (not gated: on these policies the JAX package's own
+    tiers fall outside its bands too); rows/s host-to-host; K2's f32 and
+    bf16 kernels timed at both policies' shapes, beside their bounds;
+15. times: each kernel and its plain version with CUDA events at the main
+    paths' shapes, beside the kernel's bound (K2's from [tiers]); the GN
+    walks' walls at 1M paths and the median time of one LM iteration there
+    (MSE and, for the pension, the IRLS pinball leg).
 
 Output: a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -245,11 +259,14 @@ def k3c_bound_ms(n_paths: int, n_steps: int, store_every: int, sv: bool, inversi
     return bound(bytes_, sobol_int_ops(n_paths, words), f32_ops)
 
 
-def k2_bound_ms(model, n_rows: int, n_dates: int) -> tuple[float, str]:
-    """Least time for the mixed-date head: rows in/out and params once, against
-    the forward's f32 operations (2 per FMA, bias adds, LeakyReLU)."""
+def k2_bound_ms(model, n_rows: int, n_dates: int, elem: int = 4) -> tuple[float, str]:
+    """Least time for the mixed-date head: rows in/out and params once, at
+    ``elem`` bytes an element (4 for f32, 2 for bf16; dates are int32), against
+    the forward's f32 operations (2 per FMA, bias adds, LeakyReLU; the bf16
+    kernel's roundings are not counted, so the bound is a lower one)."""
     sizes = model.layer_sizes
-    bytes_ = n_rows * (4 + 4 * sizes[0] + 4 * sizes[-1]) + 4 * n_dates * model.n_params()
+    bytes_ = (n_rows * (4 + elem * sizes[0] + elem * sizes[-1])
+              + elem * n_dates * model.n_params())
     flops = 0
     for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:])):
         flops += 2 * a * b + b + (2 * b if i < len(sizes) - 2 else 0)
@@ -258,17 +275,19 @@ def k2_bound_ms(model, n_rows: int, n_dates: int) -> tuple[float, str]:
 
 class Counts:
     """The kernels' launch counters: set to 0 just before a main path's run,
-    read just after it."""
+    read just after it. Each counter is a wrapper (its ``launches``) or a
+    ``(wrapper, attribute)`` pair."""
 
-    def __init__(self, **fns):
-        self.fns = fns
+    def __init__(self, **counters):
+        self.counters = {k: v if isinstance(v, tuple) else (v, "launches")
+                         for k, v in counters.items()}
 
     def reset(self) -> None:
-        for fn in self.fns.values():
-            fn.launches = 0
+        for fn, attr in self.counters.values():
+            setattr(fn, attr, 0)
 
     def read(self) -> dict[str, int]:
-        return {k: fn.launches for k, fn in self.fns.items()}
+        return {k: getattr(fn, attr) for k, (fn, attr) in self.counters.items()}
 
     def only(self, name: str, what: str) -> int:
         """Check that the run launched kernel ``name`` and no other."""
@@ -618,15 +637,7 @@ def pension_phases(dev, counts, launches) -> dict:
     print(f"[serve-pension] card-trained policy -> save_bundle -> load_bundle -> HedgeEngine: "
           f"{N_FULL} rows x 3 features over {n_dates} dates (shared combine) match "
           f"mixed_head_plain (rtol 1e-5, atol 1e-6); K2 launches {serve_k2}", flush=True)
-    # K2 alone at this policy's shape (the engine launches it once per param set)
-    d_dev, s_dev = torch.from_numpy(dates).to(dev), torch.from_numpy(states).to(dev)
-    packed = megakernel.pack_head_params(policy.model, p_dev)
-    out["k2_ms"] = cuda_ms(lambda: megakernel.mixed_head_forward(policy.model, p_dev, d_dev,
-                                                                 s_dev, packed=packed), reps=200)
-    out["k2_plain_ms"] = cuda_ms(lambda: megakernel.mixed_head_plain(policy.model, p_dev,
-                                                                      d_dev, s_dev),
-                                 reps=2, rounds=3)
-    out["k2_bound"] = k2_bound_ms(policy.model, N_FULL, n_dates)
+    out["policy"], out["rows"] = policy, (dates, states, prices)
 
     # -- one LM iteration of each leg at 1M (the last date's regression) -------
     inp = pipelines.pension_inputs(main_cfg, "times", dev)
@@ -647,6 +658,100 @@ def pension_phases(dev, counts, launches) -> dict:
                                         rounds=7)
         del problem
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def tier_phase(dev, counts, policy, dates, states, prices, what: str) -> dict:
+    """[tiers]: one 1M-row mixed-date request of ``policy`` through
+    ``HedgeEngine(policy, precision=tier)`` for each tier. Checks: K2's f32
+    kernel (f32, int8) or bf16 kernel (bf16) launches once per param set and no
+    other kernel does; phi, psi and v are finite f32; each tier agrees with the
+    port's CPU tier (the plain versions, which tests/test_torch_precision.py
+    holds to the JAX package's engine) on the same rows: f32 and int8 at rtol
+    1e-5 / atol 1e-6, bf16 by BF16_RULE. Reports each tier's max |dphi|,
+    |dpsi|, |dv| against the f32 tier beside PRECISION_BANDS, the CPU tier's
+    deviation, and host-to-host rows/s (median of 3)."""
+    import numpy as np
+    import torch
+
+    from orp_tpu_torch.serve import HedgeEngine, loop_of_buckets
+    from orp_tpu_torch.serve.bench import PRECISION_BANDS
+    from orp_tpu_torch.serve.precision import bf16_agreement
+
+    n_sets = 1 if policy.dual_mode == "mse_only" else 2
+    out, ref, ref_cpu = {}, None, None
+    for tier in ("f32", "bf16", "int8"):
+        engine = HedgeEngine(policy, precision=tier)
+        engine.evaluate_mixed_async(dates[:4096], states[:4096], prices[:4096]).result()
+        torch.cuda.synchronize()
+        counts.reset()
+        walls = []
+        t1 = time.perf_counter()
+        got = engine.evaluate_mixed_async(dates, states, prices).result()
+        walls.append(time.perf_counter() - t1)
+        kernel = "mixed_head_bf16" if tier == "bf16" else "mixed_head"
+        launches = counts.only(kernel, f"the {what} 1M-row {tier} request")
+        check(launches == n_sets, f"{what} {tier}: K2 launches {launches} == {n_sets}, one "
+              "per param set")
+        for _ in range(2):
+            t1 = time.perf_counter()
+            engine.evaluate_mixed_async(dates, states, prices).result()
+            walls.append(time.perf_counter() - t1)
+        for name, a in zip(("phi", "psi", "v"), got):
+            check(a.dtype == np.float32 and a.shape[0] == len(dates)
+                  and bool(np.isfinite(a).all()), f"{what} {tier} {name}: finite f32 rows")
+        cpu = loop_of_buckets(HedgeEngine(policy, device="cpu", precision=tier), dates,
+                              states, prices)
+        agree = {}
+        for name, a, b in zip(("phi", "psi", "v"), got, cpu):
+            if tier == "bf16":
+                agree[name] = bf16_agreement(a, b)
+                check(agree[name]["ok"], f"{what} bf16 {name}: card vs CPU tier {agree[name]}")
+            else:
+                np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6,
+                                           err_msg=f"{what} {tier} {name}: card vs CPU tier")
+        if tier == "f32":
+            ref, ref_cpu = got, cpu
+        dev_ = [float(np.max(np.abs(a - b))) for a, b in zip(got, ref)]
+        dev_cpu = [float(np.max(np.abs(a - b))) for a, b in zip(cpu, ref_cpu)]
+        band = PRECISION_BANDS[tier]
+        inside = max(dev_[:2]) <= band
+        out[tier] = {"dev": dev_, "dev_cpu": dev_cpu, "launches": launches,
+                     "rows_s": len(dates) / sorted(walls)[1], "inside": inside, "agree": agree}
+        share = (" card vs CPU tier bitwise on " + ", ".join(
+            f"{k} {v['equal_share']:.6%} (max {v['max_ulps']:.0f} bf16 spacings)"
+            for k, v in agree.items()) + ";") if agree else ""
+        print(f"[tiers] {what} {tier}: max |dphi| {dev_[0]:.4g}, |dpsi| {dev_[1]:.4g}, |dv| "
+              f"{dev_[2]:.4g} vs f32 (CPU tier: {dev_cpu[0]:.4g}, {dev_cpu[1]:.4g}, "
+              f"{dev_cpu[2]:.4g}); PRECISION_BANDS[{tier}] {band:g}: "
+              f"{'inside' if inside else 'outside'};{share} K2 launches {launches}; "
+              f"{out[tier]['rows_s']:,.0f} rows/s host-to-host (median of 3)", flush=True)
+    return out
+
+
+def k2_times(dev, policy, n_rows: int, seed: int) -> dict:
+    """K2's f32 and bf16 kernels and their plain versions with CUDA events on
+    ``n_rows`` random rows of ``policy``'s shape, beside each one's bound."""
+    import torch
+
+    from orp_tpu_torch.serve import megakernel
+
+    model, n_dates = policy.model, policy.n_dates
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dates = torch.randint(0, n_dates, (n_rows,), device=dev, generator=gen, dtype=torch.int32)
+    feats = (1.0 + 0.1 * torch.randn(n_rows, model.n_features, device=dev, generator=gen))
+    out = {}
+    for dt, elem in ((torch.float32, 4), (torch.bfloat16, 2)):
+        m = model.with_dtype(dt)
+        p = {k: v.to(dev, dt) for k, v in policy.backward.params1_by_date.items()}
+        f = feats.to(dt).contiguous()
+        packed = megakernel.pack_head_params(m, p)
+        key = "f32" if dt == torch.float32 else "bf16"
+        out[key] = cuda_ms(lambda: megakernel.mixed_head_forward(m, p, dates, f,
+                                                                 packed=packed), reps=200)
+        out[key + "_plain"] = cuda_ms(lambda: megakernel.mixed_head_plain(m, p, dates, f),
+                                      reps=2, rounds=3)
+        out[key + "_bound"] = k2_bound_ms(model, n_rows, n_dates, elem)
     return out
 
 
@@ -671,6 +776,7 @@ def main() -> int:
     from orp_tpu_torch.qmc import fused_gbm, fused_mf
     from orp_tpu_torch.serve import HedgeEngine, load_bundle, megakernel, save_bundle
     from orp_tpu_torch.serve.bundle import model_meta
+    from orp_tpu_torch.serve.precision import BF16_RULE, bf16_agreement
     from orp_tpu_torch.train import backward, gn
     from orp_tpu_torch.utils import bs_call, cuda_build, heston_call
 
@@ -680,6 +786,7 @@ def main() -> int:
     print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     counts = Counts(fused_gbm=fused_gbm.gbm_log_fused, mixed_head=megakernel.mixed_head_forward,
+                    mixed_head_bf16=(megakernel.mixed_head_forward, "launches_bf16"),
                     heston_qe=fused_mf.heston_qe_fused, heston_euler=fused_mf.heston_log_fused,
                     pension=fused_mf.pension_fused)
     launches = {}
@@ -706,6 +813,15 @@ def main() -> int:
         k1_err = max(k1_err, max_err(got, want))
         print(f"[K1] {n} x {N_STEPS} store {STORE}: max|kernel - plain| = "
               f"{max_err(got, want):.3e} (rtol 3e-5)", flush=True)
+    # a dense grid: 365 knots, where the reference chains _gbm_kernel_chunk calls
+    dense_kw = dict(gbm_kw, store_every=1)
+    got = fused_gbm.gbm_log_fused(65_536, N_STEPS, **dense_kw)
+    torch.cuda.synchronize()
+    want = fused_gbm.gbm_log_plain(65_536, N_STEPS, **dense_kw)
+    check(got.shape == (65_536, N_STEPS + 1), f"K1 dense shape {tuple(got.shape)}")
+    torch.testing.assert_close(got, want, rtol=3e-5, atol=0.0)
+    print(f"[K1] 65536 x {N_STEPS} store 1 ({N_STEPS + 1} knots, one launch): max|kernel - "
+          f"plain| = {max_err(got, want):.3e} (rtol 3e-5)", flush=True)
     del got, want
 
     heston_kw = dict(HESTON, dt=1.0 / N_STEPS, seed=OOS_SEED, store_every=STORE, device=dev)
@@ -751,6 +867,28 @@ def main() -> int:
                                         feats[:3], packed=packed)
     check(bool(torch.isfinite(bad[0]).all()) and bool(torch.isnan(bad[1:]).all()),
           "K2 writes NaN rows for out-of-range dates")
+    # K2's bf16 kernel at the same shapes, against mixed_head_plain in bf16
+    model_bf = model.with_dtype(torch.bfloat16)
+    p1_bf = {k: v.to(torch.bfloat16) for k, v in p1.items()}
+    feats_bf = feats.to(torch.bfloat16)
+    packed_bf = megakernel.pack_head_params(model_bf, p1_bf)
+    got = megakernel.mixed_head_forward(model_bf, p1_bf, dates, feats_bf, packed=packed_bf)
+    torch.cuda.synchronize()
+    want = megakernel.mixed_head_plain(model_bf, p1_bf, dates, feats_bf)
+    torch.cuda.synchronize()
+    check(got.dtype == torch.bfloat16 and got.shape == want.shape, "K2 bf16 output")
+    k2b_agree = bf16_agreement(got, want)
+    check(k2b_agree["ok"], f"K2 bf16 kernel vs plain: {k2b_agree} ({BF16_RULE})")
+    k2b_err = max_err(got, want)
+    print(f"[K2 bf16] {N_FULL} rows x {n_dates} dates: {k2b_agree['equal_share']:.6%} of "
+          f"elements bitwise equal to mixed_head_plain in bf16, {k2b_agree['n_differ']} "
+          f"differ (f32-accumulation order), max {k2b_agree['max_ulps']:.0f} bf16 spacings, "
+          f"max|kernel - plain| = {k2b_err:.3e} (rule {BF16_RULE})", flush=True)
+    bad = megakernel.mixed_head_forward(model_bf, p1_bf, torch.tensor(
+        [0, n_dates, -1], device=dev, dtype=torch.int32), feats_bf[:3], packed=packed_bf)
+    check(bool(torch.isfinite(bad[0]).all()) and bool(torch.isnan(bad[1:]).all()),
+          "K2 bf16 writes NaN rows for out-of-range dates")
+    del got, want
 
     # -- 4. serve (main path: K2) ---------------------------------------------
     with np.load(NORTH_STAR_POLICY / "reference.npz") as z:
@@ -1011,12 +1149,25 @@ def main() -> int:
 
     pension = pension_phases(dev, counts, launches)
 
-    # -- 14. times at the main paths' shapes ----------------------------------
+    # -- 14. [tiers]: serve both policies at f32, bf16 and int8 -----------------
+    t1 = time.perf_counter()
+    tiers = {"north-star": tier_phase(dev, counts, policy, big_dates, big_states, big_prices,
+                                      "north-star"),
+             "pension": tier_phase(dev, counts, pension["policy"], *pension["rows"],
+                                   "pension")}
+    launches["mixed_head_bf16"] = tiers["north-star"]["bf16"]["launches"]
+    k2t = {"north-star": k2_times(dev, policy, N_FULL, 7),
+           "pension": k2_times(dev, pension["policy"], N_FULL, 17)}
+    for what, t in k2t.items():
+        print(f"[tiers] {what} K2 at {N_FULL} rows: bf16 kernel {t['bf16']:.4f} ms (bound "
+              f"{t['bf16_bound'][0]:.5f} by {t['bf16_bound'][1]}, plain {t['bf16_plain']:.2f}"
+              f" ms), f32 kernel {t['f32']:.4f} ms (bound {t['f32_bound'][0]:.5f} by "
+              f"{t['f32_bound'][1]}, plain {t['f32_plain']:.2f} ms)", flush=True)
+    print(f"[tiers] {time.perf_counter() - t1:.2f} s", flush=True)
+
+    # -- 15. times at the main paths' shapes ----------------------------------
     k1 = lambda: fused_gbm.gbm_log_fused(N_FULL, N_STEPS, **gbm_kw)  # noqa: E731
     k1_plain = lambda: fused_gbm.gbm_log_plain(N_FULL, N_STEPS, **gbm_kw)  # noqa: E731
-    k2 = lambda: megakernel.mixed_head_forward(model, p1, dates, feats,  # noqa: E731
-                                               packed=packed)
-    k2_plain = lambda: megakernel.mixed_head_plain(model, p1, dates, feats)  # noqa: E731
     qe = lambda: fused_mf.heston_qe_fused(N_FULL, N_STEPS, **heston_kw)  # noqa: E731
     qe_plain = lambda: fused_mf.heston_qe_plain(N_FULL, N_STEPS, **heston_kw)  # noqa: E731
     eu = lambda: fused_mf.heston_log_fused(N_FULL, N_STEPS, **heston_kw)  # noqa: E731
@@ -1024,14 +1175,19 @@ def main() -> int:
     ms = {}
     ms["fused_gbm_plain"] = cuda_ms(k1_plain, reps=1, rounds=3)
     ms["fused_gbm"] = cuda_ms(k1, reps=10)
-    ms["mixed_head_plain"] = cuda_ms(k2_plain, reps=2, rounds=3)
-    ms["mixed_head"] = cuda_ms(k2, reps=200)
+    # K2 at the north star's shape: timed in [tiers] (k2_times), on section 3's inputs
+    ms["mixed_head"] = k2t["north-star"]["f32"]
+    ms["mixed_head_plain"] = k2t["north-star"]["f32_plain"]
     ms["heston_qe_plain"] = cuda_ms(qe_plain, reps=1, rounds=3)
     ms["heston_qe"] = cuda_ms(qe, reps=10)
     ms["heston_euler_plain"] = cuda_ms(eu_plain, reps=1, rounds=3)
     ms["heston_euler"] = cuda_ms(eu, reps=10)
     ms["heston_qe_2"] = cuda_ms(qe, reps=10)
     ms["fused_gbm_2"] = cuda_ms(k1, reps=10)
+    ms["fused_gbm_dense"] = cuda_ms(
+        lambda: fused_gbm.gbm_log_fused(N_FULL, N_STEPS, **dense_kw), reps=10)
+    ms["fused_gbm_dense_plain"] = cuda_ms(
+        lambda: fused_gbm.gbm_log_plain(N_FULL, N_STEPS, **dense_kw), reps=1, rounds=3)
     pen_kw = dict(PENSION, dt=10.0 / PENSION_STEPS, store_every=PENSION_STORE, device=dev)
     pen = lambda: fused_mf.pension_fused(N_FULL, PENSION_STEPS,  # noqa: E731
                                          binomial_mode="inversion", **pen_kw)
@@ -1044,7 +1200,7 @@ def main() -> int:
     sv_trips = float((sv_n[:, 0].double() - sv_n[:, -1].double()).sum())
     ms["pension_2"] = cuda_ms(pen, reps=5)
     bounds = {"fused_gbm": k1_bound_ms(N_FULL, N_STEPS, STORE),
-              "mixed_head": k2_bound_ms(model, N_FULL, n_dates),
+              "mixed_head": k2t["north-star"]["f32_bound"],
               "heston_qe": k3_bound_ms(N_FULL, N_STEPS, STORE, "qe"),
               "heston_euler": k3_bound_ms(N_FULL, N_STEPS, STORE, "euler"),
               "pension": k3c_bound_ms(N_FULL, PENSION_STEPS, PENSION_STORE, False, True,
@@ -1053,12 +1209,13 @@ def main() -> int:
         again = f" / {ms[name + '_2']:.4f}" if name + "_2" in ms else ""
         print(f"[times] {name} {ms[name]:.4f}{again} ms (bound {b_ms:.4f} ms by {by}, plain "
               f"{ms[name + '_plain']:.2f} ms)", flush=True)
+    dense_bound = k1_bound_ms(N_FULL, N_STEPS, 1)
+    print(f"[times] fused_gbm on the dense grid (store 1, {N_STEPS + 1} knots) "
+          f"{ms['fused_gbm_dense']:.4f} ms (bound {dense_bound[0]:.4f} ms by {dense_bound[1]}, "
+          f"plain {ms['fused_gbm_dense_plain']:.2f} ms)", flush=True)
     sv_bound = k3c_bound_ms(N_FULL, PENSION_STEPS, PENSION_STORE, True, True, sv_trips)
     print(f"[times] pension (SV fund, inversion) {ms['pension_sv']:.4f} ms (bound "
           f"{sv_bound[0]:.4f} ms by {sv_bound[1]})", flush=True)
-    print(f"[times] mixed_head at the pension policy's shape ({N_FULL} rows x 3 features, 40 "
-          f"dates) {pension['k2_ms']:.4f} ms (bound {pension['k2_bound'][0]:.4f} ms by "
-          f"{pension['k2_bound'][1]}, plain {pension['k2_plain_ms']:.2f} ms)", flush=True)
     print(f"[times] pension walls at {N_FULL} paths: pension_hedge {pension['hedge_s']:.2f} s "
           f"(40 dates, 60 + 39 x 30 iterations a leg); separate at {N_SEPARATE} "
           f"{pension['separate_s']:.2f} s; SV at {N_SV} {pension['sv_s']:.2f} s; one LM "
@@ -1106,6 +1263,14 @@ def main() -> int:
          "max_abs_err": k2_err, "ms": ms["mixed_head"], "plain_ms": ms["mixed_head_plain"],
          "bound_ms": bounds["mixed_head"][0], "bound_by": bounds["mixed_head"][1],
          "library_ms": None},
+        # the same Pallas kernel as launched in bf16 by _eval_core_mixed(precision="bf16")
+        {"name": "mixed_head_bf16", "route": "cuda",
+         "source": "orp_tpu_torch/csrc/mixed_head.cu (orp_mixed_head_bf16_launch)",
+         "replaces": "orp_tpu/serve/megakernel.py:85 (bf16)",
+         "launches": launches["mixed_head_bf16"], "max_abs_err": k2b_err,
+         "ms": k2t["north-star"]["bf16"], "plain_ms": k2t["north-star"]["bf16_plain"],
+         "bound_ms": k2t["north-star"]["bf16_bound"][0],
+         "bound_by": k2t["north-star"]["bf16_bound"][1], "library_ms": None},
         # both Heston entries are steps of one templated driver, mf_kernel<Step>, the
         # port of the generic driver _run_mf (orp_tpu/qmc/pallas_mf.py:106)
         {"name": "heston_qe", "route": "cuda",

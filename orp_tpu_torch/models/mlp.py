@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from orp_tpu_torch.utils.precision import full_f32
+from orp_tpu_torch.utils.precision import full_f32, typed_scalar
 
 Params = dict
 
@@ -67,17 +67,22 @@ class HedgeMLP:
         for i in range(len(self.hidden)):
             z = x @ params[f"w{i}"] + params[f"b{i}"]
             trace.append((x, z))
-            x = torch.where(z >= 0, z, self.negative_slope * z)
+            x = torch.where(z >= 0, z, typed_scalar(self.negative_slope, z.dtype) * z)
         return trace, x
 
     def last_hidden(self, params: Params, features: torch.Tensor) -> torch.Tensor:
         """Activations feeding the final layer: ``(n, hidden[-1])``."""
         return self._hidden(params, features)[1]
 
+    def head(self, params: Params, features: torch.Tensor) -> torch.Tensor:
+        """The last layer's raw outputs ``(n, n_outputs)``, before the
+        constrained head's ``(phi, 1 - phi)``."""
+        last = len(self.hidden)
+        return self.last_hidden(params, features) @ params[f"w{last}"] + params[f"b{last}"]
+
     def holdings(self, params: Params, features: torch.Tensor) -> torch.Tensor:
         """Forward to the holdings layer: ``(n, n_instruments)`` (phi..., psi)."""
-        last = len(self.hidden)
-        x = self.last_hidden(params, features) @ params[f"w{last}"] + params[f"b{last}"]
+        x = self.head(params, features)
         if self.constrain_self_financing:
             phi = x[..., 0]
             return torch.stack([phi, 1.0 - phi], dim=-1)

@@ -1,0 +1,155 @@
+"""Serve benchmark phases (counterpart of parts of ``orp_tpu/serve/bench.py``).
+
+Ported so far: the precision-tier sweep (:func:`precision_phase`) and the
+mixed-date kernel A/B (:func:`megakernel_phase`), with the reference's
+:data:`PRECISION_BANDS`. Each phase gates what it measures and RAISES when a
+gate fails: a phase that returns a record is a phase that passed. The
+reference's promotion drill needs ``serve/host.py`` (not ported yet), so the
+precision record says so instead of carrying one.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+
+from orp_tpu_torch.serve.engine import HedgeEngine
+from orp_tpu_torch.serve.megakernel import loop_of_buckets, mixed_head_forward
+from orp_tpu_torch.serve.precision import TIERS, bf16_agreement
+
+#: banded (not bitwise) accuracy pins per tier, copied from the reference: the
+#: largest |dphi| / |dpsi| a tier may serve against the f32 tier on the benched
+#: rows (f32 itself must be bitwise). Absolute, so they assume holdings of order
+#: one: the reference set them on a 13-date policy.
+PRECISION_BANDS = {"f32": 0.0, "bf16": 2e-2, "int8": 5e-3}
+
+#: the port's f32 tolerance between two f32 paths of one forward
+#: (``tests/test_torch_serve.py``): the same operations summed in other orders
+F32_TOL = {"rtol": 1e-5, "atol": 1e-6}
+
+
+def summarize_repeats(samples) -> dict:
+    """Median and IQR (and the quartiles and extremes) of repeated measurements.
+    Raises on an empty sample set."""
+    xs = sorted(float(s) for s in samples)
+    if not xs:
+        raise ValueError("summarize_repeats: no samples")
+    p25, p50, p75 = (float(v) for v in np.percentile(xs, [25, 50, 75]))
+    return {"repeats": len(xs), "median": p50, "iqr": p75 - p25, "p25": p25, "p75": p75,
+            "min": xs[0], "max": xs[-1]}
+
+
+def _engines(policy, device, engines):
+    return engines if engines is not None else {
+        tier: HedgeEngine(policy, precision=tier, device=device) for tier in TIERS}
+
+
+def precision_phase(policy, *, rows: int, repeats: int, seed: int, device=None,
+                    engines: dict | None = None) -> dict:
+    """The precision-tier sweep: the same feature rows through one engine per
+    tier (``engines``, ``{tier: HedgeEngine}``, built from ``policy`` on
+    ``device`` by default), each prewarmed, evaluated at date 0, then timed on
+    ``repeats`` evaluations cycling the dates.
+
+    Gates (RuntimeError): the f32 tier is bitwise itself on a second
+    evaluation; each reduced tier's max |dphi| and |dpsi| against the f32 tier
+    lies within :data:`PRECISION_BANDS`."""
+    rng = np.random.default_rng(seed)
+    engines = _engines(policy, device, engines)
+    n_features = engines["f32"].model.n_features
+    feats = (1.0 + 0.1 * rng.standard_normal((rows, n_features))).astype(np.float32)
+    levels, ref = [], None
+    for tier in TIERS:
+        engine = engines[tier]
+        bucket = engine.bucket_for(rows)
+        engine.prewarm([rows])
+        phi, psi, _ = engine.evaluate(0, feats)
+        if tier == "f32":
+            ref = (phi, psi)
+            again = engine.evaluate(0, feats)
+            bitwise = bool(np.array_equal(phi, again[0]) and np.array_equal(psi, again[1]))
+            dphi = dpsi = 0.0
+        else:
+            dphi = float(np.max(np.abs(phi - ref[0])))
+            dpsi = float(np.max(np.abs(psi - ref[1])))
+            bitwise = bool(np.array_equal(phi, ref[0]) and np.array_equal(psi, ref[1]))
+        band = PRECISION_BANDS[tier]
+        if max(dphi, dpsi) > band or (tier == "f32" and not bitwise):
+            raise RuntimeError(
+                f"precision band violated: tier {tier!r} served max|dphi|={dphi:.3g} "
+                f"max|dpsi|={dpsi:.3g} against the f32 tier (band {band:g}"
+                f"{', bitwise' if tier == 'f32' else ''})")
+        rates = []
+        for r in range(max(1, int(repeats))):
+            t0 = time.perf_counter()
+            engine.evaluate(r % engine.n_dates, feats)
+            rates.append(rows / (time.perf_counter() - t0))
+        rps = summarize_repeats(rates)
+        levels.append({"tier": tier, "rows": int(rows), "bucket": int(bucket),
+                       "repeats": rps["repeats"], "rows_per_s": rps["median"],
+                       "rows_per_s_iqr": rps["iqr"], "max_abs_dphi_vs_f32": dphi,
+                       "max_abs_dpsi_vs_f32": dpsi, "band": band,
+                       "bitwise_equal_to_f32": bitwise})
+    f32 = levels[0]["rows_per_s"]
+    return {"rows": int(rows), "device": str(engines["f32"].device), "tiers": levels,
+            "speedup_vs_f32": {lv["tier"]: lv["rows_per_s"] / max(f32, 1e-9)
+                               for lv in levels if lv["tier"] != "f32"},
+            "promotion_drill": "waits for serve/host.py"}
+
+
+def megakernel_phase(policy, *, rows: int, repeats: int, seed: int, device=None,
+                     engines: dict | None = None) -> dict:
+    """The mixed-date A/B per tier: one block of ``rows`` rows whose dates cycle
+    every date, served by ``loop_of_buckets`` (one bucketed evaluation per
+    distinct date, "off") and by ``evaluate_mixed_async`` (the mixed-date
+    kernel, "on").
+
+    Gates (RuntimeError): the two arms agree at the port's f32 tolerance
+    (:data:`F32_TOL`) in the f32 and int8 tiers, and by ``BF16_RULE`` in bf16
+    (the kernel's FMA chain and cuBLAS sum a dot in different orders, so the
+    arms are not bitwise on the card)."""
+    engines = _engines(policy, device, engines)
+    rng = np.random.default_rng(seed)
+    n_features = engines["f32"].model.n_features
+    feats = (1.0 + 0.1 * rng.standard_normal((rows, n_features))).astype(np.float32)
+    n_dates = engines["f32"].n_dates
+    dates = np.arange(rows, dtype=np.int32) % n_dates
+    rng.shuffle(dates)
+    levels = []
+    for tier in TIERS:
+        engine = engines[tier]
+        engine.prewarm([rows])
+        off = loop_of_buckets(engine, dates, feats)
+        before = mixed_head_forward.launches + mixed_head_forward.launches_bf16
+        on = engine.evaluate_mixed_async(dates, feats).result()
+        launches = mixed_head_forward.launches + mixed_head_forward.launches_bf16 - before
+        for name, a, b in zip(("phi", "psi"), on, off):
+            if tier == "bf16":
+                agree = bf16_agreement(a, b)
+                ok, how = agree["ok"], f"{agree}"
+            else:
+                ok = bool(np.allclose(a, b, **F32_TOL))
+                how = f"max |d| {float(np.max(np.abs(a - b))):.3g} ({F32_TOL})"
+            if not ok:
+                raise RuntimeError(f"mixed-date kernel and loop of buckets disagree on "
+                                   f"{name} in tier {tier!r}: {how}")
+        off_rates, on_rates = [], []
+        for _ in range(max(1, int(repeats))):
+            t0 = time.perf_counter()
+            loop_of_buckets(engine, dates, feats)
+            t1 = time.perf_counter()
+            engine.evaluate_mixed_async(dates, feats).result()
+            t2 = time.perf_counter()
+            off_rates.append(rows / (t1 - t0))
+            on_rates.append(rows / (t2 - t1))
+        off_s, on_s = summarize_repeats(off_rates), summarize_repeats(on_rates)
+        levels.append({"tier": tier, "rows": int(rows),
+                       "distinct_dates": int(len(np.unique(dates))),
+                       "repeats": on_s["repeats"], "off_rows_per_s": off_s["median"],
+                       "off_rows_per_s_iqr": off_s["iqr"], "on_rows_per_s": on_s["median"],
+                       "on_rows_per_s_iqr": on_s["iqr"],
+                       "dispatches_off": int(len(np.unique(dates))),
+                       "kernel_launches_on": int(launches),
+                       "speedup": on_s["median"] / max(off_s["median"], 1e-9)})
+    return {"rows": int(rows), "device": str(engines["f32"].device), "tiers": levels}

@@ -2,14 +2,20 @@
 
 ``HedgeEngine(policy).evaluate(date_idx, states[, prices])`` pads a request up
 to its power-of-two bucket, evaluates it and slices the padding off. The
-per-date forward is the training walk's ``_date_outputs_core`` in plain
-PyTorch (the JAX package computes it outside Pallas too), so a served
-``(phi, psi, value)`` is the ``european_oos`` ledger column on the same inputs.
+per-date forward is the model's in plain PyTorch (the JAX package computes it
+outside Pallas too) with the training walk's combines
+(``megakernel.serve_outputs``, in f32 bitwise ``_date_outputs_core``), so a
+served ``(phi, psi, value)`` is the ``european_oos`` ledger column on the
+same inputs.
 ``evaluate_mixed_async(dates, states[, prices])`` takes one date per ROW and
 runs the whole block through the mixed-date kernel (``serve/megakernel.py``).
 
-f32 tier, one device. The bf16/int8 tiers, AOT executables, mesh serving,
-the guard's circuit breaker and the telemetry spans are not ported yet.
+``HedgeEngine(policy, precision=tier)`` serves at one of the tiers of
+``serve/precision.py``: ``f32`` (the default, the historical bits), ``bf16``
+(host f32 rows become bf16 on the device; the bf16 forward, and on the card
+the bf16 kernel) or ``int8`` (int8 weights dequantized to f32 before the f32
+forward). Outputs are f32 in every tier. One device; AOT executables, mesh
+serving, the guard's circuit breaker and the telemetry spans are not ported yet.
 Buckets bound the set of shapes a request can take, which keeps the kernel's
 launch shapes and the caching allocator's block sizes to a small fixed set.
 """
@@ -23,30 +29,38 @@ from orp_tpu_torch.serve.megakernel import (
     _eval_core_mixed,
     check_head_shape,
     pack_head_params,
+    serve_outputs,
 )
-from orp_tpu_torch.train.backward import (
-    _date_outputs_core,
-    _split_holdings,
-    date_params,
-    params_to,
+from orp_tpu_torch.serve.precision import (
+    dequantize_params,
+    eval_model,
+    gather_date,
+    normalize_precision,
+    prepare_params,
 )
 from orp_tpu_torch.utils.device import resolve_device
 from orp_tpu_torch.utils.precision import full_f32
 
 
 def _eval_core(model, p1_all, p2_all, date_idx: int, feats, prices, cost_of_capital, *,
-               dual_mode, holdings_combine):
-    """One bucket-shaped evaluation at one date: gather the date's params and
-    run the walk's per-date outputs (``prices_t1 = 0``, target 0)."""
-    p1, p2 = date_params(p1_all, date_idx), date_params(p2_all, date_idx)
-    g_pre = (model.value(p1, feats, prices) if dual_mode == "shared"
-             else torch.zeros((), dtype=model.dtype, device=feats.device))
-    v, comb, _ = _date_outputs_core(
-        model, p1, p2, feats, prices, torch.zeros_like(prices),
-        torch.zeros(feats.shape[:1], dtype=model.dtype, device=feats.device),
-        cost_of_capital, g_pre, dual_mode=dual_mode, holdings_combine=holdings_combine)
-    phi, psi = _split_holdings(comb)
-    return phi, psi, v
+               dual_mode, holdings_combine, precision="f32"):
+    """One bucket-shaped evaluation at one date: gather the date's params, run
+    the model's head under each param set and the walk's combines
+    (``megakernel.serve_outputs``: ``_date_outputs_core``'s arithmetic with
+    ``prices_t1 = 0``, target 0).
+
+    ``precision`` is the tier (``serve/precision.py``): ``int8`` dequantizes
+    the gathered weights to f32 before the f32 forward, ``bf16`` runs the bf16
+    model on bf16 rows; outputs are f32 either way."""
+    p1, p2 = gather_date(p1_all, date_idx), gather_date(p2_all, date_idx)
+    if precision == "int8":
+        p1, p2 = dequantize_params(p1), dequantize_params(p2)
+    m = eval_model(model, precision)
+    feats = feats.to(m.dtype)
+    raw1 = m.head(p1, feats)
+    raw2 = raw1 if dual_mode == "mse_only" else m.head(p2, feats)
+    return serve_outputs(m, raw1, raw2, prices, cost_of_capital, dual_mode=dual_mode,
+                         holdings_combine=holdings_combine)
 
 
 def next_bucket(n: int, *, min_bucket: int = 8) -> int:
@@ -84,10 +98,11 @@ class HedgeEngine:
     model) for arbitrary request sizes on one device.
 
     ``hits``/``misses`` count bucket reuse: a miss is the first request that
-    lands in a bucket."""
+    lands in a bucket. ``precision`` is the serving tier (``"f32"``, ``"bf16"``,
+    ``"int8"`` or a ``PrecisionPolicy``)."""
 
     def __init__(self, policy, *, min_bucket: int = 8, max_bucket: int = 1 << 20,
-                 device=None):
+                 device=None, precision="f32"):
         model = getattr(policy, "model", None)
         if model is None:
             raise ValueError("policy carries no model — pass a PolicyBundle")
@@ -102,14 +117,20 @@ class HedgeEngine:
         self.cost_of_capital = float(policy.cost_of_capital)
         self.min_bucket = min_bucket
         self.max_bucket = max_bucket
-        self._p1 = params_to(bw.params1_by_date, self.device, model.dtype)
-        p2 = params_to(bw.params2_by_date, self.device, model.dtype)
+        # the tier's params, on the device once; every request indexes into them
+        self.precision = normalize_precision(precision)
+        tier = self.precision.tier
+        self._p1 = prepare_params(bw.params1_by_date, tier, model_dtype=model.dtype,
+                                  device=self.device)
+        p2 = prepare_params(bw.params2_by_date, tier, model_dtype=model.dtype,
+                            device=self.device)
         self._p2 = self._p1 if p2 is None else p2
-        self.n_dates = int(self._p1["w0"].shape[0])
+        self.n_dates = int(self._p1["b0"].shape[0])
         # price legs per row: risky legs then bond
         self.n_instruments = 2 if model.constrain_self_financing else model.n_outputs
+        # host rows are padded in the model's dtype and cast to the tier's on the device
         self._np_dt = np.dtype(str(model.dtype).removeprefix("torch."))
-        self._packed = None  # the mixed-date kernel's (D, P) params, built on first use
+        self._mixed = None  # the mixed-date kernel's params, built on first use
         self.hits = 0
         self.misses = 0
         self._buckets: set[int] = set()
@@ -178,7 +199,8 @@ class HedgeEngine:
         feats, pr = self._pad(states, prices, n, b)
         phi, psi, v = _eval_core(
             self.model, self._p1, self._p2, idx, feats, pr, self.cost_of_capital,
-            dual_mode=self.dual_mode, holdings_combine=self.holdings_combine)
+            dual_mode=self.dual_mode, holdings_combine=self.holdings_combine,
+            precision=self.precision.tier)
         self._count(self._buckets, b)
         return PendingEval(phi, psi, v, n, prices is not None, b)
 
@@ -199,19 +221,49 @@ class HedgeEngine:
         feats, pr = self._pad(states, prices, n, b)
         dcol = np.zeros(b, np.int32)
         dcol[:n] = dates  # padded rows use date 0 and are sliced off
-        if self._packed is None and self.device.type == "cuda":
-            check_head_shape(self.model, self.n_dates)
-            self._packed = (pack_head_params(self.model, self._p1),
-                            pack_head_params(self.model, self._p2))
-        packed1, packed2 = self._packed or (None, None)
+        p1, p2, packed1, packed2 = self._mixed_params()
         phi, psi, v = _eval_core_mixed(
-            self.model, self._p1, self._p2, torch.from_numpy(dcol).to(self.device),
-            feats, pr, self.cost_of_capital, dual_mode=self.dual_mode,
-            holdings_combine=self.holdings_combine, packed1=packed1, packed2=packed2)
+            self.model, p1, p2, torch.from_numpy(dcol).to(self.device), feats, pr,
+            self.cost_of_capital, dual_mode=self.dual_mode,
+            holdings_combine=self.holdings_combine,
+            precision=self.precision.tier, packed1=packed1, packed2=packed2)
         self._count(self._mixed_buckets, b)
         return PendingEval(phi, psi, v, n, prices is not None, b)
 
+    def _mixed_params(self):
+        """``(p1, p2, packed1, packed2)`` for the mixed-date kernel, built once.
+
+        int8 weights are dequantized here, once: the same elementwise ``q *
+        scale`` as per request, so the same bits (``_eval_core_mixed``'s own
+        dequantization then passes them through). On the card the params are
+        also packed in the tier's dtype (``packed`` None on the CPU)."""
+        if self._mixed is None:
+            p1, p2 = self._p1, self._p2
+            if self.precision.tier == "int8":
+                p1 = dequantize_params(p1)
+                p2 = p1 if self._p2 is self._p1 else dequantize_params(p2)
+            packed1 = packed2 = None
+            if self.device.type == "cuda":
+                m = eval_model(self.model, self.precision.tier)
+                check_head_shape(m, self.n_dates, m.dtype)
+                packed1 = pack_head_params(m, p1)
+                packed2 = packed1 if p2 is p1 else pack_head_params(m, p2)
+            self._mixed = (p1, p2, packed1, packed2)
+        return self._mixed
+
+    def prewarm(self, sizes) -> dict:
+        """Evaluate one request in the bucket of each of ``sizes`` (deduplicated
+        by bucket, at the requested row count), so no live request of those
+        sizes is a bucket's first touch. Returns :meth:`cache_info`."""
+        by_bucket = {}
+        for n in sizes:
+            by_bucket.setdefault(self.bucket_for(int(n)), int(n))
+        for _, n in sorted(by_bucket.items()):
+            self.evaluate(0, np.ones((n, self.model.n_features), self._np_dt))
+        return self.cache_info()
+
     def cache_info(self) -> dict:
         return {"hits": self.hits, "misses": self.misses,
+                "precision": self.precision.tier,
                 "buckets": sorted(self._buckets),
                 "mixed_buckets": sorted(self._mixed_buckets)}

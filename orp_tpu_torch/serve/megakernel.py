@@ -2,20 +2,24 @@
 
 Counterpart of ``orp_tpu/serve/megakernel.py::mixed_head_forward`` (the Pallas
 ``_head_kernel``) and its wrapper ``_eval_core_mixed``. Row ``r`` runs the
-hedge MLP under the params of its own date ``dates[r]``: HIGHEST-precision
-f32 dots, LeakyReLU between layers, raw head outputs ``(B, n_outputs)``.
+hedge MLP under the params of its own date ``dates[r]``: dots, bias adds and
+LeakyReLU between layers, raw head outputs ``(B, n_outputs)``, in f32 or bf16.
 
 - :func:`mixed_head_forward` is the wrapper: the CUDA kernel
   (``csrc/mixed_head.cu``: one thread per row, every date's params staged in
-  shared memory, a per-row gather of its date's weights) for CUDA tensors,
-  :func:`mixed_head_plain` for CPU tensors. On the card it launches the
-  kernel or raises; it never falls back.
+  shared memory, a per-row gather of its date's weights; an f32 and a bf16
+  entry point) for CUDA tensors, :func:`mixed_head_plain` for CPU tensors. On
+  the card it launches the kernel or raises; it never falls back.
 - :func:`mixed_head_plain` is the JAX kernel's math in plain PyTorch: the
   full-block forward under each date's params, rows committed by date mask.
+  In bf16 every operation rounds to bf16, as the JAX package's does: the dot
+  reduces in f32 and rounds once, the bias add rounds, and the LeakyReLU
+  multiplies by the slope rounded to bf16 and rounds.
 
 The kernel takes layer counts up to ``MAX_LAYERS`` and every width (features,
 hidden, outputs) up to ``MAX_WIDTH``, with all dates' params within
-``MAX_SMEM_BYTES`` of shared memory; the wrapper raises above those caps.
+``MAX_SMEM_BYTES`` of shared memory at the params' element size; the wrapper
+raises above those caps.
 """
 
 from __future__ import annotations
@@ -25,12 +29,16 @@ import ctypes
 import numpy as np
 import torch
 
+from orp_tpu_torch.serve.precision import dequantize_params, eval_model
 from orp_tpu_torch.train.backward import _split_holdings
 from orp_tpu_torch.utils import cuda_build
+from orp_tpu_torch.utils.precision import typed_scalar
 
 MAX_LAYERS = 4
 MAX_WIDTH = 16
 MAX_SMEM_BYTES = 232_448  # what one block may use on sm_90
+#: the dtypes the kernel computes in, and their C entry points
+ENTRY = {torch.float32: "orp_mixed_head_launch", torch.bfloat16: "orp_mixed_head_bf16_launch"}
 
 
 def _layer_sizes(model) -> tuple[int, ...]:
@@ -38,22 +46,25 @@ def _layer_sizes(model) -> tuple[int, ...]:
 
 
 def pack_head_params(model, params_by_date: dict) -> torch.Tensor:
-    """``(D, P)`` f32: per date ``w0`` (row-major ``(f0, h0)``), ``b0``, ``w1``, ..."""
+    """``(D, P)`` in the params' dtype: per date ``w0`` (row-major ``(f0, h0)``),
+    ``b0``, ``w1``, ..."""
     n_layers = len(model.hidden) + 1
     parts = []
     for i in range(n_layers):
         w, b = params_by_date[f"w{i}"], params_by_date[f"b{i}"]
         parts += [w.reshape(w.shape[0], -1), b]
-    return torch.cat(parts, dim=1).to(torch.float32).contiguous()
+    return torch.cat(parts, dim=1).contiguous()
 
 
 def mixed_head_plain(model, params_by_date: dict, dates: torch.Tensor,
                      feats: torch.Tensor) -> torch.Tensor:
-    """Per-date masked forward over the whole block (the Pallas kernel's math).
-    Rows whose date is outside ``[0, D)`` stay NaN, as in the CUDA kernel."""
+    """Per-date masked forward over the whole block (the Pallas kernel's math),
+    in ``feats``' dtype. Rows whose date is outside ``[0, D)`` stay NaN, as in
+    the CUDA kernel."""
     n_layers = len(model.hidden) + 1
     n_dates = int(params_by_date["w0"].shape[0])
     dates = dates.reshape(-1, 1)
+    slope = typed_scalar(model.negative_slope, feats.dtype)
     out = torch.full((feats.shape[0], model.n_outputs), float("nan"), dtype=feats.dtype,
                      device=feats.device)
     for d in range(n_dates):
@@ -61,29 +72,33 @@ def mixed_head_plain(model, params_by_date: dict, dates: torch.Tensor,
         for i in range(n_layers):
             x = x @ params_by_date[f"w{i}"][d] + params_by_date[f"b{i}"][d]
             if i < n_layers - 1:
-                x = torch.where(x >= 0, x, model.negative_slope * x)
+                x = torch.where(x >= 0, x, slope * x)
         out = torch.where(dates == d, x, out)
     return out
 
 
-def _kernel() -> ctypes.CDLL:
-    lib = cuda_build.load("mixed_head")
-    fn = lib.orp_mixed_head_launch
+def _kernel(lib: ctypes.CDLL, dtype: torch.dtype):
+    """The C entry point computing in ``dtype``."""
+    fn = getattr(lib, ENTRY[dtype])
+    # the slope: an f32 value, or a bf16 bit pattern in an unsigned short
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_void_p]
+                   ctypes.POINTER(ctypes.c_int),
+                   ctypes.c_float if dtype == torch.float32 else ctypes.c_ushort,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
-def check_head_shape(model, n_dates: int) -> None:
-    """Raise when ``model`` over ``n_dates`` dates exceeds the kernel's caps."""
+def check_head_shape(model, n_dates: int, dtype: torch.dtype = torch.float32) -> None:
+    """Raise when ``model`` over ``n_dates`` dates, with params of ``dtype``,
+    exceeds the kernel's caps."""
     sizes = _layer_sizes(model)
     if len(sizes) - 1 > MAX_LAYERS or max(sizes) > MAX_WIDTH:
         raise ValueError(
             f"mixed_head kernel takes at most {MAX_LAYERS} layers of width <= "
             f"{MAX_WIDTH}; model has layer sizes {sizes}")
-    smem = 4 * n_dates * model.n_params()
+    smem = torch.empty((), dtype=dtype).element_size() * n_dates * model.n_params()
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"mixed_head kernel stages all {n_dates} dates' params in shared memory: "
@@ -95,48 +110,60 @@ def mixed_head_forward(model, params_by_date: dict, dates: torch.Tensor,
                        ) -> torch.Tensor:
     """Raw head outputs ``(B, n_outputs)`` where row ``r`` uses date ``dates[r]``'s params.
 
-    ``dates``: int32 ``(B,)`` (or ``(B, 1)``) in ``[0, D)``; ``feats``: f32
-    ``(B, n_features)``; ``params_by_date``: ``{w{i}: (D, f_i, h_i), b{i}: (D, h_i)}``
-    on the same device. ``packed`` is ``pack_head_params``'s result, for
-    callers that keep it across calls. A date outside ``[0, D)`` yields NaN
-    rows on the card (the engine validates dates on the host)."""
+    ``dates``: int32 ``(B,)`` (or ``(B, 1)``) in ``[0, D)``; ``feats``: f32 or
+    bf16 ``(B, n_features)``; ``params_by_date``: ``{w{i}: (D, f_i, h_i), b{i}:
+    (D, h_i)}`` of the same dtype, on the same device. The output has
+    ``feats``' dtype. ``packed`` is ``pack_head_params``'s result, for callers
+    that keep it across calls. A date outside ``[0, D)`` yields NaN rows on the
+    card (the engine validates dates on the host). Each launch adds one to
+    ``mixed_head_forward.launches`` (f32) or ``.launches_bf16``."""
     dates = dates.reshape(-1)
     if feats.device.type == "cpu":
         return mixed_head_plain(model, params_by_date, dates, feats)
     if feats.device.type != "cuda":
         raise ValueError(f"mixed_head_forward runs on cuda or cpu, not {feats.device}")
+    dt = feats.dtype
+    if dt not in ENTRY:
+        raise ValueError(f"mixed_head kernel computes in {sorted(map(str, ENTRY))}, "
+                         f"not {dt}")
     n, f = feats.shape
     n_dates = int(params_by_date["w0"].shape[0])
-    check_head_shape(model, n_dates)
+    check_head_shape(model, n_dates, dt)
     if packed is None:
         packed = pack_head_params(model, params_by_date)
     if f != model.n_features or dates.shape[0] != n:
         raise ValueError(f"feats {tuple(feats.shape)} / dates {tuple(dates.shape)} do "
                          f"not match {model.n_features} features, one date per row")
-    for name, t, dt in (("dates", dates, torch.int32), ("feats", feats, torch.float32),
-                        ("params", packed, torch.float32)):
-        if t.device != feats.device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {dt} tensor on {feats.device}; "
+    for name, t, want in (("dates", dates, torch.int32), ("feats", feats, dt),
+                          ("params", packed, dt)):
+        if t.device != feats.device or t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {want} tensor on {feats.device}; "
                              f"got {t.dtype} on {t.device}")
     if packed.shape != (n_dates, model.n_params()):
         raise ValueError(f"packed params {tuple(packed.shape)} != "
                          f"{(n_dates, model.n_params())}")
-    out = torch.empty((n, model.n_outputs), dtype=torch.float32, device=feats.device)
+    out = torch.empty((n, model.n_outputs), dtype=dt, device=feats.device)
     if n == 0:
         return out
     sizes = (ctypes.c_int * (MAX_LAYERS + 1))(*_layer_sizes(model))
-    lib = _kernel()
+    slope = typed_scalar(model.negative_slope, dt)
+    slope = float(slope) if dt == torch.float32 else int(slope.view(torch.int16)) & 0xFFFF
+    lib = cuda_build.load("mixed_head")
     with torch.cuda.device(feats.device):
-        rc = lib.orp_mixed_head_launch(
-            dates.data_ptr(), feats.data_ptr(), packed.data_ptr(), out.data_ptr(), n,
-            n_dates, len(model.hidden) + 1, sizes, float(model.negative_slope),
-            torch.cuda.current_stream(feats.device).cuda_stream)
+        rc = _kernel(lib, dt)(dates.data_ptr(), feats.data_ptr(), packed.data_ptr(),
+                              out.data_ptr(), n, n_dates, len(model.hidden) + 1, sizes, slope,
+                              torch.cuda.current_stream(feats.device).cuda_stream)
     cuda_build.check(lib, rc, "mixed_head")
-    mixed_head_forward.launches += 1
+    if dt == torch.float32:
+        mixed_head_forward.launches += 1
+    else:
+        mixed_head_forward.launches_bf16 += 1
     return out
 
 
+#: launches of the f32 kernel and of the bf16 kernel
 mixed_head_forward.launches = 0
+mixed_head_forward.launches_bf16 = 0
 
 
 def _constrain(model, x: torch.Tensor) -> torch.Tensor:
@@ -147,30 +174,67 @@ def _constrain(model, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _eval_core_mixed(model, p1_all, p2_all, dates, feats, prices, cost_of_capital, *,
-                     dual_mode, holdings_combine, packed1=None, packed2=None):
-    """The mixed-date twin of ``engine._eval_core`` (f32 tier): per-ROW date
-    indices, the head through the kernel, the dual-mode combines after it
-    (``prices_t1 = 0``, so only value and holdings survive)."""
-    h1 = _constrain(model, mixed_head_forward(model, p1_all, dates, feats, packed=packed1))
-    p = prices.to(model.dtype)
+def serve_outputs(model, raw1, raw2, prices, cost_of_capital, *, dual_mode,
+                  holdings_combine):
+    """``(phi, psi, v)`` from the raw head outputs under param sets 1 and 2
+    (``raw2`` unread in ``mse_only``), in the serve API's dtype: f32, or f64
+    for an f64 model.
+
+    The serve-side combines of ``train/backward._date_outputs_core``
+    (``prices_t1 = 0``, so only value and holdings survive; ``shared``: ``v =
+    g + i (h - g)`` with ``g`` the params1 value, holdings from params2). In
+    f32 and f64 these are its operations in its order, bit for bit. In bf16
+    they round as the JAX package's compiled program does: every operation
+    rounds to bf16, except where XLA computes a bf16 operation whose result is
+    only widened to f32 in f32 (its excess-precision rule):
+
+    - a value sums its products in f32 (``jnp.sum`` widens them, so they are
+      exact) and rounds once;
+    - the last operation of an output is not rounded: the dual modes' value
+      add, and the constrained head's served ``psi = 1 - phi`` (the ``psi``
+      inside a value or a ``separate`` combine is rounded)."""
+    out = torch.promote_types(model.dtype, torch.float32)
+    coc = typed_scalar(cost_of_capital, model.dtype)
+    p = prices.to(model.dtype).to(out)
+
+    def value(h):
+        return torch.sum(h.to(out) * p, dim=-1).to(model.dtype)
+
+    def served(raw):
+        if model.constrain_self_financing:
+            phi = raw[..., 0].to(out)
+            return phi, 1.0 - phi
+        return _split_holdings(raw.to(out))
+
+    h1 = _constrain(model, raw1)
     if dual_mode == "mse_only":
-        comb = h1
-        v = torch.sum(h1 * p, dim=-1)
-    else:
-        h2 = _constrain(model, mixed_head_forward(model, p2_all, dates, feats,
-                                                  packed=packed2))
-        g = torch.sum(h1 * p, dim=-1)
-        h = torch.sum(h2 * p, dim=-1)
-        v = g + cost_of_capital * (h - g)
-        if dual_mode == "shared":
-            comb = h2
-        elif holdings_combine == "py":
-            comb = h1 + cost_of_capital * (h1 - h2)
-        else:
-            comb = h1 + cost_of_capital * (h2 - h1)
-    phi, psi = _split_holdings(comb)
-    return phi, psi, v
+        return (*served(raw1), value(h1).to(out))
+    h2 = _constrain(model, raw2)
+    g, h = value(h1), value(h2)
+    v = g.to(out) + (coc * (h - g)).to(out)
+    if dual_mode == "shared":
+        return (*served(raw2), v)
+    comb = h1 + coc * (h1 - h2) if holdings_combine == "py" else h1 + coc * (h2 - h1)
+    return (*_split_holdings(comb.to(out)), v)
+
+
+def _eval_core_mixed(model, p1_all, p2_all, dates, feats, prices, cost_of_capital, *,
+                     dual_mode, holdings_combine, precision="f32", packed1=None,
+                     packed2=None):
+    """The mixed-date twin of ``engine._eval_core``: per-ROW date indices, the
+    head through the kernel, :func:`serve_outputs` after it. The tiers as
+    there: int8 dequantizes both param sets before the f32 kernel, bf16 runs
+    the bf16 model and kernel on bf16 rows."""
+    if precision == "int8":
+        p1_all = dequantize_params(p1_all)
+        p2_all = dequantize_params(p2_all)
+    m = eval_model(model, precision)
+    feats = feats.to(m.dtype)
+    raw1 = mixed_head_forward(m, p1_all, dates, feats, packed=packed1)
+    raw2 = (raw1 if dual_mode == "mse_only"
+            else mixed_head_forward(m, p2_all, dates, feats, packed=packed2))
+    return serve_outputs(m, raw1, raw2, prices, cost_of_capital, dual_mode=dual_mode,
+                         holdings_combine=holdings_combine)
 
 
 def loop_of_buckets(engine, dates, states, prices=None):

@@ -32,7 +32,7 @@ import torch
 
 from orp_tpu_torch.train.gn import GNConfig, GNPinballConfig, fit_gn, fit_gn_pinball
 from orp_tpu_torch.train.losses import make_loss
-from orp_tpu_torch.utils.precision import full_f32
+from orp_tpu_torch.utils.precision import full_f32, typed_scalar
 
 DUAL_MODES = ("separate", "shared", "mse_only")
 HOLDINGS_COMBINES = ("single", "py")
@@ -52,7 +52,9 @@ def _date_outputs_core(model, params1, params2, feats_t, prices_t, prices_t1, ta
     """Per-date value, combined holdings and next-date replication residual.
 
     ``shared``: ``g_pre`` is the value under the weights right after the MSE
-    fit; the holdings ledger reads ``params2``."""
+    fit; the holdings ledger reads ``params2``. ``cost_of_capital`` multiplies
+    as a scalar of ``model.dtype`` (bf16 rounds it, as JAX does)."""
+    cost_of_capital = typed_scalar(cost_of_capital, model.dtype)
     if dual_mode == "shared":
         h_t = model.value(params2, feats_t, prices_t)
         v_t = g_pre + cost_of_capital * (h_t - g_pre)

@@ -16,6 +16,7 @@ from orp_tpu_torch.models import HedgeMLP
 from orp_tpu_torch.qmc import fused_gbm, fused_mf
 from orp_tpu_torch.train.gn import GNConfig, fit_gn
 from orp_tpu_torch.serve import HedgeEngine, load_bundle, loop_of_buckets, megakernel
+from orp_tpu_torch.serve.precision import bf16_agreement
 
 pytestmark = pytest.mark.cuda
 
@@ -38,6 +39,20 @@ def test_fused_gbm_matches_plain(cuda, n_paths, n_steps, store):
     assert fused_gbm.gbm_log_fused.launches == before + 1
     want = fused_gbm.gbm_log_plain(n_paths, n_steps, **kw)
     assert got.shape == (n_paths, n_steps // store + 1)
+    torch.testing.assert_close(got, want, rtol=3e-5, atol=0.0)
+
+
+def test_fused_gbm_dense_grid_matches_plain(cuda):
+    """365 knots, past the reference's 256-knot single-call cap, where it
+    chains ``_gbm_kernel_chunk`` calls: K1 is one launch at any knot count."""
+    kw = dict(s0=100.0, drift=0.08, sigma=0.15, dt=1.0 / 364, seed=1235, store_every=1,
+              device=cuda)
+    before = fused_gbm.gbm_log_fused.launches
+    got = fused_gbm.gbm_log_fused(65_536, 364, **kw)
+    torch.cuda.synchronize()
+    assert fused_gbm.gbm_log_fused.launches == before + 1
+    want = fused_gbm.gbm_log_plain(65_536, 364, **kw)
+    assert got.shape == (65_536, 365)
     torch.testing.assert_close(got, want, rtol=3e-5, atol=0.0)
 
 
@@ -73,6 +88,76 @@ def test_mixed_head_matches_plain(cuda, model, n_rows):
     torch.cuda.synchronize()
     want = megakernel.mixed_head_plain(model, p, dates, feats)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+HEADS = [HedgeMLP(n_features=1), HedgeMLP(n_features=1, constrain_self_financing=True),
+         HedgeMLP(n_features=3, n_hedge_assets=2), HedgeMLP(n_features=2, hidden=(16, 4, 8))]
+
+
+@pytest.mark.parametrize("model", HEADS)
+@pytest.mark.parametrize("n_rows", [1, 33, 4097, 1_048_576])
+def test_mixed_head_bf16_matches_plain(cuda, model, n_rows):
+    """The bf16 kernel against ``mixed_head_plain`` in bf16 (cuBLAS, f32
+    reduction): bitwise except where the two sum a dot's f32 partials in
+    another order and round apart, at most 1e-3 of the elements, each within 4
+    bf16 spacings."""
+    bf = model.with_dtype(torch.bfloat16)
+    p = {k: v.to(torch.bfloat16) for k, v in _params(model, 52, 3, cuda).items()}
+    g = torch.Generator(device=cuda).manual_seed(1)
+    dates = torch.randint(0, 52, (n_rows,), device=cuda, generator=g, dtype=torch.int32)
+    feats = (1.0 + 0.1 * torch.randn(n_rows, model.n_features, device=cuda,
+                                      generator=g)).to(torch.bfloat16)
+    fn = megakernel.mixed_head_forward
+    before = (fn.launches, fn.launches_bf16)
+    got = fn(bf, p, dates, feats)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_bf16) == (before[0], before[1] + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == (n_rows, model.n_outputs)
+    want = megakernel.mixed_head_plain(bf, p, dates, feats)
+    agree = bf16_agreement(got, want)
+    print(f"{model.layer_sizes} {n_rows} rows: {agree}")
+    assert agree["ok"], agree
+
+
+def test_mixed_head_bf16_nan_rows_and_refusals(cuda):
+    model = HedgeMLP(n_features=1).with_dtype(torch.bfloat16)
+    p = {k: v.to(torch.bfloat16) for k, v in _params(model, 4, 0, cuda).items()}
+    feats = torch.ones(3, 1, device=cuda, dtype=torch.bfloat16)
+    out = megakernel.mixed_head_forward(model, p, torch.tensor([0, 4, -1], device=cuda,
+                                                               dtype=torch.int32), feats)
+    assert bool(torch.isfinite(out[0]).all()) and bool(torch.isnan(out[1:]).all())
+    dates = torch.zeros(3, dtype=torch.int32, device=cuda)
+    p32 = {k: v.float() for k, v in p.items()}
+    with pytest.raises(ValueError, match="params must be"):
+        megakernel.mixed_head_forward(model, p32, dates, feats)
+    with pytest.raises(ValueError, match="params must be"):
+        megakernel.mixed_head_forward(model, p, dates, feats.float())
+    with pytest.raises(ValueError, match="computes in"):
+        megakernel.mixed_head_forward(model, p, dates, feats.half())
+
+
+def test_engine_tiers_on_card_bucketed_vs_mixed(cuda):
+    """Each tier's bucketed path (cuBLAS) against its mixed path (the kernel) on
+    the north-star policy's stored rows: f32 and int8 at the f32 tolerance,
+    bf16 by the bf16 rule; outputs f32 in every tier."""
+    policy = load_bundle(NORTH_STAR_POLICY)
+    with np.load(NORTH_STAR_POLICY / "reference.npz") as z:
+        dates, states, prices = z["dates"], z["states"], z["prices"]
+    for tier in ("f32", "bf16", "int8"):
+        engine = HedgeEngine(policy, precision=tier)
+        counter = "launches_bf16" if tier == "bf16" else "launches"
+        before = getattr(megakernel.mixed_head_forward, counter)
+        mixed = engine.evaluate_mixed_async(dates, states, prices).result()
+        assert getattr(megakernel.mixed_head_forward, counter) == before + 1
+        loop = loop_of_buckets(engine, dates, states, prices)
+        for name, a, b in zip(("phi", "psi", "v"), mixed, loop):
+            assert a.dtype == np.float32 and b.dtype == np.float32
+            if tier == "bf16":
+                agree = bf16_agreement(a, b)
+                print(f"{tier} {name}: {agree}")
+                assert agree["ok"], (name, agree)
+            else:
+                np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6, err_msg=name)
 
 
 def test_mixed_head_refuses_bad_inputs(cuda):

@@ -33,6 +33,19 @@ def test_gbm_plain_matches_pallas_kernel(pallas_ref):
     np.testing.assert_array_equal(got[:, 0].numpy(), np.full(N_PATHS, 100.0, np.float32))
 
 
+def test_gbm_plain_matches_chained_pallas_kernel():
+    """Dense grids: the reference chains ``_gbm_kernel_chunk`` calls of
+    ``knots_per_call`` knots, carrying the f32 log-state (bitwise its single
+    call); the port's K1 is one launch at any knot count. 40 steps stored
+    every step at 16 knots a call is a chain of three calls."""
+    kw = dict(KW, dt=1.0 / 40, store_every=1)
+    want = np.asarray(gbm_log_pallas(512, 40, block_paths=256, interpret=True,
+                                     knots_per_call=16, **kw))
+    got = gbm_log_plain(512, 40, **kw)
+    assert got.shape == want.shape == (512, 41)
+    np.testing.assert_allclose(got.numpy(), want, rtol=3e-5)
+
+
 def test_fused_wrapper_on_cpu_is_the_plain_version():
     got = gbm_log_fused(N_PATHS, N_STEPS, device="cpu", **KW)
     np.testing.assert_array_equal(got.numpy(), gbm_log_plain(N_PATHS, N_STEPS, **KW).numpy())

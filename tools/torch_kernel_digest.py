@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""SHA-256 digests of the multi-factor path kernels' outputs on the card, with
-their build report and, on request, their times and SASS census.
+"""SHA-256 digests of the multi-factor path kernels' and the mixed-date head's
+outputs on the card, with their build report and, on request, their times and
+SASS census.
 
     python3 tools/torch_kernel_digest.py [--tree DIR] [--time] [--sass]
 
@@ -9,7 +10,10 @@ main-path shapes and seeds, each once at 1,048,576 paths: K3a
 (``heston_log_fused``) and K3b (``heston_qe_fused``) over 364 steps stored
 every 7 (seed 4321), and K3c (``pension_fused``) over 1,000 steps stored every
 25 (seed 1234) in its four variants (constant-vol or SV fund, ``normal`` or
-``inversion`` thinning). It prints one line per run: the SHA-256 of the
+``inversion`` thinning); and K2 (``serve/megakernel.mixed_head_forward``) on
+1,048,576 rows of the committed north-star policy over its 52 dates (the
+smoke's generator seed 7), in f32 and, where the tree has the bf16 kernel, in
+bf16. It prints one line per run: the SHA-256 of the
 wrapper's outputs (each key's name and its float32 bytes, keys sorted), then
 one JSON object. A redesign that must keep every output bitwise is checked by
 running this before and after it on one card: the digests must be equal. A
@@ -53,8 +57,12 @@ def _module(path: pathlib.Path, name: str):
 
 
 def runs(smoke, dev) -> dict:
-    """``{name: zero-argument call}`` of the six kernel runs at the smoke's shapes."""
+    """``{name: zero-argument call}`` of the kernel runs at the smoke's shapes."""
+    import torch
+
+    from orp_tpu_torch import NORTH_STAR_POLICY
     from orp_tpu_torch.qmc import fused_mf
+    from orp_tpu_torch.serve import load_bundle, megakernel
 
     heston = dict(smoke.HESTON, dt=1.0 / smoke.N_STEPS, seed=smoke.OOS_SEED,
                   store_every=smoke.STORE, device=dev)
@@ -68,6 +76,21 @@ def runs(smoke, dev) -> dict:
             kw = dict(smoke.PENSION_SV if sv else smoke.PENSION, binomial_mode=mode, **pension)
             out[f"pension_{'sv' if sv else 'const'}_{mode}"] = (
                 lambda kw=kw: fused_mf.pension_fused(n, smoke.PENSION_STEPS, **kw))
+    policy = load_bundle(NORTH_STAR_POLICY)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    dates = torch.randint(0, policy.n_dates, (n,), device=dev, generator=gen, dtype=torch.int32)
+    feats = (1.0 + 0.1 * torch.randn(n, 1, device=dev, generator=gen)).contiguous()
+    dtypes = {"f32": torch.float32}
+    if hasattr(megakernel.mixed_head_forward, "launches_bf16"):
+        dtypes["bf16"] = torch.bfloat16
+    for name, dt in dtypes.items():
+        m = policy.model.with_dtype(dt)
+        p = {k: v.to(dev, dt) for k, v in policy.backward.params1_by_date.items()}
+        packed = megakernel.pack_head_params(m, p)
+        f = feats.to(dt)
+        out[f"mixed_head_{name}"] = (
+            lambda m=m, p=p, f=f, packed=packed:
+            {"out": megakernel.mixed_head_forward(m, p, dates, f, packed=packed)})
     return out
 
 
@@ -143,7 +166,7 @@ def main(argv=None) -> int:
                       seed=smoke.OOS_SEED, store_every=smoke.STORE, device=dev)
         calls["fused_gbm"] = lambda: fused_gbm.gbm_log_fused(smoke.N_FULL, smoke.N_STEPS,
                                                              **gbm_kw)
-        reps = {"pension": 5}
+        reps = {"pension": 5, "mixed_head": 200}
         result["ms"] = {}
         for name, call in calls.items():
             n = next((v for k, v in reps.items() if name.startswith(k)), 10)
