@@ -9,9 +9,10 @@ last line):
 1. card: ``nvidia-smi`` name and power limit; a CUDA device is required;
 2. build: every CUDA kernel from ``orp_tpu_torch/csrc`` with ``nvcc`` for
    ``sm_90a``, one ``nvcc`` per source, all at once;
-3. kernel vs plain version on the card: K1 (fused Sobol-GBM) at 65,536 and
-   1,048,576 paths x 364 steps, store 7, and at 65,536 x 364 stored every
-   step (365 knots, past the reference's single-call cap), ``rtol=3e-5``;
+3. kernel vs plain version on the card: K1 (fused Sobol-GBM, the GbmLog step
+   of the multi-factor kernel) at 33, 65,536, 1,048,576 and 2,097,185 paths
+   x 364 steps, store 7, and at 65,536 x 364 stored every step (365 knots,
+   past the reference's single-call cap), ``rtol=3e-5``;
    K3b (Heston QE-M) and K3a (Heston Euler) at the 1M and 65,536-path
    shapes, store 7 (S ``rtol=3e-5``; QE v ``rtol=2e-3,
    atol=1e-6``; Euler v ``rtol=3e-5, atol=3e-6``); K2 (mixed-date head) on
@@ -122,6 +123,7 @@ PENSION = dict(y0=1.0, mu=0.08, sigma=0.15, l0=0.01, mort_c=0.075, eta=0.000597,
 PENSION_SV = dict(PENSION, sigma=None, sv=True, v0=0.15, cir_a=0.00336, cir_b=0.15431,
                   cir_c=0.01583)  # StochVolConfig()
 N_SEPARATE, N_SV, N_K3C_CHECK = 1 << 18, 1 << 16, 1 << 16
+N_K1_WIDE = (1 << 21) + 33
 PENSION_V0_REF = 981_038.0   # Multi#26(out), 4,096 paths
 PENSION_V0_BAND = 0.04       # test_golden_pension_gn_irls_three_seed_mean's loose band
 PENSION_SV_REF = 981_732.0   # PARITY.md:44, Adam at 4,096 paths, c = 0.01583
@@ -189,13 +191,13 @@ def sobol_int_ops(n_paths: int, n_dims: int) -> int:
     """int32 operations of ``n_dims`` scrambled Sobol words per path, each word
     split by XOR linearity over a warp of 32 consecutive indices: per warp and
     dimension, one op per set index bit 5-31 (the popcount of the warp's number)
-    and the scramble key ``hash_combine(seed, dim)`` (12) once; per path, one op
-    per set lane bit (bits 0-4), then two bit reversals, the Laine-Karras hash
-    (add + 4 mul/xor) and the bucket shift (12)."""
+    and the scramble key ``hash_combine(seed, dim)`` (12) once; per path, one
+    XOR for its lane bits (the warp's 32 words in Gray-code order), then two bit
+    reversals, the Laine-Karras hash (add + 4 mul/xor) and the bucket shift
+    (12)."""
     n_warps = -(-n_paths // 32)
     warp_ops = sum(bin(w).count("1") + 12 for w in range(n_warps))
-    lane_ops = sum(bin(i % 32).count("1") + 12 for i in range(n_paths))
-    return n_dims * (warp_ops + lane_ops)
+    return n_dims * (warp_ops + 13 * n_paths)
 
 
 # f32 operations of one AS241 draw: central 33 on 85% of uniforms
@@ -803,7 +805,9 @@ def main() -> int:
     gbm_kw = dict(s0=100.0, drift=0.08, sigma=0.15, dt=1.0 / N_STEPS, seed=OOS_SEED,
                   store_every=STORE, device=dev)
     k1_err = 0.0
-    for n in (65_536, N_FULL):
+    # 33 paths: one lane in a second warp; 2,097,185: a partial last warp and
+    # index bits above 2^21 (the kernel's warp part and lane part)
+    for n in (33, 65_536, N_FULL, N_K1_WIDE):
         got = fused_gbm.gbm_log_fused(n, N_STEPS, **gbm_kw)
         torch.cuda.synchronize()
         want = fused_gbm.gbm_log_plain(n, N_STEPS, **gbm_kw)
@@ -1253,7 +1257,8 @@ def main() -> int:
           f"peak device memory {peak_gb:.1f} GB", flush=True)
 
     kernels = {"kernels": [
-        {"name": "fused_gbm", "route": "cuda", "source": "orp_tpu_torch/csrc/fused_gbm.cu",
+        {"name": "fused_gbm", "route": "cuda",
+         "source": "orp_tpu_torch/csrc/fused_mf.cu (mf_kernel<GbmLog>)",
          "replaces": "orp_tpu/qmc/pallas_sobol.py:199", "launches": launches["fused_gbm"],
          "max_abs_err": k1_err, "ms": ms["fused_gbm"], "plain_ms": ms["fused_gbm_plain"],
          "bound_ms": bounds["fused_gbm"][0], "bound_by": bounds["fused_gbm"][1],

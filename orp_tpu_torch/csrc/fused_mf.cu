@@ -1,48 +1,63 @@
-// Fused multi-factor scrambled-Sobol path kernels for sm_90a: 2-factor Heston
+// Fused scrambled-Sobol path kernels for sm_90a: log-GBM, 2-factor Heston
 // under full-truncation Euler and under Andersen QE-M, and the 4-factor
-// coupled pension system.
+// coupled pension system, as steps of one kernel template.
 //
-// Replaces the TPU kernels of orp_tpu/qmc/pallas_mf.py: the generic driver
-// _run_mf / _mf_kernel (:106, :49) as the template mf_kernel<Step>, with
+// Replaces the TPU kernels of orp_tpu/qmc/pallas_sobol.py, gbm_log_pallas
+// (_gbm_kernel :138 and its dense-grid chain _gbm_kernel_chunk :163) as
+// Step = GbmLog, and of orp_tpu/qmc/pallas_mf.py: the generic driver _run_mf /
+// _mf_kernel (:106, :49) as the template mf_kernel<Step>, with
 // heston_log_pallas (:155) as Step = HestonEuler, heston_qe_pallas (:202) as
 // Step = HestonQE and pension_pallas (:294) as Step = Pension<kSV, kInversion>.
-// Plain-PyTorch twins: orp_tpu_torch/qmc/fused_mf.py (heston_log_plain,
-// heston_qe_plain, pension_plain).
+// Plain-PyTorch twins: orp_tpu_torch/qmc/fused_gbm.py (gbm_log_plain) and
+// orp_tpu_torch/qmc/fused_mf.py (heston_log_plain, heston_qe_plain,
+// pension_plain).
 //
 // Semantics: at step t (1-based) factor f draws Sobol dimension
 // (t-1)*kFactors + f of the path's own index, as the scrambled uniform; the
 // step turns it into a normal (AS241) or uses it raw (QE's variance factor,
 // the pension's inversion sampler). Only the factors in Step::kUsed are drawn
-// (constant-vol pension skips factor 2 of its 4-factor layout). The kSlots
-// state values are stored every store_every steps, knot-major.
+// (constant-vol pension skips factor 2 of its 4-factor layout). Every
+// store_every steps the kernel stores Step::knot(state, j) for each of the
+// kSlots outputs, knot-major: s0 * expf(log-return) for the GBM and for
+// Heston's S (so no exp pass over the knots follows the launch), the state
+// itself otherwise.
 //
 // What bounds it on the H100: instruction issue. The knots are few bytes
-// (Heston at 1M paths x 364 steps, 53 knots: 444 MB, ~0.13 ms at 3.35 TB/s;
-// the pension at 1M x 1,000 steps, 41 knots, 3 slots: 516 MB, ~0.15 ms),
-// while every path-step issues a few hundred SIMT instructions: a Sobol word
-// per used factor, an AS241 per normal, the step (QE about forty f32
-// operations with four square roots and a log or two; the pension an exp and
-// its population draw) and, for the pension's inversion sampler, the CDF walk.
+// (GBM at 1M paths x 364 steps, 53 knots: 222 MB, ~0.07 ms at 3.35 TB/s;
+// Heston 444 MB, ~0.13 ms; the pension at 1M x 1,000 steps, 41 knots, 3
+// slots: 516 MB, ~0.15 ms), while every path-step issues a few hundred SIMT
+// instructions: a Sobol word per used factor, an AS241 per normal, the step
+// (QE about forty f32 operations with four square roots and a log or two; the
+// pension an exp and its population draw) and, for the pension's inversion
+// sampler, the CDF walk.
 //
 // What the design does about it:
 // - one thread per path, the whole state in registers for all steps, only
-//   knots reach device memory (the TPU kernel's VMEM carry, without its
-//   power-of-two block rule, its (rows, 128) tiling or its static/dynamic
-//   knot-store split, which exist only for the TPU; any n_paths up to 2^32);
-// - warp-shared Sobol words: the 32 lanes of a warp hold 32 consecutive path
-//   indices, so index bits 5-31 are the same on every lane. Every 32
-//   dimensions (8 pension steps, 16 Heston steps) lane j forms the warp part
-//   of dimension base + j (the 27 terms of those bits) and its scramble key
-//   hash(seed, dim); each draw fetches both with __shfl_sync and XORs in the
-//   5 terms of the lane's own bits (sobol_device.cuh). By XOR linearity the
-//   word is bitwise the one of the 32-term XOR. A lane past n_paths runs the
-//   loop without storing, so that every shuffle has all 32 lanes;
+//   knots reach device memory (the TPU kernels' VMEM carry, without their
+//   power-of-two block rule, their (rows, 128) tiling, the GBM's 64-knot
+//   chunk chain or the static/dynamic knot-store split, which exist only for
+//   the TPU; any n_paths up to 2^32, any knot count in one launch);
+// - warp-shared Sobol words in shared memory: the 32 lanes of a warp hold 32
+//   consecutive path indices, so index bits 5-31 are the same on every lane.
+//   Every 32 dimensions (32 GBM steps, 16 Heston steps, 8 pension steps)
+//   lane j forms the warp part of dimension base + j (the 27 terms of those
+//   bits), XORs in each lane's 5 terms in Gray-code order and writes the 32
+//   words as row j of the warp's window (sobol_word_row), and forms the
+//   scramble key hash(seed, dim); each draw is one shared-memory read of its
+//   own word and one __shfl_sync of the key. By XOR linearity the word is
+//   bitwise the one of the 32-term XOR. A lane past n_paths runs the loop
+//   without storing, so that every row is written and every shuffle has all
+//   32 lanes. The window costs 4,224 bytes a warp (33,792 a block);
 // - the knots are stored by a countdown, not a modulo per step;
-// - the pension's AS241 (ndtri_as241_rn) runs its central and near-tail
-//   branches as one Horner pair with per-lane coefficients, since every warp
-//   has lanes in both (below), and leaves out the far tail, which its
-//   bucket-centred uniforms never reach; the Heston steps keep the contracted, branching
-//   ndtri_as241, where a select per coefficient costs about what it saves;
+// - AS241 runs its central and near-tail branches as one straight-line Horner
+//   pair with per-lane coefficients and one division, since every warp has
+//   lanes in both, and leaves out the far tail, which the bucket-centred
+//   uniforms never reach: in the GBM and Heston steps contracted
+//   (ndtri_as241, bitwise the branching form that nvcc contracts) with its
+//   coefficients loaded from a table, in the pension's rounded per operation
+//   (ndtri_as241_rn) with immediates. Timed on an H100 against the branching
+//   form (PERF.md, Findings): a select per coefficient took 1-2.4% off the GBM
+//   and Heston kernels, the table 5-6% more, every output bitwise;
 // - QE's A <= 0 martingale correction and the pension's fund (constant vol or
 //   SV) and population sampler are template flags, not per-element tests, as
 //   they are trace-time branches in JAX; only the selected QE variance branch
@@ -53,22 +68,22 @@
 //   most 1/2 (no later trip can move it: the walk ends at 128, the plain
 //   version's stuck rule); it runs only where the mean death count is <= 45,
 //   the CLT draw and its AS241 only where it is above;
-// - the host-f64 constants arrive as f32 values rounded once, the rule
-//   fused_gbm.cu follows; constants in the code are f-suffixed. No fast math;
-//   nvcc contracts a*b+c into FMA, so the Heston paths agree with the plain
-//   version to f32 tolerance, not bitwise. The pension step writes its
-//   arithmetic, its AS241 draws included (ndtri_as241_rn), with __fmul_rn /
-//   __fadd_rn / __fdiv_rn, which are never contracted, because its roundings
-//   decide integers (the survivors N): round-half-even rintf as jnp.round /
-//   torch.round, the plain version's operation order, IEEE division. One ulp
-//   of lambda moves q = 1 - p by up to 4e-4 relative, which moves where the
-//   reference's f32 CDF walk saturates (its cdf plateaus up to ~2e-4 below 1,
-//   and a uniform above the plateau takes all 128 trips).
+// - the host-f64 constants arrive as f32 values rounded once; constants in
+//   the code are f-suffixed. No fast math; nvcc contracts a*b+c into FMA, so
+//   the GBM and Heston paths agree with the plain version to f32 tolerance,
+//   not bitwise. The pension step writes its arithmetic, its AS241 draws
+//   included, with __fmul_rn / __fadd_rn / __fdiv_rn, which are never
+//   contracted, because its roundings decide integers (the survivors N):
+//   round-half-even rintf as jnp.round / torch.round, the plain version's
+//   operation order, IEEE division. One ulp of lambda moves q = 1 - p by up
+//   to 4e-4 relative, which moves where the reference's f32 CDF walk
+//   saturates (its cdf plateaus up to ~2e-4 below 1, and a uniform above the
+//   plateau takes all 128 trips).
 //
 // The divergence that remains is inherent to the bitwise contract. Sobol
 // points on 32 consecutive indices are stratified (one per 1/32 of (0, 1) in
 // every dimension), so every warp-draw has lanes in both AS241 branches, and
-// no lane map changes that: the merged pension AS241 pays for a log and a
+// no lane map changes that: the straight-line AS241 pays for a log and a
 // square root on every lane instead. A warp walks the CDF as long as its lane
 // with the most deaths (about 4.6 trips per warp-step at dt = 0.01 against
 // 1.4 per lane); the walk's count is the integer the reference draws, so it
@@ -79,45 +94,50 @@
 namespace {
 
 constexpr int kMaxSlots = 4;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
 struct Outs {
   float* p[kMaxSlots];
 };
 
 template <class Step>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kThreads)
 mf_kernel(const uint32_t* __restrict__ dirs, Outs outs, unsigned long long n_paths,
           int n_steps, int store_every, uint32_t seed, Step step) {
   static_assert(32 % Step::kFactors == 0, "a refill covers whole steps");
   constexpr int kStepsPerRefill = 32 / Step::kFactors;
   const unsigned long long g =
       (unsigned long long)blockIdx.x * blockDim.x + threadIdx.x;
-  // __shfl_sync needs every lane: only a warp wholly past n_paths leaves, the
-  // others' lanes past it compute and store nothing
+  // the window's rows and __shfl_sync need every lane: only a warp wholly past
+  // n_paths leaves, the others' lanes past it compute and store nothing
   if ((g & ~31ull) >= n_paths) return;
   const bool live = g < n_paths;
   const uint32_t lane = threadIdx.x & 31u;
   const uint32_t hi = (uint32_t)g & ~31u;  // index bits 5-31, the same on the whole warp
-  uint32_t lane_mask[5];
-#pragma unroll
-  for (int k = 0; k < 5; ++k) lane_mask[k] = orp::bit_mask(lane, k);
+  // the warp's words of dimensions base .. base + 31: words[warp][dim - base][lane],
+  // a row padded to 33 so that a lane's row writes and a step's reads hit 32 banks
+  __shared__ uint32_t words[kWarps][32][33];
+  uint32_t(*tab)[33] = words[threadIdx.x >> 5];
   const uint32_t n_dims = (uint32_t)n_steps * Step::kFactors;
   float state[Step::kSlots];
   step.init(state);
   unsigned long long at = g;  // this path's element of the current knot
   if (live) {
 #pragma unroll
-    for (int j = 0; j < Step::kSlots; ++j) outs.p[j][at] = state[j];
+    for (int j = 0; j < Step::kSlots; ++j) outs.p[j][at] = step.knot(state, j);
   }
-  // lane j holds the warp part and the scramble key of dimension base + j
-  uint32_t warp_word = 0u, key = 0u, base = 0u;
+  // lane j fills row j of the window and holds the scramble key of dimension base + j
+  uint32_t key = 0u, base = 0u;
   int off = 0;  // the current step's first dimension, relative to base
   int refill_in = 0, store_in = store_every;
   for (int t = 1; t <= n_steps; ++t) {
     if (refill_in == 0) {  // every kStepsPerRefill steps: dimensions base .. base + 31
       if (t > 1) base += 32u;
       const uint32_t dim = base + lane;
-      warp_word = dim < n_dims ? orp::sobol_warp_part(dirs, dim, hi) : 0u;
+      __syncwarp();  // every lane has read the last window
+      if (dim < n_dims) orp::sobol_word_row(dirs, dim, hi, tab[lane]);
+      __syncwarp();
       key = orp::hash_combine(seed, dim);
       refill_in = kStepsPerRefill;
       off = 0;
@@ -126,9 +146,8 @@ mf_kernel(const uint32_t* __restrict__ dirs, Outs outs, unsigned long long n_pat
 #pragma unroll
     for (int f = 0; f < Step::kFactors; ++f) {
       if ((Step::kUsed >> f) & 1u) {
-        const uint32_t x = __shfl_sync(0xFFFFFFFFu, warp_word, off + f) ^
-                           orp::sobol_lane_part(dirs, base + off + f, lane_mask);
-        u[f] = orp::scrambled_uniform(x, __shfl_sync(0xFFFFFFFFu, key, off + f));
+        u[f] = orp::scrambled_uniform(tab[off + f][lane],
+                                      __shfl_sync(0xFFFFFFFFu, key, off + f));
       }
     }
     step.advance(state, u);
@@ -138,23 +157,44 @@ mf_kernel(const uint32_t* __restrict__ dirs, Outs outs, unsigned long long n_pat
       at += n_paths;
       if (live) {
 #pragma unroll
-        for (int j = 0; j < Step::kSlots; ++j) outs.p[j][at] = state[j];
+        for (int j = 0; j < Step::kSlots; ++j) outs.p[j][at] = step.knot(state, j);
       }
       store_in = store_every;
     }
   }
 }
 
-// state (log-return, variance); factor 0 the asset's own normal, 1 the variance's
+// state the log-return; the knot is S = s0 exp(log-return)
+struct GbmLog {
+  static constexpr int kFactors = 1;
+  static constexpr int kSlots = 1;
+  static constexpr unsigned kUsed = 0x1u;
+  float c0, vol_sdt, s0;
+
+  __device__ void init(float (&s)[kSlots]) const { s[0] = 0.0f; }
+
+  __device__ void advance(float (&s)[kSlots], const float (&u)[kFactors]) const {
+    s[0] = s[0] + c0 + vol_sdt * orp::ndtri_as241(u[0]);
+  }
+
+  __device__ float knot(const float (&s)[kSlots], int) const { return s0 * expf(s[0]); }
+};
+
+// state (log-return, variance); factor 0 the asset's own normal, 1 the variance's;
+// the knots are S = s0 exp(log-return) and v
 struct HestonEuler {
   static constexpr int kFactors = 2;
   static constexpr int kSlots = 2;
   static constexpr unsigned kUsed = 0x3u;
-  float v0, mu, kappa, theta, xi, rho, rho_c, dt, sdt;
+  float v0, mu, kappa, theta, xi, rho, rho_c, dt, sdt, s0;
 
   __device__ void init(float (&s)[kSlots]) const {
     s[0] = 0.0f;
     s[1] = v0;
+  }
+
+  __device__ float knot(const float (&s)[kSlots], int j) const {
+    return j == 0 ? s0 * expf(s[0]) : s[j];
   }
 
   __device__ void advance(float (&s)[kSlots], const float (&u)[kFactors]) const {
@@ -168,17 +208,22 @@ struct HestonEuler {
   }
 };
 
-// state (log-return, variance); factor 0 the asset's normal, 1 the RAW uniform
+// state (log-return, variance); factor 0 the asset's normal, 1 the RAW uniform;
+// the knots are S = s0 exp(log-return) and v
 template <bool kCorrected>
 struct HestonQE {
   static constexpr int kFactors = 2;
   static constexpr int kSlots = 2;
   static constexpr unsigned kUsed = 0x3u;
-  float v0, theta, E, c1, c2, k1, k2, k3, k4, A, k13, mu_dt, k0, psi_c;
+  float v0, theta, E, c1, c2, k1, k2, k3, k4, A, k13, mu_dt, k0, psi_c, s0;
 
   __device__ void init(float (&s)[kSlots]) const {
     s[0] = 0.0f;
     s[1] = v0;
+  }
+
+  __device__ float knot(const float (&s)[kSlots], int j) const {
+    return j == 0 ? s0 * expf(s[0]) : s[j];
   }
 
   __device__ void advance(float (&s)[kSlots], const float (&u)[kFactors]) const {
@@ -244,6 +289,8 @@ struct Pension {
       s[2] = n0;
     }
   }
+
+  __device__ float knot(const float (&s)[kSlots], int j) const { return s[j]; }
 
   // D ~ Binomial(pop, q) by the CDF walk, or the CLT draw past kMeanMax
   __device__ float deaths_inversion(float pop, float lam, float p, float u) const {
@@ -313,9 +360,8 @@ struct Pension {
 template <class Step>
 int launch(const Step& step, const void* dirs, const Outs& outs, unsigned long long n_paths,
            int n_steps, int store_every, uint32_t seed, void* stream) {
-  const unsigned threads = 256;
-  const unsigned long long blocks = (n_paths + threads - 1) / threads;
-  mf_kernel<Step><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  const unsigned long long blocks = (n_paths + kThreads - 1) / kThreads;
+  mf_kernel<Step><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const uint32_t*>(dirs), outs, n_paths, n_steps, store_every, seed, step);
   return (int)cudaGetLastError();
 }
@@ -338,30 +384,40 @@ int launch_pension(const float* c, const void* dirs, const Outs& outs,
 
 }  // namespace
 
-// c: v0, mu, kappa, theta, xi, rho, rho_c, dt, sdt
-extern "C" int orp_heston_euler_launch(const void* dirs, void* out_logs, void* out_v,
-                                       unsigned long long n_paths, int n_steps,
-                                       int store_every, uint32_t seed, const float* c,
-                                       void* stream) {
-  const HestonEuler step{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8]};
-  return launch(step, dirs, two_slots(out_logs, out_v), n_paths, n_steps, store_every, seed,
+// out: (n_knots, n_paths) f32 knots s0 exp(log-return)
+extern "C" int orp_fused_gbm_launch(const void* dirs, void* out, unsigned long long n_paths,
+                                    int n_steps, int store_every, uint32_t seed, float c0,
+                                    float vol_sdt, float s0, void* stream) {
+  Outs outs{};
+  outs.p[0] = static_cast<float*>(out);
+  return launch(GbmLog{c0, vol_sdt, s0}, dirs, outs, n_paths, n_steps, store_every, seed,
                 stream);
 }
 
-// c: v0, theta, E, c1, c2, k1, k2, k3, k4, A, k1 + k3/2, mu*dt, k0, psi_c
-extern "C" int orp_heston_qe_launch(const void* dirs, void* out_logs, void* out_v,
+// c: v0, mu, kappa, theta, xi, rho, rho_c, dt, sdt, s0
+extern "C" int orp_heston_euler_launch(const void* dirs, void* out_s, void* out_v,
+                                       unsigned long long n_paths, int n_steps,
+                                       int store_every, uint32_t seed, const float* c,
+                                       void* stream) {
+  const HestonEuler step{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8], c[9]};
+  return launch(step, dirs, two_slots(out_s, out_v), n_paths, n_steps, store_every, seed,
+                stream);
+}
+
+// c: v0, theta, E, c1, c2, k1, k2, k3, k4, A, k1 + k3/2, mu*dt, k0, psi_c, s0
+extern "C" int orp_heston_qe_launch(const void* dirs, void* out_s, void* out_v,
                                     unsigned long long n_paths, int n_steps,
                                     int store_every, uint32_t seed, const float* c,
                                     int corrected, void* stream) {
   if (corrected) {
-    const HestonQE<true> step{c[0], c[1], c[2], c[3], c[4], c[5], c[6],
-                              c[7], c[8], c[9], c[10], c[11], c[12], c[13]};
-    return launch(step, dirs, two_slots(out_logs, out_v), n_paths, n_steps, store_every, seed,
+    const HestonQE<true> step{c[0], c[1], c[2],  c[3],  c[4],  c[5],  c[6], c[7],
+                              c[8], c[9], c[10], c[11], c[12], c[13], c[14]};
+    return launch(step, dirs, two_slots(out_s, out_v), n_paths, n_steps, store_every, seed,
                   stream);
   }
-  const HestonQE<false> step{c[0], c[1], c[2], c[3], c[4], c[5], c[6],
-                             c[7], c[8], c[9], c[10], c[11], c[12], c[13]};
-  return launch(step, dirs, two_slots(out_logs, out_v), n_paths, n_steps, store_every, seed,
+  const HestonQE<false> step{c[0], c[1], c[2],  c[3],  c[4],  c[5],  c[6], c[7],
+                             c[8], c[9], c[10], c[11], c[12], c[13], c[14]};
+  return launch(step, dirs, two_slots(out_s, out_v), n_paths, n_steps, store_every, seed,
                 stream);
 }
 

@@ -1,27 +1,28 @@
-// Device helpers shared by the fused path kernels (fused_gbm.cu, fused_mf.cu):
-// the Owen-scrambled Sobol draw and the AS241 inverse normal, bit for bit the
-// chain of orp_tpu/qmc/pallas_sobol.py (_sobol_u, _sobol_z, _ndtri_f32).
+// Device helpers of the fused path kernels (fused_mf.cu): the Owen-scrambled
+// Sobol draw and the AS241 inverse normal, bit for bit the chain of
+// orp_tpu/qmc/pallas_sobol.py (_sobol_u, _sobol_z, _ndtri_f32).
 //
-// Two ways to form a path's Sobol word. fused_gbm.cu builds the 32
-// all-ones/all-zeros masks of the path's index bits once (index_masks) and
-// every word is a branch-free masked XOR of one direction row, read by every
-// thread of the warp as eight 16-byte broadcast __ldg loads (sobol_uniform).
-// fused_mf.cu splits the word by XOR linearity (sobol_warp_part,
-// sobol_lane_part): with 32 consecutive path indices on the 32 lanes of a
-// warp, index bits 5-31 are the same on every lane, so their 27 terms are
-// formed once per warp and dimension and handed round with __shfl_sync, and
-// each lane XORs in only the 5 terms of its lane bits. The word, and so every
-// draw, is bitwise the same either way.
+// A path's Sobol word is split by XOR linearity: with 32 consecutive path
+// indices on the 32 lanes of a warp, index bits 5-31 are the same on every
+// lane, so their 27 terms (sobol_warp_part) are formed once per warp and
+// dimension, and the 5 terms of the lane bits (words 0..4 of the direction
+// row) differ by lane only. sobol_word_row forms one dimension's 32 words,
+// warp part XOR each lane's part, with one XOR each in Gray-code order. Every
+// word is bitwise the 32-term masked XOR of the direction row that the
+// reference forms per path (index_masks and sobol_uniform, which formed it
+// that way, went with the last kernel that called them).
 //
 // AS241's constants are f-suffixed so the polynomials stay in f32 (a double
 // literal would promote them and change the bits). No fast math: logf/sqrtf
-// and the divisions are the IEEE-accurate versions. ndtri_as241 lets nvcc
-// contract the Horner steps into FMAs and evaluates only the branch a draw
-// needs; ndtri_as241_rn rounds every multiply and add on its own, the plain
-// PyTorch version's rounding (qmc/fused_gbm.ndtri_as241), for steps whose
-// roundings decide integers (the pension's survivors), and runs its central
-// and near-tail branches as one Horner pair on the bucket-centred uniforms
-// that reach it (the far tail lies outside them).
+// and the divisions are the IEEE-accurate versions. Both forms run the
+// central and near-tail branches as one straight-line Horner pair, each lane
+// taking its branch's coefficients, on the bucket-centred uniforms that
+// reach them (the far tail lies outside them). ndtri_as241 is contracted
+// (fmaf, as nvcc contracts AS241's branching form: the same bits) and loads
+// its coefficients from a table; ndtri_as241_rn rounds every multiply and add
+// on its own, the plain PyTorch version's rounding
+// (qmc/fused_gbm.ndtri_as241), for steps whose roundings decide integers
+// (the pension's survivors), and selects immediates.
 
 #pragma once
 
@@ -51,35 +52,11 @@ __device__ __forceinline__ uint32_t laine_karras(uint32_t x, uint32_t seed) {
 // The all-ones/all-zeros mask of bit k of i
 __device__ __forceinline__ uint32_t bit_mask(uint32_t i, int k) { return 0u - ((i >> k) & 1u); }
 
-__device__ __forceinline__ void index_masks(uint32_t i, uint32_t (&mask)[32]) {
-#pragma unroll
-  for (int k = 0; k < 32; ++k) mask[k] = bit_mask(i, k);
-}
-
 // The uniform of the unscrambled word x: Owen scramble keyed by
 // hash_combine(seed, dim) between bit reversals, centre of one of 2^23 buckets.
 __device__ __forceinline__ float scrambled_uniform(uint32_t x, uint32_t key) {
   x = __brev(laine_karras(__brev(x), key));
   return ((float)(x >> 9) + 0.5f) * 1.1920928955078125e-7f;  // 2^-23
-}
-
-// Scrambled-Sobol uniform of dimension `dim` for the path whose index masks
-// are `mask`: XOR of the direction row, Owen scramble keyed by
-// hash(seed, dim) between bit reversals, centre of one of 2^23 buckets.
-__device__ __forceinline__ float sobol_uniform(const uint32_t* __restrict__ dirs,
-                                               const uint32_t (&mask)[32], uint32_t dim,
-                                               uint32_t seed) {
-  const uint4* row = reinterpret_cast<const uint4*>(dirs + (size_t)dim * 32);
-  uint32_t x = 0u;
-#pragma unroll
-  for (int w = 0; w < 8; ++w) {
-    const uint4 v = __ldg(row + w);
-    x ^= v.x & mask[4 * w + 0];
-    x ^= v.y & mask[4 * w + 1];
-    x ^= v.z & mask[4 * w + 2];
-    x ^= v.w & mask[4 * w + 3];
-  }
-  return scrambled_uniform(x, hash_combine(seed, dim));
 }
 
 // The warp's part of the word of dimension `dim`: the XOR of direction row
@@ -101,59 +78,71 @@ __device__ __forceinline__ uint32_t sobol_warp_part(const uint32_t* __restrict__
   return x;
 }
 
-// The lane's part of the word of dimension `dim`: direction row words 0..4
-// under the masks of the lane's bits 0-4 (one 16-byte and one 4-byte
-// broadcast load; the row is the same on every lane).
-__device__ __forceinline__ uint32_t sobol_lane_part(const uint32_t* __restrict__ dirs,
-                                                    uint32_t dim, const uint32_t (&lane_mask)[5]) {
-  const uint32_t* row = dirs + (size_t)dim * 32;
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(row));
-  const uint32_t v4 = __ldg(row + 4);
-  return (v.x & lane_mask[0]) ^ (v.y & lane_mask[1]) ^ (v.z & lane_mask[2]) ^
-         (v.w & lane_mask[3]) ^ (v4 & lane_mask[4]);
+__host__ __device__ constexpr int low_bit(int k) { return (k & 1) ? 0 : 1 + low_bit(k >> 1); }
+
+// row[l] = the unscrambled word of dimension `dim` for the path index hi + l,
+// l = 0..31 (hi's bits 0-4 clear): the warp part XOR the lane part of lane l.
+// The 32 lane parts are formed in Gray-code order, one XOR of direction row
+// words 0..4 each (one 16-byte and one 4-byte load, the row the lane's own).
+__device__ __forceinline__ void sobol_word_row(const uint32_t* __restrict__ dirs, uint32_t dim,
+                                               uint32_t hi, uint32_t* row) {
+  const uint32_t* d = dirs + (size_t)dim * 32;
+  const uint4 a = __ldg(reinterpret_cast<const uint4*>(d));
+  const uint32_t v[5] = {a.x, a.y, a.z, a.w, __ldg(d + 4)};
+  uint32_t x = sobol_warp_part(dirs, dim, hi);
+  row[0] = x;
+#pragma unroll
+  for (int k = 1; k < 32; ++k) {
+    x ^= v[low_bit(k)];  // Gray codes k - 1 and k differ in bit low_bit(k)
+    row[k ^ (k >> 1)] = x;
+  }
 }
 
+// AS241's Horner coefficients, row 0 the near tail, row 1 the central branch:
+// numerator 0-3 and 4-7, then denominator 0-3 and 4-7 (ndtri_as241_rn keeps
+// the same values as immediates)
+__device__ float4 kAs241Coef[2][4] = {
+    {{7.74545014278341407640e-4f, 2.27238449892691845833e-2f, 2.41780725177450611770e-1f,
+      1.27045825245236838258e0f},
+     {3.64784832476320460504e0f, 5.76949722146069140550e0f, 4.63033784615654529590e0f,
+      1.42343711074968357734e0f},
+     {1.05075007164441684324e-9f, 5.47593808499534494600e-4f, 1.51986665636164571966e-2f,
+      1.48103976427480074590e-1f},
+     {6.89767334985100004550e-1f, 1.67638483018380384940e0f, 2.05319162663775882187e0f,
+      1.0f}},
+    {{2.5090809287301226727e3f, 3.3430575583588128105e4f, 6.7265770927008700853e4f,
+      4.5921953931549871457e4f},
+     {1.3731693765509461125e4f, 1.9715909503065514427e3f, 1.3314166789178437745e2f,
+      3.3871328727963666080e0f},
+     {5.2264952788528545610e3f, 2.8729085735721942674e4f, 3.9307895800092710610e4f,
+      2.1213794301586595867e4f},
+     {5.3941960214247511077e3f, 6.8718700749205790830e2f, 4.2313330701600911252e1f,
+      1.0f}}};
+
+// AS241's central and near-tail branches as one straight-line Horner pair,
+// each lane loading its branch's coefficients (four 16-byte loads from
+// kAs241Coef, two distinct addresses a warp): Sobol points on 32 consecutive
+// lanes fill every 1/32 of (0, 1), so every warp would run both branches, and
+// a step's draws become branch-free code that the compiler can interleave.
+// Each Horner step is the fmaf that nvcc contracts the branching form's
+// a * r + b into, and the central r the fmaf of 0.180625f - q * q, so each
+// lane gets the bits of its branch of the branching form. Domain:
+// bucket-centred 23-bit uniforms, u in [2^-24, 1 - 2^-24], so p >= 2^-24 and
+// rt <= 4.08; AS241's far tail (rt > 5) is never reached there and is left out.
 __device__ __forceinline__ float ndtri_as241(float u) {
   const float q = u - 0.5f;
-  if (fabsf(q) <= 0.425f) {
-    const float r = 0.180625f - q * q;
-    float num = ((2.5090809287301226727e3f * r + 3.3430575583588128105e4f) * r
-                 + 6.7265770927008700853e4f) * r + 4.5921953931549871457e4f;
-    num = (num * r + 1.3731693765509461125e4f) * r + 1.9715909503065514427e3f;
-    num = (num * r + 1.3314166789178437745e2f) * r + 3.3871328727963666080e0f;
-    float den = ((5.2264952788528545610e3f * r + 2.8729085735721942674e4f) * r
-                 + 3.9307895800092710610e4f) * r + 2.1213794301586595867e4f;
-    den = (den * r + 5.3941960214247511077e3f) * r + 6.8718700749205790830e2f;
-    den = (den * r + 4.2313330701600911252e1f) * r + 1.0f;
-    return q * num / den;
-  }
+  const bool central = fabsf(q) <= 0.425f;
   const float p = fminf(u, 1.0f - u);
   const float rt = sqrtf(-logf(fmaxf(p, 1e-38f)));
-  float t;
-  if (rt <= 5.0f) {
-    const float r = rt - 1.6f;
-    float num = ((7.74545014278341407640e-4f * r + 2.27238449892691845833e-2f) * r
-                 + 2.41780725177450611770e-1f) * r + 1.27045825245236838258e0f;
-    num = (num * r + 3.64784832476320460504e0f) * r + 5.76949722146069140550e0f;
-    num = (num * r + 4.63033784615654529590e0f) * r + 1.42343711074968357734e0f;
-    float den = ((1.05075007164441684324e-9f * r + 5.47593808499534494600e-4f) * r
-                 + 1.51986665636164571966e-2f) * r + 1.48103976427480074590e-1f;
-    den = (den * r + 6.89767334985100004550e-1f) * r + 1.67638483018380384940e0f;
-    den = (den * r + 2.05319162663775882187e0f) * r + 1.0f;
-    t = num / den;
-  } else {
-    const float r = rt - 5.0f;
-    float num = ((2.01033439929228813265e-7f * r + 2.71155556874348757815e-5f) * r
-                 + 1.24266094738807843860e-3f) * r + 2.65321895265761230930e-2f;
-    num = (num * r + 2.96560571828504891230e-1f) * r + 1.78482653991729133580e0f;
-    num = (num * r + 5.46378491116411436990e0f) * r + 6.65790464350110377720e0f;
-    float den = ((2.04426310338993978564e-15f * r + 1.42151175831644588870e-7f) * r
-                 + 1.84631831751005468180e-5f) * r + 7.86869131145613259100e-4f;
-    den = (den * r + 1.48753612908506148525e-2f) * r + 1.36929880922735805310e-1f;
-    den = (den * r + 5.99832206555887937690e-1f) * r + 1.0f;
-    t = num / den;
-  }
-  return q < 0.0f ? -t : t;
+  const float r = central ? fmaf(-q, q, 0.180625f) : rt - 1.6f;
+  const float4* c = kAs241Coef[central ? 1 : 0];
+  const float4 n0 = __ldg(c), n1 = __ldg(c + 1), d0 = __ldg(c + 2), d1 = __ldg(c + 3);
+  float num = fmaf(fmaf(fmaf(n0.x, r, n0.y), r, n0.z), r, n0.w);
+  num = fmaf(fmaf(fmaf(fmaf(num, r, n1.x), r, n1.y), r, n1.z), r, n1.w);
+  float den = fmaf(fmaf(fmaf(d0.x, r, d0.y), r, d0.z), r, d0.w);
+  den = fmaf(fmaf(fmaf(fmaf(den, r, d1.x), r, d1.y), r, d1.z), r, d1.w);
+  const float t = (central ? q * num : num) / den;
+  return !central && q < 0.0f ? -t : t;
 }
 
 __device__ __forceinline__ float ndtri_as241_rn(float u) {

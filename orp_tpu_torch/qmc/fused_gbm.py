@@ -7,9 +7,10 @@ reversals), maps it to the centre of one of 2^23 buckets in (0, 1), inverts
 the normal CDF with AS241 in f32 and advances ``logs += c0 + vol_sdt * z``.
 Only the rebalance knots are stored, as ``s0 * exp(logs)``.
 
-- :func:`gbm_log_fused` is the wrapper: the CUDA kernel
-  (``csrc/fused_gbm.cu``) for a CUDA device, :func:`gbm_log_plain` for the CPU.
-  On the card it launches the kernel or raises; it never falls back.
+- :func:`gbm_log_fused` is the wrapper: the CUDA kernel (``csrc/fused_mf.cu``,
+  the multi-factor kernel ``mf_kernel`` with its one-factor ``GbmLog`` step)
+  for a CUDA device, :func:`gbm_log_plain` for the CPU. On the card it
+  launches the kernel or raises; it never falls back.
 - :func:`gbm_log_plain` is the same arithmetic in plain PyTorch: the scan
   path (``sde.kernels.scan_sde`` over ``qmc.sobol.sobol_uniform``) with AS241
   as its inverse normal. It is the CPU tests' subject and the card's
@@ -111,7 +112,7 @@ def gbm_log_plain(n_paths: int, n_steps: int, *, s0: float, drift: float, sigma:
 
 def _kernel() -> ctypes.CDLL:
     """The built library with its launch function's C signature declared."""
-    lib = cuda_build.load("fused_gbm")
+    lib = cuda_build.load("fused_mf")
     fn = lib.orp_fused_gbm_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,
                    ctypes.c_int, ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
@@ -145,7 +146,7 @@ def gbm_log_fused(n_paths: int, n_steps: int, *, s0: float, drift: float, sigma:
             dirs.data_ptr(), out.data_ptr(), n_paths, n_steps, store_every,
             int(seed) & 0xFFFFFFFF, c0, vol_sdt, float(s0),
             torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(lib, rc, "fused_gbm")
+    cuda_build.check(lib, rc, "orp_fused_gbm_launch")
     gbm_log_fused.launches += 1
     return out.t()
 

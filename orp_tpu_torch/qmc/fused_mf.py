@@ -5,8 +5,9 @@ Per path and step each factor ``f`` draws Sobol dimension
 ``(t-1)*n_factors + f`` of the path's own index (scrambled as in
 ``qmc/fused_gbm.py``); the state advances in registers and only the
 rebalance knots are stored. The functions return the JAX functions' dicts
-of ``(n_paths, n_knots)`` tensors: Heston ``{"S": s0 * exp(logs), "v": v}``,
-the pension ``{"Y", "lam", "N"}`` (+ ``"v"`` with ``sv``).
+of ``(n_paths, n_knots)`` tensors: Heston ``{"S": s0 * exp(logs), "v": v}``
+(the kernel stores ``S`` itself), the pension ``{"Y", "lam", "N"}`` (+
+``"v"`` with ``sv``).
 
 - :func:`heston_log_fused` / :func:`heston_qe_fused` / :func:`pension_fused`
   are the wrappers: the CUDA kernel (``csrc/fused_mf.cu``, the templated
@@ -167,16 +168,17 @@ def _launch(name: str, consts: list[float], extra: tuple, n_paths, n_steps, s0, 
             store_every, dev) -> dict:
     n_knots = _check(n_paths, n_steps, store_every)
     lib = _kernel()
+    consts = [*consts, s0]  # the kernel stores S = s0 * exp(log-return)
     c = (ctypes.c_float * len(consts))(*consts)  # host f64 -> f32, rounded once
     with torch.cuda.device(dev):
         dirs = direction_numbers(n_steps * N_FACTORS, device=dev, dtype=torch.int32)
-        logs = torch.empty((n_knots, n_paths), dtype=torch.float32, device=dev)
+        s = torch.empty((n_knots, n_paths), dtype=torch.float32, device=dev)
         v = torch.empty((n_knots, n_paths), dtype=torch.float32, device=dev)
-        rc = getattr(lib, name)(dirs.data_ptr(), logs.data_ptr(), v.data_ptr(), n_paths,
+        rc = getattr(lib, name)(dirs.data_ptr(), s.data_ptr(), v.data_ptr(), n_paths,
                                 n_steps, store_every, int(seed) & 0xFFFFFFFF, c, *extra,
                                 torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(lib, rc, name)
-    return {"S": (s0 * torch.exp(logs)).t(), "v": v.t()}
+    return {"S": s.t(), "v": v.t()}
 
 
 def _device(device, name: str) -> torch.device:

@@ -26,7 +26,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "orp_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
-SOURCES = ("fused_gbm", "mixed_head", "fused_mf")
+SOURCES = ("mixed_head", "fused_mf")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

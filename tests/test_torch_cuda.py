@@ -28,8 +28,14 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n_paths, n_steps, store", [(1, 28, 7), (1000, 28, 1),
-                                                     (4097, 364, 7)])
+# the path kernels (K1 and K3, one template) form each Sobol word from a warp
+# part (index bits 5-31, shared through __shfl_sync) and a lane part (bits
+# 0-4): sizes with a partial last warp, one lane in the second warp (33), and
+# index bits above 2^21
+FUSED_MF_SIZES = [(1, 28, 7), (1000, 28, 1), (4097, 364, 7), (33, 40, 10), (2_097_185, 16, 8)]
+
+
+@pytest.mark.parametrize("n_paths, n_steps, store", FUSED_MF_SIZES)
 def test_fused_gbm_matches_plain(cuda, n_paths, n_steps, store):
     kw = dict(s0=100.0, drift=0.08, sigma=0.15, dt=1.0 / n_steps, seed=1235,
               store_every=store, device=cuda)
@@ -190,12 +196,6 @@ def test_engine_on_card_mixed_equals_loop_of_buckets(cuda):
 HESTON = dict(s0=100.0, mu=0.08, v0=0.0225, kappa=1.5, theta=0.0225, xi=0.25, rho=-0.6)
 # A > 0 (strongly positive rho): QE's uncorrected-drift branch
 HESTON_POS_RHO = dict(HESTON, rho=0.9)
-
-
-# the kernel forms each Sobol word from a warp part (index bits 5-31, shared
-# through __shfl_sync) and a lane part (bits 0-4): sizes with a partial last
-# warp, one lane in the second warp (33), and index bits above 2^21
-FUSED_MF_SIZES = [(1, 28, 7), (1000, 28, 1), (4097, 364, 7), (33, 40, 10), (2_097_185, 16, 8)]
 
 
 @pytest.mark.parametrize("n_paths, n_steps, store", FUSED_MF_SIZES)

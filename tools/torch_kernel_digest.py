@@ -1,35 +1,35 @@
 #!/usr/bin/env python3
-"""SHA-256 digests of the multi-factor path kernels' and the mixed-date head's
-outputs on the card, with their build report and, on request, their times and
-SASS census.
+"""SHA-256 digests of the path kernels' and the mixed-date head's outputs on
+the card, with their build report and, on request, their times and SASS
+census.
 
     python3 tools/torch_kernel_digest.py [--tree DIR] [--time] [--sass]
 
-Runs the kernels of ``orp_tpu_torch/csrc/fused_mf.cu`` at ``chip_smoke.py``'s
-main-path shapes and seeds, each once at 1,048,576 paths: K3a
-(``heston_log_fused``) and K3b (``heston_qe_fused``) over 364 steps stored
-every 7 (seed 4321), and K3c (``pension_fused``) over 1,000 steps stored every
-25 (seed 1234) in its four variants (constant-vol or SV fund, ``normal`` or
-``inversion`` thinning); and K2 (``serve/megakernel.mixed_head_forward``) on
-1,048,576 rows of the committed north-star policy over its 52 dates (the
-smoke's generator seed 7), in f32 and, where the tree has the bf16 kernel, in
-bf16. It prints one line per run: the SHA-256 of the
-wrapper's outputs (each key's name and its float32 bytes, keys sorted), then
-one JSON object. A redesign that must keep every output bitwise is checked by
-running this before and after it on one card: the digests must be equal. A
-digest also depends on nvcc and libdevice, so it is compared within one
-toolkit, never pinned in code.
+Runs the kernels at ``chip_smoke.py``'s main-path shapes and seeds, each once
+at 1,048,576 paths: K1 (``gbm_log_fused``) over 364 steps stored every 7 and,
+as ``fused_gbm_dense``, stored every step (365 knots), both with the smoke's
+out-of-sample seed; K3a (``heston_log_fused``) and K3b (``heston_qe_fused``)
+over 364 steps stored every 7 (seed 4321); K3c (``pension_fused``) over 1,000
+steps stored every 25 (seed 1234) in its four variants (constant-vol or SV
+fund, ``normal`` or ``inversion`` thinning); and K2
+(``serve/megakernel.mixed_head_forward``) on 1,048,576 rows of the committed
+north-star policy over its 52 dates (the smoke's generator seed 7), in f32
+and, where the tree has the bf16 kernel, in bf16. It prints one line per
+run: the SHA-256 of the wrapper's outputs (each key's name and its float32
+bytes, keys sorted), then one JSON object. A redesign that must keep every
+output bitwise is checked by running this before and after it on one card:
+the digests must be equal. A digest also depends on nvcc and libdevice, so
+it is compared within one toolkit, never pinned in code.
 
 - ``--tree DIR`` imports ``orp_tpu_torch`` from another checkout (a parent
   commit unpacked with ``git archive``) and builds its kernels there; the
   build report is filtered with this checkout's ``chip_smoke.ptxas_lines``.
   Comparing two trees on one card is one call of this tool per tree, in turns
   (parent, change, change, parent).
-- ``--time`` adds CUDA-event medians (5 rounds) of each kernel at those
-  shapes, and of K1 (``gbm_log_fused``, 1M x 364, store 7), whose source
-  shares ``sobol_device.cuh``.
-- ``--sass`` adds each ``fused_mf`` kernel's static SASS instruction count
-  and its most frequent opcodes (``cuobjdump -sass``, beside ``nvcc``).
+- ``--time`` adds CUDA-event medians (5 rounds) of each run.
+- ``--sass`` adds each kernel's static SASS instruction count and its most
+  frequent opcodes (``cuobjdump -sass``, beside ``nvcc``), for every library
+  the tree builds.
 
 Needs a CUDA card: it raises without one.
 """
@@ -61,15 +61,20 @@ def runs(smoke, dev) -> dict:
     import torch
 
     from orp_tpu_torch import NORTH_STAR_POLICY
-    from orp_tpu_torch.qmc import fused_mf
+    from orp_tpu_torch.qmc import fused_gbm, fused_mf
     from orp_tpu_torch.serve import load_bundle, megakernel
 
     heston = dict(smoke.HESTON, dt=1.0 / smoke.N_STEPS, seed=smoke.OOS_SEED,
                   store_every=smoke.STORE, device=dev)
     pension = dict(dt=10.0 / smoke.PENSION_STEPS, seed=1234, store_every=smoke.PENSION_STORE,
                    device=dev)
+    gbm = dict(s0=100.0, drift=0.08, sigma=0.15, dt=1.0 / smoke.N_STEPS, seed=smoke.OOS_SEED,
+               store_every=smoke.STORE, device=dev)
     n = smoke.N_FULL
-    out = {"heston_euler": lambda: fused_mf.heston_log_fused(n, smoke.N_STEPS, **heston),
+    out = {"fused_gbm": lambda: {"S": fused_gbm.gbm_log_fused(n, smoke.N_STEPS, **gbm)},
+           "fused_gbm_dense": lambda: {"S": fused_gbm.gbm_log_fused(
+               n, smoke.N_STEPS, **dict(gbm, store_every=1))},
+           "heston_euler": lambda: fused_mf.heston_log_fused(n, smoke.N_STEPS, **heston),
            "heston_qe": lambda: fused_mf.heston_qe_fused(n, smoke.N_STEPS, **heston)}
     for sv in (False, True):
         for mode in ("inversion", "normal"):
@@ -139,7 +144,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("torch_kernel_digest needs a CUDA card; none is available")
     smoke = _module(ROOT / "chip_smoke.py", "_smoke_constants")
-    from orp_tpu_torch.qmc import fused_gbm
     from orp_tpu_torch.utils import cuda_build
 
     check = pathlib.Path(cuda_build.__file__).resolve()
@@ -162,10 +166,6 @@ def main(argv=None) -> int:
         print(f"[digest] {name}: {whole}", flush=True)
         del outs
     if args.time:
-        gbm_kw = dict(s0=100.0, drift=0.08, sigma=0.15, dt=1.0 / smoke.N_STEPS,
-                      seed=smoke.OOS_SEED, store_every=smoke.STORE, device=dev)
-        calls["fused_gbm"] = lambda: fused_gbm.gbm_log_fused(smoke.N_FULL, smoke.N_STEPS,
-                                                             **gbm_kw)
         reps = {"pension": 5, "mixed_head": 200}
         result["ms"] = {}
         for name, call in calls.items():
@@ -174,7 +174,9 @@ def main(argv=None) -> int:
             print(f"[time] {name}: {result['ms'][name]:.4f} ms (median of 5 rounds of {n})",
                   flush=True)
     if args.sass:
-        result["sass"] = sass_census(cuda_build._lib_path("fused_mf"), cuda_build.nvcc_path())
+        result["sass"] = {}
+        for lib in reports:
+            result["sass"].update(sass_census(cuda_build._lib_path(lib), cuda_build.nvcc_path()))
         for name, c in result["sass"].items():
             print(f"[sass] {name}: {c['instructions']} instructions; {c['top']}", flush=True)
     print(json.dumps(result))
