@@ -84,9 +84,12 @@ last line):
     engine; max |dphi|, |dpsi|, |dv| against the f32 tier printed beside
     ``PRECISION_BANDS`` (not gated: on these policies the JAX package's own
     tiers fall outside its bands too); rows/s host-to-host; K2's f32 and
-    bf16 kernels timed at both policies' shapes, beside their bounds;
+    bf16 kernels timed at both policies' shapes and at 4,096 rows, beside
+    their bounds;
 15. times: each kernel and its plain version with CUDA events at the main
-    paths' shapes, beside the kernel's bound (K2's from [tiers]); the GN
+    paths' shapes (the host's queue filled ahead of each timed round, so a
+    kernel shorter than its wrapper's host cost is timed on the card), beside
+    the kernel's bound (K2's from [tiers], f32 and bf16 at both shapes); the GN
     walks' walls at 1M paths and the median time of one LM iteration there
     (MSE and, for the pension, the IRLS pinball leg).
 
@@ -159,14 +162,24 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int, rounds: int = 5) -> float:
-    """Median over ``rounds`` of the mean time of ``reps`` back-to-back calls."""
+    """Median over ``rounds`` of the mean time of ``reps`` back-to-back calls.
+
+    Before each round a sleep kernel holds the card while the host queues the
+    round's calls, so a call's host cost (a wrapper's checks and its launch)
+    does not show between the launches of a kernel shorter than it."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     times = []
     for _ in range(rounds):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        # 2e9 cycles a second: at least the wall asked for at the H100's clocks
+        torch.cuda._sleep(int(min(2.0 * reps * host_s, 0.2) * 2e9))
         a.record()
         for _ in range(reps):
             fn()
@@ -731,9 +744,10 @@ def tier_phase(dev, counts, policy, dates, states, prices, what: str) -> dict:
     return out
 
 
-def k2_times(dev, policy, n_rows: int, seed: int) -> dict:
+def k2_times(dev, policy, n_rows: int, seed: int, small: int = 4096) -> dict:
     """K2's f32 and bf16 kernels and their plain versions with CUDA events on
-    ``n_rows`` random rows of ``policy``'s shape, beside each one's bound."""
+    ``n_rows`` random rows of ``policy``'s shape, and the kernels on the first
+    ``small`` of those rows (keys ``f32_small``, ...), beside each one's bound."""
     import torch
 
     from orp_tpu_torch.serve import megakernel
@@ -754,6 +768,10 @@ def k2_times(dev, policy, n_rows: int, seed: int) -> dict:
         out[key + "_plain"] = cuda_ms(lambda: megakernel.mixed_head_plain(m, p, dates, f),
                                       reps=2, rounds=3)
         out[key + "_bound"] = k2_bound_ms(model, n_rows, n_dates, elem)
+        d_s, f_s = dates[:small], f[:small].contiguous()
+        out[key + "_small"] = cuda_ms(lambda: megakernel.mixed_head_forward(
+            m, p, d_s, f_s, packed=packed), reps=200)
+        out[key + "_small_bound"] = k2_bound_ms(model, small, n_dates, elem)
     return out
 
 
@@ -1166,7 +1184,9 @@ def main() -> int:
         print(f"[tiers] {what} K2 at {N_FULL} rows: bf16 kernel {t['bf16']:.4f} ms (bound "
               f"{t['bf16_bound'][0]:.5f} by {t['bf16_bound'][1]}, plain {t['bf16_plain']:.2f}"
               f" ms), f32 kernel {t['f32']:.4f} ms (bound {t['f32_bound'][0]:.5f} by "
-              f"{t['f32_bound'][1]}, plain {t['f32_plain']:.2f} ms)", flush=True)
+              f"{t['f32_bound'][1]}, plain {t['f32_plain']:.2f} ms); at 4096 rows: bf16 "
+              f"{t['bf16_small']:.4f} ms (bound {t['bf16_small_bound'][0]:.6f}), f32 "
+              f"{t['f32_small']:.4f} ms (bound {t['f32_small_bound'][0]:.6f})", flush=True)
     print(f"[tiers] {time.perf_counter() - t1:.2f} s", flush=True)
 
     # -- 15. times at the main paths' shapes ----------------------------------
@@ -1213,6 +1233,13 @@ def main() -> int:
         again = f" / {ms[name + '_2']:.4f}" if name + "_2" in ms else ""
         print(f"[times] {name} {ms[name]:.4f}{again} ms (bound {b_ms:.4f} ms by {by}, plain "
               f"{ms[name + '_plain']:.2f} ms)", flush=True)
+    for what, t in k2t.items():
+        for dt in ("f32", "bf16"):
+            print(f"[times] mixed_head {dt} at the {what} shape: {N_FULL} rows {t[dt]:.4f} ms "
+                  f"(bound {t[dt + '_bound'][0]:.5f} ms by {t[dt + '_bound'][1]}, plain "
+                  f"{t[dt + '_plain']:.2f} ms); 4096 rows {t[dt + '_small']:.4f} ms (bound "
+                  f"{t[dt + '_small_bound'][0]:.6f} ms by {t[dt + '_small_bound'][1]})",
+                  flush=True)
     dense_bound = k1_bound_ms(N_FULL, N_STEPS, 1)
     print(f"[times] fused_gbm on the dense grid (store 1, {N_STEPS + 1} knots) "
           f"{ms['fused_gbm_dense']:.4f} ms (bound {dense_bound[0]:.4f} ms by {dense_bound[1]}, "

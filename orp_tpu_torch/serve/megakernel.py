@@ -6,10 +6,15 @@ hedge MLP under the params of its own date ``dates[r]``: dots, bias adds and
 LeakyReLU between layers, raw head outputs ``(B, n_outputs)``, in f32 or bf16.
 
 - :func:`mixed_head_forward` is the wrapper: the CUDA kernel
-  (``csrc/mixed_head.cu``: one thread per row, every date's params staged in
-  shared memory, a per-row gather of its date's weights; an f32 and a bf16
-  entry point) for CUDA tensors, :func:`mixed_head_plain` for CPU tensors. On
-  the card it launches the kernel or raises; it never falls back.
+  (``csrc/mixed_head.cu``: a persistent grid over row tiles, every date's
+  params staged once per block in a padded shared layout, each tile's rows
+  count-sorted by date so that a thread runs four rows of one date on one
+  load of each weight; an f32 and a bf16 entry point) for CUDA tensors,
+  :func:`mixed_head_plain` for CPU tensors. On the card it launches the kernel
+  or raises; it never falls back.
+- :func:`head_plan` is the kernel's launch plan, computed here so that the
+  CPU tests reach it: the padded layout, the row tile, the date buckets and
+  the shared-memory offsets.
 - :func:`mixed_head_plain` is the JAX kernel's math in plain PyTorch: the
   full-block forward under each date's params, rows committed by date mask.
   In bf16 every operation rounds to bf16, as the JAX package's does: the dot
@@ -25,6 +30,7 @@ raises above those caps.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -37,6 +43,14 @@ from orp_tpu_torch.utils.precision import typed_scalar
 MAX_LAYERS = 4
 MAX_WIDTH = 16
 MAX_SMEM_BYTES = 232_448  # what one block may use on sm_90
+TILE_ROWS = 2048  # the most rows a tile holds (kTile in csrc/mixed_head.cu)
+_THREADS = 256    # threads a block (kThreads): also the most date buckets
+_GROUP = 4        # the most rows a thread runs together (kMaxGroup)
+#: ``head_plan``'s fields in the order of the kernel's ``struct Plan``; a
+#: list-valued field takes ``MAX_LAYERS`` (``sizes``: ``MAX_LAYERS + 1``) ints
+PLAN_FIELDS = ("n_layers", "sizes", "per_date", "src_off", "staged", "stride", "w_off", "ld",
+               "b_off", "tile", "shift", "n_bins", "o_cnt", "o_perm", "o_dates", "o_feats",
+               "o_out", "smem")
 #: the dtypes the kernel computes in, and their C entry points
 ENTRY = {torch.float32: "orp_mixed_head_launch", torch.bfloat16: "orp_mixed_head_bf16_launch"}
 
@@ -54,6 +68,87 @@ def pack_head_params(model, params_by_date: dict) -> torch.Tensor:
         w, b = params_by_date[f"w{i}"], params_by_date[f"b{i}"]
         parts += [w.reshape(w.shape[0], -1), b]
     return torch.cat(parts, dim=1).contiguous()
+
+
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def head_plan(sizes: tuple[int, ...], n_dates: int, elem: int) -> dict:
+    """The kernel's plan for a head of layer ``sizes`` over ``n_dates`` dates
+    with ``elem``-byte params (4 f32, 2 bf16), within ``MAX_SMEM_BYTES``:
+
+    - ``staged``: the params go to shared memory in a padded layout. Each
+      layer's weight rows (``ld`` elements apart, from ``w_off``) and its bias
+      (``b_off``) start on 16 bytes and hold whole 16-byte vectors; one date
+      spans ``stride`` elements, an odd number of 16-byte chunks, so the same
+      chunk of up to 8 dates falls on distinct banks. Where that layout and a
+      32-row tile do not fit, the params stay in device memory at their
+      packed layout (``stride = per_date``, ``ld`` = the layer's width);
+    - ``tile``: the most rows (a multiple of 32, at most ``TILE_ROWS``) whose
+      two date and feature buffers, sorted slots and outputs fit beside them;
+    - the count sort's buckets: ``date >> shift`` for ``n_bins - 1 <= 255``
+      buckets of dates, and a last one for dates outside ``[0, n_dates)``;
+      each bucket is padded to a whole number of the kernel's row groups;
+    - ``o_*``: the byte offsets of the counts, slots, dates, features and
+      outputs in dynamic shared memory, and ``smem`` its bytes in all."""
+    vec = 16 // elem
+    n_layers = len(sizes) - 1
+    pairs = list(zip(sizes[:-1], sizes[1:]))
+    src_off, off = [], 0
+    for fin, fout in pairs:
+        src_off.append(off)
+        off += fin * fout + fout
+    per_date = off
+    w_off, ld, b_off, off = [], [], [], 0
+    for fin, fout in pairs:
+        row = -(-fout // vec) * vec
+        w_off.append(off)
+        ld.append(row)
+        b_off.append(off + fin * row)
+        off += (fin + 1) * row
+    stride = (off // vec | 1) * vec
+    shift = 0
+    while ((n_dates - 1) >> shift) + 2 > _THREADS:
+        shift += 1
+
+    def layout(tile: int, params_bytes: int) -> dict:
+        o = {"o_cnt": params_bytes}
+        o["o_perm"] = o["o_cnt"] + 4 * (_THREADS + _THREADS // 32)
+        # sorted slots: a tile's rows and each bucket's padding to a group
+        o["o_dates"] = _up16(o["o_perm"] + 2 * (tile + _THREADS * (_GROUP - 1)))
+        o["o_feats"] = o["o_dates"] + 2 * 4 * tile
+        o["o_out"] = o["o_feats"] + 2 * _up16(tile * sizes[0] * elem)
+        o["smem"] = _up16(o["o_out"] + tile * sizes[-1] * elem)
+        return o
+
+    staged_bytes = n_dates * stride * elem
+    staged = layout(32, staged_bytes)["smem"] <= MAX_SMEM_BYTES
+    if not staged:
+        stride = per_date
+        w_off, ld = src_off, [fout for _, fout in pairs]
+        b_off = [o + fin * fout for o, (fin, fout) in zip(src_off, pairs)]
+    params_bytes = staged_bytes if staged else 0
+    tile = TILE_ROWS
+    while layout(tile, params_bytes)["smem"] > MAX_SMEM_BYTES:
+        tile -= 32
+    pad = [0] * (MAX_LAYERS - n_layers)
+    return {"n_layers": n_layers, "sizes": list(sizes) + pad, "per_date": per_date,
+            "src_off": src_off + pad, "staged": int(staged), "stride": stride,
+            "w_off": w_off + pad, "ld": ld + pad, "b_off": b_off + pad, "tile": tile,
+            "shift": shift, "n_bins": ((n_dates - 1) >> shift) + 2,
+            **layout(tile, params_bytes)}
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_ints(sizes: tuple[int, ...], n_dates: int, elem: int):
+    """:func:`head_plan` as the C ``Plan``: its ints in ``PLAN_FIELDS`` order."""
+    plan = head_plan(sizes, n_dates, elem)
+    flat = []
+    for name in PLAN_FIELDS:
+        v = plan[name]
+        flat += v if isinstance(v, list) else [v]
+    return (ctypes.c_int * len(flat))(*flat)
 
 
 def mixed_head_plain(model, params_by_date: dict, dates: torch.Tensor,
@@ -82,8 +177,8 @@ def _kernel(lib: ctypes.CDLL, dtype: torch.dtype):
     fn = getattr(lib, ENTRY[dtype])
     # the slope: an f32 value, or a bf16 bit pattern in an unsigned short
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.POINTER(ctypes.c_int),
+                   ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.c_int,
                    ctypes.c_float if dtype == torch.float32 else ctypes.c_ushort,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -145,13 +240,13 @@ def mixed_head_forward(model, params_by_date: dict, dates: torch.Tensor,
     out = torch.empty((n, model.n_outputs), dtype=dt, device=feats.device)
     if n == 0:
         return out
-    sizes = (ctypes.c_int * (MAX_LAYERS + 1))(*_layer_sizes(model))
+    plan = _plan_ints(_layer_sizes(model), n_dates, packed.element_size())
     slope = typed_scalar(model.negative_slope, dt)
     slope = float(slope) if dt == torch.float32 else int(slope.view(torch.int16)) & 0xFFFF
     lib = cuda_build.load("mixed_head")
     with torch.cuda.device(feats.device):
         rc = _kernel(lib, dt)(dates.data_ptr(), feats.data_ptr(), packed.data_ptr(),
-                              out.data_ptr(), n, n_dates, len(model.hidden) + 1, sizes, slope,
+                              out.data_ptr(), n, n_dates, plan, len(plan), slope,
                               torch.cuda.current_stream(feats.device).cuda_stream)
     cuda_build.check(lib, rc, "mixed_head")
     if dt == torch.float32:

@@ -125,6 +125,88 @@ def test_mixed_head_bf16_matches_plain(cuda, model, n_rows):
     assert agree["ok"], agree
 
 
+def _edge_dates(case, n_dates, device):
+    """The dates of one of ``K2_EDGES``' cases."""
+    g = torch.Generator(device=device).manual_seed(11)
+    t = megakernel.TILE_ROWS
+    if case.startswith("rows_"):
+        # enough rows that every block takes whole tiles of TILE_ROWS (the kernel
+        # cuts smaller tiles only while the rows leave a block's slot empty)
+        n = 600 * t + {"rows_tile_minus_1": -1, "rows_tile": 0, "rows_tile_plus_1": 1}[case]
+        return torch.randint(0, n_dates, (n,), device=device, generator=g,
+                             dtype=torch.int32)
+    n = 3 * t + 5
+    if case == "one_date":
+        return torch.full((n,), n_dates // 2, device=device, dtype=torch.int32)
+    if case == "descending":
+        return (n_dates - 1 - torch.arange(n, device=device) * n_dates // n).to(torch.int32)
+    if case == "bad_dates":  # in- and out-of-range dates mixed in every tile
+        return torch.randint(-3, n_dates + 3, (n,), device=device, generator=g,
+                             dtype=torch.int32)
+    if case == "offset_views":  # contiguous views 4 bytes past a 16-byte start
+        return torch.randint(0, n_dates, (n + 1,), device=device, generator=g,
+                             dtype=torch.int32)[1:]
+    return torch.randint(0, n_dates, (n,), device=device, generator=g, dtype=torch.int32)
+
+
+def _near_full_dates(model, elem, staged):
+    """Dates whose params fill shared memory: the most ``check_head_shape``
+    accepts (the plan keeps them in device memory), or the most whose padded
+    layout still stages beside a tile that has to shrink."""
+    n = megakernel.MAX_SMEM_BYTES // (model.n_params() * elem)
+    if staged:
+        while not megakernel.head_plan(model.layer_sizes, n, elem)["staged"]:
+            n -= 1
+    return n
+
+
+# the redesign's edges: rows around a tile's end; one date; dates sorted
+# descending; NaN rows beside good rows in every tile; inputs that are views off
+# a 16-byte start (the tile copies go element by element); one date in all;
+# params nearly filling shared memory (the tile shrinks), and filling it (no
+# staging)
+K2_EDGES = ["rows_tile_minus_1", "rows_tile", "rows_tile_plus_1", "one_date", "descending",
+            "bad_dates", "offset_views", "n_dates_1", "near_full_staged",
+            "near_full_unstaged"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", K2_EDGES)
+def test_mixed_head_edges_match_plain(cuda, case, dtype):
+    """f32 at rtol 1e-5 / atol 1e-6, bf16 by ``BF16_RULE``, NaN rows equal."""
+    model = HedgeMLP(n_features=1).with_dtype(dtype)
+    elem = torch.empty((), dtype=dtype).element_size()
+    n_dates = {"n_dates_1": 1,
+               "near_full_staged": _near_full_dates(model, elem, True),
+               "near_full_unstaged": _near_full_dates(model, elem, False)}.get(case, 52)
+    plan = megakernel.head_plan(model.layer_sizes, n_dates, elem)
+    if case == "near_full_staged":
+        assert plan["staged"] and plan["tile"] < megakernel.TILE_ROWS, plan
+    if case == "near_full_unstaged":
+        assert not plan["staged"] and n_dates * model.n_params() * elem > (
+            megakernel.MAX_SMEM_BYTES - model.n_params() * elem)
+    p = {k: v.to(dtype) for k, v in _params(model, n_dates, 5, cuda).items()}
+    dates = _edge_dates(case, n_dates, cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    skip = int(case == "offset_views")
+    feats = (1.0 + 0.1 * torch.randn(dates.shape[0] + skip, 1, device=cuda,
+                                     generator=g)).to(dtype)[skip:]
+    if skip:
+        assert dates.data_ptr() % 16 and feats.data_ptr() % 16
+    got = megakernel.mixed_head_forward(model, p, dates, feats)
+    torch.cuda.synchronize()
+    want = megakernel.mixed_head_plain(model, p, dates, feats)
+    bad = (dates < 0) | (dates >= n_dates)
+    assert bool(torch.isnan(got[bad]).all()) and bool(torch.isfinite(got[~bad]).all())
+    if case == "bad_dates":
+        assert 0 < int(bad.sum()) < dates.shape[0]
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6, equal_nan=True)
+    else:
+        agree = bf16_agreement(got, want)
+        assert agree["ok"], agree
+
+
 def test_mixed_head_bf16_nan_rows_and_refusals(cuda):
     model = HedgeMLP(n_features=1).with_dtype(torch.bfloat16)
     p = {k: v.to(torch.bfloat16) for k, v in _params(model, 4, 0, cuda).items()}

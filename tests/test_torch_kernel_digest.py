@@ -24,7 +24,9 @@ SMOKE = types.SimpleNamespace(
 
 KERNEL_RUNS = ["fused_gbm", "fused_gbm_dense", "heston_euler", "heston_qe",
                "pension_const_inversion", "pension_const_normal", "pension_sv_inversion",
-               "pension_sv_normal", "mixed_head_f32", "mixed_head_bf16"]
+               "pension_sv_normal", "mixed_head_f32", "mixed_head_bf16",
+               "mixed_head_f32_4096", "mixed_head_bf16_4096", "mixed_head_f32_pension",
+               "mixed_head_bf16_pension"]
 
 
 def _tool():
@@ -80,3 +82,15 @@ def test_k1_runs_are_the_smoke_shapes_and_seed(calls):
                                    sigma=0.15, dt=1.0 / SMOKE.N_STEPS, seed=SMOKE.OOS_SEED,
                                    store_every=SMOKE.STORE)
     assert torch.equal(sparse, want)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_k2_runs_are_the_smoke_rows_and_the_pension_shape(calls, dtype):
+    """The 4,096-row run is the head of the north-star run's rows; the pension
+    run is 3 features, 40 dates, 2 finite outputs a row."""
+    full = calls[f"mixed_head_{dtype}"]()["out"]
+    small = calls[f"mixed_head_{dtype}_4096"]()["out"]
+    pension = calls[f"mixed_head_{dtype}_pension"]()["out"]
+    assert full.shape == (SMOKE.N_FULL, 2) and small.shape == (min(SMOKE.N_FULL, 4096), 2)
+    assert torch.equal(small, full[:4096])
+    assert pension.shape == (SMOKE.N_FULL, 2) and bool(torch.isfinite(pension).all())

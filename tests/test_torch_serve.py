@@ -25,6 +25,7 @@ from orp_tpu_torch.serve import (HedgeEngine, load_bundle, loop_of_buckets,
                                  mixed_head_forward, next_bucket, policy_from_numpy,
                                  save_bundle)
 from orp_tpu_torch.serve.bundle import model_meta
+from orp_tpu_torch.serve import megakernel
 from orp_tpu_torch.serve.megakernel import check_head_shape, mixed_head_plain
 from orp_tpu_torch.train.backward import _date_outputs_core
 
@@ -233,6 +234,81 @@ def test_head_shape_caps():
         check_head_shape(HedgeMLP(n_features=1, hidden=(4, 4, 4, 4)), 4)
     with pytest.raises(ValueError, match="shared memory"):
         check_head_shape(HedgeMLP(n_features=1, hidden=(16, 16, 16)), 200)
+
+
+def _staged_index(plan, i):
+    """Where the kernel's staging loop puts packed element ``i`` (date-major)."""
+    d, e = divmod(i, plan["per_date"])
+    layer = max(m for m in range(plan["n_layers"]) if e >= plan["src_off"][m])
+    e -= plan["src_off"][layer]
+    fin, fout = plan["sizes"][layer], plan["sizes"][layer + 1]
+    if e < fin * fout:
+        k, j = divmod(e, fout)
+        return d * plan["stride"] + plan["w_off"][layer] + k * plan["ld"][layer] + j
+    return d * plan["stride"] + plan["b_off"][layer] + e - fin * fout
+
+
+# (layer sizes, dates): the served heads, a deep one, one layer of one unit,
+# many dates (buckets of two dates and more), and params that fill shared memory
+PLAN_HEADS = [((1, 8, 8, 2), 52), ((3, 8, 8, 2), 40), ((2, 16, 4, 8, 3), 52), ((1, 1), 1),
+              ((1, 8, 8, 2), 300), ((1, 8, 8, 2), 548), ((16, 16, 16, 16, 16), 10)]
+
+
+@pytest.mark.parametrize("elem", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("sizes, n_dates", PLAN_HEADS)
+def test_head_plan_layout(sizes, n_dates, elem):
+    """The kernel's plan: every packed param lands in its own place, where the
+    forward reads it (row k of layer l at ``w_off + k * ld``, the bias at
+    ``b_off``); staged rows hold whole 16-byte vectors and a date spans an odd
+    number of them; the tile and the buckets fit the kernel's shared memory."""
+    plan = megakernel.head_plan(sizes, n_dates, elem)
+    vec = 16 // elem
+    assert plan["smem"] <= megakernel.MAX_SMEM_BYTES
+    assert plan["tile"] % 32 == 0 and 32 <= plan["tile"] <= megakernel.TILE_ROWS
+    assert plan["n_bins"] == ((n_dates - 1) >> plan["shift"]) + 2 <= 256
+    assert plan["shift"] == 0 or ((n_dates - 1) >> (plan["shift"] - 1)) + 2 > 256
+    assert plan["o_cnt"] == (n_dates * plan["stride"] * elem if plan["staged"] else 0)
+    assert all(plan[k] % 16 == 0 for k in ("o_cnt", "o_perm", "o_dates", "o_feats", "o_out"))
+    n_layers = len(sizes) - 1
+    if plan["staged"]:
+        assert plan["stride"] % vec == 0 and (plan["stride"] // vec) % 2 == 1
+        for layer in range(n_layers):
+            assert plan["w_off"][layer] % vec == plan["ld"][layer] % vec == 0
+            assert plan["b_off"][layer] % vec == 0 and plan["ld"][layer] >= sizes[layer + 1]
+        places = [_staged_index(plan, i) for i in range(n_dates * plan["per_date"])]
+        assert len(set(places)) == len(places) and max(places) < n_dates * plan["stride"]
+    else:
+        assert plan["stride"] == plan["per_date"]
+        places = list(range(n_dates * plan["per_date"]))
+    assert plan["per_date"] == sum(a * b + b for a, b in zip(sizes[:-1], sizes[1:]))
+    where = dict(zip(places, range(len(places))))
+    for d in range(n_dates):
+        base = d * plan["stride"]
+        for layer in range(n_layers):
+            fin, fout = sizes[layer], sizes[layer + 1]
+            src = d * plan["per_date"] + plan["src_off"][layer]
+            for k in range(fin):
+                for j in range(fout):
+                    at = base + plan["w_off"][layer] + k * plan["ld"][layer] + j
+                    assert where[at] == src + k * fout + j
+            for j in range(fout):
+                assert where[base + plan["b_off"][layer] + j] == src + fin * fout + j
+
+
+def test_head_plan_tile_shrinks_then_params_stay_in_device_memory():
+    """As dates are added, the tile shrinks beside the staged params; past the
+    point where a 32-row tile no longer fits, the params are read from device
+    memory and the tile is whole again, up to the most dates the caps take."""
+    sizes, elem = (1, 8, 8, 2), 4
+    n_max = megakernel.MAX_SMEM_BYTES // (106 * elem)
+    check_head_shape(HedgeMLP(n_features=1), n_max)
+    plans = [megakernel.head_plan(sizes, n, elem) for n in range(52, n_max + 1)]
+    staged = [p["staged"] for p in plans]
+    assert staged[0] and not staged[-1] and staged == sorted(staged, reverse=True)
+    last = max(i for i, s in enumerate(staged) if s)
+    assert plans[0]["tile"] == megakernel.TILE_ROWS > plans[last]["tile"] >= 32
+    assert all(a["tile"] >= b["tile"] for a, b in zip(plans[:last], plans[1:last + 1]))
+    assert plans[last + 1]["tile"] == plans[-1]["tile"] == megakernel.TILE_ROWS
 
 
 def test_bundle_roundtrip_and_shape_guard(tmp_path, trained):

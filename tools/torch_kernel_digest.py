@@ -13,7 +13,10 @@ over 364 steps stored every 7 (seed 4321); K3c (``pension_fused``) over 1,000
 steps stored every 25 (seed 1234) in its four variants (constant-vol or SV
 fund, ``normal`` or ``inversion`` thinning); and K2
 (``serve/megakernel.mixed_head_forward``) on 1,048,576 rows of the committed
-north-star policy over its 52 dates (the smoke's generator seed 7), in f32
+north-star policy over its 52 dates (the smoke's generator seed 7), on the
+first 4,096 of those rows (``mixed_head_*_4096``), and at the pension serve
+shape (``mixed_head_*_pension``: ``HedgeMLP(n_features=3)``, 122 params, 40
+dates, 1,048,576 rows, params and rows from generator seed 17), each in f32
 and, where the tree has the bf16 kernel, in bf16. It prints one line per
 run: the SHA-256 of the wrapper's outputs (each key's name and its float32
 bytes, keys sorted), then one JSON object. A redesign that must keep every
@@ -61,6 +64,7 @@ def runs(smoke, dev) -> dict:
     import torch
 
     from orp_tpu_torch import NORTH_STAR_POLICY
+    from orp_tpu_torch.models import HedgeMLP
     from orp_tpu_torch.qmc import fused_gbm, fused_mf
     from orp_tpu_torch.serve import load_bundle, megakernel
 
@@ -85,17 +89,33 @@ def runs(smoke, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(7)
     dates = torch.randint(0, policy.n_dates, (n,), device=dev, generator=gen, dtype=torch.int32)
     feats = (1.0 + 0.1 * torch.randn(n, 1, device=dev, generator=gen)).contiguous()
+    # the pension serve shape: 3 features, 40 dates, seeded params and rows
+    pension_model, pension_dates = HedgeMLP(n_features=3), 40
+    gen = torch.Generator(device=dev).manual_seed(17)
+    pension_p = {}
+    sizes = pension_model.layer_sizes
+    for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:])):
+        pension_p[f"w{i}"] = 0.5 * torch.randn(pension_dates, a, b, device=dev, generator=gen)
+        pension_p[f"b{i}"] = 0.1 * torch.randn(pension_dates, b, device=dev, generator=gen)
+    heads = {"": (policy.model, policy.backward.params1_by_date, dates, feats),
+             "_4096": (policy.model, policy.backward.params1_by_date, dates[:4096],
+                       feats[:4096]),
+             "_pension": (pension_model, pension_p,
+                          torch.randint(0, pension_dates, (n,), device=dev, generator=gen,
+                                        dtype=torch.int32),
+                          1.0 + 0.1 * torch.randn(n, 3, device=dev, generator=gen))}
     dtypes = {"f32": torch.float32}
     if hasattr(megakernel.mixed_head_forward, "launches_bf16"):
         dtypes["bf16"] = torch.bfloat16
     for name, dt in dtypes.items():
-        m = policy.model.with_dtype(dt)
-        p = {k: v.to(dev, dt) for k, v in policy.backward.params1_by_date.items()}
-        packed = megakernel.pack_head_params(m, p)
-        f = feats.to(dt)
-        out[f"mixed_head_{name}"] = (
-            lambda m=m, p=p, f=f, packed=packed:
-            {"out": megakernel.mixed_head_forward(m, p, dates, f, packed=packed)})
+        for shape, (model, params, d, x) in heads.items():
+            m = model.with_dtype(dt)
+            p = {k: v.to(dev, dt) for k, v in params.items()}
+            packed = megakernel.pack_head_params(m, p)
+            f = x.to(dt).contiguous()
+            out[f"mixed_head_{name}{shape}"] = (
+                lambda m=m, p=p, d=d, f=f, packed=packed:
+                {"out": megakernel.mixed_head_forward(m, p, d, f, packed=packed)})
     return out
 
 
