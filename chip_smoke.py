@@ -86,7 +86,36 @@ last line):
     tiers fall outside its bands too); rows/s host-to-host; K2's f32 and
     bf16 kernels timed at both policies' shapes and at 4,096 rows, beside
     their bounds;
-15. times: each kernel and its plain version with CUDA events at the main
+15. [adam] main path D: ``european_hedge`` at 1,048,576 paths with the north
+    star's Adam configuration (``benchmarks/north_star.py``: 120 + 51 x 30
+    epochs, batches of 16,384, ``shuffle="blocks"``, lr 1e-3; ``fused=False``):
+    |v0_acv - BS| < 1bp; K1 moves, no other kernel; the wall, the Adam steps,
+    the epochs run, ms per step and launches per step (``torch.profiler``,
+    each epoch a CUDA graph and op by op); then the trained policy as one
+    1,048,576-row mixed-date block through ``HedgeEngine``: K2 moves, no other
+    kernel, held against ``mixed_head_plain`` at ``rtol=1e-5, atol=1e-6``;
+16. [adam-f64] the same Adam walk in float64 on the card (CUDA graphs) and on
+    the CPU, on the same 4,096 K1 paths x 52 dates and the same orders (drawn
+    on the host from one seed), ``shuffle=False`` and ``"blocks"``: every
+    date's fit on the card against the same fit on the CPU from the card's
+    inputs, params, values and holdings at rtol 1e-7 and the same epochs on
+    every date (the free-running walks are chaotic in f64: the date where
+    they part is printed);
+17. [adam-reference] the reference's own Adam workloads at their own sizes and
+    defaults (``tools/parity_runs.py``'s configs, copied): the Euro flagship
+    (``euro_flagship_cfg(1234)``) inside ``test_golden_euro_flagship_hedge``'s
+    bands against the reference values (phi0, psi0, discounted payoff, VaR99,
+    terminal residual std), its network V0 within 3 standard deviations of
+    the JAX package's own walk over 24 walk seeds (the golden 6% band around
+    11.352 printed: that walk lands outside it on 13 of 24); ``Multi#25-26`` (``seeds3_cfg(1234)``:
+    ``shared`` + ``py``, Adam 500/100, exact thinning, 4,096 x 1,000 steps):
+    V0 within 3.5% of 981,038, ``|phi0 + psi0 - V0| < 2% V0``, phi0 in (600k,
+    780k), psi0 in (200k, 380k); the hybrid walk (GN 60/30 with the Adam
+    quantile leg): V0 within 3.5%; each wall;
+18. [exact] ``simulate_pension`` with ``binomial_mode="exact"`` at 1,048,576
+    paths x 1,000 steps stored every 25 (the scan path): ``|E[N_T] - 8616| <
+    40``, ``|sd(N_T) - 132| < 30``; a second run with the same seed equal;
+19. times: each kernel and its plain version with CUDA events at the main
     paths' shapes (the host's queue filled ahead of each timed round, so a
     kernel shorter than its wrapper's host cost is timed on the card), beside
     the kernel's bound (K2's from [tiers], f32 and bf16 at both shapes); the GN
@@ -775,6 +804,299 @@ def k2_times(dev, policy, n_rows: int, seed: int, small: int = 4096) -> dict:
     return out
 
 
+# the north star's Adam configuration (benchmarks/north_star.py: batch_size = n_paths
+# // 64, blocks shuffle, lr 1e-3, 120 + 51 x 30 epochs), fused=False: the port's host loop
+ADAM_TRAIN = dict(dual_mode="mse_only", epochs_first=120, epochs_warm=30, batch_size=16_384,
+                  lr=1e-3, shuffle="blocks")
+# the reference's own Adam workloads (tools/parity_runs.py, copied: the port does not
+# import it): euro_flagship_cfg(1234), seeds3_cfg(1234) and seeds3_gn_cfg(1234) with
+# the Adam quantile leg; bands of tests/test_golden.py and PARITY.md
+EURO_FLAGSHIP = dict(v0=11.352, phi0=0.10456, psi0=0.89544, disc=10.479, var99=4.05,
+                     resid_std=1.7504)
+# The network's V0 moves with the walk's random stream: the JAX package's own Adam
+# walk on these paths, over walk seeds 1-24, lands at mean EURO_V0_SEEDS["mean"], sd
+# EURO_V0_SEEDS["sd"], outside the golden 6% band around 11.352 on 13 of 24 seeds
+# (tools/adam_seed_spread.py --package jax). The port draws its orders from its own
+# generators (threefry cannot be reproduced), so its V0 is another draw of that law:
+# gated within 3 sd of the JAX walk's seed mean, the 6% band printed beside it.
+EURO_V0_SEEDS = dict(mean=12.052980934580168, sd=0.6369408186988019)
+MULTI_V0_BAND = 0.035
+
+
+def adam_launches(dev) -> dict:
+    """Host launch calls and device kernels per Adam step at the north star's batch
+    shape (a 1M-row fit, two epochs of 64 steps), each epoch a CUDA graph and op by
+    op, from ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from orp_tpu_torch.models import HedgeMLP
+    from orp_tpu_torch.train import fit, losses
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    s = torch.exp(0.15 * torch.randn(N_FULL, device=dev, generator=gen))
+    data = (s[:, None], torch.stack([s, torch.full_like(s, 0.0108)], -1),
+            torch.clamp(s - 1.0, min=0.0))
+    model = HedgeMLP(n_features=1)
+    params = {k: v.to(dev) for k, v in model.init(torch.Generator().manual_seed(3),
+                                                  bias_init=(0.1, 0.0)).items()}
+    cfg = fit.FitConfig(n_epochs=2, batch_size=ADAM_TRAIN["batch_size"], patience=5,
+                        shuffle="blocks", lr=1e-3)
+    out = {}
+
+    def run():
+        return fit.fit_core(model, params, *data, torch.Generator().manual_seed(1),
+                            loss_fn=losses.mse, cfg=cfg)
+
+    for mode, graphs in (("graph", True), ("eager", False)):
+        fit.CUDA_GRAPHS = graphs
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        steps = 2 * N_FULL // ADAM_TRAIN["batch_size"]
+        host = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                                "cuLaunchKernelEx", "cudaGraphLaunch"))
+        kernels = sum(1 for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        out[mode] = (host / steps, kernels / steps)
+    fit.CUDA_GRAPHS = True
+    return out
+
+
+def adam_phases(dev, counts, bs: float) -> dict:
+    """[adam], [adam-f64], [adam-reference] and [exact]: the Adam walk and exact
+    thinning, this slice's paths."""
+    import numpy as np
+    import torch
+
+    from orp_tpu_torch.api import (EuropeanConfig, HedgeRunConfig, MarketConfig, SimConfig,
+                                   TrainConfig, european_hedge, pension_hedge)
+    from orp_tpu_torch.models import HedgeMLP
+    from orp_tpu_torch.qmc import fused_gbm
+    from orp_tpu_torch.sde import TimeGrid, simulate_pension
+    from orp_tpu_torch.serve import HedgeEngine, megakernel, policy_from_numpy
+    from orp_tpu_torch.serve.bundle import model_meta
+    from orp_tpu_torch.train import BackwardConfig, backward, backward_induction, fit, losses
+
+    # -- 15. [adam] main path D: the north star's Adam walk at 1M (K1), served (K2)
+    torch.cuda.synchronize()
+    counts.reset()
+    t1 = time.perf_counter()
+    ah = european_hedge(EuropeanConfig(constrain_self_financing=False),
+                        SimConfig(n_paths=N_FULL, T=1.0, dt=1 / 364, rebalance_every=7,
+                                  engine="pallas"), TrainConfig(**ADAM_TRAIN))
+    torch.cuda.synchronize()
+    adam_s = time.perf_counter() - t1
+    k1_adam = counts.only("fused_gbm", "the 1M-path Adam european_hedge")
+    rep, bw = ah.report, ah.backward
+    bp = (rep.v0_acv - bs) / bs * 1e4
+    check(all(math.isfinite(x) for x in report_fields(rep)), "Adam european_hedge report finite")
+    check(bw.values.shape == (N_FULL, 53), "Adam european_hedge ledger shape")
+    check(abs(bp) < 1.0, f"Adam european_hedge |v0_acv - BS| {bp:+.4f}bp < 1bp")
+    eps = bw.epochs_ran
+    steps = int(eps.sum()) * max(N_FULL // ADAM_TRAIN["batch_size"], 1)
+    per_step = adam_launches(dev)
+    print(f"[adam] european_hedge {N_FULL} paths x {N_STEPS} steps, Adam 120 + 51 x 30 "
+          f"epochs, batch 16384, blocks, lr 1e-3: v0_acv {rep.v0_acv:.6f} vs BS {bs:.6f} "
+          f"bp_err {bp:+.4f}, v0_cv {rep.v0_cv:.6f}, v0_network {rep.v0:.4f}, acv_std "
+          f"{rep.acv_std:.4f}; wall {adam_s:.2f} s; {steps} Adam steps; epochs run: first "
+          f"date {int(eps[-1])}, warm dates min / median / max {int(eps[:-1].min())} / "
+          f"{float(np.median(eps[:-1])):.1f} / {int(eps[:-1].max())}; {adam_s * 1e3 / steps:.4f}"
+          f" ms per step (wall / steps); launches per step (host calls, device kernels): "
+          f"graph {per_step['graph'][0]:.4f}, {per_step['graph'][1]:.2f}; eager "
+          f"{per_step['eager'][0]:.2f}, {per_step['eager'][1]:.2f}; K1 launches {k1_adam}",
+          flush=True)
+    meta = {"model": model_meta(ah.model), "times": ah.times.tolist(),
+            "adjustment_factor": ah.adjustment_factor, "dual_mode": ah.dual_mode,
+            "holdings_combine": ah.holdings_combine, "cost_of_capital": ah.cost_of_capital,
+            "sim_seed": ah.sim_seed}
+    apolicy = policy_from_numpy(meta, {k: v.detach().cpu().numpy()
+                                       for k, v in bw.params1_by_date.items()})
+    del ah, bw
+    rng = np.random.default_rng(19)
+    dates = rng.integers(0, 52, N_FULL).astype(np.int32)
+    t_d = np.asarray(apolicy.times)[dates]
+    st = np.exp(0.15 * np.sqrt(t_d) * rng.standard_normal(N_FULL) + 0.07 * t_d)
+    states = st[:, None].astype(np.float32)
+    prices = np.stack([st, np.exp(0.08 * t_d) / 100.0], 1).astype(np.float32)
+    engine = HedgeEngine(apolicy)
+    counts.reset()
+    t1 = time.perf_counter()
+    phi, psi, v = engine.evaluate_mixed_async(dates, states, prices).result()
+    serve_s = time.perf_counter() - t1
+    serve_k2 = counts.only("mixed_head", "the Adam-trained policy's 1M-row block")
+    p_dev = {k: t.to(dev) for k, t in apolicy.backward.params1_by_date.items()}
+    plain = megakernel.mixed_head_plain(apolicy.model, p_dev, torch.from_numpy(dates).to(dev),
+                                        torch.from_numpy(states).to(dev)).cpu().numpy()
+    np.testing.assert_allclose(phi, plain[:, 0], rtol=1e-5, atol=1e-6, err_msg="phi")
+    np.testing.assert_allclose(psi, plain[:, 1], rtol=1e-5, atol=1e-6, err_msg="psi")
+    np.testing.assert_allclose(v, (plain * prices).sum(1), rtol=1e-5, atol=1e-6, err_msg="v")
+    print(f"[adam] the Adam-trained policy as one {N_FULL}-row block over 52 dates through "
+          f"HedgeEngine matches mixed_head_plain (rtol 1e-5, atol 1e-6); {serve_s:.3f} s "
+          f"host-to-host; K2 launches {serve_k2}", flush=True)
+
+    # -- 16. [adam-f64] the same Adam walk in float64 on the card and on the CPU ----
+    # The walk is chaotic in f64: Adam's step m / (sqrt(v) + eps) divides by small
+    # gradients, so the card's and the CPU's roundings grow from date to date (the
+    # free-running walks' gap is printed at every tenth date). So each date's fit is
+    # held to the same fit on the CPU from the card's inputs (its warm params,
+    # target and the same orders).
+    t1 = time.perf_counter()
+    s = fused_gbm.gbm_log_fused(N_FIXTURE, N_STEPS, s0=100.0, drift=0.08, sigma=0.15,
+                                dt=1 / N_STEPS, seed=1235, store_every=STORE,
+                                device=dev).double() / 100.0
+    b = torch.exp(0.08 * torch.linspace(0.0, 1.0, 53, dtype=torch.float64)) / 100.0
+    term = torch.clamp(s[:, -1] - 1.0, min=0.0)
+    model = HedgeMLP(n_features=1, dtype=torch.float64)
+    bias = (float(term.mean()), 0.0)
+    sc = s.cpu()
+    prices = backward._stack_prices(sc, b)
+    cpu = torch.device("cpu")
+    worst, parted, profile = {}, {}, {}
+    for shuffle in (False, "blocks"):
+        cfg = BackwardConfig(dual_mode="mse_only", epochs_first=4, epochs_warm=2,
+                             patience_warm=1, batch_size=512, lr=1e-3, shuffle=shuffle)
+        card = backward_induction(model, s[:, :, None], s, b.to(dev), term, cfg, bias_init=bias)
+        host = backward_induction(model, sc[:, :, None], sc, b, term.cpu(), cfg, bias_init=bias)
+        p_card = {k: v.cpu() for k, v in card.params1_by_date.items()}
+        vals, phi_c, psi_c = card.values.cpu(), card.phi.cpu(), card.psi.cpu()
+        start, _ = backward._initial_params(model, cfg, bias, None, cpu, torch.float64)
+        err = {"params": 0.0, "values": 0.0, "holdings": 0.0}
+        parted[shuffle], profile[shuffle] = None, {}
+        for step_i, t in enumerate(range(51, -1, -1)):
+            first = step_i == 0
+            fcfg = fit.FitConfig(n_epochs=cfg.epochs_first if first else cfg.epochs_warm,
+                                 batch_size=cfg.batch_size,
+                                 patience=cfg.patience_first if first else cfg.patience_warm,
+                                 lr=cfg.lr, shuffle=cfg.shuffle)
+            if not first:
+                start = {k: v[t + 1] for k, v in p_card.items()}
+            got, aux = fit.fit_core(model, start, sc[:, t, None], prices[:, t + 1], vals[:, t + 1],
+                                    backward._fit_generator(cfg.seed, step_i, 0),
+                                    loss_fn=losses.mse, cfg=fcfg)
+            check(int(aux["n_epochs_ran"]) == int(card.epochs_ran[t]),
+                  f"[adam-f64] {shuffle} date {t}: the same epochs on the card and the CPU")
+            hold = model.holdings(got, sc[:, t, None])
+            pairs = {"params": [(p_card[k][t], got[k]) for k in got],
+                     "values": [(vals[:, t], model.value(got, sc[:, t, None], prices[:, t]))],
+                     "holdings": [(phi_c[:, t], hold[:, 0]), (psi_c[:, t], hold[:, 1])]}
+            for what, xs in pairs.items():
+                for a_, w_ in xs:
+                    np.testing.assert_allclose(a_.numpy(), w_.numpy(), rtol=1e-7, atol=1e-10,
+                                               err_msg=f"[adam-f64] {shuffle} date {t} {what}")
+                    rel = float((a_ - w_).abs().max() / w_.abs().max().clamp(min=1e-300))
+                    err[what] = max(err[what], rel)
+            gap = max(float((p_card[k][t] - host.params1_by_date[k][t]).abs().max()
+                            / host.params1_by_date[k][t].abs().max()) for k in p_card)
+            if t % 10 == 1:
+                profile[shuffle][t] = float(f"{gap:.1e}")
+            if parted[shuffle] is None and gap > 1e-7:
+                parted[shuffle] = t
+        worst[shuffle] = err
+    print(f"[adam-f64] Adam walk in float64, {N_FIXTURE} paths x 52 dates (4 + 51 x 2 "
+          f"epochs, batch 512, lr 1e-3), shuffle False and blocks: every date's fit on the "
+          f"card (CUDA graphs) equals the same fit on the CPU from the card's inputs at rtol "
+          f"1e-7, the same epochs on every date; largest gaps (max |card - CPU| / max "
+          f"|CPU|) {worst}; the free-running card and CPU walks (f64 chaos): params gap "
+          f"max |card - CPU| / max |CPU| at dates 51, 41, ..., 1 {profile}, first above "
+          f"1e-7 at date {parted}; {time.perf_counter() - t1:.2f} s", flush=True)
+
+    # -- 17. [adam-reference] the reference's Adam workloads at their own sizes -----
+    out = {}
+    t1 = time.perf_counter()
+    eu = european_hedge(EuropeanConfig(), SimConfig(n_paths=4096, T=1.0, dt=1 / 364,
+                                                    rebalance_every=7, seed=1234,
+                                                    seed_fund=1235),
+                        TrainConfig(dual_mode="mse_only", seed=1234))
+    torch.cuda.synchronize()
+    euro_s = time.perf_counter() - t1
+    er = eu.report
+    resid = eu.backward.var_residuals[:, -1].double().cpu().numpy() * 100.0
+    ref = EURO_FLAGSHIP
+    gaps = {"v0": er.v0 / ref["v0"] - 1, "phi0": er.phi0 - ref["phi0"],
+            "psi0": er.psi0 - ref["psi0"], "disc": er.discounted_payoff / ref["disc"] - 1,
+            "var99": er.var_overall[1] / ref["var99"] - 1,
+            "resid_std": resid.std() / ref["resid_std"] - 1}
+    print(f"[adam-reference] Euro flagship (euro_flagship_cfg(1234): 4096 paths, 52 dates, "
+          f"Adam 500/100, scan engine): V0 {er.v0:.4f} ({gaps['v0']:+.2%} vs 11.352, band 6%),"
+          f" phi0 {er.phi0:.5f} / psi0 {er.psi0:.5f} (vs 0.10456 / 0.89544, band 0.02), "
+          f"discounted payoff {er.discounted_payoff:.4f} ({gaps['disc']:+.2%}, band 2%), VaR99 "
+          f"{er.var_overall[1]:.4f} ({gaps['var99']:+.2%}, band 25%), terminal residual std "
+          f"{resid.std():.4f} ({gaps['resid_std']:+.2%}, band 15%); epochs first "
+          f"{int(eu.backward.epochs_ran[-1])}, warm median "
+          f"{float(np.median(eu.backward.epochs_ran[:-1])):.1f}; wall {euro_s:.2f} s",
+          flush=True)
+    seeds = EURO_V0_SEEDS
+    print(f"[adam-reference] Euro flagship V0 {er.v0:.4f}: "
+          f"{'inside' if abs(gaps['v0']) < 0.06 else 'outside'} the golden 6% band around "
+          f"11.352 (not gated: the JAX walk's own seeds fall outside it on 13 of 24); the JAX "
+          f"walk's seed mean {seeds['mean']:.4f} +- 3 sd {3 * seeds['sd']:.4f} (gated)",
+          flush=True)
+    check(abs(er.v0 - seeds["mean"]) < 3 * seeds["sd"],
+          f"Euro flagship V0 {er.v0:.4f} within 3 sd of the JAX walk's seed mean")
+    check(abs(gaps["phi0"]) < 0.02 and abs(gaps["psi0"]) < 0.02,
+          "Euro flagship phi0 / psi0 within 0.02")
+    check(abs(gaps["disc"]) < 0.02, "Euro flagship discounted payoff within 2%")
+    check(abs(gaps["var99"]) < 0.25, "Euro flagship VaR99 within 25% of 4.05")
+    check(abs(gaps["resid_std"]) < 0.15, "Euro flagship terminal residual std within 15%")
+    out["euro_s"] = euro_s
+    multi_sim = SimConfig(n_paths=4096, T=10.0, dt=0.01, rebalance_every=25, seed=1234,
+                          seed_fund=1235)
+    shared = dict(dual_mode="shared", holdings_combine="py", seed=1234)
+    for name, train in (("Multi#25-26", TrainConfig(**shared)),
+                        ("hybrid", TrainConfig(**shared, optimizer="gauss_newton",
+                                               gn_iters_first=60, gn_iters_warm=30,
+                                               gn_quantile=False))):
+        t1 = time.perf_counter()
+        pr = pension_hedge(HedgeRunConfig(market=MarketConfig(), sim=multi_sim, train=train))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        p = pr.report
+        rel = p.v0 / PENSION_V0_REF - 1
+        gap = abs(p.phi0 + p.psi0 - p.v0) / p.v0
+        print(f"[adam-reference] {name} (seeds3{'_gn' if name == 'hybrid' else ''}_cfg(1234):"
+              f" 4096 paths x 1000 steps, exact thinning, shared + py, "
+              f"{'GN 60/30 + Adam quantile leg' if name == 'hybrid' else 'Adam 500/100 both legs'}"
+              f"): V0 {p.v0:.1f} ({rel:+.3%} vs 981,038, band 3.5%), phi0 {p.phi0:.1f}, psi0 "
+              f"{p.psi0:.1f}, |phi0 + psi0 - V0| / V0 {gap:.4%}; epochs (GN: accepted "
+              f"iterations) MSE / quantile leg {int(pr.backward.epochs_ran.sum())} / "
+              f"{int(pr.backward.quantile_epochs_ran.sum())}; wall {wall:.2f} s", flush=True)
+        check(all(math.isfinite(x) for x in (p.v0, p.phi0, p.psi0)), f"{name} finite")
+        check(abs(rel) < MULTI_V0_BAND, f"{name} V0 within 3.5% of 981,038 ({rel:+.3%})")
+        if name == "Multi#25-26":
+            check(gap < 0.02, f"{name} |phi0 + psi0 - V0| < 2% V0")
+            check(600e3 < p.phi0 < 780e3 and 200e3 < p.psi0 < 380e3,
+                  f"{name} phi0 in (600k, 780k), psi0 in (200k, 380k)")
+        out[name] = wall
+
+    # -- 18. [exact] the law of exact thinning on the card, at 1M paths ----------
+    t1 = time.perf_counter()
+    grid = TimeGrid(10.0, PENSION_STEPS)
+    idx = torch.arange(N_FULL, device=dev)
+    kw = dict(PENSION, store_every=PENSION_STORE, binomial_mode="exact", seed=1234)
+    a = simulate_pension(idx, grid, **kw)
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t1
+    again = simulate_pension(idx, grid, **kw)
+    n_t = a["N"][:, -1].double()
+    law = (float(n_t.mean()), float(n_t.std()))
+    check(a["N"].shape == (N_FULL, PENSION_STEPS // PENSION_STORE + 1), "[exact] shape")
+    check(bool(torch.isfinite(a["Y"]).all()) and bool(torch.equal(a["N"], torch.round(a["N"]))),
+          "[exact] finite fund, integer survivors")
+    check(abs(law[0] - 8616) < 40 and abs(law[1] - 132) < 30,
+          f"[exact] E[N_T] {law[0]:.2f} (8616 +- 40), sd {law[1]:.2f} (132 +- 30)")
+    check(all(torch.equal(a[k], again[k]) for k in a), "[exact] the same seed, the same draws")
+    print(f"[exact] simulate_pension exact thinning, {N_FULL} paths x {PENSION_STEPS} steps "
+          f"stored every {PENSION_STORE} (scan path on the card): E[N_T] {law[0]:.2f} "
+          f"(8616 +- 40), sd {law[1]:.2f} (132 +- 30); a second run with the same seed "
+          f"equal on every output; {exact_s:.2f} s a run", flush=True)
+    out.update(adam_s=adam_s, steps=steps, exact_s=exact_s)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1189,7 +1511,9 @@ def main() -> int:
               f"{t['f32_small']:.4f} ms (bound {t['f32_small_bound'][0]:.6f})", flush=True)
     print(f"[tiers] {time.perf_counter() - t1:.2f} s", flush=True)
 
-    # -- 15. times at the main paths' shapes ----------------------------------
+    adam = adam_phases(dev, counts, bs)
+
+    # -- 19. times at the main paths' shapes ----------------------------------
     k1 = lambda: fused_gbm.gbm_log_fused(N_FULL, N_STEPS, **gbm_kw)  # noqa: E731
     k1_plain = lambda: fused_gbm.gbm_log_plain(N_FULL, N_STEPS, **gbm_kw)  # noqa: E731
     qe = lambda: fused_mf.heston_qe_fused(N_FULL, N_STEPS, **heston_kw)  # noqa: E731
@@ -1282,6 +1606,12 @@ def main() -> int:
           f"{walk_s[0]:.3f} / {walk_s[1]:.3f} s host wall; one LM iteration at 1M rows, "
           f"P = {trained.model.n_params()}: {iter_ms:.3f} ms (median of 7 rounds of 5); "
           f"peak device memory {peak_gb:.1f} GB", flush=True)
+    print(f"[times] Adam walk at {N_FULL} paths x 52 dates (north star, each epoch a CUDA "
+          f"graph): {adam['adam_s']:.2f} s for {adam['steps']} Adam steps, "
+          f"{adam['adam_s'] * 1e3 / adam['steps']:.4f} ms a step; reference workloads: Euro "
+          f"flagship {adam['euro_s']:.2f} s, Multi#25-26 {adam['Multi#25-26']:.2f} s, hybrid "
+          f"{adam['hybrid']:.2f} s; exact thinning at {N_FULL} x {PENSION_STEPS} "
+          f"{adam['exact_s']:.2f} s", flush=True)
 
     kernels = {"kernels": [
         {"name": "fused_gbm", "route": "cuda",

@@ -11,11 +11,11 @@ caller passes ``device="cpu"``:
 
 - ``orp_tpu_torch.api.european_hedge(euro, sim, train, device=...)`` and
   ``orp_tpu_torch.api.heston_hedge(heston, sim, train, device=...)``: the
-  Gauss-Newton backward walk (``train.optimizer="gauss_newton"``,
-  ``dual_mode="mse_only"``)
+  backward walk, by Adam (``train.optimizer="adam"``, the default) or
+  Gauss-Newton (``"gauss_newton"``)
 - ``orp_tpu_torch.api.pension_hedge(cfg, device=...)``: the pension liability
   with the dual walk (``dual_mode="shared"`` or ``"separate"``, the quantile
-  leg by IRLS Gauss-Newton)
+  leg by Adam or by IRLS Gauss-Newton)
 - ``orp_tpu_torch.api.european_oos(policy, ...)``, ``heston_oos(policy, ...)``
   and ``pension_oos(policy, cfg, ...)``
 - ``orp_tpu_torch.serve.load_bundle(dir)``

@@ -7,9 +7,10 @@ from orp_tpu_torch.api.pipelines import (PipelineResult, european_hedge, europea
                                          heston_hedge, heston_oos, pension_hedge, pension_oos,
                                          replicating_portfolio, replicating_portfolio_sv,
                                          resolve_heston_scheme, sigma_sweep)
+from orp_tpu_torch.train.fit import FitConfig, fit_core, reference_lr_schedule
 
-__all__ = ["ActuarialConfig", "EuropeanConfig", "HedgeRunConfig", "HestonConfig",
+__all__ = ["ActuarialConfig", "EuropeanConfig", "FitConfig", "HedgeRunConfig", "HestonConfig",
            "MarketConfig", "PipelineResult", "SimConfig", "StochVolConfig", "TrainConfig",
            "european_hedge", "european_oos", "heston_hedge", "heston_oos", "pension_hedge",
-           "pension_oos", "replicating_portfolio", "replicating_portfolio_sv",
-           "resolve_heston_scheme", "sigma_sweep"]
+           "pension_oos", "fit_core", "reference_lr_schedule", "replicating_portfolio",
+           "replicating_portfolio_sv", "resolve_heston_scheme", "sigma_sweep"]

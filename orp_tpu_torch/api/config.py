@@ -1,14 +1,14 @@
 """Run configs of the European, Heston and pension pipelines (counterpart of ``orp_tpu/api/config.py``).
 
 Frozen dataclasses with the JAX package's field names and defaults, cut to
-the fields the ported pipelines read. ``TrainConfig`` carries the
-Gauss-Newton walk's fields and the quantile leg's; the fields of walks not
-ported yet (Adam's epochs and schedule) are absent, and the walk refuses the
-JAX defaults that would select them (``optimizer="adam"``,
-``gn_quantile=False``, ``fused``, ``checkpoint_dir``, ``nan_guard``) instead
-of running something else. ``SimConfig.binomial_mode`` keeps the JAX default
-``"exact"`` (threefry); the port's simulators refuse it rather than run
-another mode in its place.
+the fields the ported pipelines read. ``TrainConfig`` carries the Adam
+walk's fields (the JAX default), the Gauss-Newton walk's and the quantile
+leg's; the walk refuses what is not ported yet (``fused``,
+``checkpoint_dir``, ``nan_guard``) instead of running something else.
+``SimConfig.binomial_mode`` keeps the JAX default ``"exact"``, the
+binomial draw on the scan path (equal to the JAX package's in law, not in
+its threefry draws); the fused kernel runs ``"normal"`` and ``"inversion"``
+and refuses it, as the JAX package's Pallas engine does.
 
 Every sub-model owns its namespace (``sv.c`` vs ``actuarial.mort_c``), so the
 reference's ``'c'`` key collision (RP.py:249 vs :257) cannot be written
@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+
+from orp_tpu_torch.train.fit import validate_shuffle
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +73,7 @@ class SimConfig:
     seed: int = 1234             # the pension system's Sobol stream (every factor)
     seed_fund: int = 1235        # the risky asset's Sobol stream
     scramble: str = "owen"
-    binomial_mode: str = "exact"  # "exact" (threefry, refused by the port) |
+    binomial_mode: str = "exact"  # "exact" (a binomial draw, scan engine only) |
     # "inversion" (exact-in-law Sobol CDF inversion) | "normal" (moment-matched)
     dtype: str = "float32"
     engine: str = "scan"         # "scan" (plain per-step) | "pallas" (fused kernel)
@@ -97,22 +99,33 @@ class SimConfig:
 class TrainConfig:
     """The walk's training policy and the combine semantics a replay must match."""
 
+    epochs_first: int = 500         # Adam: epochs and patience of the first fitted
+    epochs_warm: int = 100          # date and of the warm-started ones
+    patience_first: int = 50
+    patience_warm: int = 7
+    batch_size: int = 512
     cost_of_capital: float = 0.1
     quantile: float = 0.99
     quantile_loss: str = "pinball"  # or "smoothed_pinball"
     dual_mode: str = "separate"     # "separate" | "shared" | "mse_only"
     holdings_combine: str = "single"
+    lr: float | None = None         # Adam: None is the reference schedule / warm LR
     final_solve: bool = False       # closed-form ridge readout after each MSE fit
-    optimizer: str = "adam"         # "adam" | "gauss_newton" (only GN is ported)
+    optimizer: str = "adam"         # "adam" | "gauss_newton"
     gn_iters_first: int = 30
     gn_iters_warm: int = 10
-    gn_quantile: bool = True        # the quantile leg by IRLS Gauss-Newton (False,
-    # the Adam leg, is not ported)
+    gn_quantile: bool = True        # GN: the quantile leg by IRLS Gauss-Newton (False:
+    # by Adam)
     gn_block_rows: int | None = None  # blocked Gram accumulation (O(block*P) memory)
-    seed: int = 1234                # the walk's init generator
+    seed: int = 1234                # the walk's init generator and Adam's orders
     checkpoint_dir: str | None = None
+    shuffle: bool | str = True      # Adam: True/"full" | "blocks" | False (FitConfig)
     fused: bool = False
     nan_guard: bool = False
+
+    def __post_init__(self):
+        # fail at config construction, not after a 1M-path simulation
+        object.__setattr__(self, "shuffle", validate_shuffle(self.shuffle))
 
 
 @dataclasses.dataclass(frozen=True)

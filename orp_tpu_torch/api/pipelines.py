@@ -2,7 +2,7 @@
 
 Each pipeline simulates (``engine="pallas"`` -> the fused CUDA kernels,
 ``"scan"`` -> the plain per-step simulators), trains (``*_hedge``: the
-Gauss-Newton backward walk) or replays a trained policy on FRESH paths
+backward walk, Adam or Gauss-Newton) or replays a trained policy on FRESH paths
 (``*_oos``), builds the report and attaches the unbiased prices: the plain
 discounted payoff mean, the learned-hedge control variate and the
 OLS-martingale price.
@@ -167,8 +167,10 @@ def _backward_on(bw: BackwardResult, device, dtype) -> BackwardResult:
 
 
 def _backward_cfg(t: TrainConfig) -> BackwardConfig:
+    """The walk's config from ``t``; ``warm_lr``, which ``TrainConfig`` does not
+    carry (as in the JAX package), keeps its default."""
     return BackwardConfig(**{f.name: getattr(t, f.name)
-                             for f in dataclasses.fields(BackwardConfig)})
+                             for f in dataclasses.fields(BackwardConfig) if hasattr(t, f.name)})
 
 
 def _report(res: BackwardResult, s: torch.Tensor, payoff: torch.Tensor, r: float,
@@ -225,9 +227,8 @@ def european_hedge(euro: EuropeanConfig = EuropeanConfig(),
 
     Features, prices and values are in units of ``S0``; the output bias starts
     at the normalised mean payoff. ``warm_start``: optional ``(params1,
-    params2)`` for ``backward_induction(initial_params=...)``. The walk trains
-    with ``train.optimizer="gauss_newton"`` and ``dual_mode="mse_only"`` and
-    refuses other settings. ``device=None`` is the card."""
+    params2)`` for ``backward_induction(initial_params=...)``. ``device=None``
+    is the card."""
     dev = resolve_device(device)
     full_f32()
     _check_quantile_method(quantile_method)
@@ -423,10 +424,11 @@ def pension_hedge(cfg: HedgeRunConfig = HedgeRunConfig(), *, quantile_method: st
     The model ``HedgeMLP(n_features=3)`` sees ``(Y_t, N_t/N0, lambda_t)`` and
     prices ``(Y_t, B_t)``; the terminal value is ``max(Y_T, K) N_T/N0`` and the
     output bias starts at ``(1 - otm, otm)``; the reported phi/psi/V0 are
-    scaled by ``N0 * premium``. The walk trains with
-    ``train.optimizer="gauss_newton"`` (the quantile leg by IRLS,
-    ``gn_quantile=True``) and refuses other settings before simulating.
-    ``device=None`` is the card."""
+    scaled by ``N0 * premium``. A walk the port does not run (``fused``,
+    ``checkpoint_dir``, ``nan_guard``) is refused before simulating, and
+    ``engine="pallas"`` with ``binomial_mode="exact"`` before the kernel
+    runs (its thinning is ``normal`` or ``inversion``, as the JAX package's
+    Pallas engine's). ``device=None`` is the card."""
     dev = resolve_device(device)
     full_f32()
     _check_quantile_method(quantile_method)
@@ -465,8 +467,7 @@ def pension_oos(trained, cfg: HedgeRunConfig = HedgeRunConfig(), *,
 def sigma_sweep(sigmas, base: HedgeRunConfig = HedgeRunConfig(), *,
                 device=None) -> list[dict[str, float]]:
     """Volatility sweep (``Multi Time Step.ipynb#29-30``): the pension hedge per
-    sigma, tabulating ``(sigma, phi0, psi0, phi0 + psi0)``. ``base.train``
-    must select the Gauss-Newton walk (the JAX default, Adam, is refused)."""
+    sigma, tabulating ``(sigma, phi0, psi0, phi0 + psi0)``."""
     if base.sv is not None:
         raise ValueError("sigma_sweep varies the constant vol, which the SV fund ignores; "
                          "sweep StochVolConfig fields instead")
@@ -518,12 +519,9 @@ def _cfg_from_params(params: dict, sv_c: float | None = None) -> HedgeRunConfig:
 
 def _shim_cfg(cfg: HedgeRunConfig, train: TrainConfig | None,
               binomial_mode: str) -> HedgeRunConfig:
-    if train is None:
-        raise ValueError("the reference shims train with the JAX default TrainConfig (Adam), "
-                         "which the port does not run; pass a Gauss-Newton train, e.g. "
-                         "TrainConfig(optimizer='gauss_newton')")
-    return dataclasses.replace(cfg, train=train, sim=dataclasses.replace(
-        cfg.sim, binomial_mode=binomial_mode))
+    """``train=None`` is the JAX default ``TrainConfig()`` (Adam 500/100, ``separate``)."""
+    return dataclasses.replace(cfg, train=TrainConfig() if train is None else train,
+                               sim=dataclasses.replace(cfg.sim, binomial_mode=binomial_mode))
 
 
 def replicating_portfolio(params: dict, train: TrainConfig | None = None, *,
@@ -531,10 +529,10 @@ def replicating_portfolio(params: dict, train: TrainConfig | None = None, *,
     """Reference entry point ``Replicating_Portfolio(params) -> (phi, psi)``
     (RP.py:29-235), on the key set of ``Multi Time Step.ipynb#28``.
 
-    The JAX package's default training (Adam, 500/100 epochs) is not ported:
-    ``train`` is required and must select ``optimizer="gauss_newton"``. The
-    reference draws exact binomial survivors; the port refuses the threefry
-    ``"exact"`` mode, so pass ``binomial_mode="inversion"`` (exact in law)."""
+    ``train=None`` trains at the JAX package's defaults (Adam, 500/100
+    epochs, ``separate``); ``train`` overrides them. The survivors are exact
+    binomial draws on the scan path, as the reference's (``binomial_mode``
+    selects another thinning)."""
     res = pension_hedge(_shim_cfg(_cfg_from_params(params), train, binomial_mode),
                         device=device)
     return res.phi0, res.psi0
@@ -547,8 +545,8 @@ def replicating_portfolio_sv(params: dict, sv_c: float | None = None,
     vol-of-vol from ``params['c']`` and then overwrote it with the mortality
     drift (RP.py:249 vs :257), so its SV runs used c = 0.075. Pass ``sv_c``
     for the intended vol-of-vol, or omit it for the calibrated default
-    0.01583; the mortality drift stays ``params['c']``. ``train`` and
-    ``binomial_mode`` as for :func:`replicating_portfolio`."""
+    0.01583; the mortality drift stays ``params['c']``. ``train`` (None: the
+    JAX defaults) and ``binomial_mode`` as for :func:`replicating_portfolio`."""
     cfg = _cfg_from_params(params, sv_c=sv_c if sv_c is not None else StochVolConfig.c)
     res = pension_hedge(_shim_cfg(cfg, train, binomial_mode), device=device)
     return res.phi0, res.psi0

@@ -117,7 +117,7 @@ def _check_pension(sigma, sv: bool, binomial_mode: str, name: str) -> None:
 
     if not sv and sigma is None:
         raise ValueError(f"{name}: sigma is required when sv=False (constant-vol fund)")
-    check_binomial_mode(binomial_mode, name)
+    check_binomial_mode(binomial_mode, name, exact=False)
 
 
 def pension_plain(n_paths: int, n_steps: int, *, y0: float, mu: float, sigma: float | None,

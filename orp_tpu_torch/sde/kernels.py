@@ -11,9 +11,11 @@ raw uniform that QE's variance draw and the pension's inversion sampler read.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from orp_tpu_torch.qmc.sobol import N_DIMS, sobol_uniform
@@ -365,15 +367,35 @@ def pension_out(traj: torch.Tensor, *, y0: float, sv: bool) -> dict[str, torch.T
     return {"Y": traj[..., 0], "lam": traj[..., 1], "N": traj[..., 2]}
 
 
-def check_binomial_mode(binomial_mode: str, name: str) -> None:
-    """The port runs ``normal`` and ``inversion``; ``exact`` needs JAX's threefry."""
-    if binomial_mode == "exact":
-        raise ValueError(
-            f"{name}: binomial_mode='exact' draws with JAX's threefry generator, which "
-            "the port cannot reproduce; use 'inversion' (exact in law) or 'normal'")
-    if binomial_mode not in ("inversion", "normal"):
+def thin_exact(pop: torch.Tensor, lam: torch.Tensor, p: torch.Tensor, z: torch.Tensor,
+               dt: float, *, generator: torch.Generator | None = None) -> torch.Tensor:
+    """Exact binomial thinning: ``Binomial(N_{t-1}, p)`` survivors drawn by
+    ``torch.binomial`` from ``generator`` (on ``pop``'s device), exact in law
+    at any mean (the single-step grid thins ~10^4 lives in one step). The
+    step's normal ``z`` is not read, as in the JAX package."""
+    return torch.binomial(pop, p, generator=generator)
+
+
+def exact_seed(seed: int, t: int) -> int:
+    """The seed of step ``t``'s exact draws: a function of ``(seed, t)`` alone.
+
+    The JAX package folds ``(t, path index)`` into a threefry key, so its draw
+    for a path does not depend on the run's size; these draws depend on the
+    step alone and are equal to the JAX package's in law, not path by path."""
+    return int(np.random.SeedSequence([seed, t]).generate_state(1, np.uint64)[0])
+
+
+def check_binomial_mode(binomial_mode: str, name: str, *, exact: bool = True) -> None:
+    """``exact``, ``inversion`` and ``normal``; ``exact=False`` (the fused
+    kernel, the counterpart of the JAX package's Pallas engine) refuses the
+    exact draw, as the JAX package does."""
+    if binomial_mode not in ("exact", "inversion", "normal"):
         raise ValueError(f"{name}: binomial_mode={binomial_mode!r}: expected 'exact', "
                          "'inversion' or 'normal'")
+    if binomial_mode == "exact" and not exact:
+        raise ValueError(
+            f"{name}: engine='pallas' supports binomial_mode 'normal' or 'inversion' (the "
+            "exact binomial draw stays on the scan path); got binomial_mode='exact'")
 
 
 def simulate_pension(indices, grid: TimeGrid, *, y0: float, mu: float,
@@ -386,20 +408,28 @@ def simulate_pension(indices, grid: TimeGrid, *, y0: float, mu: float,
     """Coupled pension system, fund Y, mortality intensity lambda, survivors N,
     on the Sobol stream (4 factors per step; :func:`pension_step`).
 
-    ``binomial_mode``: ``"inversion"`` (exact-in-law CDF inversion of the
-    death count from ``ndtr`` of the step's normal) or ``"normal"``
-    (moment-matched; biased about -0.9% in survivors at fine grids).
-    ``"exact"``, the JAX default, raises: it draws from threefry.
-    Returns ``(n_paths, n_knots)`` tensors ``Y``, ``lam``, ``N`` (+ ``v`` when
-    ``sv``)."""
+    ``binomial_mode``: ``"exact"`` (the JAX default: :func:`thin_exact`, a
+    generator on the paths' device seeded with :func:`exact_seed` at each
+    step), ``"inversion"`` (exact-in-law CDF inversion of the death count
+    from ``ndtr`` of the step's normal) or ``"normal"`` (moment-matched;
+    biased about -0.9% in survivors at fine grids). Returns ``(n_paths,
+    n_knots)`` tensors ``Y``, ``lam``, ``N`` (+ ``v`` when ``sv``)."""
     check_binomial_mode(binomial_mode, "simulate_pension")
     indices = torch.as_tensor(indices).to(torch.int64)
     dev = indices.device
     sdt = (torch.tensor(grid.dt, dtype=dtype) ** 0.5).to(dev)
-    step = pension_step(mu=mu, sigma=sigma, mort_c=mort_c, eta=eta, sdt=sdt,
-                        thin=thin_inversion if binomial_mode == "inversion" else thin_normal,
-                        sv=sv, cir_a=cir_a, cir_b=cir_b, cir_c=cir_c,
-                        cir_drift_times_dt=cir_drift_times_dt)
+    gen = torch.Generator(device=dev) if binomial_mode == "exact" else None
+    thin = {"exact": functools.partial(thin_exact, generator=gen),
+            "inversion": thin_inversion, "normal": thin_normal}[binomial_mode]
+    pstep = pension_step(mu=mu, sigma=sigma, mort_c=mort_c, eta=eta, sdt=sdt, thin=thin,
+                         sv=sv, cir_a=cir_a, cir_b=cir_b, cir_c=cir_c,
+                         cir_drift_times_dt=cir_drift_times_dt)
+
+    def step(state, z, t, dt):
+        if gen is not None:
+            gen.manual_seed(exact_seed(seed, t))
+        return pstep(state, z, t, dt)
+
     state0 = pension_state0(indices.shape[0], y0=y0, l0=l0, n0=n0, sv=sv, v0=v0, dtype=dtype,
                             device=dev)
     _, traj = scan_sde(step, state0, _stack_state, indices, grid, 4, seed, scramble=scramble,

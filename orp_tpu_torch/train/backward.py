@@ -1,16 +1,17 @@
 """The backward hedge-training walk and its result types (counterpart of ``orp_tpu/train/backward.py``).
 
 For each rebalance date t from the last down to 0 the walk fits the date's
-network to replicate the next-date portfolio value (the MSE leg,
-``train/gn.fit_gn``), then, unless ``dual_mode="mse_only"``, the
-0.99-quantile leg (``train/gn.fit_gn_pinball``, IRLS), each warm-started
+network to replicate the next-date portfolio value (the MSE leg), then,
+unless ``dual_mode="mse_only"``, the 0.99-quantile leg, each warm-started
 from the previous date's params, and records the date's value, holdings and
 next-date replication residual (:func:`_date_outputs_core`, shared with
-replay and serving). Ported: the three dual modes with
-``optimizer="gauss_newton"`` and ``gn_quantile=True`` on the host loop (one
-host read per date, for the date's MSE-fit metrics). Adam (``fit_core``, and
-with it the Adam quantile leg), the fused one-program walk,
-checkpoint/resume and the NaN guard are not ported;
+replay and serving). ``optimizer="adam"`` (the reference's default) trains
+both legs with ``train/fit.fit_core``; ``optimizer="gauss_newton"`` trains
+the MSE leg with ``train/gn.fit_gn`` and the quantile leg with
+``fit_gn_pinball`` (IRLS) or, with ``gn_quantile=False``, with Adam. The
+walk is the host loop (one host read per date, for the date's fit metrics;
+Adam's fits read their stop flag once per epoch). The fused one-program
+walk, checkpoint/resume and the NaN guard are not ported (ROADMAP A3):
 :func:`backward_induction` refuses the configs that ask for them.
 
 ``dual_mode``: ``"separate"`` (two param sets, ``v = g + i(h - g)``),
@@ -30,12 +31,14 @@ from typing import Any
 import numpy as np
 import torch
 
+from orp_tpu_torch.train.fit import FitConfig, fit_core, validate_shuffle
 from orp_tpu_torch.train.gn import GNConfig, GNPinballConfig, fit_gn, fit_gn_pinball
-from orp_tpu_torch.train.losses import make_loss
+from orp_tpu_torch.train.losses import mae, make_loss, mape, mse
 from orp_tpu_torch.utils.precision import full_f32, typed_scalar
 
 DUAL_MODES = ("separate", "shared", "mse_only")
 HOLDINGS_COMBINES = ("single", "py")
+OPTIMIZERS = ("adam", "gauss_newton")
 
 
 def _stack_prices(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -103,13 +106,23 @@ def params_to(params_by_date: dict | None, device, dtype) -> dict | None:
 @dataclasses.dataclass(frozen=True)
 class BackwardConfig:
     """The walk's combine semantics (the fields a replay reads) and its
-    training policy, with the JAX package's names and defaults."""
+    training policy, with the JAX package's names and defaults. Warm dates
+    train Adam at ``warm_lr`` unless ``lr`` is set: the reference passes its
+    LR scheduler only to the first date's fit (RP.py:205-209), so later fits
+    keep Adam at the schedule's final 5e-4."""
 
+    epochs_first: int = 500
+    epochs_warm: int = 100
+    patience_first: int = 50
+    patience_warm: int = 7
+    batch_size: int = 512
     cost_of_capital: float = 0.1
     quantile: float = 0.99
     quantile_loss: str = "pinball"  # or "smoothed_pinball"
     dual_mode: str = "separate"
     holdings_combine: str = "single"
+    lr: float | None = None  # None: the schedule on the first date, warm_lr after
+    warm_lr: float = 5e-4
     final_solve: bool = False
     optimizer: str = "adam"
     gn_iters_first: int = 30
@@ -118,10 +131,14 @@ class BackwardConfig:
     gn_block_rows: int | None = None
     seed: int = 1234
     checkpoint_dir: str | None = None
+    shuffle: bool | str = True  # FitConfig.shuffle: True/"full", "blocks" or False
     fused: bool = False
     nan_guard: bool = False
 
     def __post_init__(self):
+        object.__setattr__(self, "shuffle", validate_shuffle(self.shuffle))
+        if self.optimizer not in OPTIMIZERS:
+            raise ValueError(f"optimizer={self.optimizer!r}: expected one of {OPTIMIZERS}")
         if self.dual_mode not in DUAL_MODES:
             raise ValueError(f"dual_mode={self.dual_mode!r}: expected one of {DUAL_MODES}")
         if self.holdings_combine not in HOLDINGS_COMBINES:
@@ -147,7 +164,7 @@ class BackwardResult:
     params1_by_date: Any = None  # {name: (n_dates, ...)} the per-date policy
     params2_by_date: Any = None
     quantile_loss: np.ndarray | None = None       # (n_dates,) the quantile leg's final
-    quantile_epochs_ran: np.ndarray | None = None  # loss and accepted iterations
+    quantile_epochs_ran: np.ndarray | None = None  # loss and epochs (GN: accepted iterations)
 
     @property
     def v0(self) -> torch.Tensor:
@@ -170,20 +187,22 @@ class BackwardResult:
 
 def _check_walk(cfg: BackwardConfig) -> None:
     """Refuse what the port cannot train yet, instead of training something else."""
-    if cfg.optimizer != "gauss_newton":
-        raise ValueError(f"optimizer={cfg.optimizer!r}: the port trains with the Gauss-Newton "
-                         "walk only (optimizer='gauss_newton'); Adam's fit_core is ROADMAP A8, "
-                         "not ported yet")
-    if cfg.dual_mode != "mse_only" and not cfg.gn_quantile:
-        raise ValueError("gn_quantile=False: the Adam quantile leg is ROADMAP A8, not ported "
-                         "yet; the port trains the quantile leg with fit_gn_pinball "
-                         "(gn_quantile=True)")
     for name, on in (("fused=True", cfg.fused),
                      ("checkpoint_dir", cfg.checkpoint_dir is not None),
                      ("nan_guard=True", cfg.nan_guard)):
         if on:
-            raise ValueError(f"{name}: not ported yet (ROADMAP A8 and 'Next'); the port runs "
-                             "the host-loop walk without it")
+            raise ValueError(f"{name}: not ported yet (ROADMAP A3); the port runs the "
+                             "host-loop walk without it")
+
+
+def _fit_generator(seed: int, step_i: int, leg: int) -> torch.Generator:
+    """The CPU generator of one Adam fit's epoch orders, seeded from ``(seed,
+    step_i, leg)`` alone (leg 0 the MSE fit, 1 the quantile fit): a fit's
+    stream does not depend on what earlier fits drew. The JAX package draws
+    from keys split per date; threefry cannot be reproduced, so the orders
+    match it in law."""
+    words = np.random.SeedSequence([seed, step_i, leg]).generate_state(1, np.uint64)
+    return torch.Generator().manual_seed(int(words[0]))
 
 
 def _initial_params(model, cfg: BackwardConfig, bias_init, initial_params, dev, dtype):
@@ -218,7 +237,11 @@ def backward_induction(model, features: torch.Tensor, y_prices: torch.Tensor,
     bias ``bias_init`` (:func:`_initial_params`); ``initial_params =
     (params1, params2)`` (numpy arrays or tensors, e.g. a JAX run's initial
     params) replaces them. The first fitted date runs ``cfg.gn_iters_first``
-    iterations in each leg, the rest ``cfg.gn_iters_warm``."""
+    GN iterations or ``cfg.epochs_first`` Adam epochs (patience
+    ``patience_first``, LR ``cfg.lr``: the schedule when None) in each leg,
+    the rest ``gn_iters_warm`` or ``epochs_warm`` (``patience_warm``, LR
+    ``cfg.lr`` or ``warm_lr``). Each Adam fit draws its epoch orders from
+    :func:`_fit_generator`."""
     _check_walk(cfg)
     full_f32()
     dev, dtype = y_prices.device, model.dtype
@@ -226,17 +249,29 @@ def backward_induction(model, features: torch.Tensor, y_prices: torch.Tensor,
     n_dates = n_knots - 1
     params1, params2 = _initial_params(model, cfg, bias_init, initial_params, dev, dtype)
     q_loss = make_loss(cfg.quantile_loss, q=cfg.quantile)
+    solve_fn = model.solve_readout if cfg.final_solve else None
     prices_all = _stack_prices(y_prices.to(dtype), b_prices.to(device=dev, dtype=dtype))
     values = torch.zeros((n_paths, n_knots), dtype=dtype, device=dev)
     values[:, -1] = terminal_values.to(dtype)
     phi_cols, psi_cols, var_cols, snaps1, snaps2, metrics = [], [], [], [], [], []
     for step_i, t in enumerate(range(n_dates - 1, -1, -1)):
-        n_iters = cfg.gn_iters_first if step_i == 0 else cfg.gn_iters_warm
+        first = step_i == 0
+        n_iters = cfg.gn_iters_first if first else cfg.gn_iters_warm
+        adam_cfg = FitConfig(
+            n_epochs=cfg.epochs_first if first else cfg.epochs_warm,
+            batch_size=cfg.batch_size,
+            patience=cfg.patience_first if first else cfg.patience_warm,
+            lr=cfg.lr if (first or cfg.lr is not None) else cfg.warm_lr, shuffle=cfg.shuffle)
         feats_t, prices_t, prices_t1 = features[:, t], prices_all[:, t], prices_all[:, t + 1]
         target = values[:, t + 1]
-        params1, aux = fit_gn(model, params1, feats_t, prices_t1, target,
-                              cfg=GNConfig(n_iters=n_iters, block_rows=cfg.gn_block_rows),
-                              final_solve=cfg.final_solve)
+        if cfg.optimizer == "adam":
+            params1, aux = fit_core(model, params1, feats_t, prices_t1, target,
+                                    _fit_generator(cfg.seed, step_i, 0), loss_fn=mse,
+                                    cfg=adam_cfg, metric_fns=(mae, mape), solve_fn=solve_fn)
+        else:
+            params1, aux = fit_gn(model, params1, feats_t, prices_t1, target,
+                                  cfg=GNConfig(n_iters=n_iters, block_rows=cfg.gn_block_rows),
+                                  final_solve=cfg.final_solve)
         g_pre, q_aux = None, None
         if cfg.dual_mode == "mse_only":
             params2 = params1
@@ -246,10 +281,16 @@ def backward_induction(model, features: torch.Tensor, y_prices: torch.Tensor,
                 # weights (RP.py:212-217 order); a device tensor, no host read
                 g_pre = model.value(params1, feats_t, prices_t)
                 params2 = params1
-            params2, q_aux = fit_gn_pinball(
-                model, params2, feats_t, prices_t1, target, loss_fn=q_loss,
-                cfg=GNPinballConfig(n_iters=n_iters, q=cfg.quantile,
-                                    block_rows=cfg.gn_block_rows))
+            # the quantile leg never receives the least-squares readout solve
+            if cfg.optimizer == "gauss_newton" and cfg.gn_quantile:
+                params2, q_aux = fit_gn_pinball(
+                    model, params2, feats_t, prices_t1, target, loss_fn=q_loss,
+                    cfg=GNPinballConfig(n_iters=n_iters, q=cfg.quantile,
+                                        block_rows=cfg.gn_block_rows))
+            else:
+                params2, q_aux = fit_core(model, params2, feats_t, prices_t1, target,
+                                          _fit_generator(cfg.seed, step_i, 1), loss_fn=q_loss,
+                                          cfg=adam_cfg)
             if cfg.dual_mode == "shared":
                 params1 = params2
         v_t, comb, var_resid = _date_outputs_core(
@@ -262,7 +303,8 @@ def backward_induction(model, features: torch.Tensor, y_prices: torch.Tensor,
         var_cols.append(var_resid)
         snaps1.append(params1)
         snaps2.append(params2)
-        # the date's one host read: its fit metrics (the quantile leg's last two)
+        # the date's one host read: its fit metrics (the quantile leg's last two);
+        # n_epochs_ran counts Adam's epochs or GN's accepted iterations
         row = [aux["final_loss"], aux["mae"], aux["mape"], aux["n_epochs_ran"].to(dtype)]
         if q_aux is not None:
             row += [q_aux["final_loss"], q_aux["n_epochs_ran"].to(dtype)]

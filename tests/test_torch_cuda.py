@@ -14,6 +14,8 @@ import torch
 from orp_tpu_torch import NORTH_STAR_POLICY
 from orp_tpu_torch.models import HedgeMLP
 from orp_tpu_torch.qmc import fused_gbm, fused_mf
+from orp_tpu_torch.sde import TimeGrid, simulate_pension
+from orp_tpu_torch.train import BackwardConfig, backward_induction, fit, losses
 from orp_tpu_torch.train.gn import GNConfig, fit_gn
 from orp_tpu_torch.serve import HedgeEngine, load_bundle, loop_of_buckets, megakernel
 from orp_tpu_torch.serve.precision import bf16_agreement
@@ -365,9 +367,106 @@ def test_fused_pension_matches_plain(cuda, n_paths, n_steps, store, mode, sv):
 
 
 def test_fused_pension_validates_on_card(cuda):
-    with pytest.raises(ValueError, match="threefry"):
+    with pytest.raises(ValueError, match="engine='pallas' supports binomial_mode"):
         fused_mf.pension_fused(128, 8, dt=0.25, binomial_mode="exact", device=cuda, **PENSION)
     with pytest.raises(ValueError, match="sigma is required"):
         fused_mf.pension_fused(128, 8, dt=0.25, device=cuda, **dict(PENSION, sigma=None))
     with pytest.raises(ValueError, match="direction table"):
         fused_mf.pension_fused(128, 4097, dt=0.01, device=cuda, **PENSION)
+
+
+def _fit_data(n: int, dtype, seed: int = 5):
+    rng = np.random.default_rng(seed)
+    s = np.exp(0.2 * rng.standard_normal(n))
+    feats = np.stack([s, 0.02 + 0.01 * rng.random(n)], 1)
+    prices = np.stack([s, np.full(n, 1.08)], 1)
+    y = np.maximum(s - 1.0, 0.0) + 0.01 * rng.standard_normal(n)
+    return [torch.as_tensor(a, dtype=dtype) for a in (feats, prices, y)]
+
+
+@pytest.mark.parametrize("shuffle", [False, True, "blocks"])
+def test_fit_core_on_card_matches_cpu(cuda, shuffle):
+    """Adam on the card (each epoch a CUDA graph) and on the CPU in float64, on
+    the same orders (both draw them on the host from one seed): params and loss
+    history at rtol 1e-9, the same epochs run. The CPU side is held to the JAX
+    package the same way (tests/test_torch_fit.py)."""
+    model = HedgeMLP(n_features=2, dtype=torch.float64)
+    params = model.init(torch.Generator().manual_seed(3), bias_init=(0.1, 0.0))
+    cfg = fit.FitConfig(n_epochs=30, batch_size=500, patience=3, shuffle=shuffle, lr=2e-2)
+    out = {}
+    for dev in ("cpu", cuda):
+        p, aux = fit.fit_core(model, {k: v.to(dev) for k, v in params.items()},
+                              *(t.to(dev) for t in _fit_data(4100, torch.float64)),
+                              torch.Generator().manual_seed(9), loss_fn=losses.mse, cfg=cfg)
+        out[str(dev)] = (model.flatten(p).cpu(), aux["loss_history"].cpu(),
+                         int(aux["n_epochs_ran"]))
+    (pc, hc, nc), (pg, hg, ng) = out["cpu"], out["cuda"]
+    assert nc == ng
+    torch.testing.assert_close(pg, pc, rtol=1e-9, atol=1e-12)
+    torch.testing.assert_close(hg, hc, rtol=1e-9, atol=0.0)
+
+
+def test_fit_core_graph_equals_eager_on_card(cuda, monkeypatch):
+    """One epoch captured as a CUDA graph and replayed gives the eager epochs'
+    result (f32, at the north star's batch shape)."""
+    model = HedgeMLP(n_features=1)
+    params = model.init(torch.Generator().manual_seed(3), bias_init=(0.1, 0.0))
+    feats, prices, y = (t.to(cuda) for t in _fit_data(1 << 16, torch.float32))
+    cfg = fit.FitConfig(n_epochs=6, batch_size=1 << 14, patience=50, shuffle="blocks", lr=1e-3)
+    out = []
+    for graphs in (True, False):
+        monkeypatch.setattr(fit, "CUDA_GRAPHS", graphs)
+        p, aux = fit.fit_core(model, {k: v.to(cuda) for k, v in params.items()}, feats[:, :1],
+                              prices, y, torch.Generator().manual_seed(1), loss_fn=losses.mse,
+                              cfg=cfg)
+        out.append((model.flatten(p), aux["loss_history"]))
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(out[0][1], out[1][1], rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("mode", [dict(dual_mode="mse_only"),
+                                  dict(dual_mode="shared", holdings_combine="py"),
+                                  dict(dual_mode="separate", optimizer="gauss_newton",
+                                       gn_quantile=False, gn_iters_first=4, gn_iters_warm=2)])
+def test_adam_walk_on_card_matches_cpu(cuda, mode):
+    """The Adam walk (and the hybrid) in float64 on the card and on the CPU, same
+    inputs and orders: values, holdings and per-date params at rtol 1e-7, the
+    same epochs on every date (the CPU walk is held to JAX's the same way,
+    tests/test_torch_adam_walk.py)."""
+    rng = np.random.default_rng(2)
+    n, d = 1024, 4
+    y = np.exp(np.cumsum(0.05 * rng.standard_normal((n, d + 1)), 1))
+    y[:, 0] = 1.0
+    feats = np.stack([y, 1.0 - 0.01 * rng.random((n, d + 1)), 0.01 + 1e-4 * rng.random((n, d + 1))],
+                     -1)
+    b = np.exp(0.03 * np.linspace(0, 1, d + 1))
+    term = np.maximum(y[:, -1], 1.0)
+    cfg = BackwardConfig(**mode, epochs_first=6, epochs_warm=4, patience_warm=2,
+                         batch_size=256, shuffle=True, lr=2e-2)
+    out = {}
+    for dev in ("cpu", cuda):
+        res = backward_induction(HedgeMLP(n_features=3, dtype=torch.float64),
+                                 *(torch.as_tensor(a, dtype=torch.float64, device=dev)
+                                   for a in (feats, y, b, term)), cfg, bias_init=(0.6, 0.4))
+        out[str(dev)] = res
+    c, g = out["cpu"], out["cuda"]
+    np.testing.assert_array_equal(g.epochs_ran, c.epochs_ran)
+    for k in ("values", "phi", "psi"):
+        np.testing.assert_allclose(getattr(g, k).cpu().numpy(), getattr(c, k).numpy(),
+                                   rtol=1e-7, atol=1e-10, err_msg=k)
+    for k, v in c.params1_by_date.items():
+        np.testing.assert_allclose(g.params1_by_date[k].cpu().numpy(), v.numpy(), rtol=1e-7,
+                                   atol=1e-9, err_msg=k)
+
+
+def test_exact_thinning_law_on_card(cuda):
+    """``binomial_mode="exact"`` on the card (``torch.binomial`` with a CUDA
+    generator): the reference's multi-step law at 65,536 x 1,000 steps, and
+    the same seed gives the same survivors."""
+    kw = dict(PENSION, store_every=25, binomial_mode="exact", seed=1234)
+    a = simulate_pension(torch.arange(1 << 16, device=cuda), TimeGrid(10.0, 1000), **kw)
+    b = simulate_pension(torch.arange(1 << 16, device=cuda), TimeGrid(10.0, 1000), **kw)
+    n_t = a["N"][:, -1].double()
+    assert abs(float(n_t.mean()) - 8616) < 40 and abs(float(n_t.std()) - 132) < 30
+    for k in a:
+        assert torch.equal(a[k], b[k]), k

@@ -29,7 +29,8 @@ def _sources():
                                          ROOT / "tools" / "torch_profile_paths.py",
                                          ROOT / "tools" / "torch_walk_spread.py",
                                          ROOT / "tools" / "torch_kernel_digest.py",
-                                         ROOT / "tools" / "torch_warp_census.py"]
+                                         ROOT / "tools" / "torch_warp_census.py",
+                                         ROOT / "tools" / "torch_adam_walk.py"]
 
 
 def test_prefix_rule():
