@@ -115,7 +115,31 @@ last line):
 18. [exact] ``simulate_pension`` with ``binomial_mode="exact"`` at 1,048,576
     paths x 1,000 steps stored every 25 (the scan path): ``|E[N_T] - 8616| <
     40``, ``|sd(N_T) - 132| < 30``; a second run with the same seed equal;
-19. times: each kernel and its plain version with CUDA events at the main
+19. [fused] the fused walk (``TrainConfig(fused=True)``: each GN leg's LM
+    iteration a CUDA graph replayed per iteration, each Adam epoch a graph run
+    for every epoch, nothing read back until the walk ends, the date loop
+    under ``torch.cuda.set_sync_debug_mode("error")``): the north star at
+    1,048,576 paths (GN 30 + 51 x 10) bitwise phase 9's host-loop walk
+    (ledgers, per-date params, accepted iterations) and within 1bp of BS, K1
+    once; the benchmark's GN configuration (150 + 51 x 75 iterations, row
+    blocks of 16,384) within 1bp, with one blocked LM iteration's census (op
+    by op: ms, host launch calls, device kernels; as a graph: ms, nodes,
+    capture and instantiate seconds); the pension at 1,048,576 x 1,000 steps
+    bitwise phase 12's walk (both legs), K3c once; each wall beside the host
+    loop's;
+20. [fused-adam] ``examples/out_of_sample.py``'s training (16,384 paths, Adam
+    120/30, batch 2,048, lr 1e-3, blocks), host loop and fused: bitwise, both
+    walls, the epochs run past the early stop, the synchronizing CUDA calls of
+    each (``set_sync_debug_mode("warn")``);
+21. [resume] phase 9's walk with ``checkpoint_dir``: the checkpointed walk,
+    and the walk killed by ``FaultPlan(kill_after_step=25)`` then resumed, each
+    bitwise phase 9's; walls and bytes on disk; the directory removed;
+22. [guard] phase 9's walk with ``nan_guard=True``: clean, bitwise and silent;
+    with ``FaultPlan(seed=3, nan_dates={1}, nan_frac=0.02)`` the ladder's
+    ``final_solve`` rung at date 50 only, date 51 bitwise, every ledger
+    finite, V0 within 5% of the clean run and |v0_acv - BS| < 1bp; with
+    [fused-adam]'s Adam walk the same plan lands on the ``gauss_newton`` rung;
+23. times: each kernel and its plain version with CUDA events at the main
     paths' shapes (the host's queue filled ahead of each timed round, so a
     kernel shorter than its wrapper's host cost is timed on the card), beside
     the kernel's bound (K2's from [tiers], f32 and bf16 at both shapes); the GN
@@ -188,34 +212,6 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int, rounds: int = 5) -> float:
-    """Median over ``rounds`` of the mean time of ``reps`` back-to-back calls.
-
-    Before each round a sleep kernel holds the card while the host queues the
-    round's calls, so a call's host cost (a wrapper's checks and its launch)
-    does not show between the launches of a kernel shorter than it."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        # 2e9 cycles a second: at least the wall asked for at the H100's clocks
-        torch.cuda._sleep(int(min(2.0 * reps * host_s, 0.2) * 2e9))
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    return sorted(times)[len(times) // 2]
 
 
 def ptxas_lines(log: str) -> list[str]:
@@ -500,6 +496,7 @@ def pension_phases(dev, counts, launches) -> dict:
     from orp_tpu_torch.serve import HedgeEngine, load_bundle, megakernel, save_bundle
     from orp_tpu_torch.serve.bundle import model_meta
     from orp_tpu_torch.train import backward, gn, losses
+    from orp_tpu_torch.utils.measure import cuda_ms
 
     out = {}
     train = TrainConfig(dual_mode="shared", holdings_combine="py", optimizer="gauss_newton",
@@ -574,6 +571,7 @@ def pension_phases(dev, counts, launches) -> dict:
     ph = pension_hedge(main_cfg)
     torch.cuda.synchronize()
     out["hedge_s"] = time.perf_counter() - t1
+    out["hedge"] = ph  # held against the fused walk in [fused]
     launches["pension"] = counts.only("pension", "the 1M-path pension_hedge")
     check(launches["pension"] == 1, f"pension_hedge launches K3c once ({launches['pension']})")
     rep, bw = ph.report, ph.backward
@@ -696,10 +694,8 @@ def pension_phases(dev, counts, launches) -> dict:
                                       inp.terminal, gn.GNPinballConfig(),
                                       loss_fn=losses.make_loss("pinball"),
                                       weights=(0.99, 0.01, 1e-3)))):
-        state = (torch.tensor(1e-2, device=dev), problem.loss(theta),
-                 torch.zeros((), dtype=torch.bool, device=dev))
-        out[f"iter_{leg}_ms"] = cuda_ms(lambda: gn._lm_step(problem, theta, *state), reps=5,
-                                        rounds=7)
+        problem.start(theta)
+        out[f"iter_{leg}_ms"] = cuda_ms(problem.iterate, reps=5, rounds=7)
         del problem
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
@@ -780,6 +776,7 @@ def k2_times(dev, policy, n_rows: int, seed: int, small: int = 4096) -> dict:
     import torch
 
     from orp_tpu_torch.serve import megakernel
+    from orp_tpu_torch.utils.measure import cuda_ms
 
     model, n_dates = policy.model, policy.n_dates
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -808,6 +805,9 @@ def k2_times(dev, policy, n_rows: int, seed: int, small: int = 4096) -> dict:
 # // 64, blocks shuffle, lr 1e-3, 120 + 51 x 30 epochs), fused=False: the port's host loop
 ADAM_TRAIN = dict(dual_mode="mse_only", epochs_first=120, epochs_warm=30, batch_size=16_384,
                   lr=1e-3, shuffle="blocks")
+# examples/out_of_sample.py's training config (run there with fused=True)
+EXAMPLE_TRAIN = dict(dual_mode="mse_only", epochs_first=120, epochs_warm=30, batch_size=2048,
+                     lr=1e-3, shuffle="blocks")
 # the reference's own Adam workloads (tools/parity_runs.py, copied: the port does not
 # import it): euro_flagship_cfg(1234), seeds3_cfg(1234) and seeds3_gn_cfg(1234) with
 # the Adam quantile leg; bands of tests/test_golden.py and PARITY.md
@@ -1097,6 +1097,257 @@ def adam_phases(dev, counts, bs: float) -> dict:
     return out
 
 
+def walls_equal(got, want, what: str, quantile: bool = False) -> None:
+    """Check two walks' ledgers, per-date params, metrics and iterations bitwise."""
+    import numpy as np
+    import torch
+
+    for k in ("values", "phi", "psi", "var_residuals"):
+        check(torch.equal(getattr(got, k), getattr(want, k)), f"{what}: {k} bitwise equal")
+    for which in ("params1_by_date", "params2_by_date"):
+        w = getattr(want, which)
+        check((w is None) == (getattr(got, which) is None), f"{what}: {which} present alike")
+        for k, v in (w or {}).items():
+            check(torch.equal(getattr(got, which)[k], v), f"{what}: {which}[{k}] bitwise equal")
+    keys = ["train_loss", "train_mae", "train_mape", "epochs_ran"]
+    keys += ["quantile_loss", "quantile_epochs_ran"] if quantile else []
+    for k in keys:
+        check(np.array_equal(getattr(got, k), getattr(want, k)), f"{what}: {k} equal")
+
+
+def timed(fn):
+    """``fn()`` and its host wall, synchronised on both sides."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fused_phases(dev, counts, euro_host, euro_s: float, pension_host, pension_s: float,
+                 bs: float) -> dict:
+    """[fused] and [fused-adam]: the fused walk (``TrainConfig(fused=True)``), each held
+    to its host loop on the same paths."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from orp_tpu_torch.api import (EuropeanConfig, HedgeRunConfig, SimConfig, TrainConfig,
+                                   european_hedge, pension_hedge)
+    from orp_tpu_torch.models import HedgeMLP
+    from orp_tpu_torch.qmc import fused_gbm
+    from orp_tpu_torch.train import backward, gn
+    from orp_tpu_torch.train.backward import fused_loop_scope
+    from orp_tpu_torch.utils.measure import count_syncs, lm_census, no_host_sync
+
+    out = {}
+    euro = EuropeanConfig(constrain_self_financing=False)
+    sim = SimConfig(n_paths=N_FULL, T=1.0, dt=1 / 364, rebalance_every=STORE, engine="pallas")
+    gn_train = TrainConfig(dual_mode="mse_only", optimizer="gauss_newton", fused=True)
+    # every fused walk below runs its date loop under sync-debug "error"
+    loops = []
+
+    def loop_scope(device):
+        loops.append(device)
+        return no_host_sync(device)
+
+    backward.fused_loop_scope = loop_scope
+
+    # -- the north star, GN defaults, fused (K1) --------------------------------
+    counts.reset()
+    (fh, out["euro_fused_s"]), syncs = count_syncs(lambda: timed(
+        lambda: european_hedge(euro, sim, gn_train)))
+    check(len(loops) == 1, f"the fused walk's date loop ran under sync-debug 'error' ({loops})")
+    k1 = counts.only("fused_gbm", "the fused 1M-path european_hedge")
+    check(k1 == 1, f"the fused european_hedge launches K1 once ({k1})")
+    walls_equal(fh.backward, euro_host.backward, "[fused] north star vs [euro]")
+    bp = (fh.report.v0_acv - bs) / bs * 1e4
+    check(abs(bp) < 1.0, f"fused european_hedge |v0_acv - BS| {bp:+.4f}bp < 1bp")
+    print(f"[fused] european_hedge {N_FULL} paths, GN 30 + 51 x 10, fused (each LM iteration a "
+          f"CUDA graph, the date loop under sync-debug 'error'): values, holdings, per-date "
+          f"params and accepted iterations bitwise [euro]'s; v0_acv bp_err {bp:+.4f}; wall "
+          f"{out['euro_fused_s']:.3f} s fused vs {euro_s:.3f} s host loop; synchronizing CUDA "
+          f"calls in the whole entry point {syncs}; K1 launches {k1}", flush=True)
+    del fh
+
+    # -- the benchmark's GN configuration, fused --------------------------------
+    bench = dataclasses.replace(gn_train, gn_iters_first=150, gn_iters_warm=75,
+                                gn_block_rows=1 << 14)
+    counts.reset()
+    bh, out["bench_fused_s"] = timed(lambda: european_hedge(euro, sim, bench))
+    counts.only("fused_gbm", "the fused benchmark-config european_hedge")
+    bp = (bh.report.v0_acv - bs) / bs * 1e4
+    check(abs(bp) < 1.0, f"benchmark-config fused |v0_acv - BS| {bp:+.4f}bp < 1bp")
+    check(bool(np.isfinite(bh.backward.train_loss).all()), "benchmark-config losses finite")
+    iters = 150 + 51 * 75
+    # one LM iteration of the blocked program at the walk's shapes (1M rows, one
+    # feature, date 51's trained params), op by op and as a graph
+    model = HedgeMLP(n_features=1)
+    t = 51
+    feats = torch.rand((N_FULL, 1), device=dev) + 0.5
+    prices = torch.stack([feats[:, 0], torch.full_like(feats[:, 0], 0.01083)], -1)
+    target = torch.clamp(feats[:, 0] - 1.0, min=0.0)
+    prog = gn.gn_program(model, feats, prices, target,
+                         gn.GNConfig(n_iters=1, block_rows=1 << 14))
+    prog.start(model.flatten({k: v[t] for k, v in bh.backward.params1_by_date.items()}))
+    census = lm_census(prog)
+    out["bench_census"] = census
+    del prog
+    print(f"[fused] benchmark GN configuration (150 + 51 x 75 LM iterations, gn_block_rows "
+          f"16384: {N_FULL >> 14} row blocks), fused: v0_acv bp_err {bp:+.4f}; wall "
+          f"{out['bench_fused_s']:.3f} s ({out['bench_fused_s'] * 1e3 / iters:.3f} ms an LM "
+          f"iteration, {iters} iterations); accepted iterations per date (0..51) "
+          f"{bh.backward.epochs_ran.tolist()}", flush=True)
+    print(f"[fused] one blocked LM iteration at {N_FULL} rows: op by op {census['eager_ms']:.3f} "
+          f"ms with {census['host_launches']} host launch calls and {census['device_kernels']} "
+          f"device kernels; as a CUDA graph {census['graph_ms']:.3f} ms, {census['nodes']} "
+          f"(nodes, kernel nodes); capture {census['capture_s']:.3f} s, instantiate "
+          f"{'not measured' if census['instantiate_s'] is None else census['instantiate_s']}"
+          f" s", flush=True)
+    del bh
+
+    # -- the pension, fused (K3c) ------------------------------------------------
+    ptrain = TrainConfig(dual_mode="shared", holdings_combine="py", optimizer="gauss_newton",
+                         gn_iters_first=60, gn_iters_warm=30, fused=True)
+    psim = SimConfig(n_paths=N_FULL, T=10.0, dt=0.01, rebalance_every=PENSION_STORE, seed=1234,
+                     engine="pallas", binomial_mode="inversion")
+    counts.reset()
+    pf, out["pension_fused_s"] = timed(lambda: pension_hedge(HedgeRunConfig(sim=psim,
+                                                                            train=ptrain)))
+    k3c = counts.only("pension", "the fused 1M-path pension_hedge")
+    check(k3c == 1, f"the fused pension_hedge launches K3c once ({k3c})")
+    walls_equal(pf.backward, pension_host.backward, "[fused] pension vs [pension]", quantile=True)
+    gap = pf.report.v0 / PENSION_V0_REF - 1
+    check(abs(gap) < PENSION_V0_BAND, f"fused pension V0 within 4% of 981,038 ({gap:+.3%})")
+    print(f"[fused] pension_hedge {N_FULL} x {PENSION_STEPS} steps (shared + py, GN 60/30 + "
+          f"IRLS), fused: both legs' ledgers, params and iterations bitwise [pension]'s; V0 "
+          f"{pf.report.v0:.1f} ({gap:+.3%}); wall {out['pension_fused_s']:.3f} s fused vs "
+          f"{pension_s:.3f} s host loop; K3c launches {k3c}", flush=True)
+    del pf
+
+    # -- [fused-adam] the reference's own fused example (examples/out_of_sample.py) --
+    esim = SimConfig(n_paths=16_384, T=1.0, dt=1 / 364, rebalance_every=STORE)
+    etrain = TrainConfig(**EXAMPLE_TRAIN)
+    (ah, out["adam_host_s"]), out["adam_host_syncs"] = count_syncs(
+        lambda: timed(lambda: european_hedge(euro, esim, etrain)))
+    (af, out["adam_fused_s"]), out["adam_fused_syncs"] = count_syncs(
+        lambda: timed(lambda: european_hedge(euro, esim, dataclasses.replace(etrain,
+                                                                            fused=True))))
+    walls_equal(af.backward, ah.backward, "[fused-adam] fused vs host loop")
+    ran = int(ah.backward.epochs_ran.sum())
+    budget = EXAMPLE_TRAIN["epochs_first"] + 51 * EXAMPLE_TRAIN["epochs_warm"]
+    print(f"[fused-adam] examples/out_of_sample.py's training (16384 paths, Adam 120/30, batch "
+          f"2048, lr 1e-3, blocks): values and epochs_ran bitwise the host loop's; wall "
+          f"{out['adam_fused_s']:.3f} s fused vs {out['adam_host_s']:.3f} s host loop; epochs "
+          f"run {ran} of {budget} (the fused walk ran all {budget}: {budget - ran} past the "
+          f"stop); synchronizing CUDA calls {out['adam_fused_syncs']} fused vs "
+          f"{out['adam_host_syncs']} host loop; v0_acv {af.report.v0_acv:.5f}", flush=True)
+    check(len(loops) == 4, f"each of the 4 fused walks' date loops ran under 'error' ({loops})")
+    backward.fused_loop_scope = fused_loop_scope
+    return out
+
+
+def resilience_phases(dev, counts, euro_host, euro_s: float, bs: float) -> dict:
+    """[resume] and [guard]: [euro]'s north-star walk killed and resumed from its
+    checkpoints, then with the NaN guard, clean and with a poisoned date."""
+    import dataclasses
+    import shutil
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from orp_tpu_torch import guard
+    from orp_tpu_torch.api import EuropeanConfig, SimConfig, TrainConfig, european_hedge
+    from orp_tpu_torch.guard import sentinel
+
+    out = {}
+    euro = EuropeanConfig(constrain_self_financing=False)
+    sim = SimConfig(n_paths=N_FULL, T=1.0, dt=1 / 364, rebalance_every=STORE, engine="pallas")
+    gn_train = TrainConfig(dual_mode="mse_only", optimizer="gauss_newton")
+    root = HERE / "build" / "chip_smoke" / "resume"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        full_dir, kill_dir = root / "full", root / "killed"
+        ck, out["ckpt_s"] = timed(lambda: european_hedge(
+            euro, sim, dataclasses.replace(gn_train, checkpoint_dir=str(full_dir))))
+        walls_equal(ck.backward, euro_host.backward, "[resume] checkpointed walk vs [euro]")
+        del ck
+        out["ckpt_bytes"] = sum(f.stat().st_size for f in full_dir.iterdir())
+        kcfg = dataclasses.replace(gn_train, checkpoint_dir=str(kill_dir))
+        t0 = time.perf_counter()
+        with guard.faults(guard.FaultPlan(kill_after_step=25)) as inj:
+            try:
+                european_hedge(euro, sim, kcfg)
+                check(False, "the FaultPlan's kill after step 25 fired")
+            except guard.WalkKilled:
+                torch.cuda.synchronize()
+        out["killed_s"] = time.perf_counter() - t0
+        check(inj.log == [("train/kill", "step=25")], f"killed after step 25 ({inj.log})")
+        resumed, out["resume_s"] = timed(lambda: european_hedge(euro, sim, kcfg))
+        walls_equal(resumed.backward, euro_host.backward, "[resume] resumed walk vs [euro]")
+        check(resumed.report.v0_acv == euro_host.report.v0_acv, "[resume] v0_acv equal")
+        del resumed
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[resume] north star {N_FULL} paths (GN 30 + 51 x 10, host loop) with checkpoint_dir:"
+          f" the checkpointed walk and the walk killed after step 25 (FaultPlan) then resumed "
+          f"are bitwise [euro]'s (ledgers, per-date params, iterations); walls: checkpointed "
+          f"{out['ckpt_s']:.3f} s vs {euro_s:.3f} s plain, killed run {out['killed_s']:.3f}"
+          f" s, resume {out['resume_s']:.3f} s; {out['ckpt_bytes'] / 1e6:.1f} MB on disk for 52 "
+          f"dates; directory removed", flush=True)
+
+    events = {"nan": [], "degrade": []}
+    nan_event, degrade = sentinel.record_nan_event, sentinel.record_degrade
+    sentinel.record_nan_event = lambda t, trainer, where: events["nan"].append((t, trainer))
+    sentinel.record_degrade = lambda t, to: events["degrade"].append((t, to))
+    try:
+        clean, out["guard_clean_s"] = timed(lambda: european_hedge(
+            euro, sim, dataclasses.replace(gn_train, nan_guard=True)))
+        walls_equal(clean.backward, euro_host.backward, "[guard] clean guarded walk vs [euro]")
+        check(events == {"nan": [], "degrade": []}, f"the clean guarded walk is silent ({events})")
+        del clean
+        plan = guard.FaultPlan(seed=3, nan_dates=frozenset({1}), nan_frac=0.02)
+        with guard.faults(plan) as inj:
+            hit, out["guard_hit_s"] = timed(lambda: european_hedge(
+                euro, sim, dataclasses.replace(gn_train, nan_guard=True)))
+        check([site for site, _ in inj.log] == ["train/fit_target"], f"one poisoning ({inj.log})")
+        check(events["degrade"] == [(50, "final_solve")],
+              f"the ladder's final_solve rung ran at date 50 only ({events})")
+        check(all(t == 50 for t, _ in events["nan"]), f"NaN events at date 50 only ({events})")
+        bw, hb = hit.backward, euro_host.backward
+        check(torch.equal(bw.values[:, 51], hb.values[:, 51]) and
+              torch.equal(bw.phi[:, 51], hb.phi[:, 51]) and
+              all(torch.equal(bw.params1_by_date[k][51], v[51])
+                  for k, v in hb.params1_by_date.items()), "date 51 bitwise untouched")
+        check(all(bool(torch.isfinite(getattr(bw, k)).all())
+                  for k in ("values", "phi", "psi", "var_residuals")), "every ledger finite")
+        v0_gap = hit.report.v0 / euro_host.report.v0 - 1
+        bp = (hit.report.v0_acv - bs) / bs * 1e4
+        check(abs(v0_gap) < 0.05, f"guarded V0 within 5% of the clean run ({v0_gap:+.4%})")
+        check(abs(bp) < 1.0, f"guarded |v0_acv - BS| {bp:+.4f}bp < 1bp")
+        del hit
+        events["degrade"].clear()
+        esim = SimConfig(n_paths=16_384, T=1.0, dt=1 / 364, rebalance_every=STORE)
+        with guard.faults(plan):
+            adam_hit = european_hedge(euro, esim, TrainConfig(**EXAMPLE_TRAIN, nan_guard=True))
+        check(events["degrade"] == [(50, "gauss_newton")],
+              f"the Adam walk's ladder lands on gauss_newton at date 50 ({events['degrade']})")
+        check(bool(torch.isfinite(adam_hit.backward.values).all()), "Adam guarded walk finite")
+    finally:
+        sentinel.record_nan_event, sentinel.record_degrade = nan_event, degrade
+    print(f"[guard] nan_guard on the north star at {N_FULL}: clean, bitwise [euro]'s and silent "
+          f"({out['guard_clean_s']:.3f} s); FaultPlan(seed=3, nan_dates={{1}}, nan_frac=0.02): "
+          f"the final_solve rung at date 50 only, date 51 bitwise, every ledger finite, V0 "
+          f"{v0_gap:+.4%} vs the clean run, v0_acv bp_err {bp:+.4f} ({out['guard_hit_s']:.3f} "
+          f"s); at 16384 paths with Adam the same plan lands on the gauss_newton rung",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1121,6 +1372,7 @@ def main() -> int:
     from orp_tpu_torch.serve.precision import BF16_RULE, bf16_agreement
     from orp_tpu_torch.train import backward, gn
     from orp_tpu_torch.utils import bs_call, cuda_build, heston_call
+    from orp_tpu_torch.utils.measure import cuda_ms
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1453,7 +1705,6 @@ def main() -> int:
           f"cv_std {erep.cv_std:.4f}, acv_std {erep.acv_std:.4f}, v0_network {erep.v0:.4f}; "
           f"accepted GN iterations {int(eh.backward.epochs_ran.sum())} over 52 dates; "
           f"wall {euro_s:.2f} s; K1 launches {launches['fused_gbm']}", flush=True)
-    del eh
 
     # -- 10. serve the card-trained Heston policy (K2) ------------------------
     hp = {k: v.detach().cpu().numpy() for k, v in bw.params1_by_date.items()}
@@ -1512,6 +1763,10 @@ def main() -> int:
     print(f"[tiers] {time.perf_counter() - t1:.2f} s", flush=True)
 
     adam = adam_phases(dev, counts, bs)
+    fused = fused_phases(dev, counts, eh, euro_s, pension["hedge"], pension["hedge_s"], bs)
+    resilience = resilience_phases(dev, counts, eh, euro_s, bs)
+    del eh
+    pension.pop("hedge")
 
     # -- 19. times at the main paths' shapes ----------------------------------
     k1 = lambda: fused_gbm.gbm_log_fused(N_FULL, N_STEPS, **gbm_kw)  # noqa: E731
@@ -1598,9 +1853,8 @@ def main() -> int:
     problem = gn._GNProblem(trained.model, h_feats[:, 0], prices_all[:, 1],
                             bw.values[:, 1], gn.GNConfig())
     theta = trained.model.flatten({k: v[0] for k, v in bw.params1_by_date.items()})
-    state = (torch.tensor(1e-4, device=dev), problem.loss(theta),
-             torch.zeros((), dtype=torch.bool, device=dev))
-    iter_ms = cuda_ms(lambda: gn._lm_step(problem, theta, *state), reps=5, rounds=7)
+    problem.start(theta)
+    iter_ms = cuda_ms(problem.iterate, reps=5, rounds=7)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[times] GN walk at {N_FULL} paths x 52 dates (Heston, 30 + 51 x 10 iterations): "
           f"{walk_s[0]:.3f} / {walk_s[1]:.3f} s host wall; one LM iteration at 1M rows, "
@@ -1612,6 +1866,14 @@ def main() -> int:
           f"flagship {adam['euro_s']:.2f} s, Multi#25-26 {adam['Multi#25-26']:.2f} s, hybrid "
           f"{adam['hybrid']:.2f} s; exact thinning at {N_FULL} x {PENSION_STEPS} "
           f"{adam['exact_s']:.2f} s", flush=True)
+
+    print(f"[times] the walk's resilience plane at {N_FULL} paths: north star fused "
+          f"{fused['euro_fused_s']:.3f} s vs host loop {euro_s:.3f} s; benchmark GN "
+          f"configuration fused {fused['bench_fused_s']:.3f} s; pension fused "
+          f"{fused['pension_fused_s']:.3f} s vs {pension['hedge_s']:.3f} s; checkpointed "
+          f"{resilience['ckpt_s']:.3f} s, resumed after step 25 {resilience['resume_s']:.3f} s; "
+          f"guarded {resilience['guard_clean_s']:.3f} s; the example's Adam walk fused "
+          f"{fused['adam_fused_s']:.3f} s vs host loop {fused['adam_host_s']:.3f} s", flush=True)
 
     kernels = {"kernels": [
         {"name": "fused_gbm", "route": "cuda",

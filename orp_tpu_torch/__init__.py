@@ -3,7 +3,7 @@
 A package of its own beside the JAX reference ``orp_tpu``: it imports
 ``torch`` and never ``jax``, and nothing of ``orp_tpu``. Its layout mirrors
 the reference (``qmc/``, ``sde/``, ``models/``, ``train/``, ``parallel/``,
-``risk/``, ``api/``, ``serve/``, ``utils/``). Hand-written CUDA kernels for
+``risk/``, ``api/``, ``serve/``, ``guard/``, ``utils/``). Hand-written CUDA kernels for
 ``sm_90a`` live in ``csrc/`` and are built with ``nvcc`` on first use.
 
 Entry points run on the card (``device=None`` means ``cuda``) unless the
@@ -12,7 +12,9 @@ caller passes ``device="cpu"``:
 - ``orp_tpu_torch.api.european_hedge(euro, sim, train, device=...)`` and
   ``orp_tpu_torch.api.heston_hedge(heston, sim, train, device=...)``: the
   backward walk, by Adam (``train.optimizer="adam"``, the default) or
-  Gauss-Newton (``"gauss_newton"``)
+  Gauss-Newton (``"gauss_newton"``); ``fused=True`` with no host read
+  between dates, or the host loop with ``checkpoint_dir`` (resume) and
+  ``nan_guard`` (the trainer ladder)
 - ``orp_tpu_torch.api.pension_hedge(cfg, device=...)``: the pension liability
   with the dual walk (``dual_mode="shared"`` or ``"separate"``, the quantile
   leg by Adam or by IRLS Gauss-Newton)

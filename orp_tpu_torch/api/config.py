@@ -3,8 +3,10 @@
 Frozen dataclasses with the JAX package's field names and defaults, cut to
 the fields the ported pipelines read. ``TrainConfig`` carries the Adam
 walk's fields (the JAX default), the Gauss-Newton walk's and the quantile
-leg's; the walk refuses what is not ported yet (``fused``,
-``checkpoint_dir``, ``nan_guard``) instead of running something else.
+leg's, and the walk's resilience plane (``checkpoint_dir``, ``nan_guard``
+with ``nan_retries``) and ``fused``; ``fused`` together with
+``checkpoint_dir`` or ``nan_guard`` is refused at construction, as in the
+JAX package.
 ``SimConfig.binomial_mode`` keeps the JAX default ``"exact"``, the
 binomial draw on the scan path (equal to the JAX package's in law, not in
 its threefry draws); the fused kernel runs ``"normal"`` and ``"inversion"``
@@ -118,14 +120,24 @@ class TrainConfig:
     # by Adam)
     gn_block_rows: int | None = None  # blocked Gram accumulation (O(block*P) memory)
     seed: int = 1234                # the walk's init generator and Adam's orders
-    checkpoint_dir: str | None = None
+    checkpoint_dir: str | None = None  # persist / resume per backward date
     shuffle: bool | str = True      # Adam: True/"full" | "blocks" | False (FitConfig)
-    fused: bool = False
-    nan_guard: bool = False
+    fused: bool = False             # no host read between dates (BackwardConfig.fused)
+    nan_guard: bool = False         # per-date NaN/Inf sentinel and trainer ladder
+    nan_retries: int = 2            # the ladder's budget per date (nan_guard only)
 
     def __post_init__(self):
         # fail at config construction, not after a 1M-path simulation
         object.__setattr__(self, "shuffle", validate_shuffle(self.shuffle))
+        if self.fused and self.checkpoint_dir is not None:
+            raise ValueError(
+                "fused=True runs the whole walk device-side; per-date "
+                "checkpointing needs the host loop (fused=False)")
+        if self.fused and self.nan_guard:
+            raise ValueError(
+                "fused=True runs the whole walk device-side; the NaN "
+                "sentinel's per-date host checks need the host loop "
+                "(fused=False)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -40,8 +40,8 @@ from orp_tpu_torch.risk.analytics import HedgeReport, build_report
 from orp_tpu_torch.risk.controls import martingale_ols_price
 from orp_tpu_torch.sde import (TimeGrid, bond_curve, payoffs, simulate_gbm_log,
                                simulate_heston_log, simulate_heston_qe, simulate_pension)
-from orp_tpu_torch.train.backward import (BackwardConfig, BackwardResult, _check_walk,
-                                          backward_induction, params_to)
+from orp_tpu_torch.train.backward import (BackwardConfig, BackwardResult, backward_induction,
+                                          params_to)
 from orp_tpu_torch.train.replay import replay_walk
 from orp_tpu_torch.utils.device import resolve_device
 from orp_tpu_torch.utils.fingerprint import verify_policy_compat
@@ -424,16 +424,14 @@ def pension_hedge(cfg: HedgeRunConfig = HedgeRunConfig(), *, quantile_method: st
     The model ``HedgeMLP(n_features=3)`` sees ``(Y_t, N_t/N0, lambda_t)`` and
     prices ``(Y_t, B_t)``; the terminal value is ``max(Y_T, K) N_T/N0`` and the
     output bias starts at ``(1 - otm, otm)``; the reported phi/psi/V0 are
-    scaled by ``N0 * premium``. A walk the port does not run (``fused``,
-    ``checkpoint_dir``, ``nan_guard``) is refused before simulating, and
-    ``engine="pallas"`` with ``binomial_mode="exact"`` before the kernel
-    runs (its thinning is ``normal`` or ``inversion``, as the JAX package's
-    Pallas engine's). ``device=None`` is the card."""
+    scaled by ``N0 * premium``. ``engine="pallas"`` with
+    ``binomial_mode="exact"`` is refused before the kernel runs (its thinning
+    is ``normal`` or ``inversion``, as the JAX package's Pallas engine's).
+    ``device=None`` is the card."""
     dev = resolve_device(device)
     full_f32()
     _check_quantile_method(quantile_method)
     bcfg = _backward_cfg(cfg.train)
-    _check_walk(bcfg)
     inp = pension_inputs(cfg, "pension_hedge", dev)
     model = HedgeMLP(n_features=3)
     res = backward_induction(model, inp.features, inp.y, inp.b, inp.terminal, bcfg,

@@ -8,11 +8,32 @@ next-date replication residual (:func:`_date_outputs_core`, shared with
 replay and serving). ``optimizer="adam"`` (the reference's default) trains
 both legs with ``train/fit.fit_core``; ``optimizer="gauss_newton"`` trains
 the MSE leg with ``train/gn.fit_gn`` and the quantile leg with
-``fit_gn_pinball`` (IRLS) or, with ``gn_quantile=False``, with Adam. The
-walk is the host loop (one host read per date, for the date's fit metrics;
-Adam's fits read their stop flag once per epoch). The fused one-program
-walk, checkpoint/resume and the NaN guard are not ported (ROADMAP A3):
-:func:`backward_induction` refuses the configs that ask for them.
+``fit_gn_pinball`` (IRLS) or, with ``gn_quantile=False``, with Adam.
+
+The walk runs in one of two ways, over the same date body (:func:`_date_body`):
+
+- the host loop (``fused=False``): one host read per date, of the date's fit
+  metrics (Adam's fits also read their stop flag once an epoch). It alone
+  runs the resilience plane: ``checkpoint_dir`` saves each date's increment
+  (``utils/checkpoint.py``, SHA-256 digests, a run fingerprint) and a killed
+  walk resumes bitwise-equal to an uninterrupted one; ``nan_guard`` checks
+  each date for non-finite state (the flag rides in the date's host read) and
+  refits a bad date one rung down the trainer ladder (``guard/sentinel.py``);
+- the fused walk (``fused=True``, the counterpart of the JAX package's one
+  ``lax.scan`` program): ledgers, per-date params and metrics preallocated on
+  the device, nothing read back until the walk ends. On a CUDA device each
+  GN leg's LM iteration is captured once as a CUDA graph and replayed
+  ``n_iters`` times a date, each Adam fit replays its captured epoch for all
+  its epochs (``fit_core(sync_free=True)``), and each date's inputs reach the
+  graphs' buffers by device-to-device copies. The date loop runs in the
+  scope :func:`fused_loop_scope` gives, empty unless a check replaces it
+  (``utils/measure.no_host_sync`` makes a host sync there raise). On the CPU
+  the same code runs without graphs. It trains the same numbers as the host
+  loop.
+
+The JAX package's ``fused_walk_on_mesh`` (ROADMAP A8), ``_emit_convergence``
+with its ``obs`` records, ``compile_audit`` and the CLI's ``--resume`` (A9)
+are not ported.
 
 ``dual_mode``: ``"separate"`` (two param sets, ``v = g + i(h - g)``),
 ``"shared"`` (one param set, RP.py:172's weight sharing: the quantile fit
@@ -25,17 +46,26 @@ and ``"mse_only"`` (quantile branch off). ``holdings_combine``: ``"single"``
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
 import numpy as np
 import torch
 
+from orp_tpu_torch.guard import inject as _inject
+from orp_tpu_torch.guard import sentinel as _sentinel
+from orp_tpu_torch.train import fit as _fit
+from orp_tpu_torch.train import gn as _gn
 from orp_tpu_torch.train.fit import FitConfig, fit_core, validate_shuffle
 from orp_tpu_torch.train.gn import GNConfig, GNPinballConfig, fit_gn, fit_gn_pinball
 from orp_tpu_torch.train.losses import mae, make_loss, mape, mse
+from orp_tpu_torch.utils import checkpoint as _ckpt
 from orp_tpu_torch.utils.precision import full_f32, typed_scalar
 
+#: versions the on-disk state layout and the fingerprint's field set of a
+#: checkpoint directory (the JAX package's are "increment-v<N>", orbax's)
+CKPT_FORMAT = "torch-increment-v1"
 DUAL_MODES = ("separate", "shared", "mse_only")
 HOLDINGS_COMBINES = ("single", "py")
 OPTIMIZERS = ("adam", "gauss_newton")
@@ -132,11 +162,21 @@ class BackwardConfig:
     seed: int = 1234
     checkpoint_dir: str | None = None
     shuffle: bool | str = True  # FitConfig.shuffle: True/"full", "blocks" or False
-    fused: bool = False
-    nan_guard: bool = False
+    fused: bool = False  # the whole walk with no host read between dates (module docstring)
+    nan_guard: bool = False  # per-date NaN/Inf sentinel and the trainer ladder
+    nan_retries: int = 2  # the ladder's budget per date (nan_guard only)
 
     def __post_init__(self):
         object.__setattr__(self, "shuffle", validate_shuffle(self.shuffle))
+        if self.fused and self.checkpoint_dir is not None:
+            raise ValueError(
+                "fused=True runs the whole walk device-side; per-date "
+                "checkpointing needs the host loop (fused=False)")
+        if self.fused and self.nan_guard:
+            raise ValueError(
+                "fused=True runs the whole walk device-side; the NaN "
+                "sentinel's per-date host checks need the host loop "
+                "(fused=False)")
         if self.optimizer not in OPTIMIZERS:
             raise ValueError(f"optimizer={self.optimizer!r}: expected one of {OPTIMIZERS}")
         if self.dual_mode not in DUAL_MODES:
@@ -185,16 +225,6 @@ class BackwardResult:
         )
 
 
-def _check_walk(cfg: BackwardConfig) -> None:
-    """Refuse what the port cannot train yet, instead of training something else."""
-    for name, on in (("fused=True", cfg.fused),
-                     ("checkpoint_dir", cfg.checkpoint_dir is not None),
-                     ("nan_guard=True", cfg.nan_guard)):
-        if on:
-            raise ValueError(f"{name}: not ported yet (ROADMAP A3); the port runs the "
-                             "host-loop walk without it")
-
-
 def _fit_generator(seed: int, step_i: int, leg: int) -> torch.Generator:
     """The CPU generator of one Adam fit's epoch orders, seeded from ``(seed,
     step_i, leg)`` alone (leg 0 the MSE fit, 1 the quantile fit): a fit's
@@ -225,6 +255,200 @@ def _initial_params(model, cfg: BackwardConfig, bias_init, initial_params, dev, 
     return params1, params2
 
 
+def _adam_cfg(cfg: BackwardConfig, first: bool) -> FitConfig:
+    return FitConfig(
+        n_epochs=cfg.epochs_first if first else cfg.epochs_warm, batch_size=cfg.batch_size,
+        patience=cfg.patience_first if first else cfg.patience_warm,
+        lr=cfg.lr if (first or cfg.lr is not None) else cfg.warm_lr, shuffle=cfg.shuffle)
+
+
+def _gn_cfgs(cfg: BackwardConfig, n_iters: int) -> tuple[GNConfig, GNPinballConfig]:
+    return (GNConfig(n_iters=n_iters, block_rows=cfg.gn_block_rows),
+            GNPinballConfig(n_iters=n_iters, q=cfg.quantile, block_rows=cfg.gn_block_rows))
+
+
+def _leg_fits(model, cfg: BackwardConfig, feats_t, prices_t1, target, step_i: int, *,
+              gauss_newton: bool, gn_quantile: bool, programs: dict | None = None):
+    """The date's two trainers ``(fit_fn, q_fit_fn)``, each ``params -> (params,
+    aux)`` on the date's regression (features at t, prices at t+1): Adam
+    (``fit_core``, its orders from :func:`_fit_generator`) or Gauss-Newton
+    (``fit_gn`` / ``fit_gn_pinball``), the MSE leg with the readout solve when
+    ``cfg.final_solve``. ``programs`` (the fused walk) holds the GN legs'
+    :func:`~orp_tpu_torch.train.gn.gn_program` s, refilled by
+    ``gn.refit``; with it Adam runs sync-free."""
+    first = step_i == 0
+    n_iters = cfg.gn_iters_first if first else cfg.gn_iters_warm
+    q_loss = make_loss(cfg.quantile_loss, q=cfg.quantile)
+    fused = programs is not None
+    gn_cfg, gnq_cfg = _gn_cfgs(cfg, n_iters)
+
+    def adam(leg: int, loss_fn, **kw):
+        return lambda p: fit_core(model, p, feats_t, prices_t1, target,
+                                  _fit_generator(cfg.seed, step_i, leg), loss_fn=loss_fn,
+                                  cfg=_adam_cfg(cfg, first), sync_free=fused, **kw)
+
+    def gauss_newton_leg(key: str, plain, leg_cfg, final_solve: bool = False, **loss):
+        if fused:
+            return lambda p: _gn.refit(programs[key], p, feats_t, prices_t1, target,
+                                       n_iters=n_iters, final_solve=final_solve)
+        return lambda p: plain(model, p, feats_t, prices_t1, target, cfg=leg_cfg,
+                               final_solve=final_solve, **loss)
+
+    if gauss_newton:
+        fit_fn = gauss_newton_leg("mse", fit_gn, gn_cfg, cfg.final_solve)
+    else:
+        fit_fn = adam(0, mse, metric_fns=(mae, mape),
+                      solve_fn=model.solve_readout if cfg.final_solve else None)
+    # the quantile leg never receives the least-squares readout solve
+    if gauss_newton and gn_quantile:
+        q_fit_fn = gauss_newton_leg("q", fit_gn_pinball, gnq_cfg, loss_fn=q_loss)
+    else:
+        q_fit_fn = adam(1, q_loss)
+    return fit_fn, q_fit_fn
+
+
+def _date_body(model, cfg: BackwardConfig, params1, params2, feats_t, prices_t, prices_t1,
+               target, fit_fn, q_fit_fn):
+    """One backward date: the MSE fit, the quantile fit (``dual_mode``
+    semantics, the shared-weights ``g_pre`` snapshot, RP.py:212-217 order),
+    then the date's outputs. The one definition of the date body: the host
+    loop, the fused walk and the guard's Gauss-Newton rung pass their
+    trainers. Returns ``(params1, params2, v_t, comb, var_resid, aux,
+    q_aux)`` (``q_aux`` None under ``mse_only``)."""
+    params1, aux = fit_fn(params1)
+    g_pre, q_aux = None, None
+    if cfg.dual_mode == "mse_only":
+        params2 = params1
+    else:
+        if cfg.dual_mode == "shared":
+            # the MSE fit's value, before the quantile fit moves the shared
+            # weights (RP.py:212-217 order); a device tensor, no host read
+            g_pre = model.value(params1, feats_t, prices_t)
+            params2 = params1
+        params2, q_aux = q_fit_fn(params2)
+        if cfg.dual_mode == "shared":
+            params1 = params2
+    v_t, comb, var_resid = _date_outputs_core(
+        model, params1, params2, feats_t, prices_t, prices_t1, target, cfg.cost_of_capital,
+        g_pre, dual_mode=cfg.dual_mode, holdings_combine=cfg.holdings_combine)
+    return params1, params2, v_t, comb, var_resid, aux, q_aux
+
+
+def _final_solve_date(model, cfg: BackwardConfig, params0, feats_t, prices_t, prices_t1,
+                      target):
+    """The ladder's terminal rung: the PRE-FIT ``params0`` with its readout
+    replaced by the closed-form ridge optimum (``model.solve_readout``), the
+    solved params for both legs, the outputs combined as ``mse_only`` (the
+    dual combine collapses when the legs share params). Returns the
+    :func:`_date_body` tuple; the quantile leg's record is the pinball loss of
+    the solved params and no iterations."""
+    solved = model.solve_readout(params0, feats_t, prices_t1, target)
+    pred = model.value(solved, feats_t, prices_t1)
+    zero = torch.zeros((), dtype=torch.int64, device=pred.device)
+    aux = {"final_loss": mse(pred, target), "mae": mae(pred, target),
+           "mape": mape(pred, target), "n_epochs_ran": zero}
+    q_aux = None
+    if cfg.dual_mode != "mse_only":
+        q_loss = make_loss(cfg.quantile_loss, q=cfg.quantile)
+        q_aux = {"final_loss": q_loss(pred, target), "n_epochs_ran": zero}
+    v_t, comb, var_resid = _date_outputs_core(
+        model, solved, solved, feats_t, prices_t, prices_t1, target, cfg.cost_of_capital, None,
+        dual_mode="mse_only", holdings_combine=cfg.holdings_combine)
+    return solved, solved, v_t, comb, var_resid, aux, q_aux
+
+
+def _date_finite(state) -> torch.Tensor:
+    """The sentinel's per-date flag (a device tensor): the loss, both param sets
+    and every ledger column the date contributes are finite."""
+    params1, params2, v_t, comb, var_resid, aux, _ = state
+    return _sentinel.finite_flag(aux["final_loss"], params1, params2, v_t, comb, var_resid)
+
+
+def _degrade_date(model, cfg: BackwardConfig, pre1, pre2, feats_t, prices_t, prices_t1,
+                  target, step_i: int, t: int):
+    """The sentinel fired at date ``t``: walk the trainer ladder from the
+    PRE-FIT params on a sanitized target until a rung gives finite state, at
+    most ``cfg.nan_retries`` rungs; running dry raises rather than let every
+    earlier date train on garbage. Returns the :func:`_date_body` tuple."""
+    _sentinel.record_nan_event(t, cfg.optimizer, "post-fit date state")
+    target, _ = _sentinel.sanitize_target(target)
+    ladder = _sentinel.degradation_ladder(cfg.optimizer, cfg.nan_retries)
+    for rung in ladder:
+        _sentinel.record_degrade(t, rung)
+        if rung == "gauss_newton":
+            fits = _leg_fits(model, cfg, feats_t, prices_t1, target, step_i, gauss_newton=True,
+                             gn_quantile=True)
+            state = _date_body(model, cfg, pre1, pre2, feats_t, prices_t, prices_t1, target,
+                               *fits)
+        else:  # "final_solve": the closed-form terminal rung
+            state = _final_solve_date(model, cfg, pre1, feats_t, prices_t, prices_t1, target)
+        if bool(_date_finite(state)):
+            return state
+        _sentinel.record_nan_event(t, rung, "degraded retry")
+    raise RuntimeError(
+        f"guard: backward date {t} is still non-finite after the trainer ladder {ladder} "
+        f"(nan_retries={cfg.nan_retries}) — refusing to continue: every earlier date would "
+        "train on this garbage. Raise nan_retries or inspect the walk's inputs.")
+
+
+def _metrics_row(aux, q_aux, dtype) -> torch.Tensor:
+    """The date's fit metrics as one device row: final loss, mae, mape and
+    epochs / accepted iterations, then the quantile leg's final loss and count."""
+    row = [aux["final_loss"], aux["mae"], aux["mape"], aux["n_epochs_ran"]]
+    if q_aux is not None:
+        row += [q_aux["final_loss"], q_aux["n_epochs_ran"]]
+    return torch.stack([torch.as_tensor(x).to(dtype) for x in row])
+
+
+def _fused_programs(model, cfg: BackwardConfig, feats, prices_t1, target) -> dict:
+    """Every program the fused walk's fits replay, built (and on a CUDA device
+    captured) before its date loop, from the first date's shapes: the GN legs'
+    ``gn_program`` s, one per leg for both the first and the warm dates, and
+    Adam's epoch programs (``fit.prepare``)."""
+    graphs = target.device.type == "cuda"
+    programs = {}
+    dual = cfg.dual_mode != "mse_only"
+    gauss_newton = cfg.optimizer == "gauss_newton"
+    if gauss_newton:
+        gn_cfg, gnq_cfg = _gn_cfgs(cfg, max(cfg.gn_iters_first, cfg.gn_iters_warm))
+        programs["mse"] = _gn.gn_program(model, feats, prices_t1, target, gn_cfg,
+                                         graphs=graphs)
+        if dual and cfg.gn_quantile:
+            programs["q"] = _gn.gn_program(
+                model, feats, prices_t1, target, gnq_cfg, graphs=graphs,
+                loss_fn=make_loss(cfg.quantile_loss, q=cfg.quantile))
+    adam_legs = [] if gauss_newton else [mse]
+    if dual and not (gauss_newton and cfg.gn_quantile):
+        adam_legs.append(make_loss(cfg.quantile_loss, q=cfg.quantile))
+    for loss_fn in adam_legs:
+        for first in (True, False):
+            _fit.prepare(model, feats, prices_t1, target, loss_fn=loss_fn,
+                         cfg=_adam_cfg(cfg, first))
+    return programs
+
+
+def fused_loop_scope(device: torch.device):
+    """The context the fused walk's date loop runs in: none. A check that the
+    loop reads nothing back replaces this function, for example with
+    ``utils/measure.no_host_sync``; the library sets no sync-debug mode
+    itself, since that mode holds for every thread of the process."""
+    return contextlib.nullcontext()
+
+
+def _fingerprint(model, cfg: BackwardConfig, n_paths: int, n_dates: int, warm) -> str:
+    """The run's identity for its checkpoint directory: the config (less
+    ``checkpoint_dir``, whose spelling may vary, and ``fused``, which the host
+    loop never is), the shapes, the model, the GN configs' reprs (their
+    defaults are training policy outside the config), the port's format tag
+    and, for a warm start, its params' digest. The device is not in it: the
+    layout names none."""
+    fp_cfg = dataclasses.replace(cfg, checkpoint_dir=None, fused=False)
+    warm_tag = "" if warm is None else " warm=" + _ckpt.state_digest(warm)[:16]
+    return (f"{fp_cfg} n_paths={n_paths} n_dates={n_dates} model={model} "
+            f"gn={GNConfig(n_iters=0)} gnq={GNPinballConfig(n_iters=0)} "
+            f"ckpt_format={CKPT_FORMAT}{warm_tag}")
+
+
 def backward_induction(model, features: torch.Tensor, y_prices: torch.Tensor,
                        b_prices: torch.Tensor, terminal_values: torch.Tensor,
                        cfg: BackwardConfig, *, bias_init: tuple[float, ...] | None = None,
@@ -241,89 +465,108 @@ def backward_induction(model, features: torch.Tensor, y_prices: torch.Tensor,
     ``patience_first``, LR ``cfg.lr``: the schedule when None) in each leg,
     the rest ``gn_iters_warm`` or ``epochs_warm`` (``patience_warm``, LR
     ``cfg.lr`` or ``warm_lr``). Each Adam fit draws its epoch orders from
-    :func:`_fit_generator`."""
-    _check_walk(cfg)
+    :func:`_fit_generator`. ``cfg.fused``, ``cfg.checkpoint_dir`` and
+    ``cfg.nan_guard``: the module docstring."""
     full_f32()
     dev, dtype = y_prices.device, model.dtype
     n_paths, n_knots = y_prices.shape[:2]
     n_dates = n_knots - 1
     params1, params2 = _initial_params(model, cfg, bias_init, initial_params, dev, dtype)
-    q_loss = make_loss(cfg.quantile_loss, q=cfg.quantile)
-    solve_fn = model.solve_readout if cfg.final_solve else None
+    warm = None if initial_params is None else {"p1": params1, "p2": params2}
     prices_all = _stack_prices(y_prices.to(dtype), b_prices.to(device=dev, dtype=dtype))
     values = torch.zeros((n_paths, n_knots), dtype=dtype, device=dev)
     values[:, -1] = terminal_values.to(dtype)
-    phi_cols, psi_cols, var_cols, snaps1, snaps2, metrics = [], [], [], [], [], []
-    for step_i, t in enumerate(range(n_dates - 1, -1, -1)):
-        first = step_i == 0
-        n_iters = cfg.gn_iters_first if first else cfg.gn_iters_warm
-        adam_cfg = FitConfig(
-            n_epochs=cfg.epochs_first if first else cfg.epochs_warm,
-            batch_size=cfg.batch_size,
-            patience=cfg.patience_first if first else cfg.patience_warm,
-            lr=cfg.lr if (first or cfg.lr is not None) else cfg.warm_lr, shuffle=cfg.shuffle)
-        feats_t, prices_t, prices_t1 = features[:, t], prices_all[:, t], prices_all[:, t + 1]
-        target = values[:, t + 1]
-        if cfg.optimizer == "adam":
-            params1, aux = fit_core(model, params1, feats_t, prices_t1, target,
-                                    _fit_generator(cfg.seed, step_i, 0), loss_fn=mse,
-                                    cfg=adam_cfg, metric_fns=(mae, mape), solve_fn=solve_fn)
-        else:
-            params1, aux = fit_gn(model, params1, feats_t, prices_t1, target,
-                                  cfg=GNConfig(n_iters=n_iters, block_rows=cfg.gn_block_rows),
-                                  final_solve=cfg.final_solve)
-        g_pre, q_aux = None, None
-        if cfg.dual_mode == "mse_only":
-            params2 = params1
-        else:
-            if cfg.dual_mode == "shared":
-                # the MSE fit's value, before the quantile fit moves the shared
-                # weights (RP.py:212-217 order); a device tensor, no host read
-                g_pre = model.value(params1, feats_t, prices_t)
-                params2 = params1
-            # the quantile leg never receives the least-squares readout solve
-            if cfg.optimizer == "gauss_newton" and cfg.gn_quantile:
-                params2, q_aux = fit_gn_pinball(
-                    model, params2, feats_t, prices_t1, target, loss_fn=q_loss,
-                    cfg=GNPinballConfig(n_iters=n_iters, q=cfg.quantile,
-                                        block_rows=cfg.gn_block_rows))
-            else:
-                params2, q_aux = fit_core(model, params2, feats_t, prices_t1, target,
-                                          _fit_generator(cfg.seed, step_i, 1), loss_fn=q_loss,
-                                          cfg=adam_cfg)
-            if cfg.dual_mode == "shared":
-                params1 = params2
-        v_t, comb, var_resid = _date_outputs_core(
-            model, params1, params2, feats_t, prices_t, prices_t1, target, cfg.cost_of_capital,
-            g_pre, dual_mode=cfg.dual_mode, holdings_combine=cfg.holdings_combine)
-        values[:, t] = v_t
-        phi_t, psi_t = _split_holdings(comb)
-        phi_cols.append(phi_t)
-        psi_cols.append(psi_t)
-        var_cols.append(var_resid)
-        snaps1.append(params1)
-        snaps2.append(params2)
-        # the date's one host read: its fit metrics (the quantile leg's last two);
-        # n_epochs_ran counts Adam's epochs or GN's accepted iterations
-        row = [aux["final_loss"], aux["mae"], aux["mape"], aux["n_epochs_ran"].to(dtype)]
-        if q_aux is not None:
-            row += [q_aux["final_loss"], q_aux["n_epochs_ran"].to(dtype)]
-        metrics.append(torch.stack(row).cpu())
-    # walked t downward; stored date-ascending
-    m = torch.stack(metrics[::-1]).double().numpy()
-
-    def asc(cols):
-        return torch.stack(cols[::-1], dim=1)
-
-    def by_date(snaps):
-        return {k: torch.stack([p[k] for p in snaps[::-1]]) for k in snaps[0]}
-
     dual = cfg.dual_mode != "mse_only"
+    n_metrics = 6 if dual else 4
+    # the ledgers, per-date params and fit metrics, written date by date (the
+    # walk visits t downward; every one is indexed by date, ascending)
+    rows = torch.empty((n_dates, n_metrics), dtype=dtype, device=dev if cfg.fused else "cpu")
+    ledgers = {}
+    snaps1 = {k: torch.empty((n_dates, *v.shape), dtype=dtype, device=dev)
+              for k, v in params1.items()}
+    snaps2 = ({k: torch.empty_like(v) for k, v in snaps1.items()}
+              if cfg.dual_mode == "separate" else None)
+
+    def record(t, p1, p2, v_t, phi_t, psi_t, var_resid):
+        values[:, t] = v_t
+        for name, col in (("phi", phi_t), ("psi", psi_t), ("var", var_resid)):
+            if name not in ledgers:
+                ledgers[name] = torch.empty((n_paths, n_dates, *col.shape[1:]), dtype=col.dtype,
+                                            device=dev)
+            ledgers[name][:, t] = col
+        for snaps, p in ((snaps1, p1), (snaps2, p2)):
+            for k, v in (p.items() if snaps is not None else ()):
+                snaps[k][t] = v
+
+    metric_keys = ["train_loss", "train_mae", "train_mape", "epochs_ran"]
+    if dual:
+        metric_keys += ["quantile_loss", "quantile_epochs_ran"]
+    start_step = 0
+    if cfg.checkpoint_dir is not None:
+        _ckpt.check_fingerprint(cfg.checkpoint_dir,
+                                _fingerprint(model, cfg, n_paths, n_dates, warm))
+        last = _ckpt.latest_complete_step(cfg.checkpoint_dir)
+        if last is not None:
+            # each step holds its own date's increment: replay 0..last to rebuild
+            # the ledgers (a missing or corrupt step raises in the loader)
+            for i, st in enumerate(_ckpt.load_checkpoints(cfg.checkpoint_dir, range(last + 1))):
+                params1 = params_to(st["params1"], dev, dtype)
+                params2 = params_to(st["params2"], dev, dtype)
+                record(n_dates - 1 - i, params1, params2,
+                       *(torch.from_numpy(st[k]).to(dev)
+                         for k in ("v_col", "phi_col", "psi_col", "var_col")))
+                rows[n_dates - 1 - i] = torch.tensor([float(st[k]) for k in metric_keys],
+                                                     dtype=dtype)
+            if cfg.dual_mode != "separate":
+                params2 = params1
+            start_step = last + 1
+
+    programs = (_fused_programs(model, cfg, features[:, n_dates - 1], prices_all[:, n_dates],
+                                values[:, n_dates]) if cfg.fused else None)
+    gauss_newton = cfg.optimizer == "gauss_newton"
+    with fused_loop_scope(dev) if cfg.fused else contextlib.nullcontext():
+        for step_i, t in enumerate(range(n_dates - 1, -1, -1)):
+            if step_i < start_step:
+                continue
+            feats_t, prices_t, prices_t1 = features[:, t], prices_all[:, t], prices_all[:, t + 1]
+            target = values[:, t + 1]
+            inj = None if cfg.fused else _inject.active()
+            if inj is not None:
+                # may NaN-poison the date's LOCAL target; values[:, t+1] stays clean
+                target = inj.corrupt_target(step_i, target)
+            fits = _leg_fits(model, cfg, feats_t, prices_t1, target, step_i,
+                             gauss_newton=gauss_newton, gn_quantile=cfg.gn_quantile,
+                             programs=programs)
+            state = _date_body(model, cfg, params1, params2, feats_t, prices_t, prices_t1,
+                               target, *fits)
+            row = _metrics_row(state[5], state[6], dtype)
+            if cfg.fused:
+                rows[t] = row
+            else:
+                if cfg.nan_guard:
+                    row = torch.cat([row, _date_finite(state).to(dtype)[None]])
+                row = row.cpu()  # the date's one host read (with the guard's flag)
+                if cfg.nan_guard and not bool(row[-1]):
+                    state = _degrade_date(model, cfg, params1, params2, feats_t, prices_t,
+                                          prices_t1, target, step_i, t)
+                    row = _metrics_row(state[5], state[6], dtype).cpu()
+                rows[t] = row[:n_metrics]
+            params1, params2, v_t, comb, var_resid = state[:5]
+            phi_t, psi_t = _split_holdings(comb)
+            record(t, params1, params2, v_t, phi_t, psi_t, var_resid)
+            if cfg.checkpoint_dir is not None:
+                # per-date increments only: O(paths) a save, not the walk so far
+                inc = {"params1": params1, "params2": params2, "v_col": v_t, "phi_col": phi_t,
+                       "psi_col": psi_t, "var_col": var_resid}
+                inc.update(zip(metric_keys, rows[t]))
+                _ckpt.save_checkpoint(cfg.checkpoint_dir, step_i, inc)
+                if inj is not None:
+                    inj.maybe_kill(step_i)  # a synthetic kill after the date's save
+    m = rows.cpu().double().numpy()  # the fused walk's one host read
     return BackwardResult(
-        values=values, phi=asc(phi_cols), psi=asc(psi_cols), var_residuals=asc(var_cols),
+        values=values, phi=ledgers["phi"], psi=ledgers["psi"], var_residuals=ledgers["var"],
         train_loss=m[:, 0], train_mae=m[:, 1], train_mape=m[:, 2],
         epochs_ran=m[:, 3].astype(np.int64), params1=params1, params2=params2,
-        params1_by_date=by_date(snaps1),
-        params2_by_date=by_date(snaps2) if cfg.dual_mode == "separate" else None,
+        params1_by_date=snaps1, params2_by_date=snaps2,
         quantile_loss=m[:, 4] if dual else None,
         quantile_epochs_ran=m[:, 5].astype(np.int64) if dual else None)

@@ -24,6 +24,14 @@ epoch eagerly. Each epoch's order is drawn on the host from the fit's
 ``torch.Generator``, so the card and the CPU given generators of one seed
 train on the same orders.
 
+``fit_core(..., sync_free=True)`` (the fused walk's fits) reads nothing from
+the device: it runs all ``n_epochs`` epochs without reading ``stopped`` (an
+epoch entered stopped changes nothing, so the result is the same), and on a
+CUDA device stages each epoch's order through a ring of pinned host buffers
+copied with ``non_blocking=True``, each slot guarded by a CUDA event so that
+no buffer is rewritten before its copy has run. The host-loop fit copies the
+order from pageable memory (a blocking copy, which syncs the stream).
+
 Runs in full f32 (``utils/precision.full_f32``, no TF32): the counterpart of
 the JAX package's ``@highest_matmul_precision``.
 """
@@ -43,6 +51,7 @@ B1, B2, EPS, EPS_ROOT = 0.9, 0.999, 1e-8, 0.0  # optax.adam's defaults
 #: launched op by op; the walls of both are compared by tools/torch_adam_walk.py)
 CUDA_GRAPHS = True
 _MAX_PROGRAMS = 4  # captured epoch programs kept, one per shape and loss
+_RING = 4  # pinned order buffers of a sync-free fit
 
 
 def reference_lr_schedule(count_to_epoch: float = 1.0) -> Callable[[int], float]:
@@ -123,7 +132,9 @@ class _EpochProgram:
         self.wait = torch.zeros((), dtype=torch.int32, device=dev)
         self.stopped = torch.zeros((), dtype=torch.bool, device=dev)
         self.neg_lr = torch.zeros((), dtype=dt, device=dev)
-        self.betas = torch.tensor([B1, B2], dtype=torch.float64, device=dev)
+        self.betas = torch.empty(2, dtype=torch.float64, device=dev)  # filled, not copied:
+        self.betas[0].fill_(B1)  # a host-to-device copy would sync the stream
+        self.betas[1].fill_(B2)
         self.losses = torch.empty(self.n_batches, dtype=targets.dtype, device=dev)
         self.epoch_loss = torch.empty((), dtype=targets.dtype, device=dev)
         self.order = torch.arange(self.n_batches, device=dev)
@@ -131,6 +142,7 @@ class _EpochProgram:
         self.perm = (torch.arange(n_used, device=dev) if cfg.shuffle is True else None)
         self.cols = torch.arange(bs, device=dev)
         self.graph = None
+        self._ring, self._slot = None, 0
 
     def load(self, theta, features, prices, targets) -> None:
         """The fit's inputs and its first state: Adam's moments at 0, no best yet."""
@@ -147,6 +159,27 @@ class _EpochProgram:
         if perm is not None:
             self.perm.copy_(perm)
         self.order.copy_(order)
+        self.offset.fill_(offset)
+
+    def stage_order(self, perm, order, offset: int) -> None:
+        """:meth:`set_order` without a host sync: on a CUDA device the order
+        goes through the next pinned ring slot, copied with ``non_blocking=True``;
+        the slot's event, recorded after its last copy, is waited on first."""
+        if self.theta.device.type != "cuda":
+            self.set_order(perm, order, offset)
+            return
+        if self._ring is None:
+            pin = lambda x: None if x is None else torch.empty_like(x).pin_memory()  # noqa: E731
+            self._ring = [(pin(perm), pin(order), torch.cuda.Event()) for _ in range(_RING)]
+        pp, po, ev = self._ring[self._slot]
+        self._slot = (self._slot + 1) % _RING
+        ev.synchronize()
+        if perm is not None:
+            pp.copy_(perm)
+            self.perm.copy_(pp, non_blocking=True)
+        po.copy_(order)
+        self.order.copy_(po, non_blocking=True)
+        ev.record()
         self.offset.fill_(offset)
 
     def _batches(self):
@@ -239,9 +272,23 @@ def _program(model, loss_fn, cfg: FitConfig, n: int, bs: int, features, prices,
     return prog
 
 
+def prepare(model, features: torch.Tensor, prices: torch.Tensor, targets: torch.Tensor, *,
+            loss_fn, cfg: FitConfig) -> None:
+    """Build and capture, ahead of time, the epoch program that
+    :func:`fit_core` will use for these shapes, this loss and ``cfg`` (a no-op
+    where no graph is captured): the capture syncs the card, which a
+    sync-free fit must not."""
+    n = targets.shape[0]
+    prog = _program(model, loss_fn, cfg, n, min(cfg.batch_size, n), features, prices, targets)
+    if prog.graphs and prog.graph is None:
+        prog.load(torch.zeros(model.n_params(), dtype=model.dtype, device=targets.device),
+                  features, prices, targets)
+        prog.capture()
+
+
 def fit_core(model, params: dict, features: torch.Tensor, prices: torch.Tensor,
              targets: torch.Tensor, generator: torch.Generator, *, loss_fn,
-             cfg: FitConfig, metric_fns: tuple = (), solve_fn=None):
+             cfg: FitConfig, metric_fns: tuple = (), solve_fn=None, sync_free: bool = False):
     """Train ``params`` so that ``model.value(params, features, prices) ~ targets``.
 
     ``generator`` (a CPU ``torch.Generator``) draws each epoch's order.
@@ -252,7 +299,9 @@ def fit_core(model, params: dict, features: torch.Tensor, prices: torch.Tensor,
     and each ``metric_fns`` entry (by name) of the returned params on all
     rows. ``solve_fn(params, features, prices, targets)``, where given (the
     walk passes ``model.solve_readout``), replaces the best params' readout,
-    and ``best_loss`` is then the final loss."""
+    and ``best_loss`` is then the final loss. ``sync_free`` runs every epoch
+    and stages the orders without a host sync (module docstring); the
+    program must then have been captured by :func:`prepare`."""
     full_f32()
     n = targets.shape[0]
     bs = min(cfg.batch_size, n)
@@ -266,10 +315,11 @@ def fit_core(model, params: dict, features: torch.Tensor, prices: torch.Tensor,
     hist = torch.full((cfg.n_epochs,), float("inf"), dtype=targets.dtype,
                       device=targets.device)
     for epoch in range(cfg.n_epochs):
-        if bool(prog.stopped):  # the epoch's one host read
+        if not sync_free and bool(prog.stopped):  # the epoch's one host read
             break
         if cfg.shuffle is not False:
-            prog.set_order(*_epoch_order(generator, n, bs, cfg.shuffle))
+            order = _epoch_order(generator, n, bs, cfg.shuffle)
+            (prog.stage_order if sync_free else prog.set_order)(*order)
         prog.neg_lr.fill_(-(schedule(epoch) if schedule is not None else cfg.lr))
         prog.run_epoch()
         hist[epoch] = prog.epoch_loss

@@ -26,7 +26,11 @@ The loop stays on the device: accept/reject and the freeze are
 back per iteration. A frozen iteration still computes its step (no host
 branch can skip it without a sync) but leaves theta, the damping and the
 loss unchanged and records ``inf`` in ``loss_history``, as the JAX
-``skip`` branch does.
+``skip`` branch does. The problem object owns that state (and its
+buffers), advanced in place by one iteration, so the fused walk captures an
+iteration once as a CUDA graph and replays it on each date's data
+(:func:`gn_program`, :func:`refit`). :func:`gram_cond` is the Gram's
+condition number, the JAX package's convergence diagnostic.
 
 ``J`` is the closed-form per-sample gradient (``HedgeMLP.value_jacobian``),
 one ``(n, P)`` buffer reused across iterations (456 MB at 1M paths and
@@ -74,15 +78,31 @@ class GNPinballConfig(GNConfig):
 
 
 class _GNProblem:
-    """One date's regression ``value(theta; features, prices) ~ targets``
-    under ``loss_fn``; ``weights``, when given, are the IRLS weights
-    ``(q_hi, q_lo, floor)`` of the pinball leg."""
+    """One date's regression ``value(theta; features, prices) ~ targets`` under
+    ``loss_fn``, and the LM state that the iterations advance; ``weights``,
+    when given, are the IRLS weights ``(q_hi, q_lo, floor)`` of the pinball leg.
+
+    Every buffer is allocated here, once: the Jacobian ``J`` (and ``Jw``), the
+    eye, and the state (``theta``, the damping ``lam``, ``best_loss``,
+    ``frozen``, the accepted count ``takes``, and ``hist``, ``cfg.n_iters``
+    entries of loss history written at the counter ``it``, which stops at the
+    last entry: iterations past the history overwrite it). With
+    ``static=False`` the problem reads the caller's ``features``, ``prices``
+    and ``targets`` (a host-loop fit); with ``static=True`` it owns contiguous
+    copies that :meth:`load` refills per date, so that an iteration captured
+    by :meth:`capture` (a CUDA graph) replays on whatever a date wrote into
+    them."""
 
     def __init__(self, model, features, prices, targets, cfg: GNConfig, loss_fn=mse,
-                 weights: tuple[float, float, float] | None = None):
-        self.model, self.features, self.prices, self.cfg = model, features, prices, cfg
-        self.loss_fn = loss_fn
-        self.y = targets.to(model.dtype)
+                 weights: tuple[float, float, float] | None = None, *, static: bool = False):
+        self.model, self.cfg, self.loss_fn = model, cfg, loss_fn
+        y = targets.to(model.dtype)
+        if static:
+            like = lambda x: torch.empty_like(x, memory_format=torch.contiguous_format)  # noqa: E731
+            self.features, self.prices, self.y = like(features), like(prices), like(y)
+            self.load(features, prices, targets)
+        else:
+            self.features, self.prices, self.y = features, prices, y
         self.n = self.y.shape[0]
         block = cfg.block_rows
         self.block = block if block is not None and self.n > block else None
@@ -91,17 +111,29 @@ class _GNProblem:
             # would allocate exactly the Jacobian it was set to avoid
             raise ValueError(f"block_rows={block} does not divide n={self.n} rows — pick a "
                              "divisor (n <= block_rows needs no blocking and is accepted)")
-        dim = model.n_params()
+        dim, dt = model.n_params(), model.dtype
         dev = self.y.device
         rows = self.block or self.n
-        self.J = torch.empty((rows, dim), dtype=model.dtype, device=dev)
-        self.eye = torch.eye(dim, dtype=model.dtype, device=dev)
+        self.J = torch.empty((rows, dim), dtype=dt, device=dev)
+        self.eye = torch.eye(dim, dtype=dt, device=dev)
         self.Jw, self.w = None, None
         if weights is not None:
             self.Jw = torch.empty_like(self.J)
             q_hi, q_lo, self.floor = weights
-            self.w = (torch.full((), q_hi, dtype=model.dtype, device=dev),
-                      torch.full((), q_lo, dtype=model.dtype, device=dev))
+            self.w = (torch.full((), q_hi, dtype=dt, device=dev),
+                      torch.full((), q_lo, dtype=dt, device=dev))
+        self.theta = torch.empty(dim, dtype=dt, device=dev)
+        self.lam, self.best_loss = (torch.empty((), dtype=dt, device=dev) for _ in range(2))
+        self.frozen = torch.zeros((), dtype=torch.bool, device=dev)
+        self.it, self.takes = (torch.zeros((), dtype=torch.int64, device=dev) for _ in range(2))
+        self.hist = torch.empty(max(cfg.n_iters, 1), dtype=dt, device=dev)
+        self.graph = None
+
+    def load(self, features, prices, targets) -> None:
+        """A date's inputs into the owned buffers (device-to-device copies)."""
+        self.features.copy_(features)
+        self.prices.copy_(prices)
+        self.y.copy_(targets)
 
     def loss(self, theta: torch.Tensor) -> torch.Tensor:
         pred = self.model.value(self.model.unflatten(theta), self.features, self.prices)
@@ -134,58 +166,118 @@ class _GNProblem:
             b += Jw.T @ r
         return G / self.n, b / self.n
 
+    def start(self, theta: torch.Tensor) -> None:
+        """The fit's first state: ``theta``, the initial damping, its loss."""
+        self.theta.copy_(theta)
+        self.lam.fill_(self.cfg.init_lambda)
+        self.best_loss.copy_(self.loss(self.theta))
+        for x in (self.frozen, self.it, self.takes):
+            x.zero_()
 
-def _lm_step(problem: _GNProblem, theta, lam, best_loss, frozen):
-    """One LM iteration on 0-d device tensors; returns the new
-    ``(theta, lam, best_loss, frozen)``, the iteration's history entry and
-    whether the step was taken."""
-    cfg = problem.cfg
-    G, b = problem.gram(theta)
-    diag_scale = torch.mean(torch.diagonal(G)) + cfg.ridge
-    delta = torch.linalg.solve_ex(G + (lam * diag_scale + cfg.ridge) * problem.eye, b)[0]
-    cand = theta - delta
-    cand_loss = problem.loss(cand)
-    take = (cand_loss < best_loss) & ~frozen
-    rel_gain = (best_loss - cand_loss) / torch.clamp(best_loss, min=1e-30)
-    frozen_next = frozen | (take & (rel_gain < cfg.min_rel_improve))
-    theta = torch.where(take, cand, theta)
-    best_loss = torch.where(take, cand_loss, best_loss)
-    lam_next = torch.clamp(torch.where(take, lam * cfg.lambda_down, lam * cfg.lambda_up),
-                           1e-10, 1e10)
-    lam = torch.where(frozen, lam, lam_next)
-    # history: the post-accept achieved loss (monotone), inf once frozen
-    hist = torch.where(frozen, torch.full_like(best_loss, float("inf")), best_loss)
-    return theta, lam, best_loss, frozen_next, hist, take
+    def iterate(self) -> None:
+        """One LM iteration on the device state, in place: the damped step, its
+        true loss, accept/reject and the freeze by ``torch.where``; the history
+        entry (the post-accept loss, ``inf`` once frozen) lands at ``hist[it]``,
+        and ``it`` advances no further than the history's last entry."""
+        cfg, theta, lam, best_loss, frozen = (self.cfg, self.theta, self.lam, self.best_loss,
+                                              self.frozen)
+        G, b = self.gram(theta)
+        diag_scale = torch.mean(torch.diagonal(G)) + cfg.ridge
+        delta = torch.linalg.solve_ex(G + (lam * diag_scale + cfg.ridge) * self.eye, b)[0]
+        cand = theta - delta
+        cand_loss = self.loss(cand)
+        take = (cand_loss < best_loss) & ~frozen
+        rel_gain = (best_loss - cand_loss) / torch.clamp(best_loss, min=1e-30)
+        frozen_next = frozen | (take & (rel_gain < cfg.min_rel_improve))
+        new_best = torch.where(take, cand_loss, best_loss)
+        lam_next = torch.clamp(torch.where(take, lam * cfg.lambda_down, lam * cfg.lambda_up),
+                               1e-10, 1e10)
+        new_lam = torch.where(frozen, lam, lam_next)
+        h = torch.where(frozen, torch.full_like(new_best, float("inf")), new_best)
+        theta.copy_(torch.where(take, cand, theta))
+        best_loss.copy_(new_best)
+        lam.copy_(new_lam)
+        frozen.copy_(frozen_next)
+        self.hist.index_copy_(0, self.it.view(1), h.view(1))
+        self.takes.add_(take)
+        self.it.add_(1).clamp_(max=self.hist.shape[0] - 1)
+
+    def capture(self) -> None:
+        """Warm one iteration up on a side stream, then capture it as a CUDA
+        graph (the state it leaves is replaced by the next :meth:`start`)."""
+        dev = self.theta.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.iterate()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.iterate()
+
+    def run(self, n_iters: int) -> None:
+        for _ in range(n_iters):
+            if self.graph is not None:
+                self.graph.replay()
+            else:
+                self.iterate()
 
 
-def _fit(problem: _GNProblem, params: dict, final_solve: bool):
-    """The LM loop on the device, then the result and its aux tensors."""
-    model, cfg = problem.model, problem.cfg
-    theta = model.flatten(params).to(device=problem.y.device, dtype=model.dtype)
-    lam = torch.tensor(cfg.init_lambda, dtype=model.dtype, device=theta.device)
-    best_loss = problem.loss(theta)
-    frozen = torch.zeros((), dtype=torch.bool, device=theta.device)
-    hist, takes = [], []
-    for _ in range(cfg.n_iters):
-        theta, lam, best_loss, frozen, h, take = _lm_step(problem, theta, lam, best_loss,
-                                                          frozen)
-        hist.append(h)
-        takes.append(take)
-    best = model.unflatten(theta)
+def _fit(problem: _GNProblem, params: dict, final_solve: bool, n_iters: int, features, prices,
+         targets):
+    """The LM loop on the device from ``params``, then the result and its aux
+    tensors, evaluated on the caller's ``features``, ``prices`` and ``targets``."""
+    model = problem.model
+    problem.start(model.flatten(params).to(device=problem.theta.device, dtype=model.dtype))
+    problem.run(n_iters)
+    best = model.unflatten(problem.theta.clone())
+    y = targets.to(model.dtype)
     if final_solve:
-        best = model.solve_readout(best, problem.features, problem.prices, problem.y)
-    pred = model.value(best, problem.features, problem.prices)
-    y = problem.y
+        best = model.solve_readout(best, features, prices, y)
+    pred = model.value(best, features, prices)
     aux = {
-        "loss_history": torch.stack(hist) if hist else theta.new_zeros(0),
-        "n_epochs_ran": (torch.stack(takes).sum() if takes
-                         else torch.zeros((), dtype=torch.int64, device=theta.device)),
+        "loss_history": problem.hist[:n_iters].clone(),
+        "n_epochs_ran": problem.takes.clone(),
         "final_loss": problem.loss_fn(pred, y),
         "mae": mae(pred, y),
         "mape": mape(pred, y),
     }
-    aux["best_loss"] = aux["final_loss"] if final_solve else best_loss
+    aux["best_loss"] = aux["final_loss"] if final_solve else problem.best_loss.clone()
     return best, aux
+
+
+def _pinball_weights(cfg: GNPinballConfig) -> tuple[float, float, float]:
+    return cfg.q, 1.0 - cfg.q, cfg.weight_floor
+
+
+def gn_program(model, features, prices, targets, cfg: GNConfig, *, loss_fn=mse,
+               graphs: bool = False) -> _GNProblem:
+    """A problem that owns its buffers, for fits run date after date with
+    :func:`refit` (the fused walk): the MSE leg, or the IRLS pinball leg when
+    ``cfg`` is a :class:`GNPinballConfig`. ``cfg.n_iters`` bounds the
+    iterations of one fit. ``graphs`` (a CUDA device) captures one LM
+    iteration as a CUDA graph, replayed ``n_iters`` times by each fit; a
+    capture that fails raises."""
+    full_f32()
+    weights = _pinball_weights(cfg) if isinstance(cfg, GNPinballConfig) else None
+    problem = _GNProblem(model, features, prices, targets, cfg, loss_fn=loss_fn, weights=weights,
+                         static=True)
+    if graphs:
+        problem.start(torch.zeros_like(problem.theta))
+        problem.capture()
+    return problem
+
+
+def refit(problem: _GNProblem, params: dict, features, prices, targets, *, n_iters: int,
+          final_solve: bool = False):
+    """One fit on a :func:`gn_program`: the date's inputs copied into its
+    buffers, ``n_iters`` iterations (graph replays where captured), and
+    :func:`fit_gn`'s result and aux, with no host read."""
+    if n_iters > problem.cfg.n_iters:
+        raise ValueError(f"n_iters={n_iters} exceeds the program's cfg.n_iters="
+                         f"{problem.cfg.n_iters}")
+    problem.load(features, prices, targets)
+    return _fit(problem, params, final_solve, n_iters, features, prices, targets)
 
 
 def fit_gn(model, params: dict, features: torch.Tensor, prices: torch.Tensor,
@@ -205,7 +297,8 @@ def fit_gn(model, params: dict, features: torch.Tensor, prices: torch.Tensor,
         raise ValueError("fit_gn optimises the MSE only; got a different loss_fn "
                          "(the quantile leg uses fit_gn_pinball)")
     full_f32()
-    return _fit(_GNProblem(model, features, prices, targets, cfg), params, final_solve)
+    return _fit(_GNProblem(model, features, prices, targets, cfg), params, final_solve,
+                cfg.n_iters, features, prices, targets)
 
 
 def fit_gn_pinball(model, params: dict, features: torch.Tensor, prices: torch.Tensor,
@@ -221,5 +314,23 @@ def fit_gn_pinball(model, params: dict, features: torch.Tensor, prices: torch.Te
                          "does not apply to the pinball objective")
     full_f32()
     problem = _GNProblem(model, features, prices, targets, cfg, loss_fn=loss_fn,
-                         weights=(cfg.q, 1.0 - cfg.q, cfg.weight_floor))
-    return _fit(problem, params, False)
+                         weights=_pinball_weights(cfg))
+    return _fit(problem, params, False, cfg.n_iters, features, prices, targets)
+
+
+def gram_cond(model, params: dict, feats: torch.Tensor, prices: torch.Tensor, *,
+              max_rows: int = 2048) -> float:
+    """Condition number of the GN Gram ``J^T J / n`` at ``params`` over at most
+    ``max_rows`` of the date's fit inputs, in full f32 (the matrix every GN
+    iteration solves; normal equations square the condition number). The
+    bottom eigenvalue is floored at ``top * 1e-12``: a spectrum wider than 12
+    decades is numerically singular either way, and a capped 1e12 reads as
+    that; a non-positive top eigenvalue gives ``inf``."""
+    full_f32()
+    feats, prices = feats[:max_rows], prices[:max_rows]
+    _, J = model.value_jacobian(params, feats, prices)
+    eigs = torch.linalg.eigvalsh(J.T @ J / feats.shape[0]).double().cpu()
+    top = float(eigs[-1])
+    if top <= 0.0:
+        return float("inf")
+    return top / max(float(eigs[0]), top * 1e-12)

@@ -1,4 +1,9 @@
-"""Policy-shape guard (counterpart of the shape helpers in ``orp_tpu/utils/fingerprint.py``).
+"""Run fingerprints and the policy-shape guard (counterpart of ``orp_tpu/utils/fingerprint.py``).
+
+A checkpoint directory is meaningful only under the run configuration that
+wrote it: its ``run_fingerprint.txt`` records that configuration as a
+string, and reopening the directory under another one refuses with a
+ValueError instead of resuming stale or shape-garbled state.
 
 The per-date params a trained result or bundle carries must be exactly the
 shapes its model over ``n_dates`` dates implies; a mismatch raises a
@@ -6,6 +11,51 @@ ValueError naming both signatures before any path is simulated.
 """
 
 from __future__ import annotations
+
+import pathlib
+
+from orp_tpu_torch.utils.atomic import atomic_write_text
+
+FINGERPRINT_FILE = "run_fingerprint.txt"
+
+
+def read_fingerprint(directory: str | pathlib.Path) -> str | None:
+    """The fingerprint recorded in ``directory``, or None if none exists."""
+    f = pathlib.Path(directory) / FINGERPRINT_FILE
+    return f.read_text() if f.exists() else None
+
+
+def write_fingerprint(directory: str | pathlib.Path, fingerprint: str) -> None:
+    """Record ``fingerprint`` in ``directory`` (atomically: a torn guard file
+    would make a valid directory unopenable)."""
+    d = pathlib.Path(directory)
+    d.mkdir(parents=True, exist_ok=True)
+    atomic_write_text(d / FINGERPRINT_FILE, fingerprint)
+
+
+def verify_fingerprint(directory: str | pathlib.Path, fingerprint: str, *,
+                       what: str = "directory") -> None:
+    """Raise unless ``directory`` records exactly ``fingerprint``; a missing
+    side file raises too (a directory without provenance cannot be proven
+    compatible)."""
+    saved = read_fingerprint(directory)
+    if saved is None:
+        raise ValueError(
+            f"{what} {pathlib.Path(directory)} has no {FINGERPRINT_FILE} — "
+            "not a directory written by this framework (or partially copied)")
+    if saved != fingerprint:
+        raise ValueError(
+            f"{what} {pathlib.Path(directory)} belongs to a different run config:\n"
+            f"  saved:   {saved}\n  current: {fingerprint}\n"
+            "use a fresh directory (or delete the old one)")
+
+
+def check_fingerprint(directory: str | pathlib.Path, fingerprint: str) -> None:
+    """Write the run fingerprint on first use; refuse a mismatched directory."""
+    if read_fingerprint(directory) is None:
+        write_fingerprint(directory, fingerprint)
+    else:
+        verify_fingerprint(directory, fingerprint, what="checkpoint dir")
 
 
 def describe_params_by_date(params_by_date: dict) -> str:

@@ -470,3 +470,101 @@ def test_exact_thinning_law_on_card(cuda):
     assert abs(float(n_t.mean()) - 8616) < 40 and abs(float(n_t.std()) - 132) < 30
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+def _walk_data(dev, n: int = 2048, d: int = 5, n_features: int = 3):
+    """A small pension-like walk on ``dev``: features (Y, ~N/N0, ~lambda), prices Y."""
+    rng = np.random.default_rng(4)
+    y = np.exp(np.cumsum(0.05 * rng.standard_normal((n, d + 1)), 1))
+    y[:, 0] = 1.0
+    cols = [y, 1.0 - 0.01 * rng.random((n, d + 1)), 0.01 + 1e-4 * rng.random((n, d + 1))]
+    feats = np.stack(cols[:n_features], -1)
+    b = np.exp(0.03 * np.linspace(0, 1, d + 1))
+    term = np.maximum(y[:, -1], 1.0)
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                 for a in (feats, y, b, term))
+
+
+FUSED_MODES = [dict(optimizer="gauss_newton", dual_mode="mse_only", gn_iters_first=8,
+                    gn_iters_warm=4),
+               dict(optimizer="gauss_newton", dual_mode="separate", gn_iters_first=8,
+                    gn_iters_warm=4, gn_block_rows=512),
+               dict(optimizer="gauss_newton", dual_mode="shared", holdings_combine="py",
+                    gn_iters_first=8, gn_iters_warm=4),
+               dict(dual_mode="separate", epochs_first=8, epochs_warm=4, patience_warm=1,
+                    batch_size=256, shuffle="blocks", lr=5e-2),
+               dict(dual_mode="mse_only", epochs_first=8, epochs_warm=4, patience_warm=1,
+                    batch_size=256, shuffle=True, lr=5e-2)]
+
+
+def _bitwise(a, b):
+    for k in ("values", "phi", "psi", "var_residuals"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+    for k, v in b.params1_by_date.items():
+        assert torch.equal(a.params1_by_date[k], v), k
+    np.testing.assert_array_equal(a.epochs_ran, b.epochs_ran)
+    np.testing.assert_array_equal(a.train_loss, b.train_loss)
+
+
+@pytest.mark.parametrize("mode", FUSED_MODES)
+def test_fused_walk_equals_host_loop_on_card(cuda, mode):
+    """The fused walk on the card (GN iterations and Adam epochs as replayed CUDA
+    graphs, nothing read back between dates) is bitwise the host loop."""
+    data = _walk_data(cuda)
+    model = HedgeMLP(n_features=3)
+    host = backward_induction(model, *data, BackwardConfig(**mode), bias_init=(0.6, 0.4))
+    fused = backward_induction(model, *data, BackwardConfig(**mode, fused=True),
+                               bias_init=(0.6, 0.4))
+    _bitwise(fused, host)
+    if mode.get("dual_mode") != "mse_only":
+        np.testing.assert_array_equal(fused.quantile_epochs_ran, host.quantile_epochs_ran)
+
+
+@pytest.mark.parametrize("mode", [FUSED_MODES[1], FUSED_MODES[3]])
+def test_fused_date_loop_runs_under_sync_debug_error(cuda, mode, monkeypatch):
+    """With ``utils/measure.no_host_sync`` as the fused walk's loop scope, every
+    fused date body runs with ``set_sync_debug_mode("error")`` in force (a host
+    sync there raises), and the mode is restored after the walk; the library's
+    own scope leaves the mode alone."""
+    from orp_tpu_torch.train import backward
+    from orp_tpu_torch.utils.measure import no_host_sync
+
+    seen = []
+    body = backward._date_body
+
+    def spy(*args, **kw):
+        seen.append(torch.cuda.get_sync_debug_mode())
+        return body(*args, **kw)
+
+    monkeypatch.setattr(backward, "_date_body", spy)
+    data = _walk_data(cuda)
+    backward_induction(HedgeMLP(n_features=3), *data, BackwardConfig(**mode, fused=True),
+                       bias_init=(0.6, 0.4))
+    assert seen == [0] * 5
+    seen.clear()
+    monkeypatch.setattr(backward, "fused_loop_scope", no_host_sync)
+    backward_induction(HedgeMLP(n_features=3), *data, BackwardConfig(**mode, fused=True),
+                       bias_init=(0.6, 0.4))
+    assert seen == [2] * 5  # "error", once per date
+    assert torch.cuda.get_sync_debug_mode() == 0
+    with pytest.raises(RuntimeError):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            torch.zeros(1, device=cuda).item()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("kill_after", [0, 2])
+def test_kill_and_resume_bitwise_on_card(cuda, kill_after, tmp_path):
+    from orp_tpu_torch import guard
+
+    data = _walk_data(cuda)
+    model = HedgeMLP(n_features=3)
+    mode = dict(FUSED_MODES[2])
+    full = backward_induction(model, *data, BackwardConfig(**mode), bias_init=(0.6, 0.4))
+    cfg = BackwardConfig(**mode, checkpoint_dir=str(tmp_path / "walk"))
+    with guard.faults(guard.FaultPlan(kill_after_step=kill_after)):
+        with pytest.raises(guard.WalkKilled):
+            backward_induction(model, *data, cfg, bias_init=(0.6, 0.4))
+    _bitwise(backward_induction(model, *data, cfg, bias_init=(0.6, 0.4)), full)

@@ -259,12 +259,14 @@ ADAM_SMALL = dict(epochs_first=40, epochs_warm=10, batch_size=256)
     (dict(GN, **ADAM_SMALL, dual_mode="shared", gn_quantile=False), None),  # Adam quantile leg
     (dict(GN, dual_mode="separate", fused=True), "fused=True"),
 ])
-def test_pension_hedge_refuses_before_simulating(cfg, match, monkeypatch):
-    """The fused walk is refused before any path is simulated. Adam and the Adam
-    quantile leg, refused before they were ported, run: V0 within 5% of the JAX
-    pipeline's on the same config (each package from its own seeded init, as
-    ``test_pension_hedge_entry_point_runs``; ``tests/test_torch_adam_walk.py``
-    holds the walk from JAX's init)."""
+def test_pension_hedge_refuses_before_simulating(cfg, match):
+    """Each walk that was once refused runs. Adam and the Adam quantile leg: V0
+    within 5% of the JAX pipeline's on the same config (each package from its
+    own seeded init, as ``test_pension_hedge_entry_point_runs``;
+    ``tests/test_torch_adam_walk.py`` holds the walk from JAX's init). The
+    fused walk (``fused=True``): bitwise the host loop's pension hedge, both
+    legs' iterations equal (``tests/test_torch_fused_walk.py`` holds it to
+    JAX's fused walk)."""
     tcfg = tapi.HedgeRunConfig(sim=tapi.SimConfig(**SIM), train=tapi.TrainConfig(**cfg))
     if match is None:
         want = japi.pension_hedge(japi.HedgeRunConfig(sim=japi.SimConfig(**SIM),
@@ -274,9 +276,16 @@ def test_pension_hedge_refuses_before_simulating(cfg, match, monkeypatch):
         assert abs(res.v0 / want.v0 - 1) < 0.05, (res.v0, want.v0)
         assert res.backward.quantile_epochs_ran.max() <= ADAM_SMALL["epochs_first"]
         return
-    monkeypatch.setattr(tpipe, "pension_inputs", lambda *a: pytest.fail("simulated"))
-    with pytest.raises(ValueError, match=match):
-        tapi.pension_hedge(tcfg, device="cpu")
+    fused = tapi.pension_hedge(tcfg, device="cpu").backward
+    host = tapi.pension_hedge(dataclasses.replace(
+        tcfg, train=dataclasses.replace(tcfg.train, fused=False)), device="cpu").backward
+    for k in ("values", "phi", "psi", "var_residuals"):
+        assert torch.equal(getattr(fused, k), getattr(host, k)), k
+    for which in ("params1_by_date", "params2_by_date"):
+        for k, v in getattr(host, which).items():
+            assert torch.equal(getattr(fused, which)[k], v), (which, k)
+    for k in ("epochs_ran", "quantile_epochs_ran", "train_loss", "quantile_loss"):
+        np.testing.assert_array_equal(getattr(fused, k), getattr(host, k), err_msg=k)
 
 
 def _band(got, want, v0_rtol: float = 2e-3) -> None:

@@ -21,7 +21,8 @@ PORT = ROOT / "orp_tpu_torch"
 
 def _is_forbidden(name: str) -> bool:
     return (name == "jax" or name.startswith("jax.") or name.startswith("jaxlib")
-            or name == "orp_tpu" or name.startswith("orp_tpu."))
+            or name == "orp_tpu" or name.startswith("orp_tpu.")
+            or name == "orbax" or name.startswith("orbax."))  # orbax imports JAX
 
 
 def _sources():
@@ -30,13 +31,15 @@ def _sources():
                                          ROOT / "tools" / "torch_walk_spread.py",
                                          ROOT / "tools" / "torch_kernel_digest.py",
                                          ROOT / "tools" / "torch_warp_census.py",
-                                         ROOT / "tools" / "torch_adam_walk.py"]
+                                         ROOT / "tools" / "torch_adam_walk.py",
+                                         ROOT / "tools" / "torch_fused_walk.py"]
 
 
 def test_prefix_rule():
     assert _is_forbidden("orp_tpu") and _is_forbidden("orp_tpu.qmc.sobol")
     assert not _is_forbidden("orp_tpu_torch") and not _is_forbidden("orp_tpu_torch.qmc")
     assert _is_forbidden("jax.numpy") and not _is_forbidden("jaxtyping")
+    assert _is_forbidden("orbax.checkpoint") and not _is_forbidden("orbaxish")
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -111,37 +111,45 @@ ADAM_SMALL = dict(epochs_first=8, epochs_warm=4, batch_size=256, shuffle=False)
     (dict(GN, checkpoint_dir="ckpt"), "checkpoint_dir"),
     (dict(GN, nan_guard=True), "nan_guard=True"),
 ])
-def test_walk_refuses_what_is_not_ported(walk_inputs, cfg, match):
-    """The fused walk, checkpoint/resume and the NaN guard are refused (ROADMAP
-    A3). Adam and the Adam quantile leg, refused before they were ported, run:
-    the walk in f64 from the JAX walk's two initial param sets matches JAX's at
+def test_walk_refuses_what_is_not_ported(walk_inputs, cfg, match, tmp_path):
+    """Each walk that was once refused runs. Adam and the Adam quantile leg: the
+    walk in f64 from the JAX walk's two initial param sets matches JAX's at
     ``rtol=1e-7`` with the same epochs per date (``tests/test_torch_adam_walk.py``
-    holds every dual mode and shuffle), and ``european_hedge`` runs with them."""
+    holds every dual mode and shuffle), and ``european_hedge`` runs with them.
+    ``fused=True``, ``checkpoint_dir`` (in ``tmp_path``) and ``nan_guard=True``
+    (ROADMAP A3): the walk in f64 matches JAX's same walk at ``rtol=1e-7`` with
+    the same iterations, is bitwise the port's plain host loop, and
+    ``european_hedge`` runs with it."""
+    jcfg = cfg
+    if match == "checkpoint_dir":  # each package in a directory of its own
+        cfg, jcfg = (dict(cfg, checkpoint_dir=str(tmp_path / d)) for d in ("ckpt", "jax"))
     sim = tapi.SimConfig(n_paths=64, T=1.0, dt=0.25, rebalance_every=1)
-    if match is None:
-        feats, s, b, term = walk_inputs
-        ks = jax.random.split(jax.random.key(1234), 3)
-        init = tuple({k: np.asarray(v) for k, v in JHedgeMLP(n_features=2, dtype=jnp.float64)
-                      .init(ks[i], bias_init=(0.1, 0.0)).items()} for i in (0, 1))
-        want = jbackward_induction(JHedgeMLP(n_features=2, dtype=jnp.float64),
-                                   *(jnp.asarray(a) for a in (feats, s, b, term)),
-                                   JBackwardConfig(**cfg), initial_params=init)
-        got = backward_induction(HedgeMLP(n_features=2, dtype=torch.float64),
-                                 *(torch.tensor(a) for a in (feats, s, b, term)),
-                                 BackwardConfig(**cfg), initial_params=init)
-        for k in ("values", "phi", "psi"):
-            np.testing.assert_allclose(getattr(got, k).numpy(), np.asarray(getattr(want, k)),
-                                       rtol=1e-7, atol=1e-10, err_msg=k)
-        np.testing.assert_array_equal(got.epochs_ran, want.epochs_ran)
-        rep = tapi.european_hedge(tapi.EuropeanConfig(), sim, tapi.TrainConfig(**cfg),
-                                  device="cpu").report
-        assert np.isfinite([rep.v0, rep.v0_cv, rep.v0_acv]).all()
-        return
-    feats, s, b, term = (torch.tensor(a, dtype=torch.float32) for a in walk_inputs)
-    with pytest.raises(ValueError, match=match):
-        backward_induction(HedgeMLP(n_features=2), feats, s, b, term, BackwardConfig(**cfg))
-    with pytest.raises(ValueError, match=match):
-        tapi.european_hedge(tapi.EuropeanConfig(), sim, tapi.TrainConfig(**cfg), device="cpu")
+    feats, s, b, term = walk_inputs
+    ks = jax.random.split(jax.random.key(1234), 3)
+    init = tuple({k: np.asarray(v) for k, v in JHedgeMLP(n_features=2, dtype=jnp.float64)
+                  .init(ks[i], bias_init=(0.1, 0.0)).items()} for i in (0, 1))
+    want = jbackward_induction(JHedgeMLP(n_features=2, dtype=jnp.float64),
+                               *(jnp.asarray(a) for a in (feats, s, b, term)),
+                               JBackwardConfig(**jcfg), initial_params=init)
+    model = HedgeMLP(n_features=2, dtype=torch.float64)
+    got = backward_induction(model, *(torch.tensor(a) for a in (feats, s, b, term)),
+                             BackwardConfig(**cfg), initial_params=init)
+    for k in ("values", "phi", "psi"):
+        np.testing.assert_allclose(getattr(got, k).numpy(), np.asarray(getattr(want, k)),
+                                   rtol=1e-7, atol=1e-10, err_msg=k)
+    np.testing.assert_array_equal(got.epochs_ran, want.epochs_ran)
+    if match is not None:
+        plain = {k: v for k, v in cfg.items() if k not in ("fused", "checkpoint_dir", "nan_guard")}
+        host = backward_induction(model, *(torch.tensor(a) for a in (feats, s, b, term)),
+                                  BackwardConfig(**plain), initial_params=init)
+        for k in ("values", "phi", "psi", "var_residuals"):
+            assert torch.equal(getattr(got, k), getattr(host, k)), k
+        np.testing.assert_array_equal(got.train_loss, host.train_loss)
+        if match == "checkpoint_dir":
+            cfg = dict(cfg, checkpoint_dir=str(tmp_path / "pipeline"))
+    rep = tapi.european_hedge(tapi.EuropeanConfig(), sim, tapi.TrainConfig(**cfg),
+                              device="cpu").report
+    assert np.isfinite([rep.v0, rep.v0_cv, rep.v0_acv]).all()
 
 
 def _assert_prices(got, want, bp: float = 0.5):

@@ -29,7 +29,8 @@ it is compared within one toolkit, never pinned in code.
   build report is filtered with this checkout's ``chip_smoke.ptxas_lines``.
   Comparing two trees on one card is one call of this tool per tree, in turns
   (parent, change, change, parent).
-- ``--time`` adds CUDA-event medians (5 rounds) of each run.
+- ``--time`` adds CUDA-event medians (5 rounds) of each run
+  (``orp_tpu_torch/utils/measure.cuda_ms`` of this checkout).
 - ``--sass`` adds each kernel's static SASS instruction count and its most
   frequent opcodes (``cuobjdump -sass``, beside ``nvcc``), for every library
   the tree builds.
@@ -164,6 +165,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("torch_kernel_digest needs a CUDA card; none is available")
     smoke = _module(ROOT / "chip_smoke.py", "_smoke_constants")
+    measure = _module(ROOT / "orp_tpu_torch" / "utils" / "measure.py", "_measure")
     from orp_tpu_torch.utils import cuda_build
 
     check = pathlib.Path(cuda_build.__file__).resolve()
@@ -190,7 +192,7 @@ def main(argv=None) -> int:
         result["ms"] = {}
         for name, call in calls.items():
             n = next((v for k, v in reps.items() if name.startswith(k)), 10)
-            result["ms"][name] = smoke.cuda_ms(call, reps=n)
+            result["ms"][name] = measure.cuda_ms(call, reps=n)
             print(f"[time] {name}: {result['ms'][name]:.4f} ms (median of 5 rounds of {n})",
                   flush=True)
     if args.sass:
