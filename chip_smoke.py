@@ -18,7 +18,8 @@ last line):
    atol=1e-6``; Euler v ``rtol=3e-5, atol=3e-6``); K2 (mixed-date head) on
    1,048,576 rows over 52 dates, ``rtol=1e-5, atol=1e-6``, and K2's bf16
    kernel at the same shapes against ``mixed_head_plain`` in bf16 by
-   ``BF16_RULE`` (>= 99.9% of elements bitwise, each within 4 bf16 spacings);
+   ``BF16_RULE`` (>= 99.9% of elements bitwise, each within 4 bf16 spacings)
+   and bitwise against its documented order (``mixed_head_bf16_order``);
 3b. K3c (the pension system) against ``pension_plain`` on the card at 65,536
     paths x 1,000 steps, store 25, in all four variants (constant-vol or SV
     fund, ``normal`` or ``inversion`` thinning), and at 1,048,576 paths in the
@@ -78,10 +79,13 @@ last line):
     card-trained pension policy's (phase 13) through ``HedgeEngine(policy,
     precision=tier)`` at f32, bf16 and int8: K2's f32 kernel (f32, int8) or
     bf16 kernel (bf16) launches once per param set and no other kernel does;
-    outputs finite f32; each tier agrees with the port's CPU tier on the same
-    rows (f32 and int8 at ``rtol=1e-5, atol=1e-6``, bf16 by ``BF16_RULE``),
-    which ``tests/test_torch_precision.py`` holds to the JAX package's
-    engine; max |dphi|, |dpsi|, |dv| against the f32 tier printed beside
+    outputs finite f32; f32 and int8 agree with the port's CPU tier on the
+    same rows at ``rtol=1e-5, atol=1e-6`` (``tests/test_torch_precision.py``
+    holds the CPU tiers to the JAX package's engine); bf16 equals bitwise the
+    tier computed by K2's documented bf16 arithmetic in plain PyTorch
+    (``megakernel.mixed_head_bf16_order``, then the engine's
+    ``serve_outputs``), its agreement with the CPU tier printed by
+    ``BF16_RULE``'s measures; max |dphi|, |dpsi|, |dv| against the f32 tier printed beside
     ``PRECISION_BANDS`` (not gated: on these policies the JAX package's own
     tiers fall outside its bands too); rows/s host-to-host; K2's f32 and
     bf16 kernels timed at both policies' shapes and at 4,096 rows, beside
@@ -139,12 +143,39 @@ last line):
     ``final_solve`` rung at date 50 only, date 51 bitwise, every ledger
     finite, V0 within 5% of the clean run and |v0_acv - BS| < 1bp; with
     [fused-adam]'s Adam walk the same plan lands on the ``gauss_newton`` rung;
-23. times: each kernel and its plain version with CUDA events at the main
+23. [basket] main path E, BASELINE.json config 5 (``BasketConfig()``: 5
+    assets, rho 0.3) at 1,048,576 paths x 52 weekly steps on the scan path
+    (the JAX package's basket is scan-only): ``basket_hedge`` with the basket
+    hedge and the vector hedge (``instruments="assets"``; the fused GN walk,
+    30 + 51 x 10, row blocks of 16,384) and the vector hedge with [adam]'s
+    Adam. Each run and its ``basket_oos`` on fresh paths: ``v0_cv`` and
+    ``v0_acv`` within 3 standard errors of ``v0_plain``, ``|v0_acv / oracle_mm
+    - 1| < 40bp`` (the Levy bound of ``tests/test_basket.py``), no kernel
+    launch. The vector hedge's ``cv_std`` below the basket hedge's; the fused
+    vector walk bitwise its host loop at 16,384 paths. Each trained policy
+    -> ``save_bundle`` -> ``load_bundle`` -> one 1,048,576-row mixed-date block
+    through ``HedgeEngine``: K2's ``Runtime<8>`` instance (5 features, 2 or 6
+    outputs) launches once and no other kernel does, the block held against
+    ``mixed_head_plain`` at ``rtol=1e-5, atol=1e-6``; the kernel alone in f32
+    against the plain version at the same tolerance, in bf16 bitwise its
+    documented summation order (``megakernel.mixed_head_bf16_order``; its
+    agreement with the plain version on the CPU and on the card printed);
+    ``tier_phase`` for the vector head; K2's f32 and bf16 times at both heads beside their bounds;
+24. [greeks] at 1,048,576 paths: ``european_greeks`` call and put (52 steps)
+    inside ``tests/test_greeks.py``'s bands against ``bs_greeks``;
+    ``digital_greeks`` within 4 standard errors of the closed forms, call +
+    put partitioning the paths; ``heston_greeks`` (364 steps) at 8 independently
+    scrambled seeds against central differences of the characteristic-function
+    price, the mean of each greek within its band or 3 of the replicates'
+    standard errors, the larger; ``basket_greeks`` at ``BasketConfig()``
+    against CRN central-difference reprices on the card; each wall;
+25. times: each kernel and its plain version with CUDA events at the main
     paths' shapes (the host's queue filled ahead of each timed round, so a
     kernel shorter than its wrapper's host cost is timed on the card), beside
-    the kernel's bound (K2's from [tiers], f32 and bf16 at both shapes); the GN
-    walks' walls at 1M paths and the median time of one LM iteration there
-    (MSE and, for the pension, the IRLS pinball leg).
+    the kernel's bound (K2's from [tiers], f32 and bf16 at both shapes, and
+    from [basket] at the basket heads); the GN walks' walls at 1M paths and
+    the median time of one LM iteration there (MSE and, for the pension, the
+    IRLS pinball leg); the basket's and the greeks' walls.
 
 Output: a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -200,6 +231,14 @@ PENSION_SAME_PATHS_BAND = {"v0": 0.01, "phi0": 0.03, "psi0": 0.03}
 # tests/test_torch_fixture.py holds the CPU port to the same band)
 FIXTURE_BAND_BP = {"v0_cv": 5.0, "v0_acv": 30.0}
 FIXTURE_V0_RTOL = 5e-2
+# tests/test_greeks.py's Heston greeks case: each greek's central-difference bump of the
+# characteristic-function price (_cf_fd) and its band
+HESTON_GREEKS = dict(v0=0.0225, kappa=1.5, theta=0.0225, xi=0.25, rho=-0.6)
+HESTON_GREEKS_FD = {"delta": ("s0", 0.05, "atol", 5e-3), "vega_v0": ("v0", 3e-4, "rtol", 2e-2),
+                    "vega_theta": ("theta", 3e-4, "rtol", 2e-2),
+                    "vega_xi": ("xi", 2e-3, "rtol", 5e-2), "rho_rate": ("r", 1e-4, "rtol", 5e-3),
+                    "vega_kappa": ("kappa", 1e-2, "atol", 5e-3)}
+HESTON_GREEKS_SEEDS = tuple(range(77, 85))
 
 
 def check(ok: bool, what: str) -> None:
@@ -219,6 +258,25 @@ def ptxas_lines(log: str) -> list[str]:
     name) and give its registers and spills."""
     return [line.strip() for line in log.splitlines()
             if "entry function" in line or "registers" in line or "spill" in line]
+
+
+def heston_greeks_oracle() -> dict:
+    """``{greek: (oracle, "rtol" | "atol", band)}`` of the Heston greeks case at s0 = k =
+    100, r = 0.08, T = 1: the characteristic-function price (band rtol 5e-3) and
+    the central differences of it at ``HESTON_GREEKS_FD``'s bumps."""
+    from orp_tpu_torch.utils import heston_call
+
+    base = dict(s0=100.0, k=100.0, r=0.08, T=1.0, **HESTON_GREEKS)
+
+    def price(**over):
+        p = {**base, **over}
+        return heston_call(p["s0"], p["k"], p["r"], p["T"], **{k: p[k] for k in HESTON_GREEKS})
+
+    out = {"price": (price(), "rtol", 5e-3)}
+    for greek, (name, h, how, lim) in HESTON_GREEKS_FD.items():
+        fd = (price(**{name: base[name] + h}) - price(**{name: base[name] - h})) / (2 * h)
+        out[greek] = (fd, how, lim)
+    return out
 
 
 def max_err(got, want) -> float:
@@ -705,10 +763,13 @@ def tier_phase(dev, counts, policy, dates, states, prices, what: str) -> dict:
     """[tiers]: one 1M-row mixed-date request of ``policy`` through
     ``HedgeEngine(policy, precision=tier)`` for each tier. Checks: K2's f32
     kernel (f32, int8) or bf16 kernel (bf16) launches once per param set and no
-    other kernel does; phi, psi and v are finite f32; each tier agrees with the
-    port's CPU tier (the plain versions, which tests/test_torch_precision.py
-    holds to the JAX package's engine) on the same rows: f32 and int8 at rtol
-    1e-5 / atol 1e-6, bf16 by BF16_RULE. Reports each tier's max |dphi|,
+    other kernel does; phi, psi and v are finite f32; f32 and int8 agree with
+    the port's CPU tier (the plain versions, which tests/test_torch_precision.py
+    holds to the JAX package's engine) on the same rows at rtol 1e-5 / atol
+    1e-6; bf16 equals, bitwise, the tier computed by the kernel's documented
+    arithmetic (``mixed_head_bf16_order`` on the policy's params cast to bf16,
+    then the engine's ``serve_outputs``), and its agreement with the CPU tier
+    is printed by ``BF16_RULE``'s measures. Reports each tier's max |dphi|,
     |dpsi|, |dv| against the f32 tier beside PRECISION_BANDS, the CPU tier's
     deviation, and host-to-host rows/s (median of 3)."""
     import numpy as np
@@ -743,11 +804,14 @@ def tier_phase(dev, counts, policy, dates, states, prices, what: str) -> dict:
         cpu = loop_of_buckets(HedgeEngine(policy, device="cpu", precision=tier), dates,
                               states, prices)
         agree = {}
-        for name, a, b in zip(("phi", "psi", "v"), got, cpu):
-            if tier == "bf16":
-                agree[name] = bf16_agreement(a, b)
-                check(agree[name]["ok"], f"{what} bf16 {name}: card vs CPU tier {agree[name]}")
-            else:
+        if tier == "bf16":
+            want = served_bf16_order(dev, policy, dates, states, prices)
+            for name, a, b, c in zip(("phi", "psi", "v"), got, want, cpu):
+                check(np.array_equal(a, b), f"{what} bf16 {name}: the served tier bitwise "
+                      "the kernel's documented order")
+                agree[name] = bf16_agreement(a, c)
+        else:
+            for name, a, b in zip(("phi", "psi", "v"), got, cpu):
                 np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6,
                                            err_msg=f"{what} {tier} {name}: card vs CPU tier")
         if tier == "f32":
@@ -758,8 +822,9 @@ def tier_phase(dev, counts, policy, dates, states, prices, what: str) -> dict:
         inside = max(dev_[:2]) <= band
         out[tier] = {"dev": dev_, "dev_cpu": dev_cpu, "launches": launches,
                      "rows_s": len(dates) / sorted(walls)[1], "inside": inside, "agree": agree}
-        share = (" card vs CPU tier bitwise on " + ", ".join(
-            f"{k} {v['equal_share']:.6%} (max {v['max_ulps']:.0f} bf16 spacings)"
+        share = (" bitwise its documented order; vs the CPU tier " + ", ".join(
+            f"{k} {v['equal_share']:.6%} bitwise (max {v['max_ulps']:.2f} bf16 spacings, "
+            f"{'inside' if v['ok'] else 'outside'} BF16_RULE)"
             for k, v in agree.items()) + ";") if agree else ""
         print(f"[tiers] {what} {tier}: max |dphi| {dev_[0]:.4g}, |dpsi| {dev_[1]:.4g}, |dv| "
               f"{dev_[2]:.4g} vs f32 (CPU tier: {dev_cpu[0]:.4g}, {dev_cpu[1]:.4g}, "
@@ -767,6 +832,36 @@ def tier_phase(dev, counts, policy, dates, states, prices, what: str) -> dict:
               f"{'inside' if inside else 'outside'};{share} K2 launches {launches}; "
               f"{out[tier]['rows_s']:,.0f} rows/s host-to-host (median of 3)", flush=True)
     return out
+
+
+def served_bf16_order(dev, policy, dates, states, prices):
+    """The bf16 tier's ``(phi, psi, v)`` of ``policy`` on the card with K2's bf16
+    arithmetic in plain PyTorch: ``mixed_head_bf16_order`` under each param set
+    cast to bf16, then the engine's ``serve_outputs``."""
+    import numpy as np
+    import torch
+
+    from orp_tpu_torch.serve import megakernel
+
+    m = policy.model.with_dtype(torch.bfloat16)
+    d = torch.from_numpy(np.asarray(dates, np.int64)).to(dev)
+    # the engine pads host rows in the model's dtype (f32) before the bf16 cast
+    f = torch.from_numpy(np.asarray(states, np.float32)).to(dev).to(torch.bfloat16)
+    bw = policy.backward
+
+    def head(params):
+        p = {k: torch.as_tensor(v).to(dev, torch.bfloat16) for k, v in params.items()}
+        return megakernel.mixed_head_bf16_order(m, p, d, f)
+
+    raw1 = head(bw.params1_by_date)
+    # a policy stored without a second param set serves the first under both, as the engine
+    raw2 = (raw1 if policy.dual_mode == "mse_only" or bw.params2_by_date is None
+            else head(bw.params2_by_date))
+    pr = torch.from_numpy(np.asarray(prices, np.float32)).to(dev)
+    out = megakernel.serve_outputs(m, raw1, raw2, pr,
+                                   policy.cost_of_capital, dual_mode=policy.dual_mode,
+                                   holdings_combine=policy.holdings_combine)
+    return [t.cpu().numpy() for t in out]
 
 
 def k2_times(dev, policy, n_rows: int, seed: int, small: int = 4096) -> dict:
@@ -1348,6 +1443,333 @@ def resilience_phases(dev, counts, euro_host, euro_s: float, bs: float) -> dict:
     return out
 
 
+# BASELINE.json config 5: the 5-asset basket call at 1M paths, weekly for a year
+BASKET_STEPS = 52
+BASKET_GN = dict(dual_mode="mse_only", optimizer="gauss_newton", gn_block_rows=16_384,
+                 fused=True)
+BASKET_LEVY_BOUND = 40e-4  # tests/test_basket.py::test_mm_oracle_vs_qmc_price
+N_BASKET_HOST = 16_384
+
+
+def basket_price_checks(res, r: float, what: str) -> str:
+    """``v0_cv`` and ``v0_acv`` within 3 standard errors of the plain price (the
+    plain estimator's iid SE), ``v0_acv`` within the Levy bound of
+    ``oracle_mm``, the report finite."""
+    import torch
+
+    rep = res.report
+    check(all(math.isfinite(x) for x in report_fields(rep)), f"{what}: report fields finite")
+    n = res.backward.values.shape[0]
+    # values[:, -1] is the payoff over the strike (adjustment_factor)
+    plain_std = float(torch.std(res.backward.values[:, -1].double(), correction=0))
+    se = math.exp(-r * float(res.times[-1])) * plain_std * res.adjustment_factor / math.sqrt(n)
+    for name in ("v0_cv", "v0_acv"):
+        gap = getattr(rep, name) - rep.v0_plain
+        check(abs(gap) < 3.0 * se, f"{what}: |{name} - v0_plain| = {abs(gap):.5f} < 3 SE = "
+              f"{3.0 * se:.5f}")
+    levy = rep.v0_acv / rep.oracle_mm - 1
+    check(abs(levy) < BASKET_LEVY_BOUND, f"{what}: |v0_acv / oracle_mm - 1| = {abs(levy):.2e} "
+          f"< {BASKET_LEVY_BOUND:.0e}")
+    return (f"v0_plain {rep.v0_plain:.6f}, v0_cv {rep.v0_cv:.6f}, v0_acv {rep.v0_acv:.6f} "
+            f"(3 SE {3.0 * se:.5f}; vs oracle_mm {rep.oracle_mm:.6f}: {levy * 1e4:+.2f}bp, "
+            f"bound {BASKET_LEVY_BOUND * 1e4:.0f}bp), cv_std {rep.cv_std:.4f}, acv_std "
+            f"{rep.acv_std:.4f}, v0_network {rep.v0:.4f}")
+
+
+def basket_phases(dev, counts) -> dict:
+    """[basket]: BASELINE.json config 5 (``BasketConfig()``, 5 assets, rho 0.3) at
+    1,048,576 paths x 52 weekly steps on the scan path: ``basket_hedge`` with the
+    basket and the vector hedge (the fused GN walk, row blocks of 16,384) and the
+    vector hedge once more with [adam]'s Adam; the fused vector walk against the
+    host loop at 16,384 paths, bitwise; ``basket_oos`` of each policy on fresh
+    paths; each policy served as one 1M-row mixed-date block through K2's
+    ``Runtime<8>`` instance, the vector head at every tier; K2's times at both
+    heads."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from orp_tpu_torch.api import (BasketConfig, SimConfig, TrainConfig, basket_hedge,
+                                   basket_oos)
+    from orp_tpu_torch.serve import HedgeEngine, load_bundle, megakernel, save_bundle
+    from orp_tpu_torch.serve.bundle import model_meta
+    from orp_tpu_torch.serve.precision import BF16_RULE, bf16_agreement
+    from orp_tpu_torch.train import backward
+    from orp_tpu_torch.train.backward import fused_loop_scope
+    from orp_tpu_torch.utils.measure import no_host_sync
+
+    out = {"policies": {}}
+    cfg = BasketConfig()
+    sim = SimConfig(n_paths=N_FULL, T=1.0, dt=1 / BASKET_STEPS, rebalance_every=1)
+    runs = {"basket": ("basket", TrainConfig(**BASKET_GN)),
+            "assets": ("assets", TrainConfig(**BASKET_GN)),
+            "assets-adam": ("assets", TrainConfig(**ADAM_TRAIN))}
+    backward.fused_loop_scope = no_host_sync  # the fused date loops under sync-debug "error"
+    try:
+        for name, (instruments, train) in runs.items():
+            counts.reset()
+            res, wall = timed(lambda: basket_hedge(cfg, sim, train, instruments=instruments))
+            check(all(v == 0 for v in counts.read().values()),
+                  f"[basket] {name}: no kernel launches on the scan path ({counts.read()})")
+            bw = res.backward
+            phi_shape = (N_FULL, BASKET_STEPS) + ((5,) if instruments == "assets" else ())
+            check(tuple(bw.phi.shape) == phi_shape and bool(torch.isfinite(bw.values).all()),
+                  f"[basket] {name}: phi {tuple(bw.phi.shape)}, ledgers finite")
+            line = basket_price_checks(res, cfg.r, f"[basket] {name}")
+            out[name] = {"wall": wall, "cv_std": res.report.cv_std,
+                         "iters": int(bw.epochs_ran.sum())}
+            print(f"[basket] basket_hedge {name} ({instruments}, "
+                  f"{'Adam 120 + 51 x 30' if 'adam' in name else 'GN 30 + 51 x 10 fused'}) "
+                  f"{N_FULL} paths x {BASKET_STEPS} steps: {line}; "
+                  f"{'epochs' if 'adam' in name else 'accepted iterations'} {out[name]['iters']}; "
+                  f"wall {wall:.3f} s; kernel launches 0", flush=True)
+            # -- out of sample, on fresh paths ------------------------------------
+            counts.reset()
+            oos, oos_wall = timed(lambda: basket_oos(
+                res, cfg, dataclasses.replace(sim, seed_fund=OOS_SEED), train,
+                instruments=instruments))
+            check(all(v == 0 for v in counts.read().values()),
+                  f"[basket] {name} oos: no kernel launches ({counts.read()})")
+            print(f"[basket] basket_oos {name} {N_FULL} fresh paths (seed {OOS_SEED}): "
+                  f"{basket_price_checks(oos, cfg.r, f'[basket] {name} oos')}; wall "
+                  f"{oos_wall:.3f} s",
+                  flush=True)
+            out[name]["oos_wall"] = oos_wall
+            # -- serve: save_bundle -> load_bundle -> one 1M-row block through K2 ---
+            p1 = {k: v.detach().cpu().numpy() for k, v in bw.params1_by_date.items()}
+            meta = {"model": model_meta(res.model), "times": res.times.tolist(),
+                    "adjustment_factor": res.adjustment_factor, "dual_mode": res.dual_mode,
+                    "holdings_combine": res.holdings_combine,
+                    "cost_of_capital": res.cost_of_capital, "sim_seed": res.sim_seed}
+            bdir = HERE / "build" / "chip_smoke" / f"basket_{name}"
+            save_bundle(bdir, meta, p1, None, {k: getattr(bw, k) for k in (
+                "train_loss", "train_mae", "train_mape", "epochs_ran")})
+            policy = load_bundle(bdir)
+            rows = basket_rows(cfg, policy, res.times, 23)
+            engine = HedgeEngine(policy)
+            engine.evaluate_mixed_async(*(r[:4096] for r in rows)).result()
+            torch.cuda.synchronize()
+            counts.reset()
+            got, serve_s = timed(lambda: engine.evaluate_mixed_async(*rows).result())
+            k2 = counts.only("mixed_head", f"[basket] the {name} policy's 1M-row block")
+            check(k2 == 1, f"[basket] {name}: K2 launches {k2} == 1, one per param set")
+            params = {k: t.to(dev) for k, t in policy.backward.params1_by_date.items()}
+            plain = megakernel.mixed_head_plain(
+                policy.model, params, torch.from_numpy(rows[0]).to(dev),
+                torch.from_numpy(rows[1]).to(dev)).cpu().numpy()
+            phi, psi, v = got
+            np.testing.assert_allclose(phi, plain[:, :-1] if phi.ndim == 2 else plain[:, 0],
+                                       rtol=1e-5, atol=1e-6, err_msg=f"{name} phi")
+            np.testing.assert_allclose(psi, plain[:, -1], rtol=1e-5, atol=1e-6,
+                                       err_msg=f"{name} psi")
+            np.testing.assert_allclose(v, (plain.astype(np.float64) * rows[2]).sum(1),
+                                       rtol=1e-5, atol=1e-6, err_msg=f"{name} v")
+            # the kernel itself against its plain version on the block's rows, f32 and bf16
+            d_t = torch.from_numpy(rows[0]).to(dev)
+            f_t = torch.from_numpy(rows[1]).to(dev)
+            got_k = megakernel.mixed_head_forward(policy.model, params, d_t, f_t)
+            want_k = megakernel.mixed_head_plain(policy.model, params, d_t, f_t)
+            torch.testing.assert_close(got_k, want_k, rtol=1e-5, atol=1e-6)
+            bf = policy.model.with_dtype(torch.bfloat16)
+            pb = {k: t.to(torch.bfloat16) for k, t in params.items()}
+            got_b = megakernel.mixed_head_forward(bf, pb, d_t, f_t.to(torch.bfloat16))
+            check(torch.equal(got_b, megakernel.mixed_head_bf16_order(
+                bf, pb, d_t, f_t.to(torch.bfloat16))),
+                  f"[basket] {name}: K2 bf16 bitwise its documented summation order")
+            # the plain version on the card (cuBLAS's bf16 GEMM) and on the CPU (its bf16
+            # matmul sums the exact products in f32 and rounds once), printed: they sum a
+            # dot's products in orders of their own, and a vector head's holdings are
+            # small differences of terms as large as its bond holding
+            card_b = bf16_agreement(got_b, megakernel.mixed_head_plain(
+                bf, pb, d_t, f_t.to(torch.bfloat16)))
+            got_b = got_b.cpu()
+            want_b = megakernel.mixed_head_plain(
+                bf, {k: t.cpu() for k, t in pb.items()}, d_t.cpu(),
+                f_t.to(torch.bfloat16).cpu())
+            agree = bf16_agreement(got_b, want_b)
+            out["policies"][name] = (policy, rows)
+            out[name].update(serve_s=serve_s, k2=k2, k2_err=max_err(got_k, want_k),
+                             k2b_err=max_err(got_b, want_b))
+            print(f"[basket] serve {name}: card-trained policy -> save_bundle -> load_bundle "
+                  f"-> HedgeEngine, one {N_FULL}-row block over {policy.n_dates} dates "
+                  f"({policy.model.n_features} features, {policy.model.n_outputs} outputs, "
+                  f"{policy.model.n_params()} params, K2 Runtime<8>): matches "
+                  f"mixed_head_plain (rtol 1e-5, atol 1e-6); K2 launches {k2}; "
+                  f"{N_FULL / serve_s:,.0f} rows/s host-to-host; the kernel alone: f32 "
+                  f"max|d| {out[name]['k2_err']:.3e} vs plain; bf16 bitwise its documented "
+                  f"order (input-order f32 sums) on {got_b.numel():,} elements, vs the CPU "
+                  f"plain version {agree['n_differ']} differ (max {agree['max_ulps']:.2f} bf16 "
+                  f"spacings), vs the card's (cuBLAS) {card_b['n_differ']} differ (max "
+                  f"{card_b['max_ulps']:.2f})", flush=True)
+            del got_k, want_k, got_b, want_b
+            del res, oos
+        check(out["assets"]["cv_std"] < out["basket"]["cv_std"],
+              f"[basket] the vector hedge's cv_std {out['assets']['cv_std']:.4f} below the "
+              f"basket hedge's {out['basket']['cv_std']:.4f}")
+        ratio = out["basket"]["cv_std"] / out["assets"]["cv_std"]
+        print(f"[basket] cv_std: vector hedge {out['assets']['cv_std']:.4f} vs basket hedge "
+              f"{out['basket']['cv_std']:.4f} ({ratio:.3f}x; PARITY.md: 1.21x)", flush=True)
+        # -- the fused vector walk against the host loop, bitwise ---------------------
+        small = dataclasses.replace(sim, n_paths=N_BASKET_HOST)
+        fused, out["fused_small_s"] = timed(lambda: basket_hedge(
+            cfg, small, TrainConfig(**BASKET_GN), instruments="assets"))
+        host, out["host_small_s"] = timed(lambda: basket_hedge(
+            cfg, small, TrainConfig(**dict(BASKET_GN, fused=False)), instruments="assets"))
+        walls_equal(fused.backward, host.backward, "[basket] fused vector walk vs host loop")
+        check(fused.report.v0_acv == host.report.v0_acv, "[basket] fused v0_acv equal")
+        print(f"[basket] the fused GN vector walk at {N_BASKET_HOST} paths is bitwise its host "
+              f"loop (ledgers, per-date params, iterations): fused {out['fused_small_s']:.3f} s,"
+              f" host loop {out['host_small_s']:.3f} s", flush=True)
+    finally:
+        backward.fused_loop_scope = fused_loop_scope
+    # -- the vector head at every tier; K2 times at both heads ------------------------
+    policy, rows = out["policies"]["assets"]
+    out["tiers"] = tier_phase(dev, counts, policy, *rows, "basket-assets")
+    out["k2"] = {name: k2_times(dev, out["policies"][name][0], N_FULL, 29)
+                 for name in ("basket", "assets")}
+    for name, t in out["k2"].items():
+        print(f"[basket] K2 Runtime<8> at the {name} head ({N_FULL} rows, 52 dates): f32 "
+              f"{t['f32']:.4f} ms (bound {t['f32_bound'][0]:.5f} by {t['f32_bound'][1]}, plain "
+              f"{t['f32_plain']:.2f} ms), bf16 {t['bf16']:.4f} ms (bound "
+              f"{t['bf16_bound'][0]:.5f} by {t['bf16_bound'][1]}, plain {t['bf16_plain']:.2f} "
+              f"ms); at 4096 rows f32 {t['f32_small']:.4f} ms, bf16 {t['bf16_small']:.4f} ms",
+              flush=True)
+    return out
+
+
+def basket_rows(cfg, policy, times, seed: int):
+    """``(dates, states, prices)`` of one 1M-row mixed-date block of a basket
+    policy: dates cover all 52, the moneyness features lognormal at each
+    row's date, the prices the policy's instruments over the strike (the
+    assets or the basket, then the bond)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_dates = policy.n_dates
+    dates = np.concatenate([np.arange(n_dates), rng.integers(0, n_dates, N_FULL - n_dates)])
+    t = np.asarray(times)[dates][:, None]
+    sig = np.asarray(cfg.sigmas)[None, :]
+    states = np.exp(sig * np.sqrt(t) * rng.standard_normal((N_FULL, len(cfg.s0)))
+                    + (cfg.r - 0.5 * sig * sig) * t)
+    assets = states * np.asarray(cfg.s0) / cfg.strike
+    risky = assets if policy.model.n_outputs > 2 else (assets @ np.asarray(cfg.weights))[:, None]
+    prices = np.concatenate([risky, np.exp(cfg.r * t) / cfg.strike], 1)
+    return dates.astype(np.int32), states.astype(np.float32), prices.astype(np.float32)
+
+
+def greeks_phases(dev) -> dict:
+    """[greeks] at 1,048,576 paths, each against its oracle in the bands of
+    ``tests/test_greeks.py``: the European call and put (52 steps) against
+    ``bs_greeks``; the digital's likelihood-ratio greeks against their closed
+    forms; Heston (364 steps, the mean of 8 scrambles) against central
+    differences of the characteristic-function price; the basket at ``BasketConfig()`` against a
+    CRN central-difference reprice on the card."""
+    import numpy as np
+
+    from orp_tpu_torch.api import BasketConfig
+    from orp_tpu_torch.risk import (basket_greeks, digital_greeks, european_greeks,
+                                    heston_greeks)
+    from orp_tpu_torch.utils import bs_greeks
+
+    out = {}
+    euro = dict(s0=100.0, k=100.0, r=0.08, sigma=0.15, T=1.0)
+    bands = {"call": dict(price=("rtol", 1e-3), delta=("atol", 2e-3), vega=("rtol", 5e-3),
+                          rho=("rtol", 5e-3), theta=("rtol", 1e-2), gamma=("rtol", 5e-2)),
+             "put": dict(price=("rtol", 5e-3), delta=("atol", 2e-3), theta=("atol", 5e-3),
+                         rho=("rtol", 5e-3))}
+
+    def within(got, want, how, lim, what):
+        gap = abs(got - want) if how == "atol" else abs(got / want - 1)
+        check(gap <= lim, f"[greeks] {what}: {got:.6g} vs {want:.6g} ({how} {gap:.2e} <= {lim})")
+        return f"{what} {got:.6g} vs {want:.6g} ({how} {gap:.2e} <= {lim:.2g})"
+
+    for kind, band in bands.items():
+        g, wall = timed(lambda: european_greeks(N_FULL, **euro, kind=kind, n_steps=52,
+                                                seed=77))
+        want = bs_greeks(**euro, kind=kind)
+        parts = [within(getattr(g, k), want[k], how, lim, f"{kind} {k}")
+                 for k, (how, lim) in band.items()]
+        out[f"euro_{kind}_s"] = wall
+        print(f"[greeks] european_greeks {kind} {N_FULL} paths x 52 steps vs bs_greeks: "
+              f"{'; '.join(parts)}; wall {wall:.3f} s", flush=True)
+    sq = euro["sigma"] * math.sqrt(euro["T"])
+    d1 = (math.log(euro["s0"] / euro["k"]) + (euro["r"] + euro["sigma"] ** 2 / 2) * euro["T"]) / sq
+    d2 = d1 - sq
+    disc = math.exp(-euro["r"] * euro["T"])
+    phi2 = math.exp(-0.5 * d2 * d2) / math.sqrt(2 * math.pi)
+    closed = {"price": disc * 0.5 * (1 + math.erf(d2 / math.sqrt(2))),
+              "delta": disc * phi2 / (euro["s0"] * sq), "vega": -disc * phi2 * d1 / euro["sigma"]}
+    dg, wall = timed(lambda: digital_greeks(N_FULL, **euro, seed=7))
+    for k, want in closed.items():
+        check(abs(dg[k] - want) < 4 * dg["se"][k], f"[greeks] digital {k} {dg[k]:.6g} within 4 "
+              f"SE ({4 * dg['se'][k]:.2e}) of {want:.6g}")
+    dp = digital_greeks(N_FULL, **euro, kind="put", seed=7)
+    total = dg["price"] + dp["price"]
+    check(total <= disc + 1e-6 and disc - total < 16 * disc / N_FULL,
+          f"[greeks] digital call + put {total:.7f} vs e^-rT {disc:.7f}")
+    out["digital_s"] = wall
+    print(f"[greeks] digital_greeks {N_FULL} paths (likelihood ratio) vs closed forms: "
+          + "; ".join(f"{k} {dg[k]:.6g} vs {v:.6g} (4 SE {4 * dg['se'][k]:.2e})"
+                      for k, v in closed.items()) + f"; wall {wall:.3f} s", flush=True)
+    # the Heston greeks as the mean of HESTON_GREEKS_SEEDS' independently scrambled runs
+    # (iid replicates), each greek within its band or 3 of the replicates' standard
+    # errors, the larger: vega_xi's band (5% of 0.198) is below one run's own spread at
+    # 1M paths (float64 at seeds 77, 78, 1234: -0.1743, -0.2149, -0.1934, sd 0.020;
+    # tools/torch_heston_greeks.py), so it holds only for the pooled mean
+    runs, walls = [], []
+    for seed in HESTON_GREEKS_SEEDS:
+        g, wall = timed(lambda: heston_greeks(N_FULL, 100.0, 100.0, 0.08, 1.0, **HESTON_GREEKS,
+                                              seed=seed))
+        runs.append(g)
+        walls.append(wall)
+    check(all(g["n_steps"] == 364 for g in runs), "[greeks] heston_greeks at its 364 steps")
+    parts = []
+    for k, (want, how, lim) in heston_greeks_oracle().items():
+        xs = np.array([g[k] for g in runs])
+        three_se = 3.0 * float(xs.std(ddof=1)) / math.sqrt(len(xs))
+        lim = max(lim, three_se if how == "atol" else three_se / abs(want))
+        parts.append(within(float(xs.mean()), want, how, lim, k)
+                     + f" (3 SE {three_se:.2e}; seed {HESTON_GREEKS_SEEDS[0]} alone {xs[0]:.6g})")
+    out["heston_s"] = walls[0]
+    print(f"[greeks] heston_greeks {N_FULL} paths x 364 steps (Euler), the mean of "
+          f"{len(runs)} scrambles (seeds {HESTON_GREEKS_SEEDS[0]}-{HESTON_GREEKS_SEEDS[-1]}) vs "
+          f"the CF oracle's central differences: {'; '.join(parts)}; wall {walls[0]:.3f} s a "
+          f"run ({sum(walls):.3f} s in all)", flush=True)
+    cfg = BasketConfig()
+    bkw = dict(weights=cfg.weights, strike=cfg.strike, r=cfg.r, corr=cfg.corr(), T=1.0,
+               n_steps=52, seed=11)
+    bg, wall = timed(lambda: basket_greeks(N_FULL, s0=cfg.s0, sigma=cfg.sigmas, **bkw))
+    out["basket_s"] = wall
+
+    def price(s0=cfg.s0, sigma=cfg.sigmas):
+        return basket_greeks(N_FULL, s0=s0, sigma=sigma, **bkw)["price"]
+
+    parts = []
+    t0 = time.perf_counter()
+    for i in (0, 4):
+        h = 0.5
+        up, dn = list(cfg.s0), list(cfg.s0)
+        up[i] += h
+        dn[i] -= h
+        fd = (price(s0=up) - price(s0=dn)) / (2 * h)
+        parts.append(within(float(bg["delta"][i]), fd, "atol", 2e-3, f"delta[{i}]"))
+    h = 0.005
+    up, dn = list(cfg.sigmas), list(cfg.sigmas)
+    up[1] += h
+    dn[1] -= h
+    fd = (price(sigma=up) - price(sigma=dn)) / (2 * h)
+    parts.append(within(float(bg["vega"][1]), fd, "rtol", 2e-2, "vega[1]"))
+    check(abs(bg["price"] / price() - 1) < 1e-6, "[greeks] basket price is its reprice")
+    out["basket_fd_s"] = time.perf_counter() - t0
+    print(f"[greeks] basket_greeks BasketConfig() {N_FULL} paths x 52 steps vs CRN central "
+          f"differences on the card: {'; '.join(parts)}; price {bg['price']:.6f}, delta "
+          f"{np.round(bg['delta'].cpu().numpy(), 5).tolist()}, vega "
+          f"{np.round(bg['vega'].cpu().numpy(), 4).tolist()}, rho {bg['rho_rate']:.4f}; wall "
+          f"{wall:.3f} s (the 7 reprices {out['basket_fd_s']:.3f} s)", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1475,11 +1897,14 @@ def main() -> int:
     check(got.dtype == torch.bfloat16 and got.shape == want.shape, "K2 bf16 output")
     k2b_agree = bf16_agreement(got, want)
     check(k2b_agree["ok"], f"K2 bf16 kernel vs plain: {k2b_agree} ({BF16_RULE})")
+    check(torch.equal(got, megakernel.mixed_head_bf16_order(model_bf, p1_bf, dates, feats_bf)),
+          "K2 bf16 bitwise its documented summation order")
     k2b_err = max_err(got, want)
     print(f"[K2 bf16] {N_FULL} rows x {n_dates} dates: {k2b_agree['equal_share']:.6%} of "
           f"elements bitwise equal to mixed_head_plain in bf16, {k2b_agree['n_differ']} "
           f"differ (f32-accumulation order), max {k2b_agree['max_ulps']:.0f} bf16 spacings, "
-          f"max|kernel - plain| = {k2b_err:.3e} (rule {BF16_RULE})", flush=True)
+          f"max|kernel - plain| = {k2b_err:.3e} (rule {BF16_RULE}); bitwise its documented "
+          "order", flush=True)
     bad = megakernel.mixed_head_forward(model_bf, p1_bf, torch.tensor(
         [0, n_dates, -1], device=dev, dtype=torch.int32), feats_bf[:3], packed=packed_bf)
     check(bool(torch.isfinite(bad[0]).all()) and bool(torch.isnan(bad[1:]).all()),
@@ -1767,6 +2192,10 @@ def main() -> int:
     resilience = resilience_phases(dev, counts, eh, euro_s, bs)
     del eh
     pension.pop("hedge")
+    basket = basket_phases(dev, counts)
+    launches["mixed_head_basket"] = basket["assets"]["k2"]
+    launches["mixed_head_bf16_basket"] = basket["tiers"]["bf16"]["launches"]
+    greeks = greeks_phases(dev)
 
     # -- 19. times at the main paths' shapes ----------------------------------
     k1 = lambda: fused_gbm.gbm_log_fused(N_FULL, N_STEPS, **gbm_kw)  # noqa: E731
@@ -1875,6 +2304,15 @@ def main() -> int:
           f"guarded {resilience['guard_clean_s']:.3f} s; the example's Adam walk fused "
           f"{fused['adam_fused_s']:.3f} s vs host loop {fused['adam_host_s']:.3f} s", flush=True)
 
+    print(f"[times] the basket at {N_FULL} paths x {BASKET_STEPS} steps (scan path): "
+          + "; ".join(f"{name} {basket[name]['wall']:.3f} s ({basket[name]['iters']} "
+                      f"{'epochs' if 'adam' in name else 'accepted GN iterations'}), oos "
+                      f"{basket[name]['oos_wall']:.3f} s"
+                      for name in ("basket", "assets", "assets-adam"))
+          + f"; greeks at {N_FULL} paths: European call {greeks['euro_call_s']:.3f} s, put "
+          f"{greeks['euro_put_s']:.3f} s, digital {greeks['digital_s']:.3f} s, Heston (364 "
+          f"steps) {greeks['heston_s']:.3f} s, basket {greeks['basket_s']:.3f} s", flush=True)
+    k2b = basket["k2"]["assets"]
     kernels = {"kernels": [
         {"name": "fused_gbm", "route": "cuda",
          "source": "orp_tpu_torch/csrc/fused_mf.cu (mf_kernel<GbmLog>)",
@@ -1917,6 +2355,21 @@ def main() -> int:
          "max_abs_err": k3c["err"], "ms": ms["pension"], "plain_ms": ms["pension_plain"],
          "bound_ms": bounds["pension"][0], "bound_by": bounds["pension"][1],
          "library_ms": None},
+        # K2's Runtime<8> instance at the basket's vector head (5 features, 6 outputs),
+        # launched by the basket policy's 1M-row serve block ([basket])
+        {"name": "mixed_head_basket", "route": "cuda",
+         "source": "orp_tpu_torch/csrc/mixed_head.cu (Runtime<8>)",
+         "replaces": "orp_tpu/serve/megakernel.py:85", "launches": launches["mixed_head_basket"],
+         "max_abs_err": basket["assets"]["k2_err"], "ms": k2b["f32"],
+         "plain_ms": k2b["f32_plain"], "bound_ms": k2b["f32_bound"][0],
+         "bound_by": k2b["f32_bound"][1], "library_ms": None},
+        {"name": "mixed_head_bf16_basket", "route": "cuda",
+         "source": "orp_tpu_torch/csrc/mixed_head.cu (orp_mixed_head_bf16_launch, Runtime<8>)",
+         "replaces": "orp_tpu/serve/megakernel.py:85 (bf16)",
+         "launches": launches["mixed_head_bf16_basket"],
+         "max_abs_err": basket["assets"]["k2b_err"], "ms": k2b["bf16"],
+         "plain_ms": k2b["bf16_plain"], "bound_ms": k2b["bf16_bound"][0],
+         "bound_by": k2b["bf16_bound"][1], "library_ms": None},
     ]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels))

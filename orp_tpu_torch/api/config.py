@@ -1,4 +1,4 @@
-"""Run configs of the European, Heston and pension pipelines (counterpart of ``orp_tpu/api/config.py``).
+"""Run configs of the European, Heston, basket and pension pipelines (counterpart of ``orp_tpu/api/config.py``).
 
 Frozen dataclasses with the JAX package's field names and defaults, cut to
 the fields the ported pipelines read. ``TrainConfig`` carries the Adam
@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+
+import numpy as np
 
 from orp_tpu_torch.train.fit import validate_shuffle
 
@@ -169,6 +171,42 @@ class HestonConfig:
     rho: float = -0.6
     option_type: str = "call"
     scheme: str | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class BasketConfig:
+    """A-asset correlated-GBM basket call (BASELINE.json config 5), with uniform
+    pairwise correlation ``rho``. Tuples keep the config hashable."""
+
+    s0: tuple = (100.0, 100.0, 100.0, 100.0, 100.0)
+    weights: tuple = (0.2, 0.2, 0.2, 0.2, 0.2)
+    strike: float = 100.0
+    r: float = 0.08
+    sigmas: tuple = (0.1, 0.12, 0.15, 0.18, 0.2)
+    rho: float = 0.3
+
+    def __post_init__(self):
+        a = len(self.s0)
+        if not (len(self.weights) == len(self.sigmas) == a):
+            raise ValueError(
+                f"s0/weights/sigmas lengths differ: {a}/"
+                f"{len(self.weights)}/{len(self.sigmas)}")
+        # equicorrelation is PSD on [-1/(A-1), 1], but the endpoints are
+        # singular and their Cholesky factor is NaN: the simulator needs strict
+        # definiteness (the oracle basket_call_mm takes rho = 1)
+        lo = -1.0 / (a - 1) if a > 1 else -1.0
+        if a > 1 and not (lo < self.rho < 1.0):
+            raise ValueError(
+                f"rho={self.rho} outside the positive-definite range "
+                f"({lo:.3f}, 1) — the endpoints are singular and Cholesky "
+                "would yield NaN paths")
+
+    def corr(self) -> np.ndarray:
+        """The ``(A, A)`` equicorrelation matrix."""
+        a = len(self.s0)
+        m = np.full((a, a), self.rho)
+        np.fill_diagonal(m, 1.0)
+        return m
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,4 @@
-"""The European, Heston and pension pipelines (counterpart of ``orp_tpu/api/pipelines.py``).
+"""The European, Heston, basket and pension pipelines (counterpart of ``orp_tpu/api/pipelines.py``).
 
 Each pipeline simulates (``engine="pallas"`` -> the fused CUDA kernels,
 ``"scan"`` -> the plain per-step simulators), trains (``*_hedge``: the
@@ -11,6 +11,11 @@ OLS-martingale price.
   ``S/S0``;
 - :func:`heston_hedge` / :func:`heston_oos`: Heston paths (K3, the QE-M or
   Euler scheme), features ``(S/S0, v)``;
+- :func:`basket_hedge` / :func:`basket_oos`: the A-asset correlated-GBM basket
+  call (BASELINE.json config 5) on the scan path only, as in the JAX package,
+  features ``S_i/S0_i``, hedged by the basket itself (``instruments="basket"``)
+  or asset by asset (``"assets"``, the vector head); the report carries the
+  moment-matched oracle price ``oracle_mm``;
 - :func:`pension_hedge` / :func:`pension_oos`: the pension liability
   (``Replicating_Portfolio``, RP.py:29-235, and with ``cfg.sv`` its SV
   variant, :237-459) on the coupled fund-mortality-population paths (K3c),
@@ -30,19 +35,21 @@ import dataclasses
 import numpy as np
 import torch
 
-from orp_tpu_torch.api.config import (ActuarialConfig, EuropeanConfig, HedgeRunConfig,
-                                      HestonConfig, MarketConfig, SimConfig, StochVolConfig,
-                                      TrainConfig)
+from orp_tpu_torch.api.config import (ActuarialConfig, BasketConfig, EuropeanConfig,
+                                      HedgeRunConfig, HestonConfig, MarketConfig, SimConfig,
+                                      StochVolConfig, TrainConfig)
 from orp_tpu_torch.models.mlp import HedgeMLP
 from orp_tpu_torch.qmc.fused_gbm import gbm_log_fused
 from orp_tpu_torch.qmc.fused_mf import heston_log_fused, heston_qe_fused, pension_fused
 from orp_tpu_torch.risk.analytics import HedgeReport, build_report
 from orp_tpu_torch.risk.controls import martingale_ols_price
-from orp_tpu_torch.sde import (TimeGrid, bond_curve, payoffs, simulate_gbm_log,
-                               simulate_heston_log, simulate_heston_qe, simulate_pension)
+from orp_tpu_torch.sde import (TimeGrid, bond_curve, payoffs, simulate_gbm_basket,
+                               simulate_gbm_log, simulate_heston_log, simulate_heston_qe,
+                               simulate_pension)
 from orp_tpu_torch.train.backward import (BackwardConfig, BackwardResult, backward_induction,
                                           params_to)
 from orp_tpu_torch.train.replay import replay_walk
+from orp_tpu_torch.utils.basket import basket_call_mm
 from orp_tpu_torch.utils.device import resolve_device
 from orp_tpu_torch.utils.fingerprint import verify_policy_compat
 from orp_tpu_torch.utils.precision import full_f32
@@ -345,6 +352,151 @@ def heston_oos(trained, heston: HestonConfig | None = None,
     times = coarse.times().numpy()
     report = _report(res, s, payoff, h.r, h.strike, s0, times, quantile_method)
     return _result(report, res, times, s0, sim, train, model)
+
+
+# ---------------------------------------------------------------------------
+# Basket pipeline (BASELINE.json config 5)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class BasketInputs:
+    """What both basket entry points build from one path sim."""
+
+    s: torch.Tensor            # (n, knots, A) asset paths
+    bkt: torch.Tensor          # (n, knots) the basket sum_i w_i S_i
+    features: torch.Tensor     # (n, knots, A) moneyness S_i / S0_i
+    hedge_prices: torch.Tensor  # (n, knots) basket or (n, knots, A) assets, over the strike
+    b: torch.Tensor            # (knots,) the bond curve over the strike
+    payoff: torch.Tensor       # (n,) the basket call's payoff
+    terminal: torch.Tensor     # (n,) the payoff over the strike
+    norm: float                # the strike: prices, values and payoff are in its units
+    vector: bool               # the per-asset hedge (``instruments="assets"``, A > 1)
+    model: HedgeMLP
+    bias_init: tuple[float, ...]  # the output bias: E[payoff]/norm spread over the risky legs
+    times: np.ndarray
+
+
+def basket_inputs(basket: BasketConfig, sim: SimConfig, instruments: str, name: str,
+                  device: torch.device) -> BasketInputs:
+    """Simulate the basket and build the walk's inputs. The scan engine only,
+    as in the JAX package; ``instruments="assets"`` with one asset is the
+    basket hedge. The normalisations divide by device tensors: on a card a
+    division by a Python scalar becomes a multiplication by its rounded
+    reciprocal."""
+    if sim.engine == "pallas":
+        raise ValueError(f"{name}: engine='pallas' not available; use 'scan'")
+    if instruments not in ("basket", "assets"):
+        raise ValueError(f"instruments={instruments!r}: expected 'basket' or 'assets'")
+    dtype = _DTYPES[sim.dtype]
+    grid = TimeGrid(sim.T, sim.n_steps)
+    n_assets = len(basket.s0)
+    idx = torch.arange(sim.n_paths, dtype=torch.int64, device=device)
+    s = simulate_gbm_basket(idx, grid, s0=basket.s0, drift=[basket.r] * n_assets,
+                            sigma=basket.sigmas, corr=basket.corr(), seed=sim.seed_fund,
+                            scramble=sim.scramble, store_every=sim.rebalance_every, dtype=dtype)
+    w = torch.tensor(basket.weights, dtype=dtype, device=device)
+    bkt = s @ w  # full f32 (full_f32()): a TF32 weighting tilts the whole basket
+    coarse = grid.reduced(sim.rebalance_every)
+    payoff = payoffs.basket_call(s[:, -1], w, basket.strike)
+    norm = float(basket.strike)
+    norm_t = torch.tensor(norm, dtype=dtype, device=device)
+    vector = instruments == "assets" and n_assets > 1
+    e_payoff_n = float(torch.mean(payoff)) / norm
+    if vector:
+        # the normalised prices are ~s0_i/norm at t=0: the expected payoff
+        # spread evenly over the A risky legs
+        bias = tuple(e_payoff_n / (n_assets * s0_i / norm) for s0_i in basket.s0) + (0.0,)
+        model = HedgeMLP(n_features=n_assets, n_hedge_assets=n_assets)
+    else:
+        bias = (e_payoff_n, 0.0)
+        model = HedgeMLP(n_features=n_assets)
+    return BasketInputs(
+        s=s, bkt=bkt, features=s / torch.tensor(basket.s0, dtype=dtype, device=device),
+        hedge_prices=(s if vector else bkt) / norm_t,
+        b=bond_curve(coarse, basket.r, dtype, device) / norm_t, payoff=payoff,
+        terminal=payoff / norm_t, norm=norm,
+        vector=vector, model=model, bias_init=bias, times=coarse.times().numpy())
+
+
+def _basket_result(basket: BasketConfig, sim: SimConfig, train: TrainConfig,
+                   inp: BasketInputs, res: BackwardResult,
+                   quantile_method: str) -> PipelineResult:
+    """The report of a basket walk or replay: under the vector hedge the
+    report's scalar phi is the value-equivalent basket holding ``sum_i phi_i
+    S_i / B_t`` and the prices' controls are the per-asset martingales; the
+    OLS basis kink sits at ``strike / (s0 . w)``; ``oracle_mm`` is
+    :func:`~orp_tpu_torch.utils.basket.basket_call_mm`'s price."""
+    view = res
+    if inp.vector:
+        norm_t = torch.tensor(inp.norm, dtype=inp.s.dtype, device=inp.s.device)
+        phi_eq = (torch.sum(res.phi * (inp.s[:, :-1] / norm_t), dim=-1)
+                  / (inp.bkt[:, :-1] / norm_t))
+        view = dataclasses.replace(res, phi=phi_eq)
+    report = build_report(view, terminal_payoff=inp.terminal, r=basket.r,
+                          times=inp.times, adjustment_factor=inp.norm, holdings_adjustment=1.0,
+                          quantile_method=quantile_method)
+    b0 = float(torch.tensor(basket.s0, dtype=inp.s.dtype)
+               @ torch.tensor(basket.weights, dtype=inp.s.dtype))
+    _attach_cv_price(report, res, inp.s if inp.vector else inp.bkt, inp.payoff, basket.r,
+                     inp.times, strike_over_s0=basket.strike / b0)
+    report.oracle_mm = basket_call_mm(basket.s0, basket.weights, basket.strike, basket.r,
+                                      basket.sigmas, basket.corr(), sim.T)[0]
+    return PipelineResult(report=report, backward=res, times=inp.times,
+                          adjustment_factor=inp.norm, sim_seed=sim.seed_fund,
+                          dual_mode=train.dual_mode, holdings_combine=train.holdings_combine,
+                          cost_of_capital=train.cost_of_capital, model=inp.model)
+
+
+def basket_hedge(basket: BasketConfig = BasketConfig(),
+                 sim: SimConfig = SimConfig(n_paths=1 << 17, T=1.0, dt=1 / 52,
+                                            rebalance_every=1),
+                 train: TrainConfig = TrainConfig(dual_mode="mse_only"), *,
+                 quantile_method: str = "sort", instruments: str = "basket",
+                 device=None) -> PipelineResult:
+    """A-asset basket-call hedge (BASELINE.json config 5), trained by the
+    backward walk. The network sees the A moneyness features ``S_i/S0_i``.
+
+    - ``instruments="basket"``: the basket ``B_t = sum_i w_i S_i`` and the bond
+      (the 2-instrument head);
+    - ``instruments="assets"``: the vector hedge, one phi per asset and the
+      bond (``HedgeMLP(n_hedge_assets=A)``); ``backward.phi`` is ``(n, dates,
+      A)``, and it cuts the control variate's std below the basket hedge's
+      where the sigmas differ.
+
+    Prices, values and payoff are in units of the strike. Scan engine only
+    (``engine="pallas"`` is refused, as in the JAX package). ``device=None`` is
+    the card."""
+    dev = resolve_device(device)
+    full_f32()
+    _check_quantile_method(quantile_method)
+    inp = basket_inputs(basket, sim, instruments, "basket_hedge", dev)
+    res = backward_induction(inp.model, inp.features, inp.hedge_prices, inp.b, inp.terminal,
+                             _backward_cfg(train), bias_init=inp.bias_init)
+    return _basket_result(basket, sim, train, inp, res, quantile_method)
+
+
+def basket_oos(trained, basket: BasketConfig = BasketConfig(),
+               sim: SimConfig = SimConfig(n_paths=1 << 17, T=1.0, dt=1 / 52,
+                                          rebalance_every=1),
+               train: TrainConfig = TrainConfig(dual_mode="mse_only"), *,
+               quantile_method: str = "sort", instruments: str = "basket",
+               allow_in_sample: bool = False, device=None) -> PipelineResult:
+    """Out-of-sample evaluation of a trained basket hedge on fresh scrambles
+    (the contract of :func:`european_oos`); ``instruments`` must be the
+    training run's, whose head shape the stored per-date params carry.
+    ``device=None`` is the card."""
+    dev = resolve_device(device)
+    full_f32()
+    _check_quantile_method(quantile_method)
+    _check_oos_args("basket_oos", trained, sim.seed_fund, train, allow_in_sample)
+    inp = basket_inputs(basket, sim, instruments, "basket_oos", dev)
+    # the head depends on the instruments mode, so the guard runs after the sim
+    model = _check_policy_compat("basket_oos", trained, inp.model, sim.n_rebalance)
+    res = replay_walk(model, _backward_on(trained.backward, dev, model.dtype), inp.features,
+                      inp.hedge_prices, inp.b, inp.terminal, _backward_cfg(train))
+    return _basket_result(basket, sim, train, dataclasses.replace(inp, model=model), res,
+                          quantile_method)
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,8 @@ import pathlib
 import numpy as np
 import torch
 
+from orp_tpu_torch.utils.device import resolve_device
+
 N_DIMS = 16384
 N_BITS = 32
 MASK = 0xFFFFFFFF
@@ -164,3 +166,14 @@ def sobol_normal(indices, dims, seed: int = 0, *, scramble: str = "owen",
     """Sobol-QMC N(0, 1) draws through ``ndtri`` (the scan path's inverse normal)."""
     return torch.special.ndtri(sobol_uniform(indices, dims, seed, scramble=scramble,
                                              dtype=dtype))
+
+
+def sobol_normal_matrix(m: int, d: int, seed: int = 1234, *, scramble: str = "owen",
+                        dtype=torch.float32, device=None) -> torch.Tensor:
+    """The reference's ``sobol_norm(m, d, seed)`` in shape: ``(2^m, d)`` standard
+    normals, points ``0 .. 2^m - 1`` in dimensions ``0 .. d - 1``, on ``device``
+    (``None`` is the card)."""
+    dev = resolve_device(device)
+    idx = torch.arange(2 ** m, dtype=torch.int64, device=dev)
+    return sobol_normal(idx, torch.arange(d, device=dev), seed, scramble=scramble,
+                        dtype=dtype)

@@ -99,6 +99,7 @@ class HedgeReport:
     v0_acv: float | None = None
     acv_std: float | None = None
     times: np.ndarray | None = None
+    oracle_mm: float | None = None  # the basket's moment-matched oracle price
 
 
 def build_report(result, *, terminal_payoff: torch.Tensor, r: float, times,

@@ -1,4 +1,4 @@
-"""SDE simulation on the Sobol stream: GBM, Heston and the pension system (counterpart of ``orp_tpu/sde/kernels.py``).
+"""SDE simulation on the Sobol stream: GBM, Heston, the pension system and the correlated basket (counterpart of ``orp_tpu/sde/kernels.py``).
 
 Time is a Python loop (the JAX package's ``lax.scan``); paths are a flat
 vector axis. Step ``t`` (1-based) consumes Sobol dimensions
@@ -20,6 +20,8 @@ import torch
 
 from orp_tpu_torch.qmc.sobol import N_DIMS, sobol_uniform
 from orp_tpu_torch.sde.grid import TimeGrid
+from orp_tpu_torch.utils.device import as_indices
+from orp_tpu_torch.utils.precision import full_f32
 
 # step_fn(state, z, t, dt) -> new_state; z is (n, n_factors), t the 1-based step
 StepFn = Callable[[Any, torch.Tensor, int, float], Any]
@@ -53,6 +55,27 @@ def scan_sde(step_fn: StepFn, state0, out_fn: Callable[[Any], torch.Tensor],
         if t % store_every == 0:
             outs.append(out_fn(state))
     return state, torch.stack(outs, dim=1)
+
+
+def simulate_gbm_arithmetic(indices, grid: TimeGrid, y0: float, mu: float, sigma: float,
+                            seed: int = 1235, *, scramble: str = "owen", store_every: int = 1,
+                            dtype=torch.float32, n_factors: int = 1, factor: int = 0,
+                            device=None) -> torch.Tensor:
+    """Arithmetic-Euler GBM ``Y_t = Y_{t-1} (1 + mu dt + sigma sqrt(dt) Z_t)``,
+    the reference's pension fund (RP.py:64-65): ``(n_paths, n_knots)``.
+    ``n_factors``/``factor`` place the asset inside a wider factor layout.
+    Runs on ``indices``' device when it is a tensor, else on ``device`` (``None``:
+    the card)."""
+    indices = as_indices(indices, device)
+    sdt = (torch.tensor(grid.dt, dtype=dtype) ** 0.5).to(indices.device)
+
+    def step(y, z, t, dt):
+        return y * (1 + mu * dt + sigma * sdt * z[:, factor])
+
+    state0 = torch.full(indices.shape, y0, dtype=dtype, device=indices.device)
+    _, traj = scan_sde(step, state0, lambda y: y, indices, grid, n_factors, seed,
+                       scramble=scramble, store_every=store_every, dtype=dtype)
+    return traj
 
 
 def simulate_gbm_log(indices, grid: TimeGrid, s0: float, drift: float, sigma: float,
@@ -435,3 +458,79 @@ def simulate_pension(indices, grid: TimeGrid, *, y0: float, mu: float,
     _, traj = scan_sde(step, state0, _stack_state, indices, grid, 4, seed, scramble=scramble,
                        store_every=store_every, dtype=dtype)
     return pension_out(traj, y0=y0, sv=sv)
+
+
+# ---------------------------------------------------------------------------
+# Correlated multi-asset GBM basket (BASELINE.json config 5)
+# ---------------------------------------------------------------------------
+
+
+def basket_factor(corr, dtype=torch.float32) -> torch.Tensor:
+    """The Cholesky factor of ``corr`` in ``dtype``, computed once on the host:
+    the card and the CPU then correlate with the same ``(A, A)`` factor (a
+    cuSOLVER and a LAPACK factor differ in their last ulps, which would part
+    every path)."""
+    return torch.linalg.cholesky(torch.as_tensor(np.asarray(corr), dtype=dtype))
+
+
+def simulate_gbm_basket(indices, grid: TimeGrid, *, s0, drift, sigma, corr, seed: int = 1234,
+                        scramble: str = "owen", store_every: int = 1,
+                        dtype=torch.float32, device=None) -> torch.Tensor:
+    """Correlated log-Euler GBM of an A-asset basket: ``(n_paths, n_knots, A)``.
+
+    Step ``t`` reads the A Sobol dimensions ``(t-1)*A + i`` (the JAX package's
+    factor layout) and correlates them through ``z @ chol.T`` in full f32
+    (``utils/precision.full_f32``: TF32 would tilt every shock), with ``chol``
+    :func:`basket_factor` of ``corr``, computed on the host; the accumulator
+    is each asset's log-RETURN and ``s0`` scales the output, so no device log
+    is taken (SCALING.md §6d). Runs on ``indices``' device when it is a tensor,
+    else on ``device`` (``None``: the card)."""
+    indices = as_indices(indices, device)
+    dev = indices.device
+    full_f32()
+    s0 = torch.as_tensor(np.asarray(s0), dtype=dtype)
+    drift = torch.as_tensor(np.asarray(drift), dtype=dtype)
+    sigma = torch.as_tensor(np.asarray(sigma), dtype=dtype)
+    n_assets = s0.shape[0]
+    chol_t = basket_factor(corr, dtype).T.to(dev)
+    sdt = torch.tensor(grid.dt, dtype=dtype) ** 0.5
+    c0 = ((drift - 0.5 * sigma * sigma) * grid.dt).to(dev)[None, :]
+    vol = (sigma[None, :] * sdt).to(dev)
+
+    def step(logs, z, t, dt):
+        return logs + c0 + vol * (z @ chol_t)
+
+    state0 = torch.zeros((indices.shape[0], n_assets), dtype=dtype, device=dev)
+    _, traj = scan_sde(step, state0, lambda x: x, indices, grid, n_assets, seed,
+                       scramble=scramble, store_every=store_every, dtype=dtype)
+    return s0.to(dev) * torch.exp(traj)
+
+
+#: the scenario-name -> simulator table: every consumer that selects a
+#: scenario model by name goes through it, so a new model reaches all of them
+_SIM_FNS = {
+    "gbm": simulate_gbm_log,
+    "gbm-arith": simulate_gbm_arithmetic,
+    "heston-qe": simulate_heston_qe,
+    "heston-euler": simulate_heston_log,
+    "pension": simulate_pension,
+    "basket": simulate_gbm_basket,
+}
+
+
+def resolve_sim_fn(kind: str):
+    """The simulator of a scenario kind (:data:`_SIM_FNS`); an unknown kind
+    raises with the full menu."""
+    try:
+        return _SIM_FNS[kind]
+    except KeyError:
+        raise ValueError(f"unknown scenario kind {kind!r} (known: {sorted(_SIM_FNS)})") from None
+
+
+def heston_sim_fn(scheme: str):
+    """The Heston simulator of a scheme name (``heston-<scheme>`` in
+    :data:`_SIM_FNS`); ``api.pipelines.resolve_heston_scheme`` layers the
+    ``None`` default on top for the pipeline configs."""
+    if scheme not in ("qe", "euler"):
+        raise ValueError(f"unknown Heston scheme {scheme!r} (expected 'qe' or 'euler')")
+    return resolve_sim_fn(f"heston-{scheme}")

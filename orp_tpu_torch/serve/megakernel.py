@@ -20,6 +20,10 @@ LeakyReLU between layers, raw head outputs ``(B, n_outputs)``, in f32 or bf16.
   In bf16 every operation rounds to bf16, as the JAX package's does: the dot
   reduces in f32 and rounds once, the bias add rounds, and the LeakyReLU
   multiplies by the slope rounded to bf16 and rounds.
+- :func:`mixed_head_bf16_order` is the bf16 kernel's arithmetic in plain
+  PyTorch, its f32 dot sums in the kernel's input order: the bf16 kernel
+  equals it bitwise, where the plain version's matmul sums in an order of its
+  own and may round a hidden unit apart.
 
 The kernel takes layer counts up to ``MAX_LAYERS`` and every width (features,
 hidden, outputs) up to ``MAX_WIDTH``, with all dates' params within
@@ -170,6 +174,28 @@ def mixed_head_plain(model, params_by_date: dict, dates: torch.Tensor,
                 x = torch.where(x >= 0, x, slope * x)
         out = torch.where(dates == d, x, out)
     return out
+
+
+def mixed_head_bf16_order(model, params_by_date: dict, dates: torch.Tensor,
+                          feats: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernel's arithmetic (``csrc/mixed_head.cu``) in plain PyTorch:
+    each dot the f32 sum of its exact products in input order, rounded to
+    bf16; the bias added in f32 and rounded; a negative hidden value times the
+    slope rounded to bf16, rounded. ``dates`` in ``[0, D)``; bf16 params and
+    features; a bf16 ``(B, n_outputs)`` result."""
+    bf = torch.bfloat16
+    slope = typed_scalar(model.negative_slope, bf).float()
+    n_layers = len(model.hidden) + 1
+    d = dates.reshape(-1).long()
+    x = feats.float()
+    for i in range(n_layers):
+        w = params_by_date[f"w{i}"].float()[d]
+        acc = torch.zeros(x.shape[0], w.shape[2], device=x.device)
+        for k in range(x.shape[1]):
+            acc = acc + x[:, k:k + 1] * w[:, k, :]
+        z = (acc.to(bf).float() + params_by_date[f"b{i}"].float()[d]).to(bf).float()
+        x = torch.where(z >= 0, z, (slope * z).to(bf).float()) if i < n_layers - 1 else z
+    return x.to(bf)
 
 
 def _kernel(lib: ctypes.CDLL, dtype: torch.dtype):

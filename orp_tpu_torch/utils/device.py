@@ -19,3 +19,12 @@ def resolve_device(device=None) -> torch.device:
             "available; pass device='cpu' to run the plain PyTorch versions"
         )
     return dev
+
+
+def as_indices(indices, device=None) -> torch.Tensor:
+    """Path indices as an int64 tensor: a tensor stays on its own device (or
+    moves to ``device`` when one is given); anything else is placed on
+    ``resolve_device(device)``, the card by default."""
+    if isinstance(indices, torch.Tensor) and device is None:
+        return indices.to(torch.int64)
+    return torch.as_tensor(indices).to(device=resolve_device(device), dtype=torch.int64)

@@ -568,3 +568,114 @@ def test_kill_and_resume_bitwise_on_card(cuda, kill_after, tmp_path):
         with pytest.raises(guard.WalkKilled):
             backward_induction(model, *data, cfg, bias_init=(0.6, 0.4))
     _bitwise(backward_induction(model, *data, cfg, bias_init=(0.6, 0.4)), full)
+
+
+BASKET_CORR = np.full((5, 5), 0.3) + 0.7 * np.eye(5)
+
+
+@pytest.mark.parametrize("store", [1, 4])
+def test_basket_paths_on_card_match_cpu(cuda, store):
+    """The basket's plain recurrence on the card against the CPU, both with the
+    factor ``sde.basket_factor`` computes on the host: ``z @ chol.T`` at full
+    f32 (TF32 off), ``rtol=3e-5``; no path kernel launches."""
+    from orp_tpu_torch.sde import simulate_gbm_basket
+
+    kw = dict(s0=[100.0] * 5, drift=[0.08] * 5, sigma=[0.1, 0.12, 0.15, 0.18, 0.2],
+              corr=BASKET_CORR, seed=1235, store_every=store)
+    before = (fused_gbm.gbm_log_fused.launches, fused_mf.heston_qe_fused.launches)
+    got = simulate_gbm_basket(torch.arange(65_536, device=cuda), TimeGrid(1.0, 52), **kw)
+    torch.cuda.synchronize()
+    assert (fused_gbm.gbm_log_fused.launches, fused_mf.heston_qe_fused.launches) == before
+    want = simulate_gbm_basket(torch.arange(65_536), TimeGrid(1.0, 52), **kw)
+    assert got.shape == (65_536, 52 // store + 1, 5) and got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, rtol=3e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("n_hedge_assets", [1, 5], ids=["basket", "assets"])
+@pytest.mark.parametrize("n_rows", [1, 4097, 1_048_576])
+def test_mixed_head_basket_shapes_match_plain(cuda, n_hedge_assets, n_rows):
+    """K2's ``Runtime<8>`` instance at the basket heads (5 features, 2 or 6
+    outputs): f32 against ``mixed_head_plain`` at ``rtol=1e-5, atol=1e-6``;
+    bf16 bitwise against ``mixed_head_bf16_order``, the kernel's documented
+    arithmetic (the plain version's bf16 matmul sums a dot in an order of its
+    own, and a vector head's holdings are small differences of terms as large
+    as its bond holding, so one hidden unit rounded apart moves them by many of
+    their own spacings: its agreement is printed)."""
+    model = HedgeMLP(n_features=5, n_hedge_assets=n_hedge_assets)
+    p = _params(model, 52, 5, cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    dates = torch.randint(0, 52, (n_rows,), device=cuda, generator=g, dtype=torch.int32)
+    feats = 1.0 + 0.1 * torch.randn(n_rows, 5, device=cuda, generator=g)
+    fn = megakernel.mixed_head_forward
+    before = (fn.launches, fn.launches_bf16)
+    got = fn(model, p, dates, feats)
+    torch.cuda.synchronize()
+    assert got.shape == (n_rows, n_hedge_assets + 1)
+    torch.testing.assert_close(got, megakernel.mixed_head_plain(model, p, dates, feats),
+                               rtol=1e-5, atol=1e-6)
+    bf = model.with_dtype(torch.bfloat16)
+    pb = {k: v.to(torch.bfloat16) for k, v in p.items()}
+    fb = feats.to(torch.bfloat16)
+    got = fn(bf, pb, dates, fb)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_bf16) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, megakernel.mixed_head_bf16_order(bf, pb, dates, fb))
+    print(f"{model.layer_sizes} {n_rows} rows, vs mixed_head_plain: "
+          f"{bf16_agreement(got, megakernel.mixed_head_plain(bf, pb, dates, fb))}")
+
+
+@pytest.mark.parametrize("model", HEADS)
+@pytest.mark.parametrize("n_rows", [33, 1_048_576])
+def test_mixed_head_bf16_equals_documented_order(cuda, model, n_rows):
+    """The bf16 kernel's compile-time instances (1 and 3 features) and its
+    runtime one (hidden 16, 4, 8) bitwise ``mixed_head_bf16_order``: each dot
+    the f32 sum of exact products in input order, rounded once."""
+    bf = model.with_dtype(torch.bfloat16)
+    p = {k: v.to(torch.bfloat16) for k, v in _params(model, 52, 3, cuda).items()}
+    g = torch.Generator(device=cuda).manual_seed(4)
+    dates = torch.randint(0, 52, (n_rows,), device=cuda, generator=g, dtype=torch.int32)
+    feats = (1.0 + 0.1 * torch.randn(n_rows, model.n_features, device=cuda,
+                                      generator=g)).to(torch.bfloat16)
+    got = megakernel.mixed_head_forward(bf, p, dates, feats)
+    torch.cuda.synchronize()
+    assert torch.equal(got, megakernel.mixed_head_bf16_order(bf, p, dates, feats))
+
+
+def test_engine_bf16_tier_equals_documented_order(cuda):
+    """The north-star policy's bf16 tier through ``evaluate_mixed_async`` on its
+    stored rows: bitwise ``serve_outputs`` of ``mixed_head_bf16_order`` under
+    the policy's params cast to bf16."""
+    policy = load_bundle(NORTH_STAR_POLICY)
+    with np.load(NORTH_STAR_POLICY / "reference.npz") as z:
+        dates, states, prices = z["dates"], z["states"], z["prices"]
+    got = HedgeEngine(policy, precision="bf16").evaluate_mixed_async(
+        dates, states, prices).result()
+    m = policy.model.with_dtype(torch.bfloat16)
+    p = {k: torch.as_tensor(v).to(cuda, torch.bfloat16)
+         for k, v in policy.backward.params1_by_date.items()}
+    raw = megakernel.mixed_head_bf16_order(
+        m, p, torch.from_numpy(dates.astype(np.int64)).to(cuda),
+        torch.from_numpy(states.astype(np.float32)).to(cuda).to(torch.bfloat16))
+    want = megakernel.serve_outputs(m, raw, raw, torch.from_numpy(prices.astype(np.float32)).to(
+        cuda), policy.cost_of_capital, dual_mode=policy.dual_mode,
+        holdings_combine=policy.holdings_combine)
+    for name, a, b in zip(("phi", "psi", "v"), got, want):
+        np.testing.assert_array_equal(a, b.cpu().numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("kind", ["call", "put"])
+def test_european_greeks_on_card_match_cpu(cuda, kind):
+    """The greeks' recurrence on the card against the CPU at 4,096 paths: in
+    float64 every greek at ``rtol=1e-10`` (gamma too), in float32 the first
+    order greeks at ``rtol=1e-5`` (the CPU port's band against the JAX package,
+    ``tests/test_torch_greeks.py``)."""
+    from orp_tpu_torch.risk import european_greeks
+
+    cfg = dict(s0=100.0, k=100.0, r=0.08, sigma=0.15, T=1.0, kind=kind, n_steps=52, seed=77)
+    for dtype, tol, names in ((torch.float64, 1e-10, None),
+                              (torch.float32, 1e-5, ("price", "delta", "vega", "rho",
+                                                     "theta"))):
+        got = european_greeks(4096, **cfg, dtype=dtype).as_dict()
+        want = european_greeks(4096, **cfg, dtype=dtype, device="cpu").as_dict()
+        for name in names or got:
+            np.testing.assert_allclose(got[name], want[name], rtol=tol, err_msg=name)

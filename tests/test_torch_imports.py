@@ -12,6 +12,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -78,17 +79,22 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable here")
     from orp_tpu_torch import HESTON_WALK, NORTH_STAR_POLICY, PENSION_WALK
-    from orp_tpu_torch.api import (HedgeRunConfig, SimConfig, TrainConfig, european_hedge,
-                                   european_oos, heston_hedge, heston_oos, pension_hedge,
-                                   pension_oos)
-    from orp_tpu_torch.qmc import (gbm_log_fused, heston_log_fused, heston_qe_fused,
-                                   pension_fused)
+    from orp_tpu_torch.api import (HedgeRunConfig, SimConfig, TrainConfig, basket_hedge,
+                                   basket_oos, european_hedge, european_oos, heston_hedge,
+                                   heston_oos, pension_hedge, pension_oos)
+    from orp_tpu_torch.qmc import (brownian, gbm_log_fused, heston_log_fused, heston_qe_fused,
+                                   pension_fused, sobol_normal_matrix)
+    from orp_tpu_torch.risk import (basket_greeks, digital_greeks, european_greeks,
+                                    heston_greeks)
+    from orp_tpu_torch.sde import TimeGrid, simulate_gbm_arithmetic, simulate_gbm_basket
     from orp_tpu_torch.serve import HedgeEngine, load_bundle
 
     policy = load_bundle(NORTH_STAR_POLICY)
     sim = SimConfig(n_paths=64, T=1.0, dt=0.25, rebalance_every=1)
     train = TrainConfig(dual_mode="mse_only", optimizer="gauss_newton")
     heston = dict(s0=1.0, mu=0.0, v0=0.04, kappa=1.0, theta=0.04, xi=0.3, rho=-0.5, dt=0.1)
+    basket = dict(s0=[1.0, 1.0], drift=[0.0, 0.0], sigma=[0.1, 0.2],
+                  corr=[[1.0, 0.3], [0.3, 1.0]])
     calls = [lambda: HedgeEngine(policy), lambda: european_oos(policy),
              lambda: gbm_log_fused(128, 8, s0=1.0, drift=0.0, sigma=0.1, dt=0.1),
              lambda: european_hedge(sim=sim, train=train),
@@ -99,11 +105,31 @@ def test_entry_points_default_to_the_card():
              lambda: pension_hedge(HedgeRunConfig(sim=sim, train=train)),
              lambda: pension_oos(load_bundle(PENSION_WALK)),
              lambda: pension_fused(128, 8, y0=1.0, mu=0.08, sigma=0.15, l0=0.01, mort_c=0.075,
-                                   eta=0.000597, n0=1e4, dt=0.25)]
+                                   eta=0.000597, n0=1e4, dt=0.25),
+             lambda: basket_hedge(sim=sim, train=train),
+             lambda: basket_oos(policy, sim=sim, train=train),
+             lambda: sobol_normal_matrix(3, 2),
+             lambda: simulate_gbm_basket(np.arange(8), TimeGrid(1.0, 4), **basket),
+             lambda: simulate_gbm_arithmetic(np.arange(8), TimeGrid(1.0, 4), 1.0, 0.08, 0.15),
+             lambda: brownian.get_dW(torch.Generator(), 8),
+             lambda: brownian.get_W(torch.Generator(), 8),
+             lambda: brownian.get_dW_sobol(np.arange(8), 4),
+             lambda: brownian.get_W_sobol(np.arange(8), 4),
+             lambda: european_greeks(64, 100.0, 100.0, 0.08, 0.15, 1.0, n_steps=4),
+             lambda: digital_greeks(64, 100.0, 100.0, 0.08, 0.15, 1.0, n_steps=4),
+             lambda: heston_greeks(64, 100.0, 100.0, 0.08, 1.0, v0=0.04, kappa=1.0, theta=0.04,
+                                   xi=0.3, rho=-0.5, n_steps=4),
+             lambda: basket_greeks(64, s0=[100.0, 100.0], weights=[0.5, 0.5], strike=100.0,
+                                   r=0.08, sigma=[0.1, 0.2], corr=[[1.0, 0.3], [0.3, 1.0]],
+                                   T=1.0, n_steps=4)]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert HedgeEngine(policy, device="cpu").device.type == "cpu"
+    assert simulate_gbm_basket(np.arange(8), TimeGrid(1.0, 4), **basket,
+                               device="cpu").shape == (8, 5, 2)
+    assert brownian.get_W_sobol(np.arange(8), 4, device="cpu").device.type == "cpu"
+    assert brownian.get_dW(torch.Generator(), 8, device="cpu").shape == (8,)
 
 
 def test_chip_smoke_refuses_without_card_and_alone(tmp_path):

@@ -34,7 +34,8 @@ from orp_tpu_torch.serve import (TIERS, HedgeEngine, PrecisionPolicy, load_bundl
                                  normalize_precision, policy_from_numpy)
 from orp_tpu_torch.serve.bench import PRECISION_BANDS, megakernel_phase, precision_phase
 from orp_tpu_torch.serve.bundle import model_meta
-from orp_tpu_torch.serve.megakernel import mixed_head_plain, serve_outputs
+from orp_tpu_torch.serve.megakernel import (mixed_head_bf16_order, mixed_head_plain,
+                                            serve_outputs)
 from orp_tpu_torch.serve.precision import (BF16_RULE, bf16_agreement, dequantize_params,
                                            gather_date, prepare_params, quantize_tensor)
 from orp_tpu_torch.train.backward import _date_outputs_core
@@ -339,6 +340,69 @@ def test_bf16_plain_head_rounds_like_the_reference():
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.double().numpy(), emulate(0.30078125).numpy())
     assert not np.array_equal(got.double().numpy(), emulate(0.3).numpy())
+
+
+def _bf16_head_f64(model, params, dates, feats):
+    """A bf16 head with every dot summed exactly (float64) and each operation
+    rounded to bf16 as the kernel documents."""
+    def rnd(x):
+        return x.to(torch.bfloat16).double()
+
+    slope = rnd(torch.tensor(model.negative_slope, dtype=torch.float64))
+    n_layers = len(model.hidden) + 1
+    out = torch.empty(feats.shape[0], model.n_outputs, dtype=torch.float64)
+    for d in range(int(params["w0"].shape[0])):
+        x = feats.double()
+        for i in range(n_layers):
+            z = rnd(rnd(x @ params[f"w{i}"][d].double()) + params[f"b{i}"][d].double())
+            x = torch.where(z >= 0, z, rnd(slope * z)) if i < n_layers - 1 else z
+        out[dates == d] = x[dates == d]
+    return out
+
+
+@pytest.mark.parametrize("model", [HedgeMLP(n_features=1), HedgeMLP(n_features=3,
+                                                                     n_hedge_assets=2),
+                                   HedgeMLP(n_features=5), HedgeMLP(n_features=5,
+                                                                     n_hedge_assets=5)],
+                         ids=["north-star", "pension", "basket", "vector"])
+def test_k2_bf16_order_is_the_plain_head_where_sums_are_exact(model):
+    """``mixed_head_bf16_order`` (the bf16 kernel's arithmetic) and
+    ``mixed_head_plain`` in bf16 round each operation alike and differ only in
+    the order of a dot's f32 sum: on params and features that are multiples of
+    1/8 every such sum is exact (the float64 head agrees), and the two are
+    bitwise equal."""
+    bf = model.with_dtype(torch.bfloat16)
+    params = {k: torch.from_numpy(np.round(8 * v) / 8).to(torch.bfloat16)
+              for k, v in _random_params(model.layer_sizes, 4, seed=6).items()}
+    rng = np.random.default_rng(2)
+    n = 3000
+    feats = torch.from_numpy(np.round(8 + 4 * rng.standard_normal((n, model.n_features)))
+                             / 8).to(torch.bfloat16)
+    dates = torch.from_numpy(rng.integers(0, 4, n))
+    got = mixed_head_bf16_order(bf, params, dates, feats)
+    assert got.dtype == torch.bfloat16 and got.shape == (n, model.n_outputs)
+    exact = _bf16_head_f64(bf, params, dates, feats)
+    np.testing.assert_array_equal(got.double().numpy(), exact.numpy())
+    np.testing.assert_array_equal(mixed_head_plain(bf, params, dates, feats).double().numpy(),
+                                  exact.numpy())
+
+
+def test_k2_bf16_order_sums_in_input_order():
+    """A dot of products ``1, 2^-25, -1`` in that order sums to 0 in f32 (``1 +
+    2^-25`` rounds to 1), where the exact sum is ``2^-25``: the order is the
+    features' order, as the kernel's FMA chain runs."""
+    model = HedgeMLP(n_features=3, hidden=(1, 1)).with_dtype(torch.bfloat16)
+    one = dict(dtype=torch.bfloat16)
+    params = {"w0": torch.tensor([[[1.0], [2.0 ** -13], [-1.0]]], **one),
+              "b0": torch.zeros(1, 1, **one), "w1": torch.ones(1, 1, 1, **one),
+              "b1": torch.zeros(1, 1, **one), "w2": torch.ones(1, 1, 2, **one),
+              "b2": torch.zeros(1, 2, **one)}
+    dates = torch.zeros(2, dtype=torch.int64)
+    feats = torch.tensor([[1.0, 2.0 ** -12, 1.0], [1.0, 2.0 ** -12, 0.0]], **one)
+    got = mixed_head_bf16_order(model, params, dates, feats).double()
+    np.testing.assert_array_equal(got.numpy(), [[0.0, 0.0], [1.0, 1.0]])
+    exact = _bf16_head_f64(model, params, dates, feats)
+    np.testing.assert_array_equal(exact[0].numpy(), [2.0 ** -25] * 2)
 
 
 def test_reduced_tiers_inside_their_bands(trained):
