@@ -169,7 +169,27 @@ last line):
     price, the mean of each greek within its band or 3 of the replicates'
     standard errors, the larger; ``basket_greeks`` at ``BasketConfig()``
     against CRN central-difference reprices on the card; each wall;
-25. times: each kernel and its plain version with CUDA events at the main
+25. [exotics] ``examples/option_analytics.py``'s steps 2-5 at 1,048,576 paths
+    (plain PyTorch on the scan path, as the JAX package runs them; no kernel
+    launches in the phase), each in its JAX test's form: the arithmetic Asian
+    (52 dates x 7 steps) with its geometric leg within 4 ``se_plain`` of the
+    closed form, the control cutting ``se`` over 10x, below ``bs_call``; the
+    bridge barrier (13 dates) within 3 SE of the reflection price, the naive
+    estimator high by > 10 SE and falling at 250 dates; the fixed (K=110) and
+    floating lookbacks within 3 SE of their closed forms, the naive ones low by
+    > 10 SE; the flat surface at the CLI's strikes (13 maturities x 4 steps)
+    within 0.035 of ``bs_call`` at every node with finite IVs within 6e-3 of
+    sigma, the Heston QE surface's skew and terminal nodes within 0.04 of the
+    CF price; the Bermudan LSM (LS2001, 50 dates x 4 steps) and its Heston xi
+    -> 0 limit inside the CRR bracket, the Heston LSM's European leg within
+    0.05 of ``heston_put`` and its premium over 3 SE. Before them, each pricer
+    on the card against the CPU at 4,096 paths on the same indices (floats
+    within 1e-4 relative; surfaces within 1e-4 of the largest node, IVs 3e-4,
+    NaN masks equal; the LSM within 2 SE, the share of paths whose exercise
+    date differs printed); the CIR calibration on
+    ``examples/stochastic_vol_calibration.py``'s series; ``utils.flops
+    .phase_report`` of [fused]'s benchmark wall; each wall;
+26. times: each kernel and its plain version with CUDA events at the main
     paths' shapes (the host's queue filled ahead of each timed round, so a
     kernel shorter than its wrapper's host cost is timed on the card), beside
     the kernel's bound (K2's from [tiers], f32 and bf16 at both shapes, and
@@ -239,6 +259,18 @@ HESTON_GREEKS_FD = {"delta": ("s0", 0.05, "atol", 5e-3), "vega_v0": ("v0", 3e-4,
                     "vega_xi": ("xi", 2e-3, "rtol", 5e-2), "rho_rate": ("r", 1e-4, "rtol", 5e-3),
                     "vega_kappa": ("kappa", 1e-2, "atol", 5e-3)}
 HESTON_GREEKS_SEEDS = tuple(range(77, 85))
+# [exotics]: examples/option_analytics.py's steps 2-5 at its and the CLI's configurations
+# (orp_tpu/cli.py:1843-1937), each gated in the form of its JAX test
+EXOTIC_ASIAN = dict(s0=100.0, k=100.0, r=0.08, sigma=0.15, T=1.0)            # tests/test_asian.py
+EXOTIC_BARRIER = dict(s0=100.0, k=100.0, h=90.0, r=0.08, sigma=0.25, T=1.0)  # tests/test_barrier.py
+EXOTIC_LOOKBACK = dict(s0=100.0, k=110.0, r=0.08, sigma=0.25, T=1.0)         # tests/test_lookback.py
+SURFACE_STRIKES = [80.0, 90.0, 95.0, 100.0, 105.0, 110.0, 120.0]            # the CLI's default
+SURFACE_HESTON = dict(v0=0.0225, kappa=1.5, theta=0.0225, xi=0.25, rho=-0.6)  # test_surface's H
+SURFACE_HESTON_STRIKES = [85.0, 95.0, 100.0, 105.0, 115.0]
+LSM_LS = dict(k=40.0, r=0.06, sigma=0.2, T=1.0)   # Longstaff-Schwartz 2001 Table 1, s0 = 36
+LSM_HESTON = dict(v0=0.04, kappa=1.5, theta=0.04, xi=0.4, rho=-0.6)  # tests/test_lsm.py's HESTON
+LSM_XI0 = dict(v0=0.04, kappa=1e-6, theta=0.04, xi=1e-6, rho=0.0)   # Heston's GBM limit
+N_CROSS = 4096
 
 
 def check(ok: bool, what: str) -> None:
@@ -550,7 +582,6 @@ def pension_phases(dev, counts, launches) -> dict:
     from orp_tpu_torch import PENSION_WALK
     from orp_tpu_torch.api import (HedgeRunConfig, SimConfig, StochVolConfig, TrainConfig,
                                    pension_hedge, pension_oos, pipelines)
-    from orp_tpu_torch.models import HedgeMLP
     from orp_tpu_torch.serve import HedgeEngine, load_bundle, megakernel, save_bundle
     from orp_tpu_torch.serve.bundle import model_meta
     from orp_tpu_torch.train import backward, gn, losses
@@ -1233,7 +1264,6 @@ def fused_phases(dev, counts, euro_host, euro_s: float, pension_host, pension_s:
     from orp_tpu_torch.api import (EuropeanConfig, HedgeRunConfig, SimConfig, TrainConfig,
                                    european_hedge, pension_hedge)
     from orp_tpu_torch.models import HedgeMLP
-    from orp_tpu_torch.qmc import fused_gbm
     from orp_tpu_torch.train import backward, gn
     from orp_tpu_torch.train.backward import fused_loop_scope
     from orp_tpu_torch.utils.measure import count_syncs, lm_census, no_host_sync
@@ -1350,9 +1380,7 @@ def resilience_phases(dev, counts, euro_host, euro_s: float, bs: float) -> dict:
     checkpoints, then with the NaN guard, clean and with a poisoned date."""
     import dataclasses
     import shutil
-    import warnings
 
-    import numpy as np
     import torch
 
     from orp_tpu_torch import guard
@@ -1494,7 +1522,7 @@ def basket_phases(dev, counts) -> dict:
                                    basket_oos)
     from orp_tpu_torch.serve import HedgeEngine, load_bundle, megakernel, save_bundle
     from orp_tpu_torch.serve.bundle import model_meta
-    from orp_tpu_torch.serve.precision import BF16_RULE, bf16_agreement
+    from orp_tpu_torch.serve.precision import bf16_agreement
     from orp_tpu_torch.train import backward
     from orp_tpu_torch.train.backward import fused_loop_scope
     from orp_tpu_torch.utils.measure import no_host_sync
@@ -1770,6 +1798,304 @@ def greeks_phases(dev) -> dict:
     return out
 
 
+def lsm_exercise(feats, pay, disc, degree: int):
+    """``train/lsm._lsm_walk``'s walk, step for step, with each path's exercise
+    date (``m``: never) and every date's decisions: ``(realized cashflows at
+    t_1, dates (n,), decisions (n, m - 1))``."""
+    import torch
+
+    from orp_tpu_torch.train import lsm
+
+    exps = lsm._monomial_exponents(feats.shape[-1], degree)
+    m = pay.shape[1]
+    v = pay[:, -1]
+    tau = torch.where(v > 0.0, m - 1, m)
+    decisions = torch.zeros((pay.shape[0], m - 1), dtype=torch.bool, device=pay.device)
+    for j in range(m - 2, -1, -1):
+        vd = disc * v
+        _, cont = lsm._regress_date(vd, feats[:, j], pay[:, j], exps)
+        decisions[:, j] = (pay[:, j] > 0.0) & (pay[:, j] > cont)
+        v = torch.where(decisions[:, j], pay[:, j], vd)
+        tau = torch.where(decisions[:, j], j, tau)
+    return v, tau, decisions
+
+
+def lsm_cross(dev, heston: bool) -> dict:
+    """The 4,096-path LSM walk on the card and on the CPU from the same Sobol
+    indices: each device's walk equal to its ``bermudan_lsm(_heston)`` price,
+    the share of paths whose exercise date differs, where the walks'
+    decisions first part (walking back from maturity) and on how many paths,
+    and the price gap in the CPU run's standard errors."""
+    import torch
+
+    from orp_tpu_torch.sde import TimeGrid, heston_sim_fn, simulate_gbm_log
+    from orp_tpu_torch.train import bermudan_lsm, bermudan_lsm_heston
+
+    m, spe, degree = (25, 4, 3) if heston else (50, 4, 3)
+    disc_f = math.exp(-LSM_LS["r"] * (LSM_LS["T"] / m))
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        idx = torch.arange(N_CROSS, device=d)
+        grid = TimeGrid(LSM_LS["T"], m * spe)
+        if heston:
+            traj = heston_sim_fn("qe")(idx, grid, s0=36.0, mu=LSM_LS["r"], **LSM_HESTON, seed=9,
+                                       store_every=spe)
+            s = traj["S"][:, 1:]
+            feats = torch.stack([s, traj["v"][:, 1:]], dim=-1)
+            res = bermudan_lsm_heston(N_CROSS, 36.0, LSM_LS["k"], LSM_LS["r"], LSM_LS["T"],
+                                      **LSM_HESTON, n_exercise=m, steps_per_exercise=spe, seed=9,
+                                      indices=idx)
+        else:
+            s = simulate_gbm_log(idx, grid, 36.0, LSM_LS["r"], LSM_LS["sigma"], seed=9,
+                                 store_every=spe)[:, 1:]
+            feats = s[:, :, None]
+            res = bermudan_lsm(N_CROSS, 36.0, **LSM_LS, n_exercise=m, steps_per_exercise=spe,
+                               seed=9, indices=idx)
+        pay = torch.clamp(-1.0 * (s - LSM_LS["k"]), min=0.0)  # _lsm_price's put payoff
+        disc = torch.tensor(disc_f, dtype=pay.dtype, device=d)
+        v, tau, decisions = lsm_exercise(feats, pay, disc, degree)
+        check(float(torch.mean(disc * v)) == res["price"],
+              f"[exotics] the walk on {d.type} is bermudan_lsm{'_heston' if heston else ''}'s")
+        runs.append((res, tau.cpu(), decisions.cpu()))
+    card, cpu = runs
+    share = float((card[1] != cpu[1]).double().mean())
+    parted = (card[2] != cpu[2]).sum(dim=0)  # paths whose decision differs, per date
+    dates = parted.nonzero().flatten().tolist()
+    first = max(dates) if dates else None  # the walk runs from the last date back
+    gap = abs(card[0]["price"] - cpu[0]["price"])
+    check(gap < 2 * cpu[0]["se"], f"[exotics] LSM{' Heston' if heston else ''} card vs CPU at "
+          f"{N_CROSS}: {card[0]['price']:.6f} vs {cpu[0]['price']:.6f} within 2 SE")
+    return {"share": share, "gap_se": gap / cpu[0]["se"], "card": card[0]["price"],
+            "cpu": cpu[0]["price"], "first": first,
+            "first_paths": int(parted[first]) if dates else 0,
+            "decisions": int(parted.sum()), "dates": len(dates), "of": m - 1}
+
+
+def exotics_cross(dev) -> dict:
+    """Each option-analytics pricer on the card and on the CPU at 4,096 paths,
+    the same indices: the pricers' floats within 1e-4 relative, the surfaces'
+    prices within 1e-4 of their largest node with the IVs within 3e-4 and the
+    NaN masks equal, the LSM walks within 2 standard errors."""
+    import numpy as np
+    import torch
+
+    from orp_tpu_torch.risk import (asian_call_qmc, down_and_out_call_qmc,
+                                    heston_price_surface, lookback_call_qmc,
+                                    lookback_floating_qmc, price_surface)
+
+    fk = (EXOTIC_LOOKBACK["s0"], EXOTIC_LOOKBACK["r"], EXOTIC_LOOKBACK["sigma"],
+          EXOTIC_LOOKBACK["T"])
+    cross = {"asian": (asian_call_qmc, tuple(EXOTIC_ASIAN.values()), {}),
+             "barrier": (down_and_out_call_qmc, tuple(EXOTIC_BARRIER.values()),
+                         dict(n_monitor=13, seed=5)),
+             "barrier naive": (down_and_out_call_qmc, tuple(EXOTIC_BARRIER.values()),
+                               dict(n_monitor=13, bridge=False, seed=5)),
+             "lookback": (lookback_call_qmc, tuple(EXOTIC_LOOKBACK.values()),
+                          dict(n_monitor=13, seed=5)),
+             "floating": (lookback_floating_qmc, fk, dict(n_monitor=13, seed=5))}
+    gaps, worst = {}, {}
+    for name, (fn, args, kw) in cross.items():
+        got = fn(N_CROSS, *args, **kw, indices=torch.arange(N_CROSS, device=dev))
+        want = fn(N_CROSS, *args, **kw, device="cpu")
+        rel = {k: abs(got[k] / w - 1) for k, w in want.items()
+               if isinstance(w, float) and w != 0.0}
+        worst[name] = max(rel, key=rel.get)
+        gaps[name] = rel[worst[name]]
+        check(gaps[name] < 1e-4, f"[exotics] {name} card vs CPU at {N_CROSS}: {gaps[name]:.2e} "
+              f"({worst[name]})")
+    for name, fn, args, kw in (
+            ("surface", price_surface, (100.0, 0.08, 0.15, SURFACE_STRIKES, 1.0), {}),
+            ("heston surface", heston_price_surface, (100.0, 0.08, SURFACE_HESTON_STRIKES, 1.0),
+             dict(SURFACE_HESTON, seed=7))):
+        kw = dict(kw, n_maturities=13, steps_per_maturity=4)
+        got = fn(N_CROSS, *args, **kw, indices=torch.arange(N_CROSS, device=dev))
+        want = fn(N_CROSS, *args, **kw, device="cpu")
+        gp, wp = got["prices"].cpu().numpy(), want["prices"].numpy()
+        gi, wi = got["iv"].cpu().numpy(), want["iv"].numpy()
+        gaps[name] = float(np.abs(gp - wp).max() / np.abs(wp).max())
+        iv_gap = float(np.nanmax(np.abs(gi - wi)))
+        check(gaps[name] < 1e-4 and (np.isnan(gi) == np.isnan(wi)).all() and iv_gap < 3e-4,
+              f"[exotics] {name} card vs CPU at {N_CROSS}: prices {gaps[name]:.2e} of the "
+              f"largest, IV {iv_gap:.2e}, NaN masks equal")
+    lsm_x, lsm_hx = lsm_cross(dev, heston=False), lsm_cross(dev, heston=True)
+    print(f"[exotics] card vs CPU at {N_CROSS} paths, same indices: "
+          + ", ".join(f"{k} {v:.2e}" + (f" ({worst[k]})" if k in worst else "")
+                      for k, v in gaps.items())
+          + " (relative, the field furthest apart; surfaces of the largest node); "
+          + "; ".join(f"{what}: exercise dates differ on {x['share']:.4%} of paths, "
+                      + (f"decisions first part at date {x['first']} of 0..{x['of'] - 1} on "
+                         f"{x['first_paths']} paths, {x['decisions']} decisions on {x['dates']} "
+                         "dates in all" if x["first"] is not None else "every decision equal")
+                      + f", price {x['card']:.6f} vs {x['cpu']:.6f} ({x['gap_se']:.3f} SE)"
+                      for what, x in (("LSM", lsm_x), ("Heston LSM", lsm_hx))), flush=True)
+    return {"gaps": gaps, "lsm": lsm_x, "lsm_heston": lsm_hx}
+
+
+def exotics_phases(dev, counts, bench_s: float) -> dict:
+    """[exotics] at 1,048,576 paths: ``examples/option_analytics.py``'s steps
+    2-5 (the Asian with its geometric control, the bridge barrier and
+    lookbacks, the flat and Heston surfaces, the Bermudan LSM against its CRR
+    tree), each in its JAX test's form; each QMC pricer on the card against the
+    CPU at 4,096 paths; the CIR calibration on the example's series; the FLOP
+    accounting of [fused]'s benchmark wall. No kernel launches in the phase."""
+    import numpy as np
+
+    from orp_tpu_torch import calib
+    from orp_tpu_torch.risk import (asian_call_qmc, down_and_out_call, down_and_out_call_qmc,
+                                    heston_price_surface, lookback_call_fixed,
+                                    lookback_call_floating, lookback_call_qmc,
+                                    lookback_floating_qmc, price_surface)
+    from orp_tpu_torch.train import bermudan_lsm, bermudan_lsm_heston
+    from orp_tpu_torch.utils import bs_call, crr_price, flops, heston_call, heston_put
+
+    out = {}
+    counts.reset()
+    out["cross"] = exotics_cross(dev)  # first: it also warms each pricer's ops on the card
+    # the Asian: tests/test_asian.py's four checks
+    a, out["asian_s"] = timed(lambda: asian_call_qmc(N_FULL, *EXOTIC_ASIAN.values()))
+    euro = bs_call(**EXOTIC_ASIAN)[0]
+    check(abs(a["geo_sample"] - a["geo_closed"]) < 4 * a["se_plain"],
+          f"[exotics] Asian geometric leg {a['geo_sample']:.6f} within 4 se_plain of "
+          f"{a['geo_closed']:.6f}")
+    check(a["se"] * 10 < a["se_plain"], f"[exotics] Asian control cuts se: {a['se']:.2e} x 10 "
+          f"< {a['se_plain']:.2e}")
+    check(abs(a["price"] - a["plain"]) < 4 * a["se_plain"],
+          f"[exotics] Asian controlled {a['price']:.6f} within 4 se_plain of {a['plain']:.6f}")
+    check(a["price"] < euro, f"[exotics] Asian {a['price']:.6f} below bs_call {euro:.6f}")
+    print(f"[exotics] asian_call_qmc {N_FULL} paths x 52 dates x 7 steps: controlled "
+          f"{a['price']:.6f} +- {a['se']:.2e}, plain {a['plain']:.6f} +- {a['se_plain']:.2e} "
+          f"({a['se_plain'] / a['se']:.1f}x), geometric sample {a['geo_sample']:.6f} vs closed "
+          f"{a['geo_closed']:.6f} ({(a['geo_sample'] - a['geo_closed']) / a['se_plain']:+.2f} "
+          f"se_plain); bs_call {euro:.6f}; wall {out['asian_s']:.3f} s", flush=True)
+    # the barrier: tests/test_barrier.py, 13 monitoring dates
+    bar = tuple(EXOTIC_BARRIER.values())
+    oracle = down_and_out_call(*bar)
+    b, out["barrier_s"] = timed(lambda: down_and_out_call_qmc(N_FULL, *bar, n_monitor=13, seed=5))
+    n13 = down_and_out_call_qmc(N_FULL, *bar, n_monitor=13, bridge=False, seed=5)
+    n250, out["barrier_250_s"] = timed(lambda: down_and_out_call_qmc(
+        N_FULL, *bar, n_monitor=250, bridge=False, seed=5))
+    check(abs(b["price"] - oracle) < 3 * b["se"],
+          f"[exotics] barrier bridge {b['price']:.6f} within 3 SE of {oracle:.6f}")
+    check(0.0 < b["knockout_frac"] < 1.0, "[exotics] barrier knockout share in (0, 1)")
+    check(n13["price"] - oracle > 10 * n13["se"],
+          f"[exotics] naive barrier {n13['price']:.6f} over {oracle:.6f} by > 10 SE")
+    check(n13["price"] > n250["price"] > oracle,
+          f"[exotics] naive 13 {n13['price']:.6f} > naive 250 {n250['price']:.6f} > oracle")
+    print(f"[exotics] down_and_out_call_qmc {N_FULL} paths, 13 dates: bridge {b['price']:.6f} "
+          f"+- {b['se']:.2e} vs reflection {oracle:.6f} ({(b['price'] - oracle) / b['se']:+.2f} "
+          f"SE), knocked out {b['knockout_frac']:.4f}; naive {n13['price']:.6f} "
+          f"({(n13['price'] - oracle) / n13['se']:+.1f} SE), at 250 dates {n250['price']:.6f}; "
+          f"walls {out['barrier_s']:.3f} s, 250 dates {out['barrier_250_s']:.3f} s", flush=True)
+    # the lookbacks: tests/test_lookback.py, 13 monitoring dates
+    lk = tuple(EXOTIC_LOOKBACK.values())
+    lo = lookback_call_fixed(*lk)
+    lb, out["lookback_s"] = timed(lambda: lookback_call_qmc(N_FULL, *lk, n_monitor=13, seed=5))
+    ln = lookback_call_qmc(N_FULL, *lk, n_monitor=13, bridge=False, seed=5)
+    check(abs(lb["price"] - lo) < 3 * lb["se"],
+          f"[exotics] lookback bridge {lb['price']:.6f} within 3 SE of {lo:.6f}")
+    check(lo - ln["price"] > 10 * ln["se"],
+          f"[exotics] naive lookback {ln['price']:.6f} under {lo:.6f} by > 10 SE")
+    fk = (EXOTIC_LOOKBACK["s0"], EXOTIC_LOOKBACK["r"], EXOTIC_LOOKBACK["sigma"],
+          EXOTIC_LOOKBACK["T"])
+    fo = lookback_call_floating(*fk)
+    fl, out["floating_s"] = timed(lambda: lookback_floating_qmc(N_FULL, *fk, n_monitor=13,
+                                                                seed=5))
+    fn = lookback_floating_qmc(N_FULL, *fk, n_monitor=13, bridge=False, seed=5)
+    check(abs(fl["price"] - fo) < 3 * fl["se"],
+          f"[exotics] floating lookback {fl['price']:.6f} within 3 SE of {fo:.6f}")
+    check(fo - fn["price"] > 10 * fn["se"],
+          f"[exotics] naive floating {fn['price']:.6f} under {fo:.6f} by > 10 SE")
+    print(f"[exotics] lookback_call_qmc K=110 {N_FULL} paths, 13 dates: bridge "
+          f"{lb['price']:.6f} +- {lb['se']:.2e} vs Conze-Viswanathan {lo:.6f} "
+          f"({(lb['price'] - lo) / lb['se']:+.2f} SE), naive {ln['price']:.6f} "
+          f"({(ln['price'] - lo) / ln['se']:+.1f} SE); floating {fl['price']:.6f} +- "
+          f"{fl['se']:.2e} vs Goldman-Sosin-Gatto {fo:.6f} ({(fl['price'] - fo) / fl['se']:+.2f} "
+          f"SE), naive {fn['price']:.6f}; walls {out['lookback_s']:.3f} / "
+          f"{out['floating_s']:.3f} s", flush=True)
+    # the surfaces: tests/test_surface.py's checks at the CLI's strikes
+    surf, out["surface_s"] = timed(lambda: price_surface(
+        N_FULL, 100.0, 0.08, 0.15, SURFACE_STRIKES, 1.0, n_maturities=13, steps_per_maturity=4))
+    prices, times = surf["prices"].cpu().numpy(), surf["times"].cpu().numpy()
+    iv = surf["iv"].cpu().numpy()
+    bs = np.array([[bs_call(100.0, k, 0.08, 0.15, float(t))[0] for k in SURFACE_STRIKES]
+                   for t in times])
+    node_gap = float(np.abs(prices - bs).max())
+    check(prices.shape == (13, len(SURFACE_STRIKES)) and node_gap < 0.035,
+          f"[exotics] surface nodes within 0.035 of bs_call (max {node_gap:.4f})")
+    check((np.diff(prices, axis=1) < 0).all() and (np.diff(prices, axis=0) > -1e-6).all(),
+          "[exotics] surface prices fall in strike and rise in maturity")
+    finite = np.isfinite(iv)
+    iv_gap = float(np.abs(iv[finite] - 0.15).max())
+    check(finite[3:, :].all() and finite[:, 1:-1].all() and iv_gap < 6e-3,
+          f"[exotics] finite IVs within 6e-3 of 0.15 (max {iv_gap:.2e}, {int((~finite).sum())} "
+          "NaN)")
+    atm = SURFACE_STRIKES.index(100.0)
+    check(abs(iv[-1, atm] - 0.15) < 1.5e-3, f"[exotics] ATM terminal IV {iv[-1, atm]:.6f}")
+    hs, out["heston_surface_s"] = timed(lambda: heston_price_surface(
+        N_FULL, 100.0, 0.08, SURFACE_HESTON_STRIKES, 1.0, **SURFACE_HESTON, n_maturities=13,
+        steps_per_maturity=4, seed=7))
+    hiv, hp = hs["iv"].cpu().numpy(), hs["prices"].cpu().numpy()
+    check((np.diff(hiv[3:], axis=1) < 0).all(), "[exotics] Heston skew falls in strike")
+    check(hiv[3, 0] - hiv[3, -1] > hiv[-1, 0] - hiv[-1, -1],
+          "[exotics] Heston short-dated skew steeper than terminal")
+    cf = [heston_call(100.0, k, 0.08, 1.0, **SURFACE_HESTON) for k in SURFACE_HESTON_STRIKES]
+    cf_gap = float(np.abs(hp[-1] - np.array(cf)).max())
+    check(cf_gap < 0.04, f"[exotics] Heston terminal nodes within 0.04 of heston_call "
+          f"({cf_gap:.4f})")
+    print(f"[exotics] price_surface {N_FULL} paths, 13 maturities x 4 steps, strikes "
+          f"{SURFACE_STRIKES}: max |node - bs_call| {node_gap:.4f}, max |IV - 0.15| "
+          f"{iv_gap:.2e} ({int((~finite).sum())} NaN nodes), ATM terminal IV "
+          f"{iv[-1, atm]:.6f}; heston_price_surface (QE) max |terminal - heston_call| "
+          f"{cf_gap:.4f}, skew {hiv[3, 0] - hiv[3, -1]:.4f} at T/4 vs {hiv[-1, 0] - hiv[-1, -1]:.4f}"
+          f" at T; walls {out['surface_s']:.3f} / {out['heston_surface_s']:.3f} s", flush=True)
+    # the Bermudan LSM: tests/test_lsm.py's CRR bracket (LS2001)
+    berm = crr_price(36.0, **LSM_LS, exercise="bermudan", n_steps=5000, exercise_every=100)
+    amer = crr_price(36.0, **LSM_LS, exercise="american", n_steps=5000)
+    g, out["lsm_s"] = timed(lambda: bermudan_lsm(N_FULL, 36.0, **LSM_LS, n_exercise=50, seed=9))
+    hz, out["lsm_xi0_s"] = timed(lambda: bermudan_lsm_heston(
+        N_FULL, 36.0, LSM_LS["k"], LSM_LS["r"], LSM_LS["T"], **LSM_XI0, n_exercise=50, seed=9))
+    for what, res in (("bermudan_lsm", g), ("bermudan_lsm_heston xi->0", hz)):
+        check(berm - 0.05 < res["price"] < berm + 2 * res["se"],
+              f"[exotics] {what} {res['price']:.6f} in (CRR {berm:.6f} - 0.05, + 2 SE "
+              f"{2 * res['se']:.2e})")
+    check(g["early_exercise_premium"] > 0.0, "[exotics] LSM premium positive")
+    check(g["price"] < amer + 2 * g["se"], f"[exotics] LSM below the CRR American {amer:.6f}")
+    hh, out["lsm_heston_s"] = timed(lambda: bermudan_lsm_heston(
+        N_FULL, 36.0, LSM_LS["k"], LSM_LS["r"], LSM_LS["T"], **LSM_HESTON, n_exercise=25,
+        steps_per_exercise=4, seed=9))
+    hput = heston_put(36.0, LSM_LS["k"], LSM_LS["r"], LSM_LS["T"], **LSM_HESTON)
+    check(abs(hh["european"] - hput) < 0.05,
+          f"[exotics] Heston LSM European leg {hh['european']:.6f} within 0.05 of {hput:.6f}")
+    check(hh["early_exercise_premium"] > 3 * hh["se"] and hh["price"] > hh["european"],
+          "[exotics] Heston LSM premium above 3 SE")
+    print(f"[exotics] bermudan_lsm {N_FULL} paths x 50 dates x 4 steps: {g['price']:.6f} +- "
+          f"{g['se']:.2e} vs CRR Bermudan {berm:.6f} ({g['price'] - berm:+.6f}), American "
+          f"{amer:.6f}, European {g['european']:.6f}, premium {g['early_exercise_premium']:.6f};"
+          f" Heston xi->0 {hz['price']:.6f} +- {hz['se']:.2e} ({hz['price'] - berm:+.6f}); "
+          f"Heston (25 x 4, QE) {hh['price']:.6f} +- {hh['se']:.2e}, European "
+          f"{hh['european']:.6f} vs heston_put {hput:.6f}, premium "
+          f"{hh['early_exercise_premium'] / hh['se']:.1f} SE; walls {out['lsm_s']:.3f} / "
+          f"{out['lsm_xi0_s']:.3f} / {out['lsm_heston_s']:.3f} s", flush=True)
+    # the CIR calibration (host NumPy) on examples/stochastic_vol_calibration.py's series
+    rng = np.random.default_rng(7)
+    closes = 100 * np.exp(np.cumsum(rng.normal(0.0003, 0.010, size=2520)))
+    fit = calib.calibrate_prices(closes)
+    params = calib.estimate_cir_params(calib.rolling_volatility(calib.log_returns(closes),
+                                                                window=40))
+    mu = calib.annualized_drift(closes, 10.0)
+    check(params == fit.params and math.isfinite(mu), "[exotics] the example's calibration chain "
+          "gives calibrate_prices' params")
+    print(f"[exotics] calibrate_prices on the example's 2,520 closes: {params}, mu {mu:.6f}, "
+          f"sigma0 {fit.sigma0:.6f}", flush=True)
+    rep = flops.phase_report(flops.gn_walk_flops(N_FULL, 52, 150, 75), bench_s)
+    print(f"[exotics] utils.flops.phase_report of [fused]'s benchmark GN configuration "
+          f"({bench_s:.3f} s): {rep} ({card_line()})", flush=True)
+    launched = counts.read()
+    check(all(v == 0 for v in launched.values()), f"[exotics] no kernel launched ({launched})")
+    out["flops"] = rep
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1787,7 +2113,6 @@ def main() -> int:
     from orp_tpu_torch import HESTON_WALK, NORTH_STAR_POLICY
     from orp_tpu_torch.api import (EuropeanConfig, HestonConfig, SimConfig, TrainConfig,
                                    european_hedge, european_oos, heston_hedge, heston_oos)
-    from orp_tpu_torch.models import HedgeMLP
     from orp_tpu_torch.qmc import fused_gbm, fused_mf
     from orp_tpu_torch.serve import HedgeEngine, load_bundle, megakernel, save_bundle
     from orp_tpu_torch.serve.bundle import model_meta
@@ -2196,6 +2521,7 @@ def main() -> int:
     launches["mixed_head_basket"] = basket["assets"]["k2"]
     launches["mixed_head_bf16_basket"] = basket["tiers"]["bf16"]["launches"]
     greeks = greeks_phases(dev)
+    exotics = exotics_phases(dev, counts, fused["bench_fused_s"])
 
     # -- 19. times at the main paths' shapes ----------------------------------
     k1 = lambda: fused_gbm.gbm_log_fused(N_FULL, N_STEPS, **gbm_kw)  # noqa: E731
@@ -2312,6 +2638,9 @@ def main() -> int:
           + f"; greeks at {N_FULL} paths: European call {greeks['euro_call_s']:.3f} s, put "
           f"{greeks['euro_put_s']:.3f} s, digital {greeks['digital_s']:.3f} s, Heston (364 "
           f"steps) {greeks['heston_s']:.3f} s, basket {greeks['basket_s']:.3f} s", flush=True)
+    print(f"[times] option analytics at {N_FULL} paths: "
+          + ", ".join(f"{k[:-2]} {v:.3f} s" for k, v in exotics.items() if k.endswith("_s")),
+          flush=True)
     k2b = basket["k2"]["assets"]
     kernels = {"kernels": [
         {"name": "fused_gbm", "route": "cuda",

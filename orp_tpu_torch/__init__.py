@@ -22,6 +22,9 @@ caller passes ``device="cpu"``:
   and ``pension_oos(policy, cfg, ...)``
 - ``orp_tpu_torch.serve.load_bundle(dir)``
 - ``orp_tpu_torch.serve.HedgeEngine(policy, device=...)``
+- the option analytics: ``orp_tpu_torch.risk.asian_call_qmc``,
+  ``down_and_out_call_qmc``, ``lookback_call_qmc``, ``price_surface``, ...
+  and ``orp_tpu_torch.train.bermudan_lsm`` (each with ``device=...``)
 """
 
 import pathlib

@@ -2,7 +2,8 @@
 ``orp_tpu/risk/analytics.py``).
 
 Reductions run on the ledgers' device; the report holds host numpy arrays and
-Python floats, exactly the JAX package's ``HedgeReport``.
+Python floats, exactly the JAX package's ``HedgeReport``. ``to_frames`` is the
+optional pandas edge; pandas is imported inside it only.
 """
 
 from __future__ import annotations
@@ -75,6 +76,19 @@ def holdings_summary(phi: torch.Tensor, psi: torch.Tensor,
             "phi0": float(phi_mean[0]), "psi0": float(psi_mean[0])}
 
 
+def discounted_payoff_compare(values: torch.Tensor, terminal_payoff: torch.Tensor, r: float,
+                              times) -> dict[str, np.ndarray]:
+    """Portfolio value vs discounted expected payoff per knot (the P_E_Values
+    ledger, RP.py:227; the E^Q/E^P reference lines of the ``Euro#20`` fan
+    chart). ``times`` are the knot times ``(n_knots,)``; discounting uses
+    ``exp(-r (T - t))``."""
+    times = torch.as_tensor(times).to(terminal_payoff.device)
+    T = times[-1]
+    e_payoff = torch.mean(terminal_payoff)
+    disc = torch.exp(-r * (T - times)) * e_payoff
+    return {"mean_value": _np(torch.mean(values, dim=0)), "discounted_payoff": _np(disc)}
+
+
 @dataclasses.dataclass
 class HedgeReport:
     """The outputs of one hedge run (field for field the JAX package's report)."""
@@ -136,3 +150,44 @@ def build_report(result, *, terminal_payoff: torch.Tensor, r: float, times,
         epochs_ran=result.epochs_ran,
         times=np.asarray(times),
     )
+
+
+def to_frames(report: HedgeReport) -> dict:
+    """Pandas-frame edge for notebook-style consumers (the shapes of
+    ``Multi Time Step.ipynb#22-26``): VaR-by-date, holdings-by-date, fan-chart
+    bands, and per-date training errors, all indexed by rebalance time.
+
+    Pandas is imported here only: the analytics path stays array-native.
+    """
+    import pandas as pd
+
+    times = report.times
+    date_times = times[:-1] if times is not None else np.arange(len(report.train_loss))
+    knot_times = times if times is not None else np.arange(report.fan.bands.shape[0])
+    var = pd.DataFrame(
+        report.var_by_date,
+        index=pd.Index(date_times, name="time"),
+        columns=[f"VaR_{q:g}" for q in report.var_qs],
+    )
+    holdings = pd.DataFrame(
+        {
+            "phi": report.holdings["phi_by_date"],
+            "psi": report.holdings["psi_by_date"],
+        },
+        index=pd.Index(date_times, name="time"),
+    )
+    fan = pd.DataFrame(
+        np.column_stack([report.fan.bands, report.fan.mean]),
+        index=pd.Index(knot_times, name="time"),
+        columns=[f"q{q:g}" for q in report.fan.qs] + ["mean"],
+    )
+    errors = pd.DataFrame(
+        {
+            "loss": report.train_loss,
+            "mae": report.train_mae,
+            "mape": report.train_mape,
+            "epochs": report.epochs_ran,
+        },
+        index=pd.Index(date_times, name="time"),
+    )
+    return {"var": var, "holdings": holdings, "fan": fan, "errors": errors}

@@ -28,3 +28,12 @@ def as_indices(indices, device=None) -> torch.Tensor:
     if isinstance(indices, torch.Tensor) and device is None:
         return indices.to(torch.int64)
     return torch.as_tensor(indices).to(device=resolve_device(device), dtype=torch.int64)
+
+
+def path_indices(n_paths: int, indices=None, device=None) -> torch.Tensor:
+    """The Sobol point indices of a pricer: ``arange(n_paths)`` on
+    ``resolve_device(device)`` when ``indices`` is None, else
+    :func:`as_indices` (a tensor keeps its own device)."""
+    if indices is None:
+        return torch.arange(n_paths, dtype=torch.int64, device=resolve_device(device))
+    return as_indices(indices, device)

@@ -679,3 +679,117 @@ def test_european_greeks_on_card_match_cpu(cuda, kind):
         want = european_greeks(4096, **cfg, dtype=dtype, device="cpu").as_dict()
         for name in names or got:
             np.testing.assert_allclose(got[name], want[name], rtol=tol, err_msg=name)
+
+
+# the option-analytics pricers: chip_smoke.py [exotics]'s configurations at 4,096 paths
+EXOTICS = {
+    "asian": ("asian_call_qmc", (100.0, 100.0, 0.08, 0.15, 1.0), {}),
+    "barrier": ("down_and_out_call_qmc", (100.0, 100.0, 90.0, 0.08, 0.25, 1.0),
+                dict(n_monitor=13, seed=5)),
+    "barrier-naive": ("down_and_out_call_qmc", (100.0, 100.0, 90.0, 0.08, 0.25, 1.0),
+                      dict(n_monitor=13, bridge=False, seed=5)),
+    "lookback": ("lookback_call_qmc", (100.0, 110.0, 0.08, 0.25, 1.0), dict(n_monitor=13, seed=5)),
+    "floating": ("lookback_floating_qmc", (100.0, 0.08, 0.25, 1.0), dict(n_monitor=13, seed=5)),
+}
+SURFACES = {
+    "flat": ("price_surface", (100.0, 0.08, 0.15, [80.0, 90.0, 95.0, 100.0, 105.0, 110.0, 120.0],
+                               1.0), {}),
+    "heston": ("heston_price_surface", (100.0, 0.08, [85.0, 95.0, 100.0, 105.0, 115.0], 1.0),
+               dict(v0=0.0225, kappa=1.5, theta=0.0225, xi=0.25, rho=-0.6, seed=7)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("name", list(EXOTICS))
+def test_exotic_pricer_on_card_matches_cpu(cuda, name, dtype):
+    """Card vs CPU on the same indices: every float of the result within 1e-4
+    relative in float32 (the scan's knots agree at ``rtol=3e-5``), 1e-10 in
+    float64; no kernel launches."""
+    from orp_tpu_torch import risk
+
+    fn, args, kw = EXOTICS[name]
+    before = (fused_gbm.gbm_log_fused.launches, fused_mf.heston_qe_fused.launches)
+    got = getattr(risk, fn)(4096, *args, **kw, dtype=dtype)
+    want = getattr(risk, fn)(4096, *args, **kw, dtype=dtype, device="cpu")
+    assert (fused_gbm.gbm_log_fused.launches, fused_mf.heston_qe_fused.launches) == before
+    assert set(got) == set(want)
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    for key, w in want.items():
+        np.testing.assert_allclose(got[key], w, rtol=tol, atol=0.0, err_msg=key)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("name", list(SURFACES))
+def test_surface_on_card_matches_cpu(cuda, name, dtype):
+    """The surface on the card against the CPU: prices within 1e-4 of the
+    largest node in float32 (``rtol=1e-10`` in float64), the NaN masks equal,
+    the IVs within 3e-4 (float64 ``rtol=1e-10``); results on the card."""
+    from orp_tpu_torch import risk
+
+    fn, args, kw = SURFACES[name]
+    kw = dict(kw, n_maturities=13, steps_per_maturity=4, dtype=dtype)
+    got = getattr(risk, fn)(4096, *args, **kw)
+    want = getattr(risk, fn)(4096, *args, **kw, device="cpu")
+    assert got["prices"].device.type == "cuda" and got["iv"].device.type == "cuda"
+    gp, wp = got["prices"].cpu().numpy(), want["prices"].numpy()
+    gi, wi = got["iv"].cpu().numpy(), want["iv"].numpy()
+    np.testing.assert_array_equal(np.isnan(gi), np.isnan(wi))
+    if dtype == torch.float32:
+        assert np.abs(gp - wp).max() < 1e-4 * np.abs(wp).max()
+        np.testing.assert_allclose(gi, wi, rtol=0.0, atol=3e-4)
+    else:
+        np.testing.assert_allclose(gp, wp, rtol=1e-10, atol=0.0)
+        np.testing.assert_allclose(gi, wi, rtol=1e-10, atol=0.0)
+
+
+@pytest.mark.parametrize("heston", [False, True], ids=["gbm", "heston"])
+def test_lsm_on_card_matches_cpu(cuda, heston):
+    """The LSM walk on the card: float64 at ``rtol=1e-9`` of the CPU (the
+    exercise decisions are the same away from roundoff ties), float32 within
+    2 of the CPU run's standard errors (a tie can flip a path's decision)."""
+    from orp_tpu_torch.train import bermudan_lsm, bermudan_lsm_heston
+
+    if heston:
+        call = lambda **kw: bermudan_lsm_heston(  # noqa: E731
+            4096, 36.0, 40.0, 0.06, 1.0, v0=0.04, kappa=1.5, theta=0.04, xi=0.4, rho=-0.6,
+            n_exercise=25, seed=9, **kw)
+    else:
+        call = lambda **kw: bermudan_lsm(4096, 36.0, 40.0, 0.06, 0.2, 1.0, n_exercise=50,  # noqa: E731
+                                         seed=9, **kw)
+    got, want = call(dtype=torch.float64), call(dtype=torch.float64, device="cpu")
+    for key, w in want.items():
+        np.testing.assert_allclose(got[key], w, rtol=1e-9, atol=1e-12, err_msg=key)
+    got, want = call(), call(device="cpu")
+    assert abs(got["price"] - want["price"]) < 2 * want["se"]
+    np.testing.assert_allclose(got["european"], want["european"], rtol=1e-4)
+
+
+def test_lookback_dims_overflow_raises_and_the_context_lives(cuda):
+    """Too many bridge dims raise the ValueError before any device op (a
+    gather past the direction table would be a device-side assert that
+    poisons the context); the card keeps working afterwards."""
+    from orp_tpu_torch.risk import lookback_call_qmc, lookback_floating_qmc
+
+    with pytest.raises(ValueError, match="16384-dimension Sobol table"):
+        lookback_call_qmc(64, 100.0, 110.0, 0.08, 0.25, 1.0, n_monitor=4096,
+                          steps_per_monitor=4)
+    with pytest.raises(ValueError, match="16384-dimension Sobol table"):
+        lookback_floating_qmc(64, 100.0, 0.08, 0.25, 1.0, n_monitor=4096, steps_per_monitor=4,
+                              indices=torch.arange(64, device=cuda))
+    torch.cuda.synchronize()
+    res = lookback_call_qmc(1024, 100.0, 110.0, 0.08, 0.25, 1.0, n_monitor=13)
+    assert np.isfinite(res["price"]) and res["price"] > 0.0
+
+
+def test_nan_debug_and_checked_on_card(cuda):
+    from orp_tpu_torch.utils.debug import checked, nan_debug
+
+    x = torch.tensor([1.0, -1.0], device=cuda)
+    with nan_debug():
+        torch.exp(x)
+        with pytest.raises(FloatingPointError, match="aten.log"):
+            torch.log(x)
+    err, out = checked(lambda t: torch.sqrt(t) * 2.0)(x)
+    assert out.device.type == "cuda" and "aten.sqrt" in err.get()
+    with pytest.raises(FloatingPointError):
+        err.throw()

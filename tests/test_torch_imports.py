@@ -57,13 +57,16 @@ def test_source_imports_no_jax_and_no_reference(path):
 
 
 def test_importing_every_module_loads_no_jax():
+    """... nor pandas or matplotlib, which the card's machine lacks (``to_frames``
+    and ``risk/plots.py`` import them inside the call)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import orp_tpu_torch\n"
         "for m in pkgutil.walk_packages(orp_tpu_torch.__path__, 'orp_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
-        "       or n == 'orp_tpu' or n.startswith('orp_tpu.')]\n"
+        "       or n == 'orp_tpu' or n.startswith('orp_tpu.')\n"
+        "       or n.split('.')[0] in ('pandas', 'matplotlib')]\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('orp_tpu_torch')]))\n"
     )
@@ -84,8 +87,11 @@ def test_entry_points_default_to_the_card():
                                    heston_oos, pension_hedge, pension_oos)
     from orp_tpu_torch.qmc import (brownian, gbm_log_fused, heston_log_fused, heston_qe_fused,
                                    pension_fused, sobol_normal_matrix)
-    from orp_tpu_torch.risk import (basket_greeks, digital_greeks, european_greeks,
-                                    heston_greeks)
+    from orp_tpu_torch.risk import (asian_call_qmc, basket_greeks, digital_greeks,
+                                    down_and_out_call_qmc, european_greeks, heston_greeks,
+                                    heston_price_surface, lookback_call_qmc,
+                                    lookback_floating_qmc, price_surface)
+    from orp_tpu_torch.train import bermudan_lsm, bermudan_lsm_heston
     from orp_tpu_torch.sde import TimeGrid, simulate_gbm_arithmetic, simulate_gbm_basket
     from orp_tpu_torch.serve import HedgeEngine, load_bundle
 
@@ -121,7 +127,19 @@ def test_entry_points_default_to_the_card():
                                    xi=0.3, rho=-0.5, n_steps=4),
              lambda: basket_greeks(64, s0=[100.0, 100.0], weights=[0.5, 0.5], strike=100.0,
                                    r=0.08, sigma=[0.1, 0.2], corr=[[1.0, 0.3], [0.3, 1.0]],
-                                   T=1.0, n_steps=4)]
+                                   T=1.0, n_steps=4),
+             lambda: asian_call_qmc(64, 100.0, 100.0, 0.08, 0.15, 1.0, n_avg=2, steps_per_avg=2),
+             lambda: down_and_out_call_qmc(64, 100.0, 100.0, 90.0, 0.08, 0.25, 1.0, n_monitor=4),
+             lambda: lookback_call_qmc(64, 100.0, 110.0, 0.08, 0.25, 1.0, n_monitor=4),
+             lambda: lookback_floating_qmc(64, 100.0, 0.08, 0.25, 1.0, n_monitor=4),
+             lambda: price_surface(64, 100.0, 0.08, 0.15, [100.0], 1.0, n_maturities=2,
+                                   steps_per_maturity=2),
+             lambda: heston_price_surface(64, 100.0, 0.08, [100.0], 1.0, v0=0.04, kappa=1.0,
+                                          theta=0.04, xi=0.3, rho=-0.5, n_maturities=2,
+                                          steps_per_maturity=2),
+             lambda: bermudan_lsm(64, 36.0, 40.0, 0.06, 0.2, 1.0, n_exercise=4),
+             lambda: bermudan_lsm_heston(64, 36.0, 40.0, 0.06, 1.0, v0=0.04, kappa=1.0,
+                                         theta=0.04, xi=0.3, rho=-0.5, n_exercise=4)]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
@@ -130,6 +148,9 @@ def test_entry_points_default_to_the_card():
                                device="cpu").shape == (8, 5, 2)
     assert brownian.get_W_sobol(np.arange(8), 4, device="cpu").device.type == "cpu"
     assert brownian.get_dW(torch.Generator(), 8, device="cpu").shape == (8,)
+    assert price_surface(64, 100.0, 0.08, 0.15, [100.0], 1.0, n_maturities=2,
+                         steps_per_maturity=2, device="cpu")["prices"].device.type == "cpu"
+    assert bermudan_lsm(64, 36.0, 40.0, 0.06, 0.2, 1.0, n_exercise=4, device="cpu")["n_paths"] == 64
 
 
 def test_chip_smoke_refuses_without_card_and_alone(tmp_path):

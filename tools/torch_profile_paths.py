@@ -11,7 +11,11 @@ Runs each path once to warm up (kernel build, allocator), then once under
 - ``replay``: ``european_oos`` at 1,048,576 fresh paths x 364 steps on the
   fused kernel;
 - ``train``: ``heston_hedge`` at 1,048,576 paths x 364 steps (the QE-M
-  kernel, the 52-date Gauss-Newton walk, the report).
+  kernel, the 52-date Gauss-Newton walk, the report);
+- ``asian``: ``asian_call_qmc`` at 1,048,576 paths x 364 steps (the scan
+  path, plain PyTorch: the option analytics launch no kernel of their own);
+- ``lsm``: ``bermudan_lsm`` at 1,048,576 paths x 200 steps and its 49
+  regressions (LS2001, 50 exercise dates).
 
 For each path it prints the host wall, the summed device time of all GPU
 activity, the device's idle share (1 - device time / wall) and the top
@@ -124,7 +128,9 @@ def main() -> int:
     from orp_tpu_torch import NORTH_STAR_POLICY
     from orp_tpu_torch.api import (EuropeanConfig, HestonConfig, SimConfig, TrainConfig,
                                    european_oos, heston_hedge)
+    from orp_tpu_torch.risk import asian_call_qmc
     from orp_tpu_torch.serve import HedgeEngine, load_bundle
+    from orp_tpu_torch.train import bermudan_lsm
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -147,6 +153,9 @@ def main() -> int:
         profile("train", lambda: heston_hedge(
             HestonConfig(), dataclasses.replace(sim, seed_fund=1235),
             TrainConfig(dual_mode="mse_only", optimizer="gauss_newton"))),
+        profile("asian", lambda: asian_call_qmc(n, 100.0, 100.0, 0.08, 0.15, 1.0)),
+        profile("lsm", lambda: bermudan_lsm(n, 36.0, 40.0, 0.06, 0.2, 1.0, n_exercise=50,
+                                            seed=9)),
     ]
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
