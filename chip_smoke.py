@@ -117,8 +117,11 @@ last line):
     780k), psi0 in (200k, 380k); the hybrid walk (GN 60/30 with the Adam
     quantile leg): V0 within 3.5%; each wall;
 18. [exact] ``simulate_pension`` with ``binomial_mode="exact"`` at 1,048,576
-    paths x 1,000 steps stored every 25 (the scan path): ``|E[N_T] - 8616| <
-    40``, ``|sd(N_T) - 132| < 30``; a second run with the same seed equal;
+    paths x 1,000 steps stored every 25 (the scan path; each path's deaths
+    drawn under the threefry key of ``(seed, step, path index)``, as the JAX
+    package draws them): ``|E[N_T] - 8616| < 40``, ``|sd(N_T) - 132| < 30``;
+    its wall beside the non-addressed per-step generator's (PERF.md); [mesh]
+    holds four ranks' shards to this run;
 19. [fused] the fused walk (``TrainConfig(fused=True)``: each GN leg's LM
     iteration a CUDA graph replayed per iteration, each Adam epoch a graph run
     for every epoch, nothing read back until the walk ends, the date loop
@@ -189,7 +192,21 @@ last line):
     date differs printed); the CIR calibration on
     ``examples/stochastic_vol_calibration.py``'s series; ``utils.flops
     .phase_report`` of [fused]'s benchmark wall; each wall;
-26. times: each kernel and its plain version with CUDA events at the main
+26. [mesh] the paths mesh (``mesh_phases``): (a) an NCCL group over every
+    visible card (one rank on one card) runs ``european_hedge(mesh=)`` at
+    1,048,576 paths x 364 steps, 52 dates, the scan engine, GN 30 + 51 x 10,
+    as the host loop and fused (NCCL's ``all_reduce`` inside the captured LM
+    iteration, the date loop under ``no_host_sync``), ``v0_cv`` / ``v0_acv``
+    bitwise the same call without a mesh (else within ``rtol=1e-5``), and the
+    sharded engine bitwise the unsharded one at buckets 1 to 1,048,576; (b)
+    four ``gloo`` ranks sharing the card, 262,144 paths each: the walk within
+    ``rtol=1e-5`` on ``v0_cv`` and 10% on ``v0``, the sharded engine bitwise,
+    ``fused=True`` and ``engine="pallas"`` refused in the reference's words,
+    and exact thinning at 262,144 x 1,000 a rank, the blocks bitwise [exact]'s
+    run. Every rank is a process of its own (``tools/torch_mesh_ranks.py``)
+    under a hard timeout; a rank that fails fails the phase; no rank launches
+    a kernel;
+27. times: each kernel and its plain version with CUDA events at the main
     paths' shapes (the host's queue filled ahead of each timed round, so a
     kernel shorter than its wrapper's host cost is timed on the card), beside
     the kernel's bound (K2's from [tiers], f32 and bf16 at both shapes, and
@@ -1206,7 +1223,6 @@ def adam_phases(dev, counts, bs: float) -> dict:
     a = simulate_pension(idx, grid, **kw)
     torch.cuda.synchronize()
     exact_s = time.perf_counter() - t1
-    again = simulate_pension(idx, grid, **kw)
     n_t = a["N"][:, -1].double()
     law = (float(n_t.mean()), float(n_t.std()))
     check(a["N"].shape == (N_FULL, PENSION_STEPS // PENSION_STORE + 1), "[exact] shape")
@@ -1214,12 +1230,12 @@ def adam_phases(dev, counts, bs: float) -> dict:
           "[exact] finite fund, integer survivors")
     check(abs(law[0] - 8616) < 40 and abs(law[1] - 132) < 30,
           f"[exact] E[N_T] {law[0]:.2f} (8616 +- 40), sd {law[1]:.2f} (132 +- 30)")
-    check(all(torch.equal(a[k], again[k]) for k in a), "[exact] the same seed, the same draws")
-    print(f"[exact] simulate_pension exact thinning, {N_FULL} paths x {PENSION_STEPS} steps "
-          f"stored every {PENSION_STORE} (scan path on the card): E[N_T] {law[0]:.2f} "
-          f"(8616 +- 40), sd {law[1]:.2f} (132 +- 30); a second run with the same seed "
-          f"equal on every output; {exact_s:.2f} s a run", flush=True)
-    out.update(adam_s=adam_s, steps=steps, exact_s=exact_s)
+    print(f"[exact] simulate_pension exact thinning (threefry-addressed by (seed, step, path "
+          f"index)), {N_FULL} paths x {PENSION_STEPS} steps stored every {PENSION_STORE} (scan "
+          f"path on the card): E[N_T] {law[0]:.2f} (8616 +- 40), sd {law[1]:.2f} (132 +- 30); "
+          f"{exact_s:.2f} s a run (the per-step generator it replaced: 4.78 s); [mesh] "
+          f"holds four ranks' shards to this run", flush=True)
+    out.update(adam_s=adam_s, steps=steps, exact_s=exact_s, exact_n=a["N"].cpu())
     return out
 
 
@@ -2096,6 +2112,144 @@ def exotics_phases(dev, counts, bench_s: float) -> dict:
     return out
 
 
+def mesh_tool():
+    """``tools/torch_mesh_ranks.py``, the launcher of one process a rank."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_mesh_ranks",
+                                                  HERE / "tools" / "torch_mesh_ranks.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def mesh_phases(dev, exact_n) -> dict:
+    """[mesh]: the paths mesh at the north star's width (1,048,576 paths x 364
+    steps, 52 dates, the scan engine, GN 30 + 51 x 10), each mesh run in
+    processes of its own (``tools/torch_mesh_ranks.launch``, a hard timeout; a
+    rank that fails fails the phase):
+
+    (a) an NCCL group over every visible card: ``european_hedge(mesh=)`` as the
+        host loop and fused (the fused date loop under ``no_host_sync``, NCCL's
+        ``all_reduce`` inside the captured LM iteration), held to the same call
+        without a mesh in this process, bitwise where a 1-rank group gives the
+        single-device arithmetic and else inside ``rtol=1e-5`` on ``v0_cv``;
+        the sharded engine on the committed north-star policy at buckets 1 to
+        1,048,576, bitwise the unsharded one;
+    (b) four ``gloo`` ranks sharing the card, 262,144 paths each: the host-loop
+        walk, ``v0_cv`` within ``rtol=1e-5`` and the network ``v0`` within 10%
+        of the single-device walk; the sharded engine bitwise per bucket;
+        ``fused=True`` refused under ``gloo`` and ``engine="pallas"`` refused
+        with a mesh, in the reference's words; exact thinning at 262,144 x
+        1,000 a rank, the four blocks concatenated bitwise [exact]'s one-process
+        run.
+
+    The mesh path runs no kernel (the JAX package's runs none): each rank
+    reports its kernels' launch counters, all 0."""
+    import torch
+
+    from orp_tpu_torch import NORTH_STAR_POLICY
+    from orp_tpu_torch.api import EuropeanConfig, SimConfig, TrainConfig, european_hedge
+
+    ranks = mesh_tool()
+    torch.cuda.empty_cache()  # the ranks' processes share the card with this one
+
+    def say(ok: bool, what: str) -> None:  # one printed line per check
+        check(ok, what)
+        print(f"{what}: ok", flush=True)
+
+    sim = dict(n_paths=N_FULL, T=1.0, dt=1 / N_STEPS, rebalance_every=STORE, engine="scan")
+    train = dict(dual_mode="mse_only", optimizer="gauss_newton", gn_iters_first=30,
+                 gn_iters_warm=10)
+    refs = {}
+    for fused in (False, True):
+        refs[fused], wall = timed(lambda: european_hedge(  # noqa: B023
+            EuropeanConfig(), SimConfig(**sim), TrainConfig(**train, fused=fused)))
+        print(f"[mesh] no mesh, {'fused' if fused else 'host loop'}: v0_cv "
+              f"{refs[fused].report.v0_cv!r}, v0_acv {refs[fused].report.v0_acv!r}, "
+              f"{wall:.3f} s", flush=True)
+    walk = {"sim": sim, "train": train}
+    sizes = [1, 7, 33] + [1 << k for k in range(3, 21)]
+    engine = {"bundle": str(NORTH_STAR_POLICY), "sizes": sizes}
+    out = {}
+    work = HERE / "build" / "mesh"
+    work.mkdir(parents=True, exist_ok=True)
+
+    # -- (a) NCCL over every visible card ----------------------------------------
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    res = ranks.launch(world, {"walks": [dict(walk, repeat=2),
+                                         dict(walk, train=dict(train, fused=True), repeat=2)],
+                               "engine": engine, "sync_check": True}, work / "nccl",
+                       device="cuda", backend="nccl", timeout=300)
+    out["nccl_s"] = time.perf_counter() - t0
+    say(all(v == 0 for r in res for v in r["kernel_launches"].values()),
+        "[mesh] (a) the mesh path launches no kernel on any rank")
+    print(f"[mesh] (a) an NCCL group over every visible card: {world} rank(s), "
+          f"{out['nccl_s']:.1f} s", flush=True)
+    for i, fused in enumerate((False, True)):
+        what = "fused (NCCL all_reduce captured)" if fused else "host loop"
+        ref = refs[fused].report
+        for r in res:
+            w = r["walks"][i]
+            say(w["values"].shape[0] == N_FULL // world, f"[mesh] (a) rank {r['rank']} "
+                f"holds {N_FULL // world} rows")
+            d_cv = w["v0_cv"] - ref.v0_cv
+            bitwise = d_cv == 0 and w["v0_acv"] == ref.v0_acv
+            say(bitwise or abs(d_cv) <= 1e-5 * abs(ref.v0_cv),
+                f"[mesh] (a) {what} rank {r['rank']}: v0_cv {w['v0_cv']!r} vs {ref.v0_cv!r} "
+                f"(diff {d_cv:.3e}), v0_acv {w['v0_acv']!r} vs {ref.v0_acv!r}: "
+                f"{'bitwise' if bitwise else 'rtol 1e-5'}")
+        walls = res[0]["walks"][i]["seconds"]
+        out[f"nccl_{'fused' if fused else 'host'}_s"] = walls[-1]
+        print(f"[mesh] (a) {what}: {walls[0]:.3f} s cold, {walls[1]:.3f} s warm (no mesh "
+              f"{'fused' if fused else 'host loop'} above)", flush=True)
+    for r in res:
+        eng = r["engine"]
+        say(eng["cache_info"]["mesh_devices"] == world and all(eng["equal"].values()),
+            f"[mesh] (a) rank {r['rank']}: the sharded engine bitwise the unsharded one at "
+            f"{len(sizes)} sizes, buckets {eng['buckets'][1]} to {eng['buckets'][1 << 20]}")
+
+    # -- (b) four gloo ranks sharing the card ------------------------------------
+    spec = {"n_paths": N_FULL, "T": 10.0, "n_steps": PENSION_STEPS,
+            "kw": dict(PENSION, store_every=PENSION_STORE, binomial_mode="exact", seed=1234)}
+    t0 = time.perf_counter()
+    res = ranks.launch(4, {"walks": [walk], "engine": engine, "refusals": walk,
+                           "pension": spec}, work / "gloo", device="cuda", backend="gloo",
+                       timeout=600)
+    out["gloo_s"] = time.perf_counter() - t0
+    say(all(v == 0 for r in res for v in r["kernel_launches"].values()),
+        "[mesh] (b) the mesh path launches no kernel on any rank")
+    ref = refs[False]
+    for r in res:
+        w = r["walks"][0]
+        say(w["values"].shape[0] == N_FULL // 4, f"[mesh] (b) rank {r['rank']} holds "
+            f"{N_FULL // 4} rows on cuda:0")
+        say(abs(w["v0_cv"] - ref.report.v0_cv) <= 1e-5 * abs(ref.report.v0_cv)
+            and abs(w["v0"] / ref.v0 - 1) < 0.10,
+            f"[mesh] (b) rank {r['rank']}: v0_cv {w['v0_cv']!r} vs {ref.report.v0_cv!r} "
+            f"(diff {w['v0_cv'] - ref.report.v0_cv:.3e}, rtol 1e-5), v0 {w['v0']:.6f} vs "
+            f"{ref.v0:.6f} ({w['v0'] / ref.v0 - 1:+.4%}, 10%)")
+        eng = r["engine"]
+        say(eng["cache_info"]["mesh_devices"] == 4 and all(eng["equal"].values()),
+            f"[mesh] (b) rank {r['rank']}: the sharded engine bitwise per bucket "
+            f"({len(sizes)} sizes)")
+        say(r["refusals"]["fused"] is not None and "'gloo'" in r["refusals"]["fused"],
+            f"[mesh] (b) fused=True refused under gloo: {r['refusals']['fused']!r}")
+        say(r["refusals"]["pallas"] == "european_hedge: engine='pallas' is single-chip; use "
+            "engine='scan' with a mesh", f"[mesh] (b) {r['refusals']['pallas']!r}")
+    blocks = torch.cat([r["pension"]["N"] for r in res])
+    say(torch.equal(blocks, exact_n), f"[mesh] (b) exact thinning: four ranks' N blocks of "
+        f"{N_FULL // 4} x {PENSION_STEPS} steps, concatenated, bitwise [exact]'s one-process "
+        f"run ({tuple(blocks.shape)})")
+    out["gloo_walk_s"] = max(r["walks"][0]["seconds"][-1] for r in res)
+    out["gloo_pension_s"] = max(r["pension"]["seconds"] for r in res)
+    print(f"[mesh] (b) four gloo ranks on cuda:0: {out['gloo_s']:.1f} s in all; the walk "
+          f"{out['gloo_walk_s']:.3f} s, exact thinning {out['gloo_pension_s']:.1f} s a rank "
+          f"(four processes sharing the card)", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2522,6 +2676,7 @@ def main() -> int:
     launches["mixed_head_bf16_basket"] = basket["tiers"]["bf16"]["launches"]
     greeks = greeks_phases(dev)
     exotics = exotics_phases(dev, counts, fused["bench_fused_s"])
+    mesh = mesh_phases(dev, adam.pop("exact_n"))
 
     # -- 19. times at the main paths' shapes ----------------------------------
     k1 = lambda: fused_gbm.gbm_log_fused(N_FULL, N_STEPS, **gbm_kw)  # noqa: E731
@@ -2641,6 +2796,10 @@ def main() -> int:
     print(f"[times] option analytics at {N_FULL} paths: "
           + ", ".join(f"{k[:-2]} {v:.3f} s" for k, v in exotics.items() if k.endswith("_s")),
           flush=True)
+    print(f"[times] the paths mesh at {N_FULL} paths: NCCL launch {mesh['nccl_s']:.1f} s (host "
+          f"loop {mesh['nccl_host_s']:.3f} s, fused {mesh['nccl_fused_s']:.3f} s); four gloo "
+          f"ranks on one card {mesh['gloo_s']:.1f} s (walk {mesh['gloo_walk_s']:.3f} s, exact "
+          f"thinning {mesh['gloo_pension_s']:.1f} s a rank)", flush=True)
     k2b = basket["k2"]["assets"]
     kernels = {"kernels": [
         {"name": "fused_gbm", "route": "cuda",

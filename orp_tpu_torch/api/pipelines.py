@@ -24,6 +24,14 @@ OLS-martingale price.
   :func:`sigma_sweep`, :func:`replicating_portfolio` and
   :func:`replicating_portfolio_sv` are the reference's entry points on top.
 
+Every entry point takes ``mesh=`` (a built paths mesh, a rank count or a
+``parallel.mesh.MeshSpec``; ``parallel/mesh.py``), as in the JAX package:
+each rank generates its own contiguous block of the paths from
+``path_indices`` on its device, trains on it with the path reductions summed
+across the ranks, and returns the replicated report beside its block of the
+ledgers. Like the JAX package, a mesh runs ``engine="scan"`` only
+(:func:`_check_pallas`).
+
 The JAX package's ops-plane hooks (run manifest, telemetry spans, the
 model-health baseline, ``export_dir``) change no number and are not ported.
 """
@@ -39,10 +47,11 @@ from orp_tpu_torch.api.config import (ActuarialConfig, BasketConfig, EuropeanCon
                                       HedgeRunConfig, HestonConfig, MarketConfig, SimConfig,
                                       StochVolConfig, TrainConfig)
 from orp_tpu_torch.models.mlp import HedgeMLP
+from orp_tpu_torch.parallel.mesh import as_mesh, mesh_device, path_indices, path_mean
 from orp_tpu_torch.qmc.fused_gbm import gbm_log_fused
 from orp_tpu_torch.qmc.fused_mf import heston_log_fused, heston_qe_fused, pension_fused
 from orp_tpu_torch.risk.analytics import HedgeReport, build_report
-from orp_tpu_torch.risk.controls import martingale_ols_price
+from orp_tpu_torch.risk.controls import martingale_ols_price, path_std
 from orp_tpu_torch.sde import (TimeGrid, bond_curve, payoffs, simulate_gbm_basket,
                                simulate_gbm_log, simulate_heston_log, simulate_heston_qe,
                                simulate_pension)
@@ -57,8 +66,12 @@ from orp_tpu_torch.utils.precision import full_f32
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
-def _check_pallas(sim: SimConfig, name: str) -> None:
-    """The fused kernel generates Owen-scrambled float32 paths only."""
+def _check_pallas(sim: SimConfig, mesh, name: str) -> None:
+    """The fused kernels are single-device and generate Owen-scrambled
+    float32 paths only."""
+    if mesh is not None:
+        raise ValueError(
+            f"{name}: engine='pallas' is single-chip; use engine='scan' with a mesh")
     if sim.scramble != "owen" or sim.dtype != "float32":
         raise ValueError(
             f"{name}: engine='pallas' generates Owen-scrambled float32 paths only; "
@@ -71,15 +84,23 @@ def _check_quantile_method(quantile_method: str) -> None:
             f"quantile_method={quantile_method!r}: expected 'sort' or 'histogram'")
 
 
+def _placement(mesh, device):
+    """``(mesh, device)``: the built mesh (or None) and the device the run's
+    paths live on, this rank's under a mesh, else ``resolve_device(device)``."""
+    mesh = as_mesh(mesh, device)
+    return mesh, (mesh_device(mesh) if mesh is not None else resolve_device(device))
+
+
 def _simulate_euro_paths(euro: EuropeanConfig, sim: SimConfig, grid: TimeGrid, name: str,
-                         device: torch.device) -> torch.Tensor:
-    """The European path sim, ``(n_paths, n_knots)``, on the engine ``sim`` names."""
+                         device: torch.device, mesh=None) -> torch.Tensor:
+    """The European path sim, ``(n_paths, n_knots)`` (this rank's block under
+    ``mesh``), on the engine ``sim`` names."""
     if sim.engine == "pallas":
-        _check_pallas(sim, name)
+        _check_pallas(sim, mesh, name)
         return gbm_log_fused(
             sim.n_paths, sim.n_steps, s0=euro.s0, drift=euro.r, sigma=euro.sigma,
             dt=grid.dt, seed=sim.seed_fund, store_every=sim.rebalance_every, device=device)
-    idx = torch.arange(sim.n_paths, dtype=torch.int64, device=device)
+    idx = path_indices(sim.n_paths, mesh, device)
     return simulate_gbm_log(idx, grid, euro.s0, euro.r, euro.sigma, sim.seed_fund,
                             scramble=sim.scramble, store_every=sim.rebalance_every,
                             dtype=_DTYPES[sim.dtype])
@@ -95,17 +116,17 @@ def resolve_heston_scheme(scheme: str | None, name: str = "heston") -> str:
 
 
 def _simulate_heston_paths(h: HestonConfig, sim: SimConfig, grid: TimeGrid, name: str,
-                           device: torch.device) -> dict[str, torch.Tensor]:
+                           device: torch.device, mesh=None) -> dict[str, torch.Tensor]:
     """The Heston path sim, ``{"S", "v"}`` of ``(n_paths, n_knots)``, on the
     engine x scheme ``sim`` and ``h`` name."""
     qe = resolve_heston_scheme(h.scheme, name) == "qe"
     kw = dict(s0=h.s0, mu=h.r, v0=h.v0, kappa=h.kappa, theta=h.theta, xi=h.xi, rho=h.rho)
     if sim.engine == "pallas":
-        _check_pallas(sim, name)
+        _check_pallas(sim, mesh, name)
         return (heston_qe_fused if qe else heston_log_fused)(
             sim.n_paths, sim.n_steps, dt=grid.dt, seed=sim.seed_fund,
             store_every=sim.rebalance_every, device=device, **kw)
-    idx = torch.arange(sim.n_paths, dtype=torch.int64, device=device)
+    idx = path_indices(sim.n_paths, mesh, device)
     return (simulate_heston_qe if qe else simulate_heston_log)(
         idx, grid, seed=sim.seed_fund, scramble=sim.scramble,
         store_every=sim.rebalance_every, dtype=_DTYPES[sim.dtype], **kw)
@@ -113,20 +134,21 @@ def _simulate_heston_paths(h: HestonConfig, sim: SimConfig, grid: TimeGrid, name
 
 def _attach_cv_price(report: HedgeReport, res: BackwardResult, s: torch.Tensor,
                      payoff: torch.Tensor, r: float, times,
-                     strike_over_s0: float = 1.0) -> None:
+                     strike_over_s0: float = 1.0, mesh=None) -> None:
     """Unbiased QMC price plus the learned-hedge control variate: ``disc_t S_t``
     is a martingale, so subtracting ``sum_t phi_t (disc_{t+1} S_{t+1} - disc_t S_t)``
-    changes no mean and removes the delta-hedgeable variance."""
+    changes no mean and removes the delta-hedgeable variance. Means and stds
+    over the global paths under ``mesh``."""
     disc = torch.exp(-r * torch.as_tensor(times, dtype=s.dtype).to(s.device))
     d = disc.reshape((1, -1) + (1,) * (s.ndim - 2))
     d_mart = d[:, 1:] * s[:, 1:] - d[:, :-1] * s[:, :-1]
     plain = disc[-1] * payoff
     cv = plain - torch.sum(res.phi * d_mart, dim=tuple(range(1, s.ndim)))
-    report.v0_plain = float(torch.mean(plain))
-    report.v0_cv = float(torch.mean(cv))
-    report.cv_std = float(torch.std(cv, correction=0))
+    report.v0_plain = float(path_mean(torch.mean(plain), mesh))
+    report.v0_cv = float(path_mean(torch.mean(cv), mesh))
+    report.cv_std = path_std(cv, mesh)
     report.v0_acv, report.acv_std = martingale_ols_price(
-        s, payoff, r, times, strike_over_s0=strike_over_s0, phi=res.phi)
+        s, payoff, r, times, strike_over_s0=strike_over_s0, phi=res.phi, mesh=mesh)
 
 
 def _check_oos_args(name, trained, seed, train: TrainConfig, allow_in_sample: bool,
@@ -181,12 +203,13 @@ def _backward_cfg(t: TrainConfig) -> BackwardConfig:
 
 
 def _report(res: BackwardResult, s: torch.Tensor, payoff: torch.Tensor, r: float,
-            strike: float, s0: float, times: np.ndarray, quantile_method: str) -> HedgeReport:
+            strike: float, s0: float, times: np.ndarray, quantile_method: str,
+            mesh=None) -> HedgeReport:
     """The report of a walk or replay with the unbiased prices attached."""
     report = build_report(res, terminal_payoff=payoff / s0, r=r, times=times,
                           adjustment_factor=s0, holdings_adjustment=1.0,
-                          quantile_method=quantile_method)
-    _attach_cv_price(report, res, s, payoff, r, times, strike_over_s0=strike / s0)
+                          quantile_method=quantile_method, mesh=mesh)
+    _attach_cv_price(report, res, s, payoff, r, times, strike_over_s0=strike / s0, mesh=mesh)
     return report
 
 
@@ -228,31 +251,32 @@ def european_hedge(euro: EuropeanConfig = EuropeanConfig(),
                    sim: SimConfig = SimConfig(n_paths=4096, T=1.0, dt=1 / 364,
                                               rebalance_every=7),
                    train: TrainConfig = TrainConfig(dual_mode="mse_only"), *,
-                   quantile_method: str = "sort", warm_start=None,
+                   quantile_method: str = "sort", warm_start=None, mesh=None,
                    device=None) -> PipelineResult:
     """Weekly-rebalanced European option hedge, trained by the backward walk.
 
     Features, prices and values are in units of ``S0``; the output bias starts
     at the normalised mean payoff. ``warm_start``: optional ``(params1,
     params2)`` for ``backward_induction(initial_params=...)``. ``device=None``
-    is the card."""
-    dev = resolve_device(device)
+    is the card. ``mesh``: this rank's block of the paths (module docstring)."""
+    mesh, dev = _placement(mesh, device)
     full_f32()
     _check_quantile_method(quantile_method)
     dtype = _DTYPES[sim.dtype]
     grid = TimeGrid(sim.T, sim.n_steps)
-    s = _simulate_euro_paths(euro, sim, grid, "european_hedge", dev)
+    s = _simulate_euro_paths(euro, sim, grid, "european_hedge", dev, mesh)
     coarse = grid.reduced(sim.rebalance_every)
     b = bond_curve(coarse, euro.r, dtype, dev)
     payoff = payoffs.european(s[:, -1], euro.strike, euro.option_type)
     s0 = euro.s0
     model = HedgeMLP(n_features=1, constrain_self_financing=euro.constrain_self_financing)
-    e_payoff_n = float(torch.mean(payoff)) / s0
+    e_payoff_n = float(path_mean(torch.mean(payoff), mesh)) / s0
     bias = (e_payoff_n,) if euro.constrain_self_financing else (e_payoff_n, 0.0)
     res = backward_induction(model, (s / s0)[:, :, None], s / s0, b / s0, payoff / s0,
-                             _backward_cfg(train), bias_init=bias, initial_params=warm_start)
+                             _backward_cfg(train), bias_init=bias, initial_params=warm_start,
+                             mesh=mesh)
     times = coarse.times().numpy()
-    report = _report(res, s, payoff, euro.r, euro.strike, s0, times, quantile_method)
+    report = _report(res, s, payoff, euro.r, euro.strike, s0, times, quantile_method, mesh)
     return _result(report, res, times, s0, sim, train, model)
 
 
@@ -260,7 +284,7 @@ def european_oos(trained, euro: EuropeanConfig = EuropeanConfig(),
                  sim: SimConfig = SimConfig(n_paths=4096, T=1.0, dt=1 / 364,
                                             rebalance_every=7),
                  train: TrainConfig = TrainConfig(dual_mode="mse_only"), *,
-                 quantile_method: str = "sort", allow_in_sample: bool = False,
+                 quantile_method: str = "sort", allow_in_sample: bool = False, mesh=None,
                  device=None) -> PipelineResult:
     """Out-of-sample evaluation of a trained European hedge on FRESH paths.
 
@@ -268,9 +292,9 @@ def european_oos(trained, euro: EuropeanConfig = EuropeanConfig(),
     ``serve.bundle.policy_from_numpy``) or any result carrying ``backward``,
     ``model`` and the combine-semantics fields. ``sim.seed_fund`` must differ
     from the training seed unless ``allow_in_sample``. ``device=None`` is the
-    card; the tests pass ``device="cpu"``.
+    card; the tests pass ``device="cpu"``. ``mesh``: as :func:`european_hedge`.
     """
-    dev = resolve_device(device)
+    mesh, dev = _placement(mesh, device)
     full_f32()
     _check_quantile_method(quantile_method)
     _check_oos_args("european_oos", trained, sim.seed_fund, train, allow_in_sample)
@@ -278,7 +302,7 @@ def european_oos(trained, euro: EuropeanConfig = EuropeanConfig(),
     model = _check_policy_compat("european_oos", trained, model, sim.n_rebalance)
     dtype = _DTYPES[sim.dtype]
     grid = TimeGrid(sim.T, sim.n_steps)
-    s = _simulate_euro_paths(euro, sim, grid, "european_oos", dev)
+    s = _simulate_euro_paths(euro, sim, grid, "european_oos", dev, mesh)
     coarse = grid.reduced(sim.rebalance_every)
     b = bond_curve(coarse, euro.r, dtype, dev)
     payoff = payoffs.european(s[:, -1], euro.strike, euro.option_type)
@@ -287,7 +311,7 @@ def european_oos(trained, euro: EuropeanConfig = EuropeanConfig(),
                       (s / s0)[:, :, None], s / s0, b / s0, payoff / s0,
                       _backward_cfg(train))
     times = coarse.times().numpy()
-    report = _report(res, s, payoff, euro.r, euro.strike, s0, times, quantile_method)
+    report = _report(res, s, payoff, euro.r, euro.strike, s0, times, quantile_method, mesh)
     return _result(report, res, times, s0, sim, train, model)
 
 
@@ -295,31 +319,31 @@ def heston_hedge(heston: HestonConfig | None = None,
                  sim: SimConfig = SimConfig(n_paths=1 << 16, T=1.0, dt=1 / 364,
                                             rebalance_every=7),
                  train: TrainConfig = TrainConfig(dual_mode="mse_only"), *,
-                 quantile_method: str = "sort", warm_start=None,
+                 quantile_method: str = "sort", warm_start=None, mesh=None,
                  device=None) -> PipelineResult:
     """European hedge under risk-neutral Heston stochastic vol. The network sees
     ``(S_t/S0, v_t)``; the report carries the unbiased CV and OLS-martingale
-    prices (discounted S is still a Q-martingale). Training as in
-    :func:`european_hedge`. ``device=None`` is the card."""
-    dev = resolve_device(device)
+    prices (discounted S is still a Q-martingale). Training and ``mesh`` as
+    in :func:`european_hedge`. ``device=None`` is the card."""
+    mesh, dev = _placement(mesh, device)
     full_f32()
     _check_quantile_method(quantile_method)
     h = heston or HestonConfig()
     dtype = _DTYPES[sim.dtype]
     grid = TimeGrid(sim.T, sim.n_steps)
-    traj = _simulate_heston_paths(h, sim, grid, "heston_hedge", dev)
+    traj = _simulate_heston_paths(h, sim, grid, "heston_hedge", dev, mesh)
     s, v = traj["S"], traj["v"]
     coarse = grid.reduced(sim.rebalance_every)
     b = bond_curve(coarse, h.r, dtype, dev)
     payoff = payoffs.european(s[:, -1], h.strike, h.option_type)
     s0 = h.s0
     model = HedgeMLP(n_features=2)
-    e_payoff_n = float(torch.mean(payoff)) / s0
+    e_payoff_n = float(path_mean(torch.mean(payoff), mesh)) / s0
     res = backward_induction(model, torch.stack([s / s0, v], dim=-1), s / s0, b / s0,
                              payoff / s0, _backward_cfg(train), bias_init=(e_payoff_n, 0.0),
-                             initial_params=warm_start)
+                             initial_params=warm_start, mesh=mesh)
     times = coarse.times().numpy()
-    report = _report(res, s, payoff, h.r, h.strike, s0, times, quantile_method)
+    report = _report(res, s, payoff, h.r, h.strike, s0, times, quantile_method, mesh)
     return _result(report, res, times, s0, sim, train, model)
 
 
@@ -327,11 +351,11 @@ def heston_oos(trained, heston: HestonConfig | None = None,
                sim: SimConfig = SimConfig(n_paths=1 << 16, T=1.0, dt=1 / 364,
                                           rebalance_every=7),
                train: TrainConfig = TrainConfig(dual_mode="mse_only"), *,
-               quantile_method: str = "sort", allow_in_sample: bool = False,
+               quantile_method: str = "sort", allow_in_sample: bool = False, mesh=None,
                device=None) -> PipelineResult:
     """Out-of-sample evaluation of a trained Heston hedge on fresh scrambles
     (the contract of :func:`european_oos`). ``device=None`` is the card."""
-    dev = resolve_device(device)
+    mesh, dev = _placement(mesh, device)
     full_f32()
     _check_quantile_method(quantile_method)
     _check_oos_args("heston_oos", trained, sim.seed_fund, train, allow_in_sample)
@@ -340,7 +364,7 @@ def heston_oos(trained, heston: HestonConfig | None = None,
                                  sim.n_rebalance)
     dtype = _DTYPES[sim.dtype]
     grid = TimeGrid(sim.T, sim.n_steps)
-    traj = _simulate_heston_paths(h, sim, grid, "heston_oos", dev)
+    traj = _simulate_heston_paths(h, sim, grid, "heston_oos", dev, mesh)
     s, v = traj["S"], traj["v"]
     coarse = grid.reduced(sim.rebalance_every)
     b = bond_curve(coarse, h.r, dtype, dev)
@@ -350,7 +374,7 @@ def heston_oos(trained, heston: HestonConfig | None = None,
                       torch.stack([s / s0, v], dim=-1), s / s0, b / s0, payoff / s0,
                       _backward_cfg(train))
     times = coarse.times().numpy()
-    report = _report(res, s, payoff, h.r, h.strike, s0, times, quantile_method)
+    report = _report(res, s, payoff, h.r, h.strike, s0, times, quantile_method, mesh)
     return _result(report, res, times, s0, sim, train, model)
 
 
@@ -378,12 +402,12 @@ class BasketInputs:
 
 
 def basket_inputs(basket: BasketConfig, sim: SimConfig, instruments: str, name: str,
-                  device: torch.device) -> BasketInputs:
+                  device: torch.device, mesh=None) -> BasketInputs:
     """Simulate the basket and build the walk's inputs. The scan engine only,
     as in the JAX package; ``instruments="assets"`` with one asset is the
     basket hedge. The normalisations divide by device tensors: on a card a
     division by a Python scalar becomes a multiplication by its rounded
-    reciprocal."""
+    reciprocal. ``mesh``: this rank's block of the paths."""
     if sim.engine == "pallas":
         raise ValueError(f"{name}: engine='pallas' not available; use 'scan'")
     if instruments not in ("basket", "assets"):
@@ -391,7 +415,7 @@ def basket_inputs(basket: BasketConfig, sim: SimConfig, instruments: str, name: 
     dtype = _DTYPES[sim.dtype]
     grid = TimeGrid(sim.T, sim.n_steps)
     n_assets = len(basket.s0)
-    idx = torch.arange(sim.n_paths, dtype=torch.int64, device=device)
+    idx = path_indices(sim.n_paths, mesh, device)
     s = simulate_gbm_basket(idx, grid, s0=basket.s0, drift=[basket.r] * n_assets,
                             sigma=basket.sigmas, corr=basket.corr(), seed=sim.seed_fund,
                             scramble=sim.scramble, store_every=sim.rebalance_every, dtype=dtype)
@@ -402,7 +426,7 @@ def basket_inputs(basket: BasketConfig, sim: SimConfig, instruments: str, name: 
     norm = float(basket.strike)
     norm_t = torch.tensor(norm, dtype=dtype, device=device)
     vector = instruments == "assets" and n_assets > 1
-    e_payoff_n = float(torch.mean(payoff)) / norm
+    e_payoff_n = float(path_mean(torch.mean(payoff), mesh)) / norm
     if vector:
         # the normalised prices are ~s0_i/norm at t=0: the expected payoff
         # spread evenly over the A risky legs
@@ -421,7 +445,7 @@ def basket_inputs(basket: BasketConfig, sim: SimConfig, instruments: str, name: 
 
 def _basket_result(basket: BasketConfig, sim: SimConfig, train: TrainConfig,
                    inp: BasketInputs, res: BackwardResult,
-                   quantile_method: str) -> PipelineResult:
+                   quantile_method: str, mesh=None) -> PipelineResult:
     """The report of a basket walk or replay: under the vector hedge the
     report's scalar phi is the value-equivalent basket holding ``sum_i phi_i
     S_i / B_t`` and the prices' controls are the per-asset martingales; the
@@ -435,11 +459,11 @@ def _basket_result(basket: BasketConfig, sim: SimConfig, train: TrainConfig,
         view = dataclasses.replace(res, phi=phi_eq)
     report = build_report(view, terminal_payoff=inp.terminal, r=basket.r,
                           times=inp.times, adjustment_factor=inp.norm, holdings_adjustment=1.0,
-                          quantile_method=quantile_method)
+                          quantile_method=quantile_method, mesh=mesh)
     b0 = float(torch.tensor(basket.s0, dtype=inp.s.dtype)
                @ torch.tensor(basket.weights, dtype=inp.s.dtype))
     _attach_cv_price(report, res, inp.s if inp.vector else inp.bkt, inp.payoff, basket.r,
-                     inp.times, strike_over_s0=basket.strike / b0)
+                     inp.times, strike_over_s0=basket.strike / b0, mesh=mesh)
     report.oracle_mm = basket_call_mm(basket.s0, basket.weights, basket.strike, basket.r,
                                       basket.sigmas, basket.corr(), sim.T)[0]
     return PipelineResult(report=report, backward=res, times=inp.times,
@@ -452,7 +476,7 @@ def basket_hedge(basket: BasketConfig = BasketConfig(),
                  sim: SimConfig = SimConfig(n_paths=1 << 17, T=1.0, dt=1 / 52,
                                             rebalance_every=1),
                  train: TrainConfig = TrainConfig(dual_mode="mse_only"), *,
-                 quantile_method: str = "sort", instruments: str = "basket",
+                 quantile_method: str = "sort", instruments: str = "basket", mesh=None,
                  device=None) -> PipelineResult:
     """A-asset basket-call hedge (BASELINE.json config 5), trained by the
     backward walk. The network sees the A moneyness features ``S_i/S0_i``.
@@ -466,14 +490,14 @@ def basket_hedge(basket: BasketConfig = BasketConfig(),
 
     Prices, values and payoff are in units of the strike. Scan engine only
     (``engine="pallas"`` is refused, as in the JAX package). ``device=None`` is
-    the card."""
-    dev = resolve_device(device)
+    the card; ``mesh`` as in :func:`european_hedge`."""
+    mesh, dev = _placement(mesh, device)
     full_f32()
     _check_quantile_method(quantile_method)
-    inp = basket_inputs(basket, sim, instruments, "basket_hedge", dev)
+    inp = basket_inputs(basket, sim, instruments, "basket_hedge", dev, mesh)
     res = backward_induction(inp.model, inp.features, inp.hedge_prices, inp.b, inp.terminal,
-                             _backward_cfg(train), bias_init=inp.bias_init)
-    return _basket_result(basket, sim, train, inp, res, quantile_method)
+                             _backward_cfg(train), bias_init=inp.bias_init, mesh=mesh)
+    return _basket_result(basket, sim, train, inp, res, quantile_method, mesh)
 
 
 def basket_oos(trained, basket: BasketConfig = BasketConfig(),
@@ -481,22 +505,22 @@ def basket_oos(trained, basket: BasketConfig = BasketConfig(),
                                           rebalance_every=1),
                train: TrainConfig = TrainConfig(dual_mode="mse_only"), *,
                quantile_method: str = "sort", instruments: str = "basket",
-               allow_in_sample: bool = False, device=None) -> PipelineResult:
+               allow_in_sample: bool = False, mesh=None, device=None) -> PipelineResult:
     """Out-of-sample evaluation of a trained basket hedge on fresh scrambles
     (the contract of :func:`european_oos`); ``instruments`` must be the
     training run's, whose head shape the stored per-date params carry.
     ``device=None`` is the card."""
-    dev = resolve_device(device)
+    mesh, dev = _placement(mesh, device)
     full_f32()
     _check_quantile_method(quantile_method)
     _check_oos_args("basket_oos", trained, sim.seed_fund, train, allow_in_sample)
-    inp = basket_inputs(basket, sim, instruments, "basket_oos", dev)
+    inp = basket_inputs(basket, sim, instruments, "basket_oos", dev, mesh)
     # the head depends on the instruments mode, so the guard runs after the sim
     model = _check_policy_compat("basket_oos", trained, inp.model, sim.n_rebalance)
     res = replay_walk(model, _backward_on(trained.backward, dev, model.dtype), inp.features,
                       inp.hedge_prices, inp.b, inp.terminal, _backward_cfg(train))
     return _basket_result(basket, sim, train, dataclasses.replace(inp, model=model), res,
-                          quantile_method)
+                          quantile_method, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -505,7 +529,7 @@ def basket_oos(trained, basket: BasketConfig = BasketConfig(),
 
 
 def _simulate_pension_paths(cfg: HedgeRunConfig, grid: TimeGrid, name: str,
-                            device: torch.device) -> dict[str, torch.Tensor]:
+                            device: torch.device, mesh=None) -> dict[str, torch.Tensor]:
     """The pension path sim, ``{"Y", "lam", "N"}`` (+ ``"v"``) of
     ``(n_paths, n_knots)``; every factor draws from ``sim.seed``'s stream."""
     m, a, s, sv = cfg.market, cfg.actuarial, cfg.sim, cfg.sv
@@ -516,9 +540,9 @@ def _simulate_pension_paths(cfg: HedgeRunConfig, grid: TimeGrid, name: str,
               cir_drift_times_dt=sv.drift_times_dt if sv else False,
               binomial_mode=s.binomial_mode)
     if s.engine == "pallas":
-        _check_pallas(s, name)
+        _check_pallas(s, mesh, name)
         return pension_fused(s.n_paths, s.n_steps, dt=grid.dt, device=device, **kw)
-    idx = torch.arange(s.n_paths, dtype=torch.int64, device=device)
+    idx = path_indices(s.n_paths, mesh, device)
     return simulate_pension(idx, grid, scramble=s.scramble, dtype=_DTYPES[s.dtype], **kw)
 
 
@@ -536,7 +560,7 @@ class PensionInputs:
 
 
 def pension_inputs(cfg: HedgeRunConfig, name: str, device: torch.device,
-                   paths: dict | None = None) -> PensionInputs:
+                   paths: dict | None = None, mesh=None) -> PensionInputs:
     """Simulate the pension paths (or take ``paths``, ``{"Y", "lam", "N"}`` on
     ``device`` in ``cfg.sim.dtype``) and build the walk's inputs (RP.py:182-184).
 
@@ -545,12 +569,13 @@ def pension_inputs(cfg: HedgeRunConfig, name: str, device: torch.device,
     m, a, s = cfg.market, cfg.actuarial, cfg.sim
     dtype = _DTYPES[s.dtype]
     grid = TimeGrid(s.T, s.n_steps)
-    traj = paths if paths is not None else _simulate_pension_paths(cfg, grid, name, device)
+    traj = paths if paths is not None else _simulate_pension_paths(cfg, grid, name, device,
+                                                                   mesh)
     y, lam, pop = traj["Y"], traj["lam"], traj["N"]
     coarse = grid.reduced(s.rebalance_every)
     pop_n = pop / torch.tensor(float(a.n0), dtype=pop.dtype, device=pop.device)
     terminal = payoffs.pension_floor(y[:, -1], a.guarantee) * pop_n[:, -1]
-    otm = float(payoffs.out_of_money_prob(y[:, -1], m.y0))
+    otm = float(path_mean(payoffs.out_of_money_prob(y[:, -1], m.y0), mesh))
     return PensionInputs(features=torch.stack([y, pop_n, lam], dim=-1), y=y,
                          b=bond_curve(coarse, m.r, dtype, device), terminal=terminal,
                          bias_init=(1.0 - otm, otm), adjustment=a.n0 * a.premium,
@@ -558,9 +583,10 @@ def pension_inputs(cfg: HedgeRunConfig, name: str, device: torch.device,
 
 
 def _pension_result(cfg: HedgeRunConfig, inp: PensionInputs, res: BackwardResult, model,
-                    quantile_method: str) -> PipelineResult:
+                    quantile_method: str, mesh=None) -> PipelineResult:
     report = build_report(res, terminal_payoff=inp.terminal, r=cfg.market.r, times=inp.times,
-                          adjustment_factor=inp.adjustment, quantile_method=quantile_method)
+                          adjustment_factor=inp.adjustment, quantile_method=quantile_method,
+                          mesh=mesh)
     t = cfg.train
     return PipelineResult(report=report, backward=res, times=inp.times,
                           adjustment_factor=inp.adjustment, sim_seed=cfg.sim.seed,
@@ -569,7 +595,7 @@ def _pension_result(cfg: HedgeRunConfig, inp: PensionInputs, res: BackwardResult
 
 
 def pension_hedge(cfg: HedgeRunConfig = HedgeRunConfig(), *, quantile_method: str = "sort",
-                  device=None) -> PipelineResult:
+                  mesh=None, device=None) -> PipelineResult:
     """Dynamic pension-liability hedge (RP.py:29-235; the SV variant, :237-459,
     when ``cfg.sv`` is set), trained by the backward walk.
 
@@ -579,20 +605,22 @@ def pension_hedge(cfg: HedgeRunConfig = HedgeRunConfig(), *, quantile_method: st
     scaled by ``N0 * premium``. ``engine="pallas"`` with
     ``binomial_mode="exact"`` is refused before the kernel runs (its thinning
     is ``normal`` or ``inversion``, as the JAX package's Pallas engine's).
-    ``device=None`` is the card."""
-    dev = resolve_device(device)
+    ``device=None`` is the card; ``mesh`` as in :func:`european_hedge` (exact
+    thinning draws each path's deaths by its global index, so a sharded run's
+    paths are the single-device run's)."""
+    mesh, dev = _placement(mesh, device)
     full_f32()
     _check_quantile_method(quantile_method)
     bcfg = _backward_cfg(cfg.train)
-    inp = pension_inputs(cfg, "pension_hedge", dev)
+    inp = pension_inputs(cfg, "pension_hedge", dev, mesh=mesh)
     model = HedgeMLP(n_features=3)
     res = backward_induction(model, inp.features, inp.y, inp.b, inp.terminal, bcfg,
-                             bias_init=inp.bias_init)
-    return _pension_result(cfg, inp, res, model, quantile_method)
+                             bias_init=inp.bias_init, mesh=mesh)
+    return _pension_result(cfg, inp, res, model, quantile_method, mesh)
 
 
 def pension_oos(trained, cfg: HedgeRunConfig = HedgeRunConfig(), *,
-                quantile_method: str = "sort", allow_in_sample: bool = False,
+                quantile_method: str = "sort", allow_in_sample: bool = False, mesh=None,
                 device=None) -> PipelineResult:
     """Out-of-sample evaluation of a trained pension hedge on fresh paths.
 
@@ -601,20 +629,20 @@ def pension_oos(trained, cfg: HedgeRunConfig = HedgeRunConfig(), *,
     must match the training run. In ``shared`` mode the replayed values carry
     the post-quantile snapshot caveat of ``train/replay.py`` (it warns).
     ``device=None`` is the card."""
-    dev = resolve_device(device)
+    mesh, dev = _placement(mesh, device)
     full_f32()
     _check_quantile_method(quantile_method)
     _check_oos_args("pension_oos", trained, cfg.sim.seed, cfg.train, allow_in_sample,
                     seed_field="seed")
     model = _check_policy_compat("pension_oos", trained, HedgeMLP(n_features=3),
                                  cfg.sim.n_rebalance)
-    inp = pension_inputs(cfg, "pension_oos", dev)
+    inp = pension_inputs(cfg, "pension_oos", dev, mesh=mesh)
     res = replay_walk(model, _backward_on(trained.backward, dev, model.dtype), inp.features,
                       inp.y, inp.b, inp.terminal, _backward_cfg(cfg.train))
-    return _pension_result(cfg, inp, res, model, quantile_method)
+    return _pension_result(cfg, inp, res, model, quantile_method, mesh)
 
 
-def sigma_sweep(sigmas, base: HedgeRunConfig = HedgeRunConfig(), *,
+def sigma_sweep(sigmas, base: HedgeRunConfig = HedgeRunConfig(), *, mesh=None,
                 device=None) -> list[dict[str, float]]:
     """Volatility sweep (``Multi Time Step.ipynb#29-30``): the pension hedge per
     sigma, tabulating ``(sigma, phi0, psi0, phi0 + psi0)``."""
@@ -624,7 +652,7 @@ def sigma_sweep(sigmas, base: HedgeRunConfig = HedgeRunConfig(), *,
     rows = []
     for sg in sigmas:
         cfg = dataclasses.replace(base, market=dataclasses.replace(base.market, sigma=sg))
-        res = pension_hedge(cfg, device=device)
+        res = pension_hedge(cfg, mesh=mesh, device=device)
         rows.append({"sigma": sg, "phi": res.phi0, "psi": res.psi0,
                      "total": res.phi0 + res.psi0})
     return rows

@@ -23,6 +23,8 @@ import warnings
 
 import torch
 
+from orp_tpu_torch.parallel.mesh import path_sum
+
 #: degradation order: reference-semantics Adam, then full-batch LM-GN, then
 #: the closed-form readout solve (nothing iterative left to diverge)
 TRAINER_LADDER = ("adam", "gauss_newton", "final_solve")
@@ -53,16 +55,19 @@ def all_finite(*trees) -> bool:
     return bool(finite_flag(*trees))
 
 
-def sanitize_target(target: torch.Tensor):
+def sanitize_target(target: torch.Tensor, mesh=None):
     """Replace non-finite target rows by the finite mean (0 when nothing is
     finite). Returns ``(sanitized, n_bad)``; ``n_bad == 0`` hands back the
-    input untouched."""
+    input untouched. Under a paths ``mesh`` the mean is over the finite rows
+    of every rank, and ``n_bad`` counts this rank's rows."""
     finite = torch.isfinite(target)
+    kept = torch.where(finite, target, torch.zeros_like(target))
+    # the sums first, so that every rank enters their all_reduce
+    total, n_ok = path_sum(torch.stack([kept.sum(), finite.sum().to(target.dtype)]), mesh)
     n_bad = int((~finite).sum())
     if n_bad == 0:
         return target, 0
-    n_ok = finite.sum()
-    mean = torch.where(finite, target, torch.zeros_like(target)).sum() / n_ok.clamp(min=1)
+    mean = total / n_ok.clamp(min=1)
     fill = torch.where(n_ok > 0, mean, torch.zeros_like(mean))
     return torch.where(finite, target, fill.to(target.dtype)), n_bad
 

@@ -22,6 +22,7 @@ import math
 
 import torch
 
+from orp_tpu_torch.parallel.mesh import path_means
 from orp_tpu_torch.utils.precision import full_f32, typed_scalar
 
 Params = dict
@@ -174,12 +175,14 @@ class HedgeMLP:
         return value, J
 
     def solve_readout(self, params: Params, features: torch.Tensor, prices: torch.Tensor,
-                      targets: torch.Tensor, ridge: float = 1e-3) -> Params:
+                      targets: torch.Tensor, ridge: float = 1e-3, mesh=None) -> Params:
         """Closed-form least squares for the final layer, hidden layers fixed,
         shrunk toward the incoming readout: minimises ``|X theta - y|^2/n + lam
         |theta - theta0|^2`` with ``lam = ridge * tr(G)/dim``, so the training
         MSE never rises. Runs under full f32 (normal equations square the
-        condition number; TF32 is the hazard here)."""
+        condition number; TF32 is the hazard here). Under a paths ``mesh`` the
+        rows are this rank's block and the normal equations are the ranks'
+        means, summed across the mesh."""
         full_f32()
         dt = self.dtype
         h = self.last_hidden(params, features)                   # (n, H)
@@ -197,6 +200,7 @@ class HedgeMLP:
             out_cols = p.shape[-1]
         g = X.T @ X / n
         c = X.T @ y / n
+        g, c = path_means(mesh, g, c)
         dim = g.shape[0]
         last = len(self.hidden)
         theta0 = torch.cat([params[f"w{last}"], params[f"b{last}"][None, :]],

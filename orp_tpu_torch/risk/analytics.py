@@ -2,7 +2,11 @@
 ``orp_tpu/risk/analytics.py``).
 
 Reductions run on the ledgers' device; the report holds host numpy arrays and
-Python floats, exactly the JAX package's ``HedgeReport``. ``to_frames`` is the
+Python floats, exactly the JAX package's ``HedgeReport``. Under a paths mesh
+(``build_report(..., mesh=)``) the ledgers are each rank's block of the paths:
+means are path sums across the ranks, and the quantiles (VaR, fan chart) and
+the residual stats gather the global ledger and apply the single-device rule,
+so every rank holds the same report. ``to_frames`` is the
 optional pandas edge; pandas is imported inside it only.
 """
 
@@ -13,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from orp_tpu_torch.parallel.mesh import path_gather, path_mean
 from orp_tpu_torch.parallel.quantiles import quantile, sort_quantile
 
 DEFAULT_VAR_QS = (0.98, 0.99, 0.995)
@@ -68,10 +73,11 @@ def residual_pnl_stats(residual: torch.Tensor) -> dict[str, float]:
 
 
 def holdings_summary(phi: torch.Tensor, psi: torch.Tensor,
-                     adjustment_factor: float = 1.0) -> dict:
-    """Per-date mean holdings x ``adjustment_factor`` and the t=0 answer."""
-    phi_mean = _np(torch.mean(phi, dim=0)) * adjustment_factor
-    psi_mean = _np(torch.mean(psi, dim=0)) * adjustment_factor
+                     adjustment_factor: float = 1.0, mesh=None) -> dict:
+    """Per-date mean holdings x ``adjustment_factor`` and the t=0 answer
+    (over the global paths under ``mesh``)."""
+    phi_mean = _np(path_mean(torch.mean(phi, dim=0), mesh)) * adjustment_factor
+    psi_mean = _np(path_mean(torch.mean(psi, dim=0), mesh)) * adjustment_factor
     return {"phi_by_date": phi_mean, "psi_by_date": psi_mean,
             "phi0": float(phi_mean[0]), "psi0": float(psi_mean[0])}
 
@@ -119,27 +125,30 @@ class HedgeReport:
 def build_report(result, *, terminal_payoff: torch.Tensor, r: float, times,
                  adjustment_factor: float = 1.0, holdings_adjustment: float | None = None,
                  var_qs=DEFAULT_VAR_QS, fan_qs=DEFAULT_FAN_QS,
-                 quantile_method: str = "sort") -> HedgeReport:
+                 quantile_method: str = "sort", mesh=None) -> HedgeReport:
     """Assemble a :class:`HedgeReport` from a replayed ``BackwardResult``.
 
     ``adjustment_factor`` scales values; ``holdings_adjustment`` scales phi/psi
-    (defaults to the same factor; the European pipeline passes 1.0)."""
+    (defaults to the same factor; the European pipeline passes 1.0). ``mesh``:
+    the ledgers are this rank's block of the paths (module docstring)."""
     if holdings_adjustment is None:
         holdings_adjustment = adjustment_factor
-    holdings = holdings_summary(result.phi, result.psi, holdings_adjustment)
+    holdings = holdings_summary(result.phi, result.psi, holdings_adjustment, mesh)
     T = float(np.asarray(times)[-1])
     adj = adjustment_factor
-    disc = float(torch.mean(terminal_payoff)) * float(np.exp(-r * T)) * adj
-    fan = fan_chart(result.values, fan_qs, method=quantile_method)
+    disc = float(path_mean(torch.mean(terminal_payoff), mesh)) * float(np.exp(-r * T)) * adj
+    values = path_gather(result.values, mesh)
+    var_res = path_gather(result.var_residuals, mesh)
+    fan = fan_chart(values, fan_qs, method=quantile_method)
     fan = FanChart(qs=fan.qs, bands=fan.bands * adj, mean=fan.mean * adj)
-    resid = residual_pnl_stats(result.var_residuals[:, -1])
+    resid = residual_pnl_stats(var_res[:, -1])
     return HedgeReport(
-        v0=float(torch.mean(result.v0)) * adj,
+        v0=float(path_mean(torch.mean(result.v0), mesh)) * adj,
         phi0=holdings["phi0"],
         psi0=holdings["psi0"],
         discounted_payoff=disc,
-        var_by_date=var_by_date(result.var_residuals, var_qs, method=quantile_method) * adj,
-        var_overall=var_overall(result.var_residuals, var_qs, method=quantile_method) * adj,
+        var_by_date=var_by_date(var_res, var_qs, method=quantile_method) * adj,
+        var_overall=var_overall(var_res, var_qs, method=quantile_method) * adj,
         var_qs=tuple(var_qs),
         residual_stats={k: v * adj for k, v in resid.items()},
         fan=fan,

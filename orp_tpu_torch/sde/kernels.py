@@ -11,7 +11,6 @@ raw uniform that QE's variance draw and the pension's inversion sampler read.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Any, Callable
 
@@ -20,6 +19,7 @@ import torch
 
 from orp_tpu_torch.qmc.sobol import N_DIMS, sobol_uniform
 from orp_tpu_torch.sde.grid import TimeGrid
+from orp_tpu_torch.utils import threefry
 from orp_tpu_torch.utils.device import as_indices
 from orp_tpu_torch.utils.precision import full_f32
 
@@ -390,22 +390,32 @@ def pension_out(traj: torch.Tensor, *, y0: float, sv: bool) -> dict[str, torch.T
     return {"Y": traj[..., 0], "lam": traj[..., 1], "N": traj[..., 2]}
 
 
-def thin_exact(pop: torch.Tensor, lam: torch.Tensor, p: torch.Tensor, z: torch.Tensor,
-               dt: float, *, generator: torch.Generator | None = None) -> torch.Tensor:
-    """Exact binomial thinning: ``Binomial(N_{t-1}, p)`` survivors drawn by
-    ``torch.binomial`` from ``generator`` (on ``pop``'s device), exact in law
-    at any mean (the single-step grid thins ~10^4 lives in one step). The
-    step's normal ``z`` is not read, as in the JAX package."""
-    return torch.binomial(pop, p, generator=generator)
+def thin_exact(pop: torch.Tensor, p: torch.Tensor, key: tuple[int, int],
+               indices: torch.Tensor) -> torch.Tensor:
+    """Exact binomial thinning: ``Binomial(N_{t-1}, p)`` survivors, path ``i``'s
+    draw under the threefry key ``fold_in(key, indices[i])``, ``key`` being
+    the step's ``fold_in(key(seed), t)`` (``utils/threefry.py``). A path's
+    survivors are a function of ``(seed, t, global path index)`` alone, as in
+    the JAX package: a prefix of the paths, or a shard of them, draws what
+    those paths draw in the whole run. The sampler runs in float64, exact in
+    law at any mean (the single-step grid thins ~10^4 lives in one step)."""
+    k0, k1 = threefry.fold_in(key, indices)
+    return threefry.binomial(k0, k1, pop, p).to(pop.dtype)
 
 
-def exact_seed(seed: int, t: int) -> int:
-    """The seed of step ``t``'s exact draws: a function of ``(seed, t)`` alone.
+class _ExactThinning:
+    """The scan path's ``thin`` for ``exact``: :func:`thin_exact` under step
+    ``t``'s key, set by :meth:`at` before each step (the step's normal is not
+    read, as in the JAX package)."""
 
-    The JAX package folds ``(t, path index)`` into a threefry key, so its draw
-    for a path does not depend on the run's size; these draws depend on the
-    step alone and are equal to the JAX package's in law, not path by path."""
-    return int(np.random.SeedSequence([seed, t]).generate_state(1, np.uint64)[0])
+    def __init__(self, seed: int, indices: torch.Tensor):
+        self.key0, self.indices, self.key = threefry.seed_key(seed), indices, None
+
+    def at(self, t: int) -> None:
+        self.key = threefry.fold_in(self.key0, t)
+
+    def __call__(self, pop, lam, p, z, dt):
+        return thin_exact(pop, p, self.key, self.indices)
 
 
 def check_binomial_mode(binomial_mode: str, name: str, *, exact: bool = True) -> None:
@@ -431,26 +441,25 @@ def simulate_pension(indices, grid: TimeGrid, *, y0: float, mu: float,
     """Coupled pension system, fund Y, mortality intensity lambda, survivors N,
     on the Sobol stream (4 factors per step; :func:`pension_step`).
 
-    ``binomial_mode``: ``"exact"`` (the JAX default: :func:`thin_exact`, a
-    generator on the paths' device seeded with :func:`exact_seed` at each
-    step), ``"inversion"`` (exact-in-law CDF inversion of the death count
-    from ``ndtr`` of the step's normal) or ``"normal"`` (moment-matched;
-    biased about -0.9% in survivors at fine grids). Returns ``(n_paths,
+    ``binomial_mode``: ``"exact"`` (the JAX default: :func:`thin_exact`, each
+    path's draw addressed by ``(seed, t, indices[i])``), ``"inversion"``
+    (exact-in-law CDF inversion of the death count from ``ndtr`` of the step's
+    normal) or ``"normal"`` (moment-matched; biased about -0.9% in survivors
+    at fine grids). Returns ``(n_paths,
     n_knots)`` tensors ``Y``, ``lam``, ``N`` (+ ``v`` when ``sv``)."""
     check_binomial_mode(binomial_mode, "simulate_pension")
     indices = torch.as_tensor(indices).to(torch.int64)
     dev = indices.device
     sdt = (torch.tensor(grid.dt, dtype=dtype) ** 0.5).to(dev)
-    gen = torch.Generator(device=dev) if binomial_mode == "exact" else None
-    thin = {"exact": functools.partial(thin_exact, generator=gen),
-            "inversion": thin_inversion, "normal": thin_normal}[binomial_mode]
+    exact = _ExactThinning(seed, indices) if binomial_mode == "exact" else None
+    thin = exact or {"inversion": thin_inversion, "normal": thin_normal}[binomial_mode]
     pstep = pension_step(mu=mu, sigma=sigma, mort_c=mort_c, eta=eta, sdt=sdt, thin=thin,
                          sv=sv, cir_a=cir_a, cir_b=cir_b, cir_c=cir_c,
                          cir_drift_times_dt=cir_drift_times_dt)
 
     def step(state, z, t, dt):
-        if gen is not None:
-            gen.manual_seed(exact_seed(seed, t))
+        if exact is not None:
+            exact.at(t)
         return pstep(state, z, t, dt)
 
     state0 = pension_state0(indices.shape[0], y0=y0, l0=l0, n0=n0, sv=sv, v0=v0, dtype=dtype,

@@ -14,8 +14,22 @@ runs the whole block through the mixed-date kernel (``serve/megakernel.py``).
 ``serve/precision.py``: ``f32`` (the default, the historical bits), ``bf16``
 (host f32 rows become bf16 on the device; the bf16 forward, and on the card
 the bf16 kernel) or ``int8`` (int8 weights dequantized to f32 before the f32
-forward). Outputs are f32 in every tier. One device; AOT executables, mesh
-serving, the guard's circuit breaker and the telemetry spans are not ported yet.
+forward). Outputs are f32 in every tier.
+
+``HedgeEngine(policy, mesh=)`` serves over a paths mesh (``parallel/mesh.py``),
+as the JAX package's batch-sharded engine: the bucket is rounded up to a
+multiple of the mesh size (``pad_to_mesh``), each rank runs the per-date
+forward on its contiguous shard of the padded rows, and the shards are
+gathered, so every rank returns the whole ``(phi, psi, value)``. A mesh engine
+keeps the per-date path (``evaluate_mixed_async`` refuses, as in the JAX
+package). The per-date forward runs in row tiles of :data:`ROW_TILE` rows
+(the last one padded), so every product it makes has the same shape whatever
+the request or the shard: cuBLAS picks its kernel by shape, and a 262,144-row
+shard of a 1,048,576-row bucket otherwise rounds differently from the whole
+on an H100 (``tools/torch_mesh_probe.py``), which would part the sharded
+engine from the whole one.
+AOT executables, the guard's circuit breaker and the telemetry spans are not
+ported yet.
 Buckets bound the set of shapes a request can take, which keeps the kernel's
 launch shapes and the caching allocator's block sizes to a small fixed set.
 """
@@ -25,6 +39,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from orp_tpu_torch.parallel.mesh import (as_mesh, mesh_device, mesh_size, pad_to_mesh,
+                                         path_gather, shard_rows)
 from orp_tpu_torch.serve.megakernel import (
     _eval_core_mixed,
     check_head_shape,
@@ -63,6 +79,25 @@ def _eval_core(model, p1_all, p2_all, date_idx: int, feats, prices, cost_of_capi
                          holdings_combine=holdings_combine)
 
 
+#: rows of one per-date forward: a request or shard is evaluated in tiles of
+#: this many rows, the last one padded, so each product has this shape
+ROW_TILE = 1 << 16
+
+
+def _eval_tiled(model, p1_all, p2_all, date_idx: int, feats, prices, cost_of_capital, **kw):
+    """:func:`_eval_core` over row tiles of :data:`ROW_TILE` (the last padded
+    with zero rows), the outputs cut back to the given rows."""
+    n = feats.shape[0]
+    pad = -n % ROW_TILE
+    if pad:
+        feats = torch.nn.functional.pad(feats, (0, 0, 0, pad))
+        prices = torch.nn.functional.pad(prices, (0, 0, 0, pad))
+    tiles = [_eval_core(model, p1_all, p2_all, date_idx, feats[s:s + ROW_TILE],
+                        prices[s:s + ROW_TILE], cost_of_capital, **kw)
+             for s in range(0, n + pad, ROW_TILE)]
+    return tuple(torch.cat(cols)[:n] for cols in zip(*tiles))
+
+
 def next_bucket(n: int, *, min_bucket: int = 8) -> int:
     """Smallest power of two >= n, floored at ``min_bucket``."""
     if n < 1:
@@ -99,17 +134,19 @@ class HedgeEngine:
 
     ``hits``/``misses`` count bucket reuse: a miss is the first request that
     lands in a bucket. ``precision`` is the serving tier (``"f32"``, ``"bf16"``,
-    ``"int8"`` or a ``PrecisionPolicy``)."""
+    ``"int8"`` or a ``PrecisionPolicy``). ``mesh``: serve over a paths mesh
+    (module docstring); every rank of the mesh makes the same calls."""
 
     def __init__(self, policy, *, min_bucket: int = 8, max_bucket: int = 1 << 20,
-                 device=None, precision="f32"):
+                 device=None, precision="f32", mesh=None):
         model = getattr(policy, "model", None)
         if model is None:
             raise ValueError("policy carries no model — pass a PolicyBundle")
         bw = policy.backward
         if bw.params1_by_date is None:
             raise ValueError("policy has no per-date params to serve")
-        self.device = resolve_device(device)
+        self.mesh = as_mesh(mesh, device)
+        self.device = mesh_device(self.mesh) if self.mesh is not None else resolve_device(device)
         full_f32()
         self.model = model
         self.dual_mode = policy.dual_mode
@@ -137,7 +174,10 @@ class HedgeEngine:
         self._mixed_buckets: set[int] = set()
 
     def bucket_for(self, n_rows: int) -> int:
-        b = next_bucket(n_rows, min_bucket=self.min_bucket)
+        """The padded size requests of ``n_rows`` dispatch at: the next power of
+        two (floored at ``min_bucket``), then up to a multiple of the mesh size
+        so every shard is equal."""
+        b = pad_to_mesh(next_bucket(n_rows, min_bucket=self.min_bucket), self.mesh)
         if b > self.max_bucket:
             raise ValueError(f"batch of {n_rows} rows exceeds max_bucket={self.max_bucket}; "
                              "split the request (or raise max_bucket)")
@@ -161,13 +201,27 @@ class HedgeEngine:
         return states, prices, n
 
     def _pad(self, states, prices, n: int, b: int):
+        """The request padded to ``b`` rows, on the device: all of them, or
+        under a mesh this rank's contiguous shard."""
         feats = np.zeros((b, states.shape[1]), self._np_dt)
         feats[:n] = states
         pr = np.zeros((b, self.n_instruments), self._np_dt)
         if prices is not None:
             pr[:n] = prices
-        return (torch.from_numpy(feats).to(self.device),
-                torch.from_numpy(pr).to(self.device))
+        rows = shard_rows(b, self.mesh, "bucket")
+        return (torch.from_numpy(feats[rows]).to(self.device),
+                torch.from_numpy(pr[rows]).to(self.device))
+
+    def _gather(self, phi, psi, v):
+        """Every rank's shard of the outputs, in row order, on every rank (one
+        ``all_reduce`` of the packed columns); the outputs as they are without
+        a mesh."""
+        if self.mesh is None:
+            return phi, psi, v
+        rows = phi.shape[0]
+        packed = torch.cat([phi.reshape(rows, -1), psi[:, None], v[:, None]], dim=1)
+        full = path_gather(packed, self.mesh)
+        return (full[:, :-2].reshape(-1, *phi.shape[1:]), full[:, -2], full[:, -1])
 
     def _count(self, seen: set, b: int) -> None:
         if b in seen:
@@ -197,16 +251,21 @@ class HedgeEngine:
             return self._empty(prices is not None)
         b = self.bucket_for(n)
         feats, pr = self._pad(states, prices, n, b)
-        phi, psi, v = _eval_core(
+        phi, psi, v = self._gather(*_eval_tiled(
             self.model, self._p1, self._p2, idx, feats, pr, self.cost_of_capital,
             dual_mode=self.dual_mode, holdings_combine=self.holdings_combine,
-            precision=self.precision.tier)
+            precision=self.precision.tier))
         self._count(self._buckets, b)
         return PendingEval(phi, psi, v, n, prices is not None, b)
 
     def evaluate_mixed_async(self, dates, states, prices=None) -> PendingEval:
         """One date index per ROW; the whole block runs through the mixed-date
-        kernel in one launch per param set (two for dual policies)."""
+        kernel in one launch per param set (two for dual policies). A mesh
+        engine refuses: it keeps the per-date path, as in the JAX package."""
+        if self.mesh is not None:
+            raise ValueError(
+                "mixed-date megakernel serves single-device engines; "
+                "mesh engines keep the per-date bucketed path")
         states, prices, n = self._check_rows(states, prices)
         dates = np.asarray(dates).reshape(-1)
         if dates.shape[0] != n:
@@ -265,5 +324,6 @@ class HedgeEngine:
     def cache_info(self) -> dict:
         return {"hits": self.hits, "misses": self.misses,
                 "precision": self.precision.tier,
+                "mesh_devices": mesh_size(self.mesh),
                 "buckets": sorted(self._buckets),
                 "mixed_buckets": sorted(self._mixed_buckets)}

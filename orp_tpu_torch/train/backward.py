@@ -31,9 +31,20 @@ The walk runs in one of two ways, over the same date body (:func:`_date_body`):
   the same code runs without graphs. It trains the same numbers as the host
   loop.
 
-The JAX package's ``fused_walk_on_mesh`` (ROADMAP A8), ``_emit_convergence``
-with its ``obs`` records, ``compile_audit`` and the CLI's ``--resume`` (A9)
-are not ported.
+Under a paths mesh (``mesh=``, ``parallel/mesh.py``; the counterpart of the
+JAX package's ``fused_walk_on_mesh`` and its mesh-threaded host loop) each rank
+holds its contiguous block of the paths: the ledgers (values, phi, psi, VaR)
+stay path-sharded, each rank holding its block, while params and metrics are
+replicated. Every fit reduces over the global paths (``train/gn.py``,
+``train/fit.py``), and the guard decides on the ranks' summed finite flag.
+``fused=True`` on a card captures each LM iteration with its ``all_reduce``,
+which NCCL allows and ``gloo`` does not: a card mesh on another backend is
+refused. Checkpoints leave the mesh out of the fingerprint, so a walk saved
+on D ranks resumes on any topology: the first rank writes the gathered
+per-path columns, and each rank reads back its own block.
+
+The JAX package's ``_emit_convergence`` with its ``obs`` records,
+``compile_audit`` and the CLI's ``--resume`` (A9) are not ported.
 
 ``dual_mode``: ``"separate"`` (two param sets, ``v = g + i(h - g)``),
 ``"shared"`` (one param set, RP.py:172's weight sharing: the quantile fit
@@ -48,6 +59,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -55,6 +67,9 @@ import torch
 
 from orp_tpu_torch.guard import inject as _inject
 from orp_tpu_torch.guard import sentinel as _sentinel
+from orp_tpu_torch.parallel.mesh import (as_mesh, dist_backend, mesh_rank, mesh_size,
+                                         path_gather, path_mean, path_sum,
+                                         replicate_from_first, shard_rows)
 from orp_tpu_torch.train import fit as _fit
 from orp_tpu_torch.train import gn as _gn
 from orp_tpu_torch.train.fit import FitConfig, fit_core, validate_shuffle
@@ -268,14 +283,16 @@ def _gn_cfgs(cfg: BackwardConfig, n_iters: int) -> tuple[GNConfig, GNPinballConf
 
 
 def _leg_fits(model, cfg: BackwardConfig, feats_t, prices_t1, target, step_i: int, *,
-              gauss_newton: bool, gn_quantile: bool, programs: dict | None = None):
+              gauss_newton: bool, gn_quantile: bool, programs: dict | None = None,
+              mesh=None):
     """The date's two trainers ``(fit_fn, q_fit_fn)``, each ``params -> (params,
     aux)`` on the date's regression (features at t, prices at t+1): Adam
     (``fit_core``, its orders from :func:`_fit_generator`) or Gauss-Newton
     (``fit_gn`` / ``fit_gn_pinball``), the MSE leg with the readout solve when
     ``cfg.final_solve``. ``programs`` (the fused walk) holds the GN legs'
     :func:`~orp_tpu_torch.train.gn.gn_program` s, refilled by
-    ``gn.refit``; with it Adam runs sync-free."""
+    ``gn.refit``; with it Adam runs sync-free. ``mesh``: every fit reduces
+    over the mesh's global paths."""
     first = step_i == 0
     n_iters = cfg.gn_iters_first if first else cfg.gn_iters_warm
     q_loss = make_loss(cfg.quantile_loss, q=cfg.quantile)
@@ -285,20 +302,22 @@ def _leg_fits(model, cfg: BackwardConfig, feats_t, prices_t1, target, step_i: in
     def adam(leg: int, loss_fn, **kw):
         return lambda p: fit_core(model, p, feats_t, prices_t1, target,
                                   _fit_generator(cfg.seed, step_i, leg), loss_fn=loss_fn,
-                                  cfg=_adam_cfg(cfg, first), sync_free=fused, **kw)
+                                  cfg=_adam_cfg(cfg, first), sync_free=fused, mesh=mesh,
+                                  **kw)
 
     def gauss_newton_leg(key: str, plain, leg_cfg, final_solve: bool = False, **loss):
         if fused:
             return lambda p: _gn.refit(programs[key], p, feats_t, prices_t1, target,
                                        n_iters=n_iters, final_solve=final_solve)
         return lambda p: plain(model, p, feats_t, prices_t1, target, cfg=leg_cfg,
-                               final_solve=final_solve, **loss)
+                               final_solve=final_solve, mesh=mesh, **loss)
 
     if gauss_newton:
         fit_fn = gauss_newton_leg("mse", fit_gn, gn_cfg, cfg.final_solve)
     else:
         fit_fn = adam(0, mse, metric_fns=(mae, mape),
-                      solve_fn=model.solve_readout if cfg.final_solve else None)
+                      solve_fn=(functools.partial(model.solve_readout, mesh=mesh)
+                                if cfg.final_solve else None))
     # the quantile leg never receives the least-squares readout solve
     if gauss_newton and gn_quantile:
         q_fit_fn = gauss_newton_leg("q", fit_gn_pinball, gnq_cfg, loss_fn=q_loss)
@@ -335,54 +354,60 @@ def _date_body(model, cfg: BackwardConfig, params1, params2, feats_t, prices_t, 
 
 
 def _final_solve_date(model, cfg: BackwardConfig, params0, feats_t, prices_t, prices_t1,
-                      target):
+                      target, mesh=None):
     """The ladder's terminal rung: the PRE-FIT ``params0`` with its readout
     replaced by the closed-form ridge optimum (``model.solve_readout``), the
     solved params for both legs, the outputs combined as ``mse_only`` (the
     dual combine collapses when the legs share params). Returns the
     :func:`_date_body` tuple; the quantile leg's record is the pinball loss of
     the solved params and no iterations."""
-    solved = model.solve_readout(params0, feats_t, prices_t1, target)
+    solved = model.solve_readout(params0, feats_t, prices_t1, target, mesh=mesh)
     pred = model.value(solved, feats_t, prices_t1)
     zero = torch.zeros((), dtype=torch.int64, device=pred.device)
-    aux = {"final_loss": mse(pred, target), "mae": mae(pred, target),
-           "mape": mape(pred, target), "n_epochs_ran": zero}
+    aux = {"final_loss": path_mean(mse(pred, target), mesh),
+           "mae": path_mean(mae(pred, target), mesh),
+           "mape": path_mean(mape(pred, target), mesh), "n_epochs_ran": zero}
     q_aux = None
     if cfg.dual_mode != "mse_only":
         q_loss = make_loss(cfg.quantile_loss, q=cfg.quantile)
-        q_aux = {"final_loss": q_loss(pred, target), "n_epochs_ran": zero}
+        q_aux = {"final_loss": path_mean(q_loss(pred, target), mesh), "n_epochs_ran": zero}
     v_t, comb, var_resid = _date_outputs_core(
         model, solved, solved, feats_t, prices_t, prices_t1, target, cfg.cost_of_capital, None,
         dual_mode="mse_only", holdings_combine=cfg.holdings_combine)
     return solved, solved, v_t, comb, var_resid, aux, q_aux
 
 
-def _date_finite(state) -> torch.Tensor:
+def _date_finite(state, mesh=None) -> torch.Tensor:
     """The sentinel's per-date flag (a device tensor): the loss, both param sets
-    and every ledger column the date contributes are finite."""
+    and every ledger column the date contributes are finite, on every rank of
+    ``mesh`` (the ranks' flags summed: a replicated decision)."""
     params1, params2, v_t, comb, var_resid, aux, _ = state
-    return _sentinel.finite_flag(aux["final_loss"], params1, params2, v_t, comb, var_resid)
+    flag = _sentinel.finite_flag(aux["final_loss"], params1, params2, v_t, comb, var_resid)
+    if mesh is None:
+        return flag
+    return path_sum(flag.to(v_t.dtype).reshape(1), mesh)[0] == mesh.size()
 
 
 def _degrade_date(model, cfg: BackwardConfig, pre1, pre2, feats_t, prices_t, prices_t1,
-                  target, step_i: int, t: int):
+                  target, step_i: int, t: int, mesh=None):
     """The sentinel fired at date ``t``: walk the trainer ladder from the
     PRE-FIT params on a sanitized target until a rung gives finite state, at
     most ``cfg.nan_retries`` rungs; running dry raises rather than let every
     earlier date train on garbage. Returns the :func:`_date_body` tuple."""
     _sentinel.record_nan_event(t, cfg.optimizer, "post-fit date state")
-    target, _ = _sentinel.sanitize_target(target)
+    target, _ = _sentinel.sanitize_target(target, mesh)
     ladder = _sentinel.degradation_ladder(cfg.optimizer, cfg.nan_retries)
     for rung in ladder:
         _sentinel.record_degrade(t, rung)
         if rung == "gauss_newton":
             fits = _leg_fits(model, cfg, feats_t, prices_t1, target, step_i, gauss_newton=True,
-                             gn_quantile=True)
+                             gn_quantile=True, mesh=mesh)
             state = _date_body(model, cfg, pre1, pre2, feats_t, prices_t, prices_t1, target,
                                *fits)
         else:  # "final_solve": the closed-form terminal rung
-            state = _final_solve_date(model, cfg, pre1, feats_t, prices_t, prices_t1, target)
-        if bool(_date_finite(state)):
+            state = _final_solve_date(model, cfg, pre1, feats_t, prices_t, prices_t1, target,
+                                      mesh)
+        if bool(_date_finite(state, mesh)):
             return state
         _sentinel.record_nan_event(t, rung, "degraded retry")
     raise RuntimeError(
@@ -400,7 +425,7 @@ def _metrics_row(aux, q_aux, dtype) -> torch.Tensor:
     return torch.stack([torch.as_tensor(x).to(dtype) for x in row])
 
 
-def _fused_programs(model, cfg: BackwardConfig, feats, prices_t1, target) -> dict:
+def _fused_programs(model, cfg: BackwardConfig, feats, prices_t1, target, mesh=None) -> dict:
     """Every program the fused walk's fits replay, built (and on a CUDA device
     captured) before its date loop, from the first date's shapes: the GN legs'
     ``gn_program`` s, one per leg for both the first and the warm dates, and
@@ -412,18 +437,18 @@ def _fused_programs(model, cfg: BackwardConfig, feats, prices_t1, target) -> dic
     if gauss_newton:
         gn_cfg, gnq_cfg = _gn_cfgs(cfg, max(cfg.gn_iters_first, cfg.gn_iters_warm))
         programs["mse"] = _gn.gn_program(model, feats, prices_t1, target, gn_cfg,
-                                         graphs=graphs)
+                                         graphs=graphs, mesh=mesh)
         if dual and cfg.gn_quantile:
             programs["q"] = _gn.gn_program(
                 model, feats, prices_t1, target, gnq_cfg, graphs=graphs,
-                loss_fn=make_loss(cfg.quantile_loss, q=cfg.quantile))
+                loss_fn=make_loss(cfg.quantile_loss, q=cfg.quantile), mesh=mesh)
     adam_legs = [] if gauss_newton else [mse]
     if dual and not (gauss_newton and cfg.gn_quantile):
         adam_legs.append(make_loss(cfg.quantile_loss, q=cfg.quantile))
     for loss_fn in adam_legs:
         for first in (True, False):
             _fit.prepare(model, feats, prices_t1, target, loss_fn=loss_fn,
-                         cfg=_adam_cfg(cfg, first))
+                         cfg=_adam_cfg(cfg, first), mesh=mesh)
     return programs
 
 
@@ -440,8 +465,9 @@ def _fingerprint(model, cfg: BackwardConfig, n_paths: int, n_dates: int, warm) -
     ``checkpoint_dir``, whose spelling may vary, and ``fused``, which the host
     loop never is), the shapes, the model, the GN configs' reprs (their
     defaults are training policy outside the config), the port's format tag
-    and, for a warm start, its params' digest. The device is not in it: the
-    layout names none."""
+    and, for a warm start, its params' digest. Neither the device nor the mesh
+    is in it (``n_paths`` is the global count): the layout names neither, and a
+    walk saved on D ranks resumes on any topology."""
     fp_cfg = dataclasses.replace(cfg, checkpoint_dir=None, fused=False)
     warm_tag = "" if warm is None else " warm=" + _ckpt.state_digest(warm)[:16]
     return (f"{fp_cfg} n_paths={n_paths} n_dates={n_dates} model={model} "
@@ -452,7 +478,7 @@ def _fingerprint(model, cfg: BackwardConfig, n_paths: int, n_dates: int, warm) -
 def backward_induction(model, features: torch.Tensor, y_prices: torch.Tensor,
                        b_prices: torch.Tensor, terminal_values: torch.Tensor,
                        cfg: BackwardConfig, *, bias_init: tuple[float, ...] | None = None,
-                       initial_params=None) -> BackwardResult:
+                       initial_params=None, mesh=None) -> BackwardResult:
     """Run the backward hedge-training walk on ``y_prices``'s device.
 
     ``features (n, n_dates+1, n_features)``, ``y_prices (n, n_dates+1)``,
@@ -466,11 +492,23 @@ def backward_induction(model, features: torch.Tensor, y_prices: torch.Tensor,
     the rest ``gn_iters_warm`` or ``epochs_warm`` (``patience_warm``, LR
     ``cfg.lr`` or ``warm_lr``). Each Adam fit draws its epoch orders from
     :func:`_fit_generator`. ``cfg.fused``, ``cfg.checkpoint_dir`` and
-    ``cfg.nan_guard``: the module docstring."""
+    ``cfg.nan_guard``: the module docstring. ``mesh`` (a paths mesh, a rank
+    count or a ``MeshSpec``): the inputs are this rank's block of the paths,
+    and so are the returned ledgers."""
     full_f32()
     dev, dtype = y_prices.device, model.dtype
+    mesh = as_mesh(mesh, dev)
     n_paths, n_knots = y_prices.shape[:2]
     n_dates = n_knots - 1
+    if cfg.fused and mesh is not None and dev.type == "cuda":
+        backend = dist_backend(mesh)
+        if backend != "nccl":
+            raise ValueError(
+                f"fused=True captures each LM iteration with its all_reduce as a CUDA graph; "
+                f"the mesh's {backend!r} backend cannot be captured (use NCCL, or the host "
+                "loop fused=False)")
+    rows_here = shard_rows(n_paths * mesh_size(mesh), mesh)
+    first_rank = mesh_rank(mesh) == 0
     params1, params2 = _initial_params(model, cfg, bias_init, initial_params, dev, dtype)
     warm = None if initial_params is None else {"p1": params1, "p2": params2}
     prices_all = _stack_prices(y_prices.to(dtype), b_prices.to(device=dev, dtype=dtype))
@@ -503,17 +541,33 @@ def backward_induction(model, features: torch.Tensor, y_prices: torch.Tensor,
         metric_keys += ["quantile_loss", "quantile_epochs_ran"]
     start_step = 0
     if cfg.checkpoint_dir is not None:
-        _ckpt.check_fingerprint(cfg.checkpoint_dir,
-                                _fingerprint(model, cfg, n_paths, n_dates, warm))
-        last = _ckpt.latest_complete_step(cfg.checkpoint_dir)
-        if last is not None:
+        fp = _fingerprint(model, cfg, n_paths * mesh_size(mesh), n_dates, warm)
+        # the first rank writes a new directory's fingerprint, the others then
+        # check it, and a refusal on the first rank reaches every rank (a rank
+        # that raised alone would leave the others waiting in a collective);
+        # the resume point is the first rank's, so every rank agrees
+        refused = None
+        if first_rank:
+            try:
+                _ckpt.check_fingerprint(cfg.checkpoint_dir, fp)
+            except ValueError as e:
+                refused = e
+        if not replicate_from_first(float(refused is None), mesh, dev):
+            raise refused or ValueError(
+                f"checkpoint directory {cfg.checkpoint_dir}: the first rank refused its "
+                "run fingerprint")
+        if not first_rank:
+            _ckpt.check_fingerprint(cfg.checkpoint_dir, fp)
+        last = _ckpt.latest_complete_step(cfg.checkpoint_dir) if first_rank else None
+        last = int(replicate_from_first(-1.0 if last is None else float(last), mesh, dev))
+        if last >= 0:
             # each step holds its own date's increment: replay 0..last to rebuild
             # the ledgers (a missing or corrupt step raises in the loader)
             for i, st in enumerate(_ckpt.load_checkpoints(cfg.checkpoint_dir, range(last + 1))):
                 params1 = params_to(st["params1"], dev, dtype)
                 params2 = params_to(st["params2"], dev, dtype)
                 record(n_dates - 1 - i, params1, params2,
-                       *(torch.from_numpy(st[k]).to(dev)
+                       *(torch.from_numpy(st[k][rows_here]).to(dev)
                          for k in ("v_col", "phi_col", "psi_col", "var_col")))
                 rows[n_dates - 1 - i] = torch.tensor([float(st[k]) for k in metric_keys],
                                                      dtype=dtype)
@@ -522,7 +576,7 @@ def backward_induction(model, features: torch.Tensor, y_prices: torch.Tensor,
             start_step = last + 1
 
     programs = (_fused_programs(model, cfg, features[:, n_dates - 1], prices_all[:, n_dates],
-                                values[:, n_dates]) if cfg.fused else None)
+                                values[:, n_dates], mesh) if cfg.fused else None)
     gauss_newton = cfg.optimizer == "gauss_newton"
     with fused_loop_scope(dev) if cfg.fused else contextlib.nullcontext():
         for step_i, t in enumerate(range(n_dates - 1, -1, -1)):
@@ -536,7 +590,7 @@ def backward_induction(model, features: torch.Tensor, y_prices: torch.Tensor,
                 target = inj.corrupt_target(step_i, target)
             fits = _leg_fits(model, cfg, feats_t, prices_t1, target, step_i,
                              gauss_newton=gauss_newton, gn_quantile=cfg.gn_quantile,
-                             programs=programs)
+                             programs=programs, mesh=mesh)
             state = _date_body(model, cfg, params1, params2, feats_t, prices_t, prices_t1,
                                target, *fits)
             row = _metrics_row(state[5], state[6], dtype)
@@ -544,22 +598,26 @@ def backward_induction(model, features: torch.Tensor, y_prices: torch.Tensor,
                 rows[t] = row
             else:
                 if cfg.nan_guard:
-                    row = torch.cat([row, _date_finite(state).to(dtype)[None]])
+                    row = torch.cat([row, _date_finite(state, mesh).to(dtype)[None]])
                 row = row.cpu()  # the date's one host read (with the guard's flag)
                 if cfg.nan_guard and not bool(row[-1]):
                     state = _degrade_date(model, cfg, params1, params2, feats_t, prices_t,
-                                          prices_t1, target, step_i, t)
+                                          prices_t1, target, step_i, t, mesh)
                     row = _metrics_row(state[5], state[6], dtype).cpu()
                 rows[t] = row[:n_metrics]
             params1, params2, v_t, comb, var_resid = state[:5]
             phi_t, psi_t = _split_holdings(comb)
             record(t, params1, params2, v_t, phi_t, psi_t, var_resid)
             if cfg.checkpoint_dir is not None:
-                # per-date increments only: O(paths) a save, not the walk so far
-                inc = {"params1": params1, "params2": params2, "v_col": v_t, "phi_col": phi_t,
-                       "psi_col": psi_t, "var_col": var_resid}
-                inc.update(zip(metric_keys, rows[t]))
-                _ckpt.save_checkpoint(cfg.checkpoint_dir, step_i, inc)
+                # per-date increments only: O(paths) a save, not the walk so far;
+                # under a mesh the columns are gathered and the first rank writes
+                cols = {k: path_gather(v, mesh) for k, v in (
+                    ("v_col", v_t), ("phi_col", phi_t), ("psi_col", psi_t),
+                    ("var_col", var_resid))}
+                if first_rank:
+                    inc = {"params1": params1, "params2": params2, **cols}
+                    inc.update(zip(metric_keys, rows[t]))
+                    _ckpt.save_checkpoint(cfg.checkpoint_dir, step_i, inc)
                 if inj is not None:
                     inj.maybe_kill(step_i)  # a synthetic kill after the date's save
     m = rows.cpu().double().numpy()  # the fused walk's one host read

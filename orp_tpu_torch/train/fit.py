@@ -34,6 +34,15 @@ order from pageable memory (a blocking copy, which syncs the stream).
 
 Runs in full f32 (``utils/precision.full_f32``, no TF32): the counterpart of
 the JAX package's ``@highest_matmul_precision``.
+
+Under a paths mesh (``mesh``) each rank holds its block of the rows, and the
+gradient means over a batch are global reductions, as in the JAX package:
+every rank draws the same global epoch order from the same generator over
+the global ``n``, gathers the ``batch_size`` rows of each batch at fixed
+shape (a row another rank holds is read at a clamped index and weighted 0),
+and sums its weighted per-row losses over the global batch size; one
+``all_reduce`` a step sums the gradients and the batch loss across the ranks.
+The early-stopping loss is then global, and so every rank stops together.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from typing import Callable
 
 import torch
 
+from orp_tpu_torch.parallel.mesh import mesh_rank, mesh_size, path_mean, path_sum
 from orp_tpu_torch.utils.precision import full_f32
 
 B1, B2, EPS, EPS_ROOT = 0.9, 0.999, 1e-8, 0.0  # optax.adam's defaults
@@ -114,8 +124,10 @@ class _EpochProgram:
     epoch replays on whatever :meth:`load` wrote into them."""
 
     def __init__(self, model, loss_fn, cfg: FitConfig, n: int, bs: int, features, prices,
-                 targets, graphs: bool = False):
+                 targets, graphs: bool = False, mesh=None):
         dev, dt = targets.device, model.dtype
+        self.mesh, self.n_local = mesh, targets.shape[0]
+        self.lo = mesh_rank(mesh) * self.n_local  # this rank's first global row
         self.graphs = graphs  # capture the epoch at the first fit
         self.model, self.loss_fn, self.cfg, self.bs = model, loss_fn, cfg, bs
         self.n_batches = max(n // bs, 1)
@@ -140,6 +152,7 @@ class _EpochProgram:
         self.order = torch.arange(self.n_batches, device=dev)
         self.offset = torch.zeros((), dtype=torch.int64, device=dev)
         self.perm = (torch.arange(n_used, device=dev) if cfg.shuffle is True else None)
+        self.all_rows = torch.arange(n_used, device=dev) if mesh is not None else None
         self.cols = torch.arange(bs, device=dev)
         self.graph = None
         self._ring, self._slot = None, 0
@@ -183,25 +196,44 @@ class _EpochProgram:
         self.offset.fill_(offset)
 
     def _batches(self):
-        """The epoch's rows as ``(n_batches, bs, ...)`` features, prices, targets."""
+        """The epoch's rows as ``(n_batches, bs, ...)`` features, prices,
+        targets, and under a mesh the rows' weights (1 where this rank holds
+        the row, else 0; None without a mesh)."""
         n_used, tail = self.n_batches * self.bs, (self.bs,)
         if self.cfg.shuffle is False:
-            rows = None
+            rows = self.all_rows
         else:
             blk = (self.order[:, None] * self.bs + self.cols).reshape(-1)
             rows = (self.perm.index_select(0, blk) if self.perm is not None
                     else blk + self.offset)
+        w = None
+        if self.mesh is not None:
+            rows = rows - self.lo
+            w = ((rows >= 0) & (rows < self.n_local)).to(self.model.dtype)
+            w = w.reshape(self.n_batches, self.bs)
+            rows = rows.clamp(0, self.n_local - 1)
         out = []
         for x in (self.features, self.prices, self.targets):
             x = x[:n_used] if rows is None else x.index_select(0, rows)
             out.append(x.reshape(self.n_batches, *tail, *x.shape[1:]))
-        return out
+        return out, w
 
-    def _step(self, i: int, f, pr, t) -> None:
-        """One minibatch: the loss's gradient by autograd, then optax's Adam."""
+    def _step(self, i: int, f, pr, t, w) -> None:
+        """One minibatch: the loss's gradient by autograd, then optax's Adam.
+        Under a mesh the loss is this rank's rows' share of the global batch
+        mean (``w`` the rows' weights) and one ``all_reduce`` sums the
+        gradients and the loss across the ranks."""
         leaves = [p.detach().requires_grad_() for p in self.model.unflatten(self.theta).values()]
-        loss = self.loss_fn(self.model.value(dict(zip(self.keys, leaves)), f, pr), t)
+        pred = self.model.value(dict(zip(self.keys, leaves)), f, pr)
+        if w is None:
+            loss = self.loss_fn(pred, t)
+        else:
+            terms = torch.func.vmap(self.loss_fn)(pred[:, None], t[:, None])
+            loss = torch.sum(w * terms) / self.bs
         g = torch.cat([x.reshape(-1) for x in torch.autograd.grad(loss, leaves)])
+        if w is not None:
+            packed = path_sum(torch.cat([g, loss.detach().to(g.dtype)[None]]), self.mesh)
+            g, loss = packed[:-1], packed[-1]
         self.losses[i].copy_(loss.detach())
         self.count.add_(1)
         bc = (1.0 - torch.pow(self.betas, self.count.to(torch.float64))).to(g.dtype)
@@ -213,11 +245,11 @@ class _EpochProgram:
     def epoch(self) -> None:
         """One epoch on the device; entered with ``stopped`` set it changes nothing
         and records ``inf``."""
-        fb, pb, tb = self._batches()
+        (fb, pb, tb), wb = self._batches()
         state = (self.theta, self.mu, self.nu, self.count)
         snap = [x.clone() for x in state]
         for i in range(self.n_batches):
-            self._step(i, fb[i], pb[i], tb[i])
+            self._step(i, fb[i], pb[i], tb[i], None if wb is None else wb[i])
         stopped = self.stopped.clone()
         for x, old in zip(state, snap):
             x.copy_(torch.where(stopped, old, x))
@@ -253,19 +285,20 @@ _PROGRAMS: collections.OrderedDict = collections.OrderedDict()
 
 
 def _program(model, loss_fn, cfg: FitConfig, n: int, bs: int, features, prices,
-             targets) -> _EpochProgram:
+             targets, mesh=None) -> _EpochProgram:
     """A fresh program, or on a CUDA device with graphs on the captured one for
-    these shapes and this loss (captured at its first use, kept for the next fit)."""
+    these shapes, this loss and this mesh (captured at its first use, kept for
+    the next fit)."""
     graphs = CUDA_GRAPHS and targets.device.type == "cuda"
     if not graphs:
-        return _EpochProgram(model, loss_fn, cfg, n, bs, features, prices, targets)
-    key = (model, loss_fn, cfg.shuffle, cfg.patience, cfg.min_delta, bs, targets.device,
+        return _EpochProgram(model, loss_fn, cfg, n, bs, features, prices, targets, mesh=mesh)
+    key = (model, loss_fn, cfg.shuffle, cfg.patience, cfg.min_delta, n, bs, targets.device,
            tuple(features.shape), features.dtype, tuple(prices.shape), prices.dtype,
-           targets.dtype)
+           targets.dtype, None if mesh is None else id(mesh))
     prog = _PROGRAMS.pop(key, None)
     if prog is None:
         prog = _EpochProgram(model, loss_fn, cfg, n, bs, features, prices, targets,
-                             graphs=True)
+                             graphs=True, mesh=mesh)
     _PROGRAMS[key] = prog
     while len(_PROGRAMS) > _MAX_PROGRAMS:
         _PROGRAMS.popitem(last=False)
@@ -273,13 +306,14 @@ def _program(model, loss_fn, cfg: FitConfig, n: int, bs: int, features, prices,
 
 
 def prepare(model, features: torch.Tensor, prices: torch.Tensor, targets: torch.Tensor, *,
-            loss_fn, cfg: FitConfig) -> None:
+            loss_fn, cfg: FitConfig, mesh=None) -> None:
     """Build and capture, ahead of time, the epoch program that
     :func:`fit_core` will use for these shapes, this loss and ``cfg`` (a no-op
     where no graph is captured): the capture syncs the card, which a
     sync-free fit must not."""
-    n = targets.shape[0]
-    prog = _program(model, loss_fn, cfg, n, min(cfg.batch_size, n), features, prices, targets)
+    n = targets.shape[0] * mesh_size(mesh)
+    prog = _program(model, loss_fn, cfg, n, min(cfg.batch_size, n), features, prices, targets,
+                    mesh)
     if prog.graphs and prog.graph is None:
         prog.load(torch.zeros(model.n_params(), dtype=model.dtype, device=targets.device),
                   features, prices, targets)
@@ -288,7 +322,8 @@ def prepare(model, features: torch.Tensor, prices: torch.Tensor, targets: torch.
 
 def fit_core(model, params: dict, features: torch.Tensor, prices: torch.Tensor,
              targets: torch.Tensor, generator: torch.Generator, *, loss_fn,
-             cfg: FitConfig, metric_fns: tuple = (), solve_fn=None, sync_free: bool = False):
+             cfg: FitConfig, metric_fns: tuple = (), solve_fn=None, sync_free: bool = False,
+             mesh=None):
     """Train ``params`` so that ``model.value(params, features, prices) ~ targets``.
 
     ``generator`` (a CPU ``torch.Generator``) draws each epoch's order.
@@ -301,13 +336,15 @@ def fit_core(model, params: dict, features: torch.Tensor, prices: torch.Tensor,
     walk passes ``model.solve_readout``), replaces the best params' readout,
     and ``best_loss`` is then the final loss. ``sync_free`` runs every epoch
     and stages the orders without a host sync (module docstring); the
-    program must then have been captured by :func:`prepare`."""
+    program must then have been captured by :func:`prepare`. ``mesh``: the
+    rows are this rank's block of a paths mesh (module docstring); the
+    returned losses and metrics are global."""
     full_f32()
-    n = targets.shape[0]
+    n = targets.shape[0] * mesh_size(mesh)
     bs = min(cfg.batch_size, n)
     schedule = reference_lr_schedule() if cfg.lr is None else None
     theta = model.flatten(params).to(device=targets.device, dtype=model.dtype)
-    prog = _program(model, loss_fn, cfg, n, bs, features, prices, targets)
+    prog = _program(model, loss_fn, cfg, n, bs, features, prices, targets, mesh)
     prog.load(theta, features, prices, targets)
     if prog.graphs and prog.graph is None:
         prog.capture()
@@ -329,8 +366,8 @@ def fit_core(model, params: dict, features: torch.Tensor, prices: torch.Tensor,
         best = solve_fn(best, features, prices, targets)
     pred = model.value(best, features, prices)
     aux = {"loss_history": hist, "n_epochs_ran": torch.isfinite(hist).sum(),
-           "final_loss": loss_fn(pred, targets)}
+           "final_loss": path_mean(loss_fn(pred, targets), mesh)}
     aux["best_loss"] = aux["final_loss"] if solve_fn is not None else best_loss
     for fn in metric_fns:
-        aux[fn.__name__] = fn(pred, targets)
+        aux[fn.__name__] = path_mean(fn(pred, targets), mesh)
     return best, aux

@@ -41,6 +41,15 @@ f32 (``utils/precision.full_f32``):
 normal equations square the condition number, and a reduced-precision Gram
 moved the north-star price by -2.4bp on the TPU (SCALING.md §6b); TF32 is
 the same hazard on this card.
+
+Under a paths mesh (``mesh``, ``parallel/mesh.py``) each rank holds its block
+of the rows: the Gram and right-hand side are each rank's means over its
+block, summed across the ranks by one ``all_reduce`` an iteration and divided
+by the rank count (the global means over equal shards), and every loss is
+the mean of the ranks' means. The IRLS weights stay row-local. Everything the
+iteration decides on is then replicated, and ``iterate`` stays capturable:
+the ``all_reduce`` is issued on the capturing stream (NCCL; the warm-up
+before the capture runs it once, so the communicator exists).
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ import dataclasses
 
 import torch
 
+from orp_tpu_torch.parallel.mesh import mesh_rank, mesh_size, path_mean, path_means, path_sum
 from orp_tpu_torch.train.losses import mae, mape, mse
 from orp_tpu_torch.utils.precision import full_f32
 
@@ -91,11 +101,12 @@ class _GNProblem:
     and ``targets`` (a host-loop fit); with ``static=True`` it owns contiguous
     copies that :meth:`load` refills per date, so that an iteration captured
     by :meth:`capture` (a CUDA graph) replays on whatever a date wrote into
-    them."""
+    them. ``mesh``: the rows are this rank's block of a paths mesh."""
 
     def __init__(self, model, features, prices, targets, cfg: GNConfig, loss_fn=mse,
-                 weights: tuple[float, float, float] | None = None, *, static: bool = False):
-        self.model, self.cfg, self.loss_fn = model, cfg, loss_fn
+                 weights: tuple[float, float, float] | None = None, *, static: bool = False,
+                 mesh=None):
+        self.model, self.cfg, self.loss_fn, self.mesh = model, cfg, loss_fn, mesh
         y = targets.to(model.dtype)
         if static:
             like = lambda x: torch.empty_like(x, memory_format=torch.contiguous_format)  # noqa: E731
@@ -137,7 +148,7 @@ class _GNProblem:
 
     def loss(self, theta: torch.Tensor) -> torch.Tensor:
         pred = self.model.value(self.model.unflatten(theta), self.features, self.prices)
-        return self.loss_fn(pred, self.y)
+        return path_mean(self.loss_fn(pred, self.y), self.mesh)
 
     def _weighted(self, J: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         """``J`` for the MSE leg; ``J * w[:, None]`` into the reused buffer for IRLS."""
@@ -148,7 +159,13 @@ class _GNProblem:
         return torch.mul(J, w[:, None], out=self.Jw)
 
     def gram(self, theta: torch.Tensor):
-        """``(Jw^T J / n, Jw^T r / n)``, one-shot or summed over row blocks."""
+        """``(Jw^T J / n, Jw^T r / n)`` over the global rows: this rank's means
+        (:meth:`_local_gram`), then across the mesh in one ``all_reduce``."""
+        return path_means(self.mesh, *self._local_gram(theta))
+
+    def _local_gram(self, theta: torch.Tensor):
+        """``(Jw^T J / n, Jw^T r / n)`` over this rank's rows, one-shot or summed
+        over row blocks."""
         params = self.model.unflatten(theta)
         if self.block is None:
             v, J = self.model.value_jacobian(params, self.features, self.prices, out=self.J)
@@ -232,15 +249,16 @@ def _fit(problem: _GNProblem, params: dict, final_solve: bool, n_iters: int, fea
     problem.run(n_iters)
     best = model.unflatten(problem.theta.clone())
     y = targets.to(model.dtype)
+    mesh = problem.mesh
     if final_solve:
-        best = model.solve_readout(best, features, prices, y)
+        best = model.solve_readout(best, features, prices, y, mesh=mesh)
     pred = model.value(best, features, prices)
     aux = {
         "loss_history": problem.hist[:n_iters].clone(),
         "n_epochs_ran": problem.takes.clone(),
-        "final_loss": problem.loss_fn(pred, y),
-        "mae": mae(pred, y),
-        "mape": mape(pred, y),
+        "final_loss": path_mean(problem.loss_fn(pred, y), mesh),
+        "mae": path_mean(mae(pred, y), mesh),
+        "mape": path_mean(mape(pred, y), mesh),
     }
     aux["best_loss"] = aux["final_loss"] if final_solve else problem.best_loss.clone()
     return best, aux
@@ -251,17 +269,18 @@ def _pinball_weights(cfg: GNPinballConfig) -> tuple[float, float, float]:
 
 
 def gn_program(model, features, prices, targets, cfg: GNConfig, *, loss_fn=mse,
-               graphs: bool = False) -> _GNProblem:
+               graphs: bool = False, mesh=None) -> _GNProblem:
     """A problem that owns its buffers, for fits run date after date with
     :func:`refit` (the fused walk): the MSE leg, or the IRLS pinball leg when
     ``cfg`` is a :class:`GNPinballConfig`. ``cfg.n_iters`` bounds the
     iterations of one fit. ``graphs`` (a CUDA device) captures one LM
     iteration as a CUDA graph, replayed ``n_iters`` times by each fit; a
-    capture that fails raises."""
+    capture that fails raises. Under ``mesh`` the captured iteration holds
+    its ``all_reduce`` (the first :meth:`_GNProblem.start` has run one)."""
     full_f32()
     weights = _pinball_weights(cfg) if isinstance(cfg, GNPinballConfig) else None
     problem = _GNProblem(model, features, prices, targets, cfg, loss_fn=loss_fn, weights=weights,
-                         static=True)
+                         static=True, mesh=mesh)
     if graphs:
         problem.start(torch.zeros_like(problem.theta))
         problem.capture()
@@ -282,7 +301,7 @@ def refit(problem: _GNProblem, params: dict, features, prices, targets, *, n_ite
 
 def fit_gn(model, params: dict, features: torch.Tensor, prices: torch.Tensor,
            targets: torch.Tensor, *, loss_fn=mse, cfg: GNConfig = GNConfig(),
-           final_solve: bool = False):
+           final_solve: bool = False, mesh=None):
     """Fit ``model``'s value at ``(features, prices)`` to ``targets`` by damped GN.
 
     Returns ``(best_params, aux)``; ``aux`` holds device tensors:
@@ -290,20 +309,21 @@ def fit_gn(model, params: dict, features: torch.Tensor, prices: torch.Tensor,
     freeze), ``n_epochs_ran`` (accepted iterations), ``best_loss``,
     ``final_loss`` and the ``mae`` / ``mape`` metrics at the result.
     ``final_solve`` replaces the readout with ``model.solve_readout`` after
-    the iterations (``best_loss`` is then the final loss)."""
+    the iterations (``best_loss`` is then the final loss). ``mesh``: the
+    rows are this rank's block of a paths mesh (module docstring)."""
     if loss_fn is not mse:
         # GN minimises mean squared residuals by construction; another loss
         # would be ignored by the iterations while aux reported it
         raise ValueError("fit_gn optimises the MSE only; got a different loss_fn "
                          "(the quantile leg uses fit_gn_pinball)")
     full_f32()
-    return _fit(_GNProblem(model, features, prices, targets, cfg), params, final_solve,
-                cfg.n_iters, features, prices, targets)
+    return _fit(_GNProblem(model, features, prices, targets, cfg, mesh=mesh), params,
+                final_solve, cfg.n_iters, features, prices, targets)
 
 
 def fit_gn_pinball(model, params: dict, features: torch.Tensor, prices: torch.Tensor,
                    targets: torch.Tensor, *, loss_fn, cfg: GNPinballConfig = GNPinballConfig(),
-                   final_solve: bool = False):
+                   final_solve: bool = False, mesh=None):
     """IRLS Gauss-Newton for the quantile (pinball) leg, with :func:`fit_gn`'s
     aux contract. ``loss_fn`` must be the pinball (or smoothed pinball) at
     ``cfg.q``: accept/reject optimises it, while the weighted normal
@@ -314,22 +334,27 @@ def fit_gn_pinball(model, params: dict, features: torch.Tensor, prices: torch.Te
                          "does not apply to the pinball objective")
     full_f32()
     problem = _GNProblem(model, features, prices, targets, cfg, loss_fn=loss_fn,
-                         weights=_pinball_weights(cfg))
+                         weights=_pinball_weights(cfg), mesh=mesh)
     return _fit(problem, params, False, cfg.n_iters, features, prices, targets)
 
 
 def gram_cond(model, params: dict, feats: torch.Tensor, prices: torch.Tensor, *,
-              max_rows: int = 2048) -> float:
+              max_rows: int = 2048, mesh=None) -> float:
     """Condition number of the GN Gram ``J^T J / n`` at ``params`` over at most
     ``max_rows`` of the date's fit inputs, in full f32 (the matrix every GN
     iteration solves; normal equations square the condition number). The
     bottom eigenvalue is floored at ``top * 1e-12``: a spectrum wider than 12
     decades is numerically singular either way, and a capped 1e12 reads as
-    that; a non-positive top eigenvalue gives ``inf``."""
+    that; a non-positive top eigenvalue gives ``inf``. Under ``mesh`` the rows
+    are the first ``max_rows`` global rows, wherever they lie: each rank adds
+    its part of them."""
     full_f32()
-    feats, prices = feats[:max_rows], prices[:max_rows]
-    _, J = model.value_jacobian(params, feats, prices)
-    eigs = torch.linalg.eigvalsh(J.T @ J / feats.shape[0]).double().cpu()
+    n_local = feats.shape[0]
+    lo = mesh_rank(mesh) * n_local
+    n_rows = min(max_rows, n_local * mesh_size(mesh))
+    take = max(0, min(n_local, n_rows - lo))
+    _, J = model.value_jacobian(params, feats[:take], prices[:take])
+    eigs = torch.linalg.eigvalsh(path_sum(J.T @ J, mesh) / n_rows).double().cpu()
     top = float(eigs[-1])
     if top <= 0.0:
         return float("inf")

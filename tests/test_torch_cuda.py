@@ -7,6 +7,8 @@ nor ``orp_tpu``, so it runs on a machine without them::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -460,16 +462,89 @@ def test_adam_walk_on_card_matches_cpu(cuda, mode):
 
 
 def test_exact_thinning_law_on_card(cuda):
-    """``binomial_mode="exact"`` on the card (``torch.binomial`` with a CUDA
-    generator): the reference's multi-step law at 65,536 x 1,000 steps, and
-    the same seed gives the same survivors."""
+    """``binomial_mode="exact"`` on the card (threefry-addressed by ``(seed,
+    step, path index)``): the reference's multi-step law at 65,536 x 1,000
+    steps; the last 16,384 paths drawn alone are the same paths of the whole
+    run, bitwise."""
     kw = dict(PENSION, store_every=25, binomial_mode="exact", seed=1234)
     a = simulate_pension(torch.arange(1 << 16, device=cuda), TimeGrid(10.0, 1000), **kw)
-    b = simulate_pension(torch.arange(1 << 16, device=cuda), TimeGrid(10.0, 1000), **kw)
+    b = simulate_pension(torch.arange(3 << 14, 1 << 16, device=cuda), TimeGrid(10.0, 1000),
+                         **kw)
     n_t = a["N"][:, -1].double()
     assert abs(float(n_t.mean()) - 8616) < 40 and abs(float(n_t.std()) - 132) < 30
     for k in a:
-        assert torch.equal(a[k], b[k]), k
+        assert torch.equal(a[k][3 << 14:], b[k]), k
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A 1-rank NCCL group over a ``FileStore`` and its paths mesh; the group
+    is destroyed after the test."""
+    import torch.distributed as dist
+
+    from orp_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", world_size=1,
+                            rank=0)
+    try:
+        yield make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_one_rank_nccl_walk_captures_its_all_reduce(nccl_mesh, monkeypatch):
+    """The fused GN walk on a 1-rank NCCL mesh: each LM iteration captured with
+    its ``all_reduce``, the date loop under ``no_host_sync``; host loop and
+    fused bitwise the same walks without a mesh (a 1-rank sum is the identity)."""
+    from orp_tpu_torch.api import EuropeanConfig, SimConfig, TrainConfig, european_hedge
+    from orp_tpu_torch.train import backward
+    from orp_tpu_torch.utils import measure
+
+    monkeypatch.setattr(backward, "fused_loop_scope", measure.no_host_sync)
+    sim = SimConfig(n_paths=1 << 14, T=1.0, dt=1 / 52, rebalance_every=1)
+    for fused in (False, True):
+        train = TrainConfig(dual_mode="separate", optimizer="gauss_newton", gn_iters_first=6,
+                            gn_iters_warm=3, fused=fused)
+        want = european_hedge(EuropeanConfig(), sim, train)
+        got = european_hedge(EuropeanConfig(), sim, train, mesh=nccl_mesh)
+        assert got.report.v0_cv == want.report.v0_cv and got.report.v0_acv == want.report.v0_acv
+        assert torch.equal(got.backward.values, want.backward.values), fused
+
+
+def test_one_rank_nccl_adam_walk_fused(nccl_mesh, monkeypatch):
+    """Adam on a 1-rank NCCL mesh: each epoch captured with its per-step
+    ``all_reduce`` (gradient and batch loss), the date loop under
+    ``no_host_sync``; fused bitwise the mesh's host loop, and ``v0_cv`` within
+    the reference's mesh band (``rtol=1e-5``) of the walk without a mesh (the
+    mesh's batch loss sums weighted per-row terms, another rounding)."""
+    from orp_tpu_torch.api import EuropeanConfig, SimConfig, TrainConfig, european_hedge
+    from orp_tpu_torch.train import backward
+    from orp_tpu_torch.utils import measure
+
+    monkeypatch.setattr(backward, "fused_loop_scope", measure.no_host_sync)
+    sim = SimConfig(n_paths=1 << 14, T=1.0, dt=1 / 52, rebalance_every=1)
+    train = TrainConfig(dual_mode="separate", epochs_first=12, epochs_warm=6, batch_size=2048,
+                        lr=1e-3, shuffle="blocks")
+    want = european_hedge(EuropeanConfig(), sim, train)
+    host = european_hedge(EuropeanConfig(), sim, train, mesh=nccl_mesh)
+    fused = european_hedge(EuropeanConfig(), sim, dataclasses.replace(train, fused=True),
+                           mesh=nccl_mesh)
+    assert torch.equal(fused.backward.values, host.backward.values)
+    np.testing.assert_allclose(host.report.v0_cv, want.report.v0_cv, rtol=1e-5)
+
+
+def test_one_rank_nccl_sharded_engine_bitwise(nccl_mesh):
+    """The engine on a 1-rank NCCL mesh serves the committed north-star policy
+    bitwise the unsharded engine, 1 to 1,048,576 rows."""
+    policy = load_bundle(NORTH_STAR_POLICY)
+    whole, sharded = HedgeEngine(policy), HedgeEngine(policy, mesh=nccl_mesh)
+    assert sharded.cache_info()["mesh_devices"] == 1
+    rng = np.random.default_rng(5)
+    for n in (1, 7, 33, 4096, 65537, 1 << 20):
+        states = rng.uniform(0.7, 1.3, (n, 1)).astype(np.float32)
+        prices = np.column_stack([states[:, 0], np.full(n, 0.97)]).astype(np.float32)
+        for x, y in zip(whole.evaluate(3, states, prices), sharded.evaluate(3, states, prices)):
+            np.testing.assert_array_equal(x, y)
 
 
 def _walk_data(dev, n: int = 2048, d: int = 5, n_features: int = 3):

@@ -33,7 +33,9 @@ def _sources():
                                          ROOT / "tools" / "torch_kernel_digest.py",
                                          ROOT / "tools" / "torch_warp_census.py",
                                          ROOT / "tools" / "torch_adam_walk.py",
-                                         ROOT / "tools" / "torch_fused_walk.py"]
+                                         ROOT / "tools" / "torch_fused_walk.py",
+                                         ROOT / "tools" / "torch_mesh_ranks.py",
+                                         ROOT / "tools" / "torch_mesh_probe.py"]
 
 
 def test_prefix_rule():
@@ -75,6 +77,13 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 28  # every module was imported
+
+
+def test_sources_include_the_parallel_package():
+    """The import rule walks every module of ``parallel/`` (the paths mesh)."""
+    names = {p.relative_to(PORT).as_posix() for p in _sources() if PORT in p.parents}
+    assert {"parallel/mesh.py", "parallel/multihost.py", "parallel/quantiles.py",
+            "utils/threefry.py"} <= names
 
 
 def test_entry_points_default_to_the_card():
@@ -143,6 +152,27 @@ def test_entry_points_default_to_the_card():
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+    # the paths mesh: path indices, a rank's device, and the mesh entry points
+    # (under a 1-rank group, so that building the mesh reaches its device)
+    import tempfile
+
+    import torch.distributed as dist
+
+    from orp_tpu_torch.parallel import MeshSpec, make_mesh, path_indices
+    from orp_tpu_torch.parallel.mesh import rank_device
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("gloo", init_method=f"file://{d}/store", world_size=1, rank=0)
+        try:
+            for call in (lambda: path_indices(8), rank_device, make_mesh,
+                         lambda: path_indices(8, mesh=1), lambda: MeshSpec(1).describe(),
+                         lambda: european_hedge(sim=sim, train=train, mesh=1),
+                         lambda: pension_hedge(HedgeRunConfig(sim=sim, train=train), mesh=1),
+                         lambda: HedgeEngine(policy, mesh=1)):
+                with pytest.raises(RuntimeError, match="device='cpu'"):
+                    call()
+            assert path_indices(8, mesh=make_mesh(device="cpu")).device.type == "cpu"
+        finally:
+            dist.destroy_process_group()
     assert HedgeEngine(policy, device="cpu").device.type == "cpu"
     assert simulate_gbm_basket(np.arange(8), TimeGrid(1.0, 4), **basket,
                                device="cpu").shape == (8, 5, 2)
