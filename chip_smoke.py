@@ -138,15 +138,26 @@ last line):
     120/30, batch 2,048, lr 1e-3, blocks), host loop and fused: bitwise, both
     walls, the epochs run past the early stop, the synchronizing CUDA calls of
     each (``set_sync_debug_mode("warn")``);
-21. [resume] phase 9's walk with ``checkpoint_dir``: the checkpointed walk,
+21. [obs] the telemetry spine (``orp_tpu_torch.obs``): phase 9's north star under
+    ``obs.telemetry`` (host loop), bitwise [euro]'s, with 52 ``train/fit`` and 52
+    ``train/outputs`` spans under ``train/walk``, K1 launched once inside
+    ``pipeline/simulate``, a ``train/convergence`` record with 52 finite
+    ``gram_cond`` values, a manifest naming the card's stack and the configs'
+    fingerprint, ``metrics.prom`` with the span series; the same walk fused,
+    bitwise [fused]'s, one ``train/walk`` span, its date loop under
+    ``no_host_sync``; [serve]'s 1M-row block under telemetry and
+    ``devprof.profiling()``, bitwise the untelemetered block, the serve spans and
+    counters, ``queue_s + device_s == t_done - t_dispatch``; each wall beside the
+    untelemetered one, the 1-row latency with telemetry off beside [serve]'s;
+22. [resume] phase 9's walk with ``checkpoint_dir``: the checkpointed walk,
     and the walk killed by ``FaultPlan(kill_after_step=25)`` then resumed, each
     bitwise phase 9's; walls and bytes on disk; the directory removed;
-22. [guard] phase 9's walk with ``nan_guard=True``: clean, bitwise and silent;
+23. [guard] phase 9's walk with ``nan_guard=True``: clean, bitwise and silent;
     with ``FaultPlan(seed=3, nan_dates={1}, nan_frac=0.02)`` the ladder's
     ``final_solve`` rung at date 50 only, date 51 bitwise, every ledger
     finite, V0 within 5% of the clean run and |v0_acv - BS| < 1bp; with
     [fused-adam]'s Adam walk the same plan lands on the ``gauss_newton`` rung;
-23. [basket] main path E, BASELINE.json config 5 (``BasketConfig()``: 5
+24. [basket] main path E, BASELINE.json config 5 (``BasketConfig()``: 5
     assets, rho 0.3) at 1,048,576 paths x 52 weekly steps on the scan path
     (the JAX package's basket is scan-only): ``basket_hedge`` with the basket
     hedge and the vector hedge (``instruments="assets"``; the fused GN walk,
@@ -164,7 +175,7 @@ last line):
     documented summation order (``megakernel.mixed_head_bf16_order``; its
     agreement with the plain version on the CPU and on the card printed);
     ``tier_phase`` for the vector head; K2's f32 and bf16 times at both heads beside their bounds;
-24. [greeks] at 1,048,576 paths: ``european_greeks`` call and put (52 steps)
+25. [greeks] at 1,048,576 paths: ``european_greeks`` call and put (52 steps)
     inside ``tests/test_greeks.py``'s bands against ``bs_greeks``;
     ``digital_greeks`` within 4 standard errors of the closed forms, call +
     put partitioning the paths; ``heston_greeks`` (364 steps) at 8 independently
@@ -172,7 +183,7 @@ last line):
     price, the mean of each greek within its band or 3 of the replicates'
     standard errors, the larger; ``basket_greeks`` at ``BasketConfig()``
     against CRN central-difference reprices on the card; each wall;
-25. [exotics] ``examples/option_analytics.py``'s steps 2-5 at 1,048,576 paths
+26. [exotics] ``examples/option_analytics.py``'s steps 2-5 at 1,048,576 paths
     (plain PyTorch on the scan path, as the JAX package runs them; no kernel
     launches in the phase), each in its JAX test's form: the arithmetic Asian
     (52 dates x 7 steps) with its geometric leg within 4 ``se_plain`` of the
@@ -192,7 +203,7 @@ last line):
     date differs printed); the CIR calibration on
     ``examples/stochastic_vol_calibration.py``'s series; ``utils.flops
     .phase_report`` of [fused]'s benchmark wall; each wall;
-26. [mesh] the paths mesh (``mesh_phases``): (a) an NCCL group over every
+27. [mesh] the paths mesh (``mesh_phases``): (a) an NCCL group over every
     visible card (one rank on one card) runs ``european_hedge(mesh=)`` at
     1,048,576 paths x 364 steps, 52 dates, the scan engine, GN 30 + 51 x 10,
     as the host loop and fused (NCCL's ``all_reduce`` inside the captured LM
@@ -206,7 +217,7 @@ last line):
     run. Every rank is a process of its own (``tools/torch_mesh_ranks.py``)
     under a hard timeout; a rank that fails fails the phase; no rank launches
     a kernel;
-27. times: each kernel and its plain version with CUDA events at the main
+28. times: each kernel and its plain version with CUDA events at the main
     paths' shapes (the host's queue filled ahead of each timed round, so a
     kernel shorter than its wrapper's host cost is timed on the card), beside
     the kernel's bound (K2's from [tiers], f32 and bf16 at both shapes, and
@@ -1312,7 +1323,7 @@ def fused_phases(dev, counts, euro_host, euro_s: float, pension_host, pension_s:
           f"params and accepted iterations bitwise [euro]'s; v0_acv bp_err {bp:+.4f}; wall "
           f"{out['euro_fused_s']:.3f} s fused vs {euro_s:.3f} s host loop; synchronizing CUDA "
           f"calls in the whole entry point {syncs}; K1 launches {k1}", flush=True)
-    del fh
+    out["euro_fused"] = fh  # [obs] holds its telemetered fused walk to this one
 
     # -- the benchmark's GN configuration, fused --------------------------------
     bench = dataclasses.replace(gn_train, gn_iters_first=150, gn_iters_warm=75,
@@ -1388,6 +1399,192 @@ def fused_phases(dev, counts, euro_host, euro_s: float, pension_host, pension_s:
           f"{out['adam_host_syncs']} host loop; v0_acv {af.report.v0_acv:.5f}", flush=True)
     check(len(loops) == 4, f"each of the 4 fused walks' date loops ran under 'error' ({loops})")
     backward.fused_loop_scope = fused_loop_scope
+    return out
+
+
+def obs_phases(dev, counts, euro_host, euro_s: float, fused_host, fused_s: float, policy,
+               rows, serve_lat_ms: float) -> dict:
+    """[obs]: the telemetry spine (``orp_tpu_torch.obs``) on the card. [euro]'s and
+    [fused]'s north star again under ``obs.telemetry`` (each bitwise its untelemetered
+    run, the fused date loop under ``no_host_sync``), and [serve]'s 1M-row block under
+    telemetry and ``devprof.profiling()`` (bitwise, the queue / device partition exact);
+    walls beside the untelemetered ones, the 1-row latency with telemetry off beside
+    [serve]'s."""
+    import collections
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from orp_tpu_torch import obs
+    from orp_tpu_torch.api import EuropeanConfig, SimConfig, TrainConfig, european_hedge
+    from orp_tpu_torch.obs import devprof
+    from orp_tpu_torch.obs.report import load_convergence
+    from orp_tpu_torch.serve import HedgeEngine
+    from orp_tpu_torch.serve.engine import span as serve_span
+    from orp_tpu_torch.train import backward
+    from orp_tpu_torch.utils.measure import no_host_sync
+
+    out = {}
+    root = HERE / "build" / "chip_smoke" / "obs"
+    euro = EuropeanConfig(constrain_self_financing=False)
+    sim = SimConfig(n_paths=N_FULL, T=1.0, dt=1 / 364, rebalance_every=STORE, engine="pallas")
+    gn_train = TrainConfig(dual_mode="mse_only", optimizer="gauss_newton")
+
+    def spans_of(bundle):
+        events = obs.read_events(bundle / obs.EVENTS_FILE)
+        check(all(obs.validate_event(e) == [] for e in events), f"{bundle.name}: events valid")
+        return events, collections.Counter((e["name"], e["parent"]) for e in events
+                                           if e["type"] == "span")
+
+    # -- the host-loop walk: [euro] under a session ------------------------------
+    bundle = root / "host"
+    k1_at_close = {}
+    counts.reset()
+    with obs.telemetry(bundle, flush_every_s=None) as st:
+        emit = st.sink.emit
+
+        def emit_counting(event):  # K1's count as each span closes
+            if event.get("type") == "span":
+                k1_at_close.setdefault(event["name"], counts.read()["fused_gbm"])
+            emit(event)
+
+        st.sink.emit = emit_counting
+        eo, out["host_s"] = timed(lambda: european_hedge(euro, sim, gn_train))
+    k1 = counts.only("fused_gbm", "the telemetered 1M-path european_hedge")
+    check(k1 == 1 and k1_at_close["pipeline/simulate"] == 1,
+          f"K1 launches once, inside pipeline/simulate ({k1}, {k1_at_close})")
+    walls_equal(eo.backward, euro_host.backward, "[obs] telemetered host loop vs [euro]")
+    events, spans = spans_of(bundle)
+    for key, n in ((("train/fit", "train/walk"), 52), (("train/outputs", "train/walk"), 52),
+                   (("train/walk", None), 1), (("pipeline/simulate", None), 1),
+                   (("pipeline/report", None), 1)):
+        check(spans[key] == n, f"[obs] {n} {key} spans ({spans[key]})")
+    check(sum(spans.values()) == 107, f"[obs] no other span ({dict(spans)})")
+    conv = load_convergence(bundle)
+    conds = conv.get("gram_cond", [])
+    check(len(conds) == 52 and all(math.isfinite(c) for c in conds),
+          f"[obs] 52 finite gram_cond values ({len(conds)})")
+    check(np.array_equal(conv["train_loss"], eo.backward.train_loss),
+          "[obs] the convergence record's losses are the walk's")
+    man = obs.read_manifest(bundle)
+    fp = obs.config_fingerprint(euro, sim, gn_train, "quantile_method=sort")
+    check(man["platform"] == "gpu" and man["torch_version"] == torch.__version__
+          and man["cuda_version"] == torch.version.cuda and man["run_fingerprint"] == fp
+          and man["pipeline"] == "european_hedge" and man["device_count"] >= 1,
+          f"[obs] manifest {man}")
+    prom = (bundle / obs.METRICS_FILE).read_text()
+    check('span_seconds{name="train/fit",quantile="0.5"}' in prom, "[obs] metrics.prom span_seconds")
+    walk = [e for e in events if e["type"] == "span" and e["name"] == "train/walk"][0]
+    check(walk["attrs"]["n_paths"] == N_FULL and walk["attrs"]["mesh_devices"] == 1,
+          f"[obs] train/walk attrs {walk['attrs']}")
+    out["walk_span_s"] = walk["dur_s"]
+    fit_s = sorted(e["dur_s"] for e in events if e.get("name") == "train/fit")
+    print(f"[obs] european_hedge {N_FULL} paths (GN 30 + 51 x 10) under obs.telemetry: ledgers, "
+          f"per-date params and iterations bitwise [euro]'s; spans 52 train/fit + 52 "
+          f"train/outputs under train/walk, pipeline/simulate and pipeline/report; K1 launches "
+          f"{k1}, inside pipeline/simulate; 52 finite gram_cond ({min(conds):.4g} to "
+          f"{max(conds):.4g}); manifest platform gpu, torch {man['torch_version']}, cuda "
+          f"{man['cuda_version']}, run_fingerprint the configs'; train/fit span median "
+          f"{fit_s[len(fit_s) // 2] * 1e3:.3f} ms", flush=True)
+    print(f"[obs] walls: host loop {out['host_s']:.3f} s with telemetry vs {euro_s:.3f} s "
+          f"[euro] without; train/walk span dur_s {walk['dur_s']:.3f} s inside that host "
+          f"wall", flush=True)
+
+    # -- the fused walk: [fused] under a session, the date loop under no_host_sync --
+    loops = []
+
+    def loop_scope(device):
+        loops.append(device)
+        return no_host_sync(device)
+
+    bundle = root / "fused"
+    default_scope = backward.fused_loop_scope
+    backward.fused_loop_scope = loop_scope
+    counts.reset()
+    try:
+        with obs.telemetry(bundle, flush_every_s=None):
+            fo, out["fused_s"] = timed(lambda: european_hedge(
+                euro, sim, dataclasses.replace(gn_train, fused=True)))
+    finally:
+        backward.fused_loop_scope = default_scope
+    check(len(loops) == 1, f"[obs] the fused date loop ran under no_host_sync ({loops})")
+    counts.only("fused_gbm", "the telemetered fused european_hedge")
+    walls_equal(fo.backward, fused_host.backward, "[obs] telemetered fused walk vs [fused]")
+    events, spans = spans_of(bundle)
+    check(spans[("train/walk", None)] == 1 and spans[("train/fit", "train/walk")] == 0
+          and spans[("train/outputs", "train/walk")] == 0,
+          f"[obs] the fused walk is one train/walk span ({dict(spans)})")
+    fwalk = [e for e in events if e["type"] == "span" and e["name"] == "train/walk"][0]
+    out["fused_walk_span_s"] = fwalk["dur_s"]
+    print(f"[obs] fused european_hedge under obs.telemetry: bitwise [fused]'s, one train/walk "
+          f"span ({fwalk['dur_s']:.3f} s) and none inside the date loop, which ran under "
+          f"no_host_sync; wall {out['fused_s']:.3f} s with telemetry vs {fused_s:.3f} s [fused] "
+          f"without", flush=True)
+    del eo, fo
+
+    # -- serving: [serve]'s 1M-row block under telemetry and devprof -------------
+    engine = HedgeEngine(policy)
+    off = engine.evaluate_mixed_async(*rows).result()
+    bundle = root / "serve"
+    calls = []
+    counts.reset()
+    with obs.telemetry(bundle, flush_every_s=None) as st, devprof.profiling() as prof:
+        complete = prof.complete
+
+        def spy(t_dispatch, t_block, *, bucket=None):
+            q, d = complete(t_dispatch, t_block, bucket=bucket)
+            calls.append((q, d, prof._last_complete - t_dispatch))
+            return q, d
+
+        prof.complete = spy
+        on = engine.evaluate_mixed_async(*rows).result()
+        reg = st.registry.collect()
+    k2 = counts.only("mixed_head", "the telemetered 1M-row serve block")
+    for a, b, what in zip(on, off, ("phi", "psi", "v")):
+        check(np.array_equal(a, b), f"[obs] served {what} bitwise the untelemetered block")
+    _, spans = spans_of(bundle)
+    check(set(spans) == {("serve/pad", None), ("serve/dispatch", None), ("serve/unpad", None)},
+          f"[obs] serve spans {dict(spans)}")
+    check(reg["serve/rows"]["value"] == N_FULL and reg["serve/bucket_hits"]["value"] == 1
+          and reg["serve/megakernel_dispatches"]["value"] == 1,
+          f"[obs] serve counters {reg}")
+    (q, d, wall), = calls
+    check(q >= 0.0 and d >= 0.0 and abs(q + d - wall) < 1e-9,
+          f"[obs] queue_s + device_s == t_done - t_dispatch ({q!r} + {d!r} vs {wall!r})")
+
+    # the 1-row latency: telemetry off now (three trace regions) beside [serve]'s
+    def latency(n_rows: int = 1) -> float:
+        walls = []
+        for _ in range(31):
+            t1 = time.perf_counter()
+            engine.evaluate_mixed_async(*(x[:n_rows] for x in rows)).result()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        return sorted(walls)[len(walls) // 2]
+
+    out["lat_off_ms"] = latency()
+    with obs.telemetry(root / "serve_latency", flush_every_s=None):
+        out["lat_on_ms"] = latency()
+    # what the off path adds to a request: its three trace regions (no-ops outside
+    # a torch.profiler capture)
+    for key, region in (("regions_us", serve_span), ("record_function_us",
+                                                     torch.profiler.record_function)):
+        t1 = time.perf_counter()
+        for _ in range(1000):
+            for name in ("serve/pad", "serve/dispatch", "serve/unpad"):
+                with region(name):
+                    pass
+        out[key] = (time.perf_counter() - t1) * 1e3
+    print(f"[obs] 1M-row mixed-date block under obs.telemetry + devprof.profiling: bitwise the "
+          f"untelemetered block; serve/pad, serve/dispatch, serve/unpad spans; serve/rows "
+          f"{reg['serve/rows']['value']}, megakernel_dispatches 1; queue_s {q * 1e3:.3f} ms + "
+          f"device_s {d * 1e3:.3f} ms = t_done - t_dispatch {wall * 1e3:.3f} ms; K2 launches "
+          f"{k2}", flush=True)
+    print(f"[obs] 1-row request latency host to host (median of 31): telemetry off "
+          f"{out['lat_off_ms']:.3f} ms vs [serve]'s {serve_lat_ms:.3f} ms in this call; "
+          f"telemetry on {out['lat_on_ms']:.3f} ms; the off path's three trace regions "
+          f"{out['regions_us']:.2f} us a request on this host, three record_function regions "
+          f"with no profiler running {out['record_function_us']:.2f} us", flush=True)
     return out
 
 
@@ -2668,6 +2865,8 @@ def main() -> int:
 
     adam = adam_phases(dev, counts, bs)
     fused = fused_phases(dev, counts, eh, euro_s, pension["hedge"], pension["hedge_s"], bs)
+    telemetry = obs_phases(dev, counts, eh, euro_s, fused.pop("euro_fused"), fused["euro_fused_s"],
+                           policy, (big_dates, big_states, big_prices), lat_ms[1])
     resilience = resilience_phases(dev, counts, eh, euro_s, bs)
     del eh
     pension.pop("hedge")
@@ -2785,6 +2984,12 @@ def main() -> int:
           f"guarded {resilience['guard_clean_s']:.3f} s; the example's Adam walk fused "
           f"{fused['adam_fused_s']:.3f} s vs host loop {fused['adam_host_s']:.3f} s", flush=True)
 
+    print(f"[times] telemetry at {N_FULL} paths: north star under obs.telemetry, host loop "
+          f"{telemetry['host_s']:.3f} s (train/walk span {telemetry['walk_span_s']:.3f} s) vs "
+          f"{euro_s:.3f} s without, fused {telemetry['fused_s']:.3f} s (span "
+          f"{telemetry['fused_walk_span_s']:.3f} s) vs {fused['euro_fused_s']:.3f} s without; "
+          f"1-row serve latency {telemetry['lat_off_ms']:.3f} ms off, {telemetry['lat_on_ms']:.3f}"
+          f" ms on ([serve] {lat_ms[1]:.3f} ms)", flush=True)
     print(f"[times] the basket at {N_FULL} paths x {BASKET_STEPS} steps (scan path): "
           + "; ".join(f"{name} {basket[name]['wall']:.3f} s ({basket[name]['iters']} "
                       f"{'epochs' if 'adam' in name else 'accepted GN iterations'}), oos "

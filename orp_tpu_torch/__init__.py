@@ -3,7 +3,7 @@
 A package of its own beside the JAX reference ``orp_tpu``: it imports
 ``torch`` and never ``jax``, and nothing of ``orp_tpu``. Its layout mirrors
 the reference (``qmc/``, ``sde/``, ``models/``, ``train/``, ``parallel/``,
-``risk/``, ``api/``, ``serve/``, ``guard/``, ``utils/``). Hand-written CUDA kernels for
+``risk/``, ``api/``, ``serve/``, ``guard/``, ``obs/``, ``utils/``). Hand-written CUDA kernels for
 ``sm_90a`` live in ``csrc/`` and are built with ``nvcc`` on first use.
 
 Entry points run on the card (``device=None`` means ``cuda``) unless the
@@ -25,6 +25,9 @@ caller passes ``device="cpu"``:
 - the option analytics: ``orp_tpu_torch.risk.asian_call_qmc``,
   ``down_and_out_call_qmc``, ``lookback_call_qmc``, ``price_surface``, ...
   and ``orp_tpu_torch.train.bermudan_lsm`` (each with ``device=...``)
+- ``with orp_tpu_torch.obs.telemetry(dir): ...``: a telemetry bundle of any
+  of the above (the JAX package's ``events.jsonl``, ``metrics.prom``,
+  ``manifest.json``, ``flight.jsonl``)
 """
 
 import pathlib

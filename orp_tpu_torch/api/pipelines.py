@@ -32,8 +32,12 @@ across the ranks, and returns the replicated report beside its block of the
 ledgers. Like the JAX package, a mesh runs ``engine="scan"`` only
 (:func:`_check_pallas`).
 
-The JAX package's ops-plane hooks (run manifest, telemetry spans, the
-model-health baseline, ``export_dir``) change no number and are not ported.
+Under a telemetry session (``obs/``) each ``*_hedge`` binds its run
+manifest (:func:`_bind_run_manifest`: the pipeline, the config fingerprint
+and, under a mesh, the mesh's shape) and spans ``pipeline/simulate`` and
+``pipeline/report`` around the regions the JAX package spans. The
+model-health baseline and ``export_dir`` wait for the serve path's
+``obs/quality.py`` and ``serve/bundle.export_bundle``.
 """
 
 from __future__ import annotations
@@ -47,7 +51,11 @@ from orp_tpu_torch.api.config import (ActuarialConfig, BasketConfig, EuropeanCon
                                       HedgeRunConfig, HestonConfig, MarketConfig, SimConfig,
                                       StochVolConfig, TrainConfig)
 from orp_tpu_torch.models.mlp import HedgeMLP
-from orp_tpu_torch.parallel.mesh import as_mesh, mesh_device, path_indices, path_mean
+from orp_tpu_torch.obs import bind_manifest, config_fingerprint
+from orp_tpu_torch.obs import enabled as obs_enabled
+from orp_tpu_torch.obs import span as obs_span
+from orp_tpu_torch.parallel.mesh import (as_mesh, describe_mesh, mesh_device, path_indices,
+                                         path_mean)
 from orp_tpu_torch.qmc.fused_gbm import gbm_log_fused
 from orp_tpu_torch.qmc.fused_mf import heston_log_fused, heston_qe_fused, pension_fused
 from orp_tpu_torch.risk.analytics import HedgeReport, build_report
@@ -189,6 +197,26 @@ def _check_policy_compat(name, trained, model: HedgeMLP, n_dates: int) -> HedgeM
     return model if trained_model is None else trained_model
 
 
+def _bind_run_manifest(pipeline: str, *configs, mesh=None) -> None:
+    """Bind this run's identity to the active telemetry session (a no-op when
+    telemetry is off): the manifest records the pipeline and the CONFIG
+    FINGERPRINT of the run (``obs.config_fingerprint``; the port's configs
+    have the JAX package's reprs, so both packages write the same string for
+    the same configs). ``configs`` holds every run-shaping argument: the
+    config objects and the bare keyword knobs (``quantile_method``, the
+    basket's ``instruments``). ``device=`` is not one (the JAX package has no
+    such argument). ``mesh``, the mesh the run already built, adds its shape
+    and device kind (``parallel.mesh.describe_mesh``, read from the mesh
+    object: no group is formed and no collective entered, so a rank with
+    telemetry on does no group work that a rank without skips)."""
+    if not obs_enabled():
+        return
+    fields = {"pipeline": pipeline, "run_fingerprint": config_fingerprint(*configs)}
+    if mesh is not None:
+        fields["mesh"] = describe_mesh(mesh)
+    bind_manifest(**fields)
+
+
 def _backward_on(bw: BackwardResult, device, dtype) -> BackwardResult:
     return dataclasses.replace(
         bw, params1_by_date=params_to(bw.params1_by_date, device, dtype),
@@ -262,9 +290,12 @@ def european_hedge(euro: EuropeanConfig = EuropeanConfig(),
     mesh, dev = _placement(mesh, device)
     full_f32()
     _check_quantile_method(quantile_method)
+    _bind_run_manifest("european_hedge", euro, sim, train, f"quantile_method={quantile_method}",
+                       mesh=mesh)
     dtype = _DTYPES[sim.dtype]
     grid = TimeGrid(sim.T, sim.n_steps)
-    s = _simulate_euro_paths(euro, sim, grid, "european_hedge", dev, mesh)
+    with obs_span("pipeline/simulate") as sp:
+        s = sp.set_result(_simulate_euro_paths(euro, sim, grid, "european_hedge", dev, mesh))
     coarse = grid.reduced(sim.rebalance_every)
     b = bond_curve(coarse, euro.r, dtype, dev)
     payoff = payoffs.european(s[:, -1], euro.strike, euro.option_type)
@@ -276,7 +307,8 @@ def european_hedge(euro: EuropeanConfig = EuropeanConfig(),
                              _backward_cfg(train), bias_init=bias, initial_params=warm_start,
                              mesh=mesh)
     times = coarse.times().numpy()
-    report = _report(res, s, payoff, euro.r, euro.strike, s0, times, quantile_method, mesh)
+    with obs_span("pipeline/report"):
+        report = _report(res, s, payoff, euro.r, euro.strike, s0, times, quantile_method, mesh)
     return _result(report, res, times, s0, sim, train, model)
 
 
@@ -329,9 +361,12 @@ def heston_hedge(heston: HestonConfig | None = None,
     full_f32()
     _check_quantile_method(quantile_method)
     h = heston or HestonConfig()
+    _bind_run_manifest("heston_hedge", h, sim, train, f"quantile_method={quantile_method}",
+                       mesh=mesh)
     dtype = _DTYPES[sim.dtype]
     grid = TimeGrid(sim.T, sim.n_steps)
-    traj = _simulate_heston_paths(h, sim, grid, "heston_hedge", dev, mesh)
+    with obs_span("pipeline/simulate") as sp:
+        traj = sp.set_result(_simulate_heston_paths(h, sim, grid, "heston_hedge", dev, mesh))
     s, v = traj["S"], traj["v"]
     coarse = grid.reduced(sim.rebalance_every)
     b = bond_curve(coarse, h.r, dtype, dev)
@@ -343,7 +378,8 @@ def heston_hedge(heston: HestonConfig | None = None,
                              payoff / s0, _backward_cfg(train), bias_init=(e_payoff_n, 0.0),
                              initial_params=warm_start, mesh=mesh)
     times = coarse.times().numpy()
-    report = _report(res, s, payoff, h.r, h.strike, s0, times, quantile_method, mesh)
+    with obs_span("pipeline/report"):
+        report = _report(res, s, payoff, h.r, h.strike, s0, times, quantile_method, mesh)
     return _result(report, res, times, s0, sim, train, model)
 
 
@@ -494,10 +530,15 @@ def basket_hedge(basket: BasketConfig = BasketConfig(),
     mesh, dev = _placement(mesh, device)
     full_f32()
     _check_quantile_method(quantile_method)
-    inp = basket_inputs(basket, sim, instruments, "basket_hedge", dev, mesh)
+    _bind_run_manifest("basket_hedge", basket, sim, train, f"instruments={instruments}",
+                       f"quantile_method={quantile_method}", mesh=mesh)
+    with obs_span("pipeline/simulate") as sp:
+        inp = basket_inputs(basket, sim, instruments, "basket_hedge", dev, mesh)
+        sp.set_result(inp.s)
     res = backward_induction(inp.model, inp.features, inp.hedge_prices, inp.b, inp.terminal,
                              _backward_cfg(train), bias_init=inp.bias_init, mesh=mesh)
-    return _basket_result(basket, sim, train, inp, res, quantile_method, mesh)
+    with obs_span("pipeline/report"):
+        return _basket_result(basket, sim, train, inp, res, quantile_method, mesh)
 
 
 def basket_oos(trained, basket: BasketConfig = BasketConfig(),
@@ -611,12 +652,17 @@ def pension_hedge(cfg: HedgeRunConfig = HedgeRunConfig(), *, quantile_method: st
     mesh, dev = _placement(mesh, device)
     full_f32()
     _check_quantile_method(quantile_method)
+    _bind_run_manifest("pension_hedge", cfg, f"quantile_method={quantile_method}", mesh=mesh)
     bcfg = _backward_cfg(cfg.train)
-    inp = pension_inputs(cfg, "pension_hedge", dev, mesh=mesh)
+    with obs_span("pipeline/simulate") as sp:
+        paths = sp.set_result(_simulate_pension_paths(
+            cfg, TimeGrid(cfg.sim.T, cfg.sim.n_steps), "pension_hedge", dev, mesh))
+    inp = pension_inputs(cfg, "pension_hedge", dev, paths=paths, mesh=mesh)
     model = HedgeMLP(n_features=3)
     res = backward_induction(model, inp.features, inp.y, inp.b, inp.terminal, bcfg,
                              bias_init=inp.bias_init, mesh=mesh)
-    return _pension_result(cfg, inp, res, model, quantile_method, mesh)
+    with obs_span("pipeline/report"):
+        return _pension_result(cfg, inp, res, model, quantile_method, mesh)
 
 
 def pension_oos(trained, cfg: HedgeRunConfig = HedgeRunConfig(), *,

@@ -11,10 +11,10 @@ at most ``nan_retries`` rungs; an exhausted ladder raises.
 
 The walk's clean path reads the date's finiteness flag
 (:func:`finite_flag`, a device tensor) in the date's one host read, so the
-guard adds no host sync. The JAX package's ``obs`` counters
-(``guard/nan_event``, ``guard/degrade``) wait for the port's ``obs/``;
-:func:`record_nan_event` and :func:`record_degrade` keep their names as the
-hooks for them.
+guard adds no host sync. Under a telemetry session (``obs/``) each hit counts
+``guard/nan_event{date,trainer,where}`` and each rung ``guard/degrade{date,to}``
+(:func:`record_nan_event`, :func:`record_degrade`), as in the JAX package;
+``obs/report.load_convergence`` reads the rungs back.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import warnings
 
 import torch
 
+from orp_tpu_torch.obs import count as obs_count
 from orp_tpu_torch.parallel.mesh import path_sum
 
 #: degradation order: reference-semantics Adam, then full-batch LM-GN, then
@@ -83,13 +84,16 @@ def degradation_ladder(configured: str, budget: int) -> list[str]:
 
 
 def record_nan_event(date_t: int, trainer: str, where: str) -> None:
-    """One non-finite detection: the JAX package's warning (its counter waits
-    for the port's ``obs/``)."""
+    """One non-finite detection: the ``guard/nan_event`` counter (a no-op
+    without a telemetry session) and a warning (which untelemetered runs see
+    too)."""
+    obs_count("guard/nan_event", date=str(date_t), trainer=trainer, where=where)
     warnings.warn(
         f"guard: non-finite {where} at backward date {date_t} under trainer {trainer!r} — "
         f"degrading per ladder {TRAINER_LADDER}", stacklevel=3)
 
 
 def record_degrade(date_t: int, to_trainer: str) -> None:
-    """One rung taken at ``date_t``: the hook of the JAX package's
-    ``guard/degrade`` counter (a no-op until the port's ``obs/``)."""
+    """One rung taken at ``date_t``: the ``guard/degrade`` counter (a no-op
+    without a telemetry session)."""
+    obs_count("guard/degrade", date=str(date_t), to=to_trainer)

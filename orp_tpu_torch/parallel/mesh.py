@@ -71,11 +71,18 @@ class MeshSpec:
         return make_mesh(self.n_devices, axis=self.axis, device=device)
 
     def describe(self, device=None) -> dict:
-        """JSON-able provenance: the resolved mesh shape and its device kind."""
-        mesh = self.build(device)
-        platform, kind = _platform_kind(mesh_device(mesh))
-        return {"axis": self.axis, "n_devices": mesh.size(), "mesh_shape": list(mesh.shape),
-                "platform": platform, "device_kind": kind}
+        """JSON-able provenance: the resolved mesh shape and its device kind
+        (builds the mesh: :func:`describe_mesh` describes a built one)."""
+        return describe_mesh(self.build(device))
+
+
+def describe_mesh(mesh) -> dict:
+    """:meth:`MeshSpec.describe`'s fields of a BUILT mesh, read from the mesh
+    object alone: no group is formed and no collective entered (the run
+    manifest describes the mesh a run already built)."""
+    platform, kind = _platform_kind(mesh_device(mesh))
+    return {"axis": mesh.mesh_dim_names[0], "n_devices": mesh.size(),
+            "mesh_shape": list(mesh.shape), "platform": platform, "device_kind": kind}
 
 
 def _is_mesh(mesh) -> bool:

@@ -28,17 +28,32 @@ the request or the shard: cuBLAS picks its kernel by shape, and a 262,144-row
 shard of a 1,048,576-row bucket otherwise rounds differently from the whole
 on an H100 (``tools/torch_mesh_probe.py``), which would part the sharded
 engine from the whole one.
-AOT executables, the guard's circuit breaker and the telemetry spans are not
-ported yet.
+Telemetry (``obs/``) as in the JAX package: ``serve/pad``, ``serve/dispatch``
+and ``serve/unpad`` are spans under a session and ``utils/profiling.trace``
+regions without one (named regions in a ``torch.profiler`` capture, free
+outside one); the counters ``serve/bucket_hits`` (registry only),
+``serve/bucket_misses{bucket}`` (an event), ``serve/rows``,
+``serve/pad_waste_rows`` and, on the mixed path,
+``serve/megakernel_dispatches``; under ``obs.devprof`` attribution each
+:class:`PendingEval` carries its launch instant and :meth:`PendingEval.result`
+waits for the device before it copies the rows back, so the queue / device
+split ends at the device's completion. AOT executables and the guard's
+circuit breaker are not ported yet.
 Buckets bound the set of shapes a request can take, which keeps the kernel's
 launch shapes and the caching allocator's block sizes to a small fixed set.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
+from orp_tpu_torch.obs import count as obs_count
+from orp_tpu_torch.obs import devprof as _devprof
+from orp_tpu_torch.obs import enabled as obs_enabled
+from orp_tpu_torch.obs import span as obs_span
 from orp_tpu_torch.parallel.mesh import (as_mesh, mesh_device, mesh_size, pad_to_mesh,
                                          path_gather, shard_rows)
 from orp_tpu_torch.serve.megakernel import (
@@ -56,6 +71,13 @@ from orp_tpu_torch.serve.precision import (
 )
 from orp_tpu_torch.utils.device import resolve_device
 from orp_tpu_torch.utils.precision import full_f32
+from orp_tpu_torch.utils.profiling import block_until_ready, trace
+
+
+def span(name, attrs=None):
+    """A telemetry span when a session is active, a ``utils/profiling.trace``
+    region otherwise."""
+    return obs_span(name, attrs) if obs_enabled() else trace(name)
 
 
 def _eval_core(model, p1_all, p2_all, date_idx: int, feats, prices, cost_of_capital, *,
@@ -108,23 +130,40 @@ def next_bucket(n: int, *, min_bucket: int = 8) -> int:
 
 class PendingEval:
     """A launched evaluation: the device owns it until :meth:`result` copies
-    the rows back to the host and slices the padding off."""
+    the rows back to the host and slices the padding off. ``prof`` and
+    ``t_dispatch``: the live ``obs.devprof`` state and the launch instant,
+    stamped by the engine when attribution is on (None when off)."""
 
-    __slots__ = ("_phi", "_psi", "_v", "_n", "_has_prices", "bucket")
+    __slots__ = ("_phi", "_psi", "_v", "_n", "_has_prices", "bucket", "_prof", "_t_dispatch")
 
-    def __init__(self, phi, psi, v, n: int, has_prices: bool, bucket: int):
+    def __init__(self, phi, psi, v, n: int, has_prices: bool, bucket: int, prof=None,
+                 t_dispatch: float = 0.0):
         self._phi, self._psi, self._v = phi, psi, v
         self._n = int(n)
         self._has_prices = has_prices
         self.bucket = int(bucket)
+        self._prof = prof
+        self._t_dispatch = t_dispatch
 
     def result(self):
         """``(phi, psi, value)`` host arrays of the requested rows (``value``
-        None when the request carried no prices). Waits for the device."""
+        None when the request carried no prices). Waits for the device: under
+        telemetry or attribution it waits first, stamps the completion
+        (``serve/device_seconds{bucket}``), then copies and unpads under
+        ``serve/unpad``; otherwise the copy itself waits, as it always has."""
         n = self._n
-        phi = self._phi[:n].cpu().numpy()
-        psi = self._psi[:n].cpu().numpy()
-        value = self._v[:n].cpu().numpy() if self._has_prices else None
+        prof = self._prof
+        if prof is not None or obs_enabled():
+            t_block = time.perf_counter()
+            block_until_ready("serve/unpad", (self._phi, self._psi, self._v))
+            if prof is not None:
+                # serial-device attribution: this launch's wall splits into
+                # queue vs device seconds and feeds the utilization gauge
+                prof.complete(self._t_dispatch, t_block, bucket=self.bucket)
+        with span("serve/unpad"):
+            phi = self._phi[:n].cpu().numpy()
+            psi = self._psi[:n].cpu().numpy()
+            value = self._v[:n].cpu().numpy() if self._has_prices else None
         return phi, psi, value
 
 
@@ -223,12 +262,29 @@ class HedgeEngine:
         full = path_gather(packed, self.mesh)
         return (full[:, :-2].reshape(-1, *phi.shape[1:]), full[:, -2], full[:, -1])
 
-    def _count(self, seen: set, b: int) -> None:
+    def _count(self, seen: set, b: int, n: int, *, mixed: bool = False) -> None:
+        """The bucket's hit or miss and the request's counters: per-request
+        ones registry-only, the rare miss (once a bucket) an event."""
         if b in seen:
             self.hits += 1
+            obs_count("serve/bucket_hits", sink_event=False)
         else:
             self.misses += 1
             seen.add(b)
+            obs_count("serve/bucket_misses", bucket=str(b), **({"mixed": "1"} if mixed else {}))
+        obs_count("serve/rows", n, sink_event=False)
+        if mixed:
+            obs_count("serve/megakernel_dispatches", sink_event=False)
+        if b > n:
+            obs_count("serve/pad_waste_rows", b - n, sink_event=False)
+
+    @staticmethod
+    def _pending(phi, psi, v, n: int, has_prices: bool, b: int) -> PendingEval:
+        """The launched evaluation, with the launch instant under attribution."""
+        prof = _devprof.active()
+        if prof is None:
+            return PendingEval(phi, psi, v, n, has_prices, b)
+        return PendingEval(phi, psi, v, n, has_prices, b, prof, time.perf_counter())
 
     @staticmethod
     def _empty(has_prices: bool) -> PendingEval:
@@ -250,13 +306,15 @@ class HedgeEngine:
         if n == 0:
             return self._empty(prices is not None)
         b = self.bucket_for(n)
-        feats, pr = self._pad(states, prices, n, b)
-        phi, psi, v = self._gather(*_eval_tiled(
-            self.model, self._p1, self._p2, idx, feats, pr, self.cost_of_capital,
-            dual_mode=self.dual_mode, holdings_combine=self.holdings_combine,
-            precision=self.precision.tier))
-        self._count(self._buckets, b)
-        return PendingEval(phi, psi, v, n, prices is not None, b)
+        with span("serve/pad"):
+            feats, pr = self._pad(states, prices, n, b)
+        with span("serve/dispatch", attrs={"bucket": b, "aot": False}):
+            phi, psi, v = self._gather(*_eval_tiled(
+                self.model, self._p1, self._p2, idx, feats, pr, self.cost_of_capital,
+                dual_mode=self.dual_mode, holdings_combine=self.holdings_combine,
+                precision=self.precision.tier))
+        self._count(self._buckets, b, n)
+        return self._pending(phi, psi, v, n, prices is not None, b)
 
     def evaluate_mixed_async(self, dates, states, prices=None) -> PendingEval:
         """One date index per ROW; the whole block runs through the mixed-date
@@ -277,17 +335,19 @@ class HedgeEngine:
             return self._empty(prices is not None)
         dates = (dates.astype(np.int64) % self.n_dates).astype(np.int32)
         b = self.bucket_for(n)
-        feats, pr = self._pad(states, prices, n, b)
-        dcol = np.zeros(b, np.int32)
-        dcol[:n] = dates  # padded rows use date 0 and are sliced off
-        p1, p2, packed1, packed2 = self._mixed_params()
-        phi, psi, v = _eval_core_mixed(
-            self.model, p1, p2, torch.from_numpy(dcol).to(self.device), feats, pr,
-            self.cost_of_capital, dual_mode=self.dual_mode,
-            holdings_combine=self.holdings_combine,
-            precision=self.precision.tier, packed1=packed1, packed2=packed2)
-        self._count(self._mixed_buckets, b)
-        return PendingEval(phi, psi, v, n, prices is not None, b)
+        with span("serve/pad"):
+            feats, pr = self._pad(states, prices, n, b)
+            dcol = np.zeros(b, np.int32)
+            dcol[:n] = dates  # padded rows use date 0 and are sliced off
+            dcol = torch.from_numpy(dcol).to(self.device)
+        with span("serve/dispatch", attrs={"bucket": b, "mixed": True}):
+            p1, p2, packed1, packed2 = self._mixed_params()
+            phi, psi, v = _eval_core_mixed(
+                self.model, p1, p2, dcol, feats, pr, self.cost_of_capital,
+                dual_mode=self.dual_mode, holdings_combine=self.holdings_combine,
+                precision=self.precision.tier, packed1=packed1, packed2=packed2)
+        self._count(self._mixed_buckets, b, n, mixed=True)
+        return self._pending(phi, psi, v, n, prices is not None, b)
 
     def _mixed_params(self):
         """``(p1, p2, packed1, packed2)`` for the mixed-date kernel, built once.

@@ -43,8 +43,17 @@ refused. Checkpoints leave the mesh out of the fingerprint, so a walk saved
 on D ranks resumes on any topology: the first rank writes the gathered
 per-path columns, and each rank reads back its own block.
 
-The JAX package's ``_emit_convergence`` with its ``obs`` records,
-``compile_audit`` and the CLI's ``--resume`` (A9) are not ported.
+Under a telemetry session (``obs/``) the walk emits, as the JAX package's
+does, a device-complete ``train/walk`` span (``n_paths`` the global count,
+``mesh_devices`` the mesh size), on the host loop the per-date
+``train/fit`` / ``train/fit_quantile`` / ``train/outputs`` spans (the guard's
+degraded refits too), and after the walk one ``train/convergence`` record
+with ``train/gram_cond{date}`` gauges (:func:`_emit_convergence`). The fused
+walk is one span: nothing is recorded inside its date loop, which still runs
+under :func:`fused_loop_scope`. With telemetry off none of this runs. The
+JAX package's ``train/xla_compiles`` counter (its ``compile_audit``) has no
+counterpart: the port compiles no XLA programs. The CLI's ``--resume`` waits
+for ``cli.py``.
 
 ``dual_mode``: ``"separate"`` (two param sets, ``v = g + i(h - g)``),
 ``"shared"`` (one param set, RP.py:172's weight sharing: the quantile fit
@@ -67,6 +76,12 @@ import torch
 
 from orp_tpu_torch.guard import inject as _inject
 from orp_tpu_torch.guard import sentinel as _sentinel
+from orp_tpu_torch.obs import count as obs_count
+from orp_tpu_torch.obs import emit_record as obs_emit_record
+from orp_tpu_torch.obs import enabled as obs_enabled
+from orp_tpu_torch.obs import set_gauge as obs_set_gauge
+from orp_tpu_torch.obs import span as obs_span
+from orp_tpu_torch.obs import spanned as obs_spanned
 from orp_tpu_torch.parallel.mesh import (as_mesh, dist_backend, mesh_rank, mesh_size,
                                          path_gather, path_mean, path_sum,
                                          replicate_from_first, shard_rows)
@@ -327,12 +342,13 @@ def _leg_fits(model, cfg: BackwardConfig, feats_t, prices_t1, target, step_i: in
 
 
 def _date_body(model, cfg: BackwardConfig, params1, params2, feats_t, prices_t, prices_t1,
-               target, fit_fn, q_fit_fn):
+               target, fit_fn, q_fit_fn, *, outputs_fn=_date_outputs_core):
     """One backward date: the MSE fit, the quantile fit (``dual_mode``
     semantics, the shared-weights ``g_pre`` snapshot, RP.py:212-217 order),
-    then the date's outputs. The one definition of the date body: the host
-    loop, the fused walk and the guard's Gauss-Newton rung pass their
-    trainers. Returns ``(params1, params2, v_t, comb, var_resid, aux,
+    then the date's outputs (``outputs_fn``: :func:`_date_outputs_core`,
+    spanned on the host loop under telemetry). The one definition of the date
+    body: the host loop, the fused walk and the guard's Gauss-Newton rung pass
+    their trainers. Returns ``(params1, params2, v_t, comb, var_resid, aux,
     q_aux)`` (``q_aux`` None under ``mse_only``)."""
     params1, aux = fit_fn(params1)
     g_pre, q_aux = None, None
@@ -347,14 +363,14 @@ def _date_body(model, cfg: BackwardConfig, params1, params2, feats_t, prices_t, 
         params2, q_aux = q_fit_fn(params2)
         if cfg.dual_mode == "shared":
             params1 = params2
-    v_t, comb, var_resid = _date_outputs_core(
+    v_t, comb, var_resid = outputs_fn(
         model, params1, params2, feats_t, prices_t, prices_t1, target, cfg.cost_of_capital,
         g_pre, dual_mode=cfg.dual_mode, holdings_combine=cfg.holdings_combine)
     return params1, params2, v_t, comb, var_resid, aux, q_aux
 
 
 def _final_solve_date(model, cfg: BackwardConfig, params0, feats_t, prices_t, prices_t1,
-                      target, mesh=None):
+                      target, mesh=None, *, outputs_fn=_date_outputs_core):
     """The ladder's terminal rung: the PRE-FIT ``params0`` with its readout
     replaced by the closed-form ridge optimum (``model.solve_readout``), the
     solved params for both legs, the outputs combined as ``mse_only`` (the
@@ -371,7 +387,7 @@ def _final_solve_date(model, cfg: BackwardConfig, params0, feats_t, prices_t, pr
     if cfg.dual_mode != "mse_only":
         q_loss = make_loss(cfg.quantile_loss, q=cfg.quantile)
         q_aux = {"final_loss": path_mean(q_loss(pred, target), mesh), "n_epochs_ran": zero}
-    v_t, comb, var_resid = _date_outputs_core(
+    v_t, comb, var_resid = outputs_fn(
         model, solved, solved, feats_t, prices_t, prices_t1, target, cfg.cost_of_capital, None,
         dual_mode="mse_only", holdings_combine=cfg.holdings_combine)
     return solved, solved, v_t, comb, var_resid, aux, q_aux
@@ -393,20 +409,27 @@ def _degrade_date(model, cfg: BackwardConfig, pre1, pre2, feats_t, prices_t, pri
     """The sentinel fired at date ``t``: walk the trainer ladder from the
     PRE-FIT params on a sanitized target until a rung gives finite state, at
     most ``cfg.nan_retries`` rungs; running dry raises rather than let every
-    earlier date train on garbage. Returns the :func:`_date_body` tuple."""
+    earlier date train on garbage. Returns the :func:`_date_body` tuple.
+    Under telemetry the refits are spanned like the host loop's and the
+    sanitized rows counted (``guard/target_sanitized{date}``)."""
     _sentinel.record_nan_event(t, cfg.optimizer, "post-fit date state")
-    target, _ = _sentinel.sanitize_target(target, mesh)
+    target, n_bad = _sentinel.sanitize_target(target, mesh)
+    if n_bad:
+        obs_count("guard/target_sanitized", n_bad, date=str(t))
     ladder = _sentinel.degradation_ladder(cfg.optimizer, cfg.nan_retries)
+    outputs_fn = obs_spanned("train/outputs", _date_outputs_core)
     for rung in ladder:
         _sentinel.record_degrade(t, rung)
         if rung == "gauss_newton":
-            fits = _leg_fits(model, cfg, feats_t, prices_t1, target, step_i, gauss_newton=True,
-                             gn_quantile=True, mesh=mesh)
+            fit_fn, q_fit_fn = _leg_fits(model, cfg, feats_t, prices_t1, target, step_i,
+                                         gauss_newton=True, gn_quantile=True, mesh=mesh)
             state = _date_body(model, cfg, pre1, pre2, feats_t, prices_t, prices_t1, target,
-                               *fits)
+                               obs_spanned("train/fit", fit_fn),
+                               obs_spanned("train/fit_quantile", q_fit_fn),
+                               outputs_fn=outputs_fn)
         else:  # "final_solve": the closed-form terminal rung
             state = _final_solve_date(model, cfg, pre1, feats_t, prices_t, prices_t1, target,
-                                      mesh)
+                                      mesh, outputs_fn=outputs_fn)
         if bool(_date_finite(state, mesh)):
             return state
         _sentinel.record_nan_event(t, rung, "degraded retry")
@@ -494,10 +517,78 @@ def backward_induction(model, features: torch.Tensor, y_prices: torch.Tensor,
     :func:`_fit_generator`. ``cfg.fused``, ``cfg.checkpoint_dir`` and
     ``cfg.nan_guard``: the module docstring. ``mesh`` (a paths mesh, a rank
     count or a ``MeshSpec``): the inputs are this rank's block of the paths,
-    and so are the returned ledgers."""
+    and so are the returned ledgers. Under a telemetry session the walk is
+    spanned and records its convergence (the module docstring); the result
+    is bitwise the same either way."""
+    mesh = as_mesh(mesh, y_prices.device)
+    args = (model, features, y_prices, b_prices, terminal_values, cfg)
+    if not obs_enabled():
+        return _walk_impl(*args, bias_init=bias_init, initial_params=initial_params, mesh=mesh)
+    with obs_span("train/walk", attrs={
+        "n_paths": int(y_prices.shape[0]) * mesh_size(mesh),
+        "n_dates": int(y_prices.shape[1]) - 1,
+        "fused": cfg.fused, "optimizer": cfg.optimizer,
+        "dual_mode": cfg.dual_mode,
+        "mesh_devices": mesh_size(mesh),
+    }) as sp:
+        res = _walk_impl(*args, bias_init=bias_init, initial_params=initial_params, mesh=mesh)
+        sp.set_result(res.values)
+    _emit_convergence(res, cfg, model, features, y_prices, b_prices)
+    return res
+
+
+def _emit_convergence(res: BackwardResult, cfg: BackwardConfig, model, features, y_prices,
+                      b_prices) -> None:
+    """The walk's convergence telemetry (telemetered walks only), after the
+    walk and without touching ``res``: ONE ``train/convergence`` record with
+    the per-date loss / mae / mape trajectories, the epochs or accepted GN
+    iterations of each date's MSE fit and the configured trainer (the
+    sentinel's ``guard/degrade{date,to}`` events overlay the rungs a date
+    took; ``obs/report.load_convergence`` merges them) and, for Gauss-Newton
+    walks, the condition number of each date's Gram at its fitted params
+    (``gn.gram_cond`` on the date's first ``min(2048, paths)`` rows, rounded
+    to 3 decimals as the JAX package rounds it), each also a
+    ``train/gram_cond{date}`` gauge.
+
+    It enters no collective. The metrics are replicated, so every rank of a
+    mesh records the same trajectories; each rank computes the Gram
+    conditioning on the first rows of its own block. The first rank holds
+    global rows 0..2047 whenever its block has at least ``min(2048, global
+    paths)`` rows, and then records the unsharded run's numbers; the other
+    ranks record their own block's conditioning."""
+    payload = {
+        "optimizer": cfg.optimizer,
+        "dual_mode": cfg.dual_mode,
+        "fused": bool(cfg.fused),
+        "nan_guard": bool(cfg.nan_guard),
+        "n_dates": int(res.train_loss.shape[0]),
+        "train_loss": [float(x) for x in res.train_loss],
+        "train_mae": [float(x) for x in res.train_mae],
+        "train_mape": [float(x) for x in res.train_mape],
+        "epochs_ran": [int(x) for x in res.epochs_ran],
+    }
+    if cfg.optimizer == "gauss_newton" and res.params1_by_date is not None:
+        dtype = model.dtype
+        m = min(int(y_prices.shape[0]), 2048)
+        prices_all = _stack_prices(y_prices[:m].to(dtype),
+                                   b_prices.to(device=y_prices.device, dtype=dtype))
+        conds = []
+        for d in range(payload["n_dates"]):
+            # the Gram the date's fit solved: features at t, prices at t+1
+            c = _gn.gram_cond(model, date_params(res.params1_by_date, d), features[:m, d],
+                              prices_all[:, d + 1])
+            conds.append(round(float(c), 3))
+            obs_set_gauge("train/gram_cond", float(c), date=str(d))
+        payload["gram_cond"] = conds
+    obs_emit_record("train/convergence", payload)
+
+
+def _walk_impl(model, features: torch.Tensor, y_prices: torch.Tensor, b_prices: torch.Tensor,
+               terminal_values: torch.Tensor, cfg: BackwardConfig, *, bias_init, initial_params,
+               mesh) -> BackwardResult:
+    """The walk itself (:func:`backward_induction`, ``mesh`` built)."""
     full_f32()
     dev, dtype = y_prices.device, model.dtype
-    mesh = as_mesh(mesh, dev)
     n_paths, n_knots = y_prices.shape[:2]
     n_dates = n_knots - 1
     if cfg.fused and mesh is not None and dev.type == "cuda":
@@ -588,11 +679,19 @@ def backward_induction(model, features: torch.Tensor, y_prices: torch.Tensor,
             if inj is not None:
                 # may NaN-poison the date's LOCAL target; values[:, t+1] stays clean
                 target = inj.corrupt_target(step_i, target)
-            fits = _leg_fits(model, cfg, feats_t, prices_t1, target, step_i,
-                             gauss_newton=gauss_newton, gn_quantile=cfg.gn_quantile,
-                             programs=programs, mesh=mesh)
+            fit_fn, q_fit_fn = _leg_fits(model, cfg, feats_t, prices_t1, target, step_i,
+                                         gauss_newton=gauss_newton, gn_quantile=cfg.gn_quantile,
+                                         programs=programs, mesh=mesh)
+            outputs_fn = _date_outputs_core
+            if not cfg.fused:
+                # the host loop's per-date spans (each the callable itself with
+                # telemetry off); the fused walk's date loop records nothing
+                fit_fn = obs_spanned("train/fit", fit_fn)
+                q_fit_fn = obs_spanned("train/fit_quantile" if gauss_newton else "train/fit",
+                                       q_fit_fn)
+                outputs_fn = obs_spanned("train/outputs", outputs_fn)
             state = _date_body(model, cfg, params1, params2, feats_t, prices_t, prices_t1,
-                               target, *fits)
+                               target, fit_fn, q_fit_fn, outputs_fn=outputs_fn)
             row = _metrics_row(state[5], state[6], dtype)
             if cfg.fused:
                 rows[t] = row

@@ -868,3 +868,27 @@ def test_nan_debug_and_checked_on_card(cuda):
     assert out.device.type == "cuda" and "aten.sqrt" in err.get()
     with pytest.raises(FloatingPointError):
         err.throw()
+
+
+def test_obs_span_waits_for_the_card_and_refuses_under_capture(cuda):
+    """An obs span's clock stops once the card's stream has finished its
+    result (a result queued behind ~0.1 s of card time closes a span of at
+    least that wall, with the stream drained); inside a CUDA-graph capture
+    the wait raises, naming the span, instead of skipping."""
+    from orp_tpu_torch import obs
+
+    x = torch.ones(1 << 20, device=cuda)
+    sink = obs.ListSink()
+    with obs.active(sink=sink):
+        torch.cuda._sleep(int(2e8))  # ~0.1 s of card time at the H100's clocks
+        with obs.span("probe") as sp:
+            sp.set_result({"y": (x * 2,), "n": 3})
+        assert torch.cuda.current_stream().query()
+        graph = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="'captured'.*CUDA-graph capture"):
+            with torch.cuda.graph(graph):
+                with obs.span("captured") as sp:
+                    sp.set_result(x * 3)
+    probe, captured = sink.events
+    assert probe["ok"] is True and probe["dur_s"] >= 0.05
+    assert captured["name"] == "captured" and captured["ok"] is False

@@ -86,6 +86,14 @@ def test_sources_include_the_parallel_package():
             "utils/threefry.py"} <= names
 
 
+def test_sources_include_the_obs_package():
+    """The import rule walks every module of ``obs/`` (the telemetry spine),
+    host-only ones included: the port keeps its own copy of each."""
+    names = {p.relative_to(PORT).as_posix() for p in _sources() if PORT in p.parents}
+    assert {f"obs/{m}.py" for m in ("__init__", "registry", "sink", "spans", "manifest",
+                                    "flight", "report", "tracetree", "devprof")} <= names
+
+
 def test_entry_points_default_to_the_card():
     """Without ``device=`` an entry point means the card, and raises without one."""
     if torch.cuda.is_available():

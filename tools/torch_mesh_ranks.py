@@ -27,6 +27,10 @@ Jobs (keys of ``jobs``, run in this order on every rank):
 - ``pension``: ``simulate_pension`` (exact thinning) on this rank's block;
 - ``refusals``: the error texts of ``engine="pallas"`` with a mesh and (on a
   card over ``gloo``) of ``fused=True``;
+- ``telemetry``: one ``european_hedge`` run on every rank, with a telemetry
+  session (``obs.telemetry``, its bundle under ``out_dir/telemetry``) on the
+  ranks listed in ``telemetry_ranks`` only: the bundle's manifest, its
+  ``train/walk`` span and the mesh's ``describe()`` as this rank sees it;
 - ``fail_rank``: that rank raises before the walks, while the others enter
   them (a launch must fail, not hang);
 - ``sync_check``: the fused walks' date loops run under
@@ -230,6 +234,24 @@ def _refusals(spec: dict, mesh, device, backend: str):
     return out
 
 
+def _telemetry(spec: dict, mesh, device, rank: int, out: pathlib.Path):
+    from orp_tpu_torch import obs
+    from orp_tpu_torch.api import european_hedge
+    from orp_tpu_torch.parallel import MeshSpec
+
+    if rank not in spec["telemetry_ranks"]:
+        res = european_hedge(*_configs(spec), mesh=mesh, device=device)
+        return {"v0_cv": res.report.v0_cv, "bundle": None}
+    bundle = out / "telemetry"
+    with obs.telemetry(bundle, flush_every_s=None):
+        res = european_hedge(*_configs(spec), mesh=mesh, device=device)
+    walk = [e for e in obs.read_events(bundle / obs.EVENTS_FILE)
+            if e["type"] == "span" and e["name"] == "train/walk"]
+    return {"v0_cv": res.report.v0_cv, "bundle": str(bundle),
+            "manifest": obs.read_manifest(bundle), "walk": walk,
+            "describe": MeshSpec(mesh.size()).describe(device)}
+
+
 def _kernel_wrappers() -> dict:
     """Each CUDA kernel's wrapper and its launch counter: a rank reports what
     its jobs launched (the mesh path launches none)."""
@@ -283,6 +305,9 @@ def _rank_main(args) -> None:
         res["pension"] = _pension(jobs["pension"], mesh, device)
     if "refusals" in jobs:
         res["refusals"] = _refusals(jobs["refusals"], mesh, device, args.backend)
+    if "telemetry" in jobs:
+        res["telemetry"] = _telemetry(jobs["telemetry"], mesh, device, args.rank,
+                                      pathlib.Path(args.out))
     res["kernel_launches"] = {k: getattr(fn, attr, 0) for k, (fn, attr) in kernels.items()}
     torch.save(res, pathlib.Path(args.out) / f"rank{args.rank}.pt")
     dist.destroy_process_group()
