@@ -225,6 +225,25 @@ last line):
     the median time of one LM iteration there (MSE and, for the pension, the
     IRLS pinball leg); the basket's and the greeks' walls.
 
+29. [host] the single-host serve path (``host_phases``): the north-star and
+    pension policies trained at 65,536 paths (their widths: 106 params x 52
+    dates; 3 features x 40 dates, two param sets) through ``export_dir=``,
+    served with the committed north-star policy on ``ServeHost(
+    max_live_engines=2)`` (mixed-date lane, block coalescing): client threads
+    send ``orp-ingest-v2`` frames of 1 to 1,048,576 rows through
+    ``submit_block``, every served row bitwise the tenant's own
+    ``HedgeEngine``, no kernel launched by the per-date lane; single-row
+    requests at many dates ride one dispatch through K2 (one launch for the
+    north star, two for the pension), within ``rtol=1e-5, atol=1e-6`` of the
+    plain version on the CPU; the shed statuses under ``GuardPolicy(
+    deadline_ms=..., queue_watermark=...)``; a retry under ``FaultPlan(fail=
+    {"serve/dispatch": 2})``; eviction to warm and back with no build and the
+    params at the same device address; the canary promoting the same bundle
+    and rejecting ``corrupt_reload`` with the incumbent's bits untouched; a
+    quality-gated reload; the tier drill (each reduced tier refused under
+    bits, then judged by the quality band); 1-row latency and 1M-row rows/s
+    through the host beside the bare engine; reload and activation seconds.
+
 Output: a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -2309,6 +2328,317 @@ def exotics_phases(dev, counts, bench_s: float) -> dict:
     return out
 
 
+# [host]: the served policies' training depth (their widths are the main paths'),
+# the block sizes, and the validation set of the quality-gated reloads: 2,048 paths
+# at 52 weekly steps (the 52 dates of the policy), 4 replicates
+HOST_TRAIN_PATHS = 1 << 16
+HOST_SIZES = (1, 7, 4096, 65_536, N_FULL)
+HOST_MIXED_ROWS = 512
+
+
+def _host_rows(n: int, n_features: int, seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    states = (1.0 + 0.05 * rng.standard_normal((n, n_features))).astype(np.float32)
+    prices = np.concatenate([states[:, :1], np.full((n, 1), 0.97, np.float32)], axis=1)
+    return states, prices
+
+
+def _hold(host, name: str):
+    """The tenant's live batcher, activated; holding its condition keeps the
+    worker from admitting, so requests submitted meanwhile ride one dispatch."""
+    t, batcher = host._claim_batcher(name)
+    host._release_claim(t)
+    return batcher
+
+
+def _median_ms(fn, n: int = 31) -> float:
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return sorted(walls)[n // 2]
+
+
+def host_phases(dev, counts) -> dict:
+    """[host]: the single-host serve path. The north-star and pension policies
+    trained at HOST_TRAIN_PATHS paths and exported (``export_dir=``), served
+    with the committed north-star policy as a third tenant on
+    ``ServeHost(max_live_engines=2)`` with the mixed-date lane and block
+    coalescing; client threads send ``orp-ingest-v2`` frames through
+    ``submit_block`` and read the decoded replies."""
+    import dataclasses
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from orp_tpu_torch import NORTH_STAR_POLICY
+    from orp_tpu_torch.api import (EuropeanConfig, HedgeRunConfig, SimConfig, TrainConfig,
+                                   european_hedge, pension_hedge)
+    from orp_tpu_torch.guard import FaultPlan, GuardPolicy, faults
+    from orp_tpu_torch.obs.quality import ValidationSpec
+    from orp_tpu_torch.serve import (SERVED, SHED_DEADLINE, SHED_WATERMARK, CanaryRejected,
+                                     HedgeEngine, MicroBatcher, ServeHost, load_bundle,
+                                     megakernel, wire)
+    from orp_tpu_torch.serve.bench import promotion_drill
+    from orp_tpu_torch.utils import cuda_build
+    from orp_tpu_torch.utils.measure import cuda_ms
+
+    t_phase = time.perf_counter()
+    out = {}
+    root = pathlib.Path(tempfile.mkdtemp(prefix="orp-host-"))
+    gn = TrainConfig(dual_mode="mse_only", optimizer="gauss_newton")
+    t0 = time.perf_counter()
+    european_hedge(EuropeanConfig(constrain_self_financing=False),
+                   SimConfig(n_paths=HOST_TRAIN_PATHS, T=1.0, dt=1 / 364, rebalance_every=STORE,
+                             engine="pallas"), gn, export_dir=root / "north-star")
+    pension_hedge(HedgeRunConfig(
+        sim=SimConfig(n_paths=HOST_TRAIN_PATHS, T=10.0, dt=0.01, rebalance_every=PENSION_STORE,
+                      seed=1234, engine="pallas", binomial_mode="inversion"),
+        train=TrainConfig(dual_mode="shared", holdings_combine="py", optimizer="gauss_newton",
+                          gn_iters_first=60, gn_iters_warm=30)), export_dir=root / "pension")
+    out["train_s"] = time.perf_counter() - t0
+    sources = {"north-star": root / "north-star", "pension": root / "pension",
+               "ns-ref": NORTH_STAR_POLICY}
+    policies = {k: load_bundle(v) for k, v in sources.items()}
+    ns, pen = policies["north-star"], policies["pension"]
+    check(ns.model.n_params() == 106 and ns.n_dates == 52 and ns.validation is not None
+          and ns.feature_sketch is not None and ns.fingerprint is not None,
+          "the exported north star: 106 params, 52 dates, its baseline and fingerprint")
+    check(pen.model.n_features == 3 and pen.n_dates == 40 and pen.dual_mode == "shared"
+          and pen.feature_sketch is not None, "the exported pension: 3 features, 40 dates")
+    direct = {k: HedgeEngine(v) for k, v in policies.items()}
+    guard = GuardPolicy(deadline_ms=60_000.0, queue_watermark=N_FULL, max_retries=3,
+                        backoff_ms=1.0)
+    host = ServeHost(max_live_engines=2,
+                     batcher_kwargs={"mixed_dates": True, "coalesce_blocks": True})
+    host.add_tenant("north-star", sources["north-star"])
+    host.add_tenant("pension", sources["pension"])
+    host.add_tenant("ns-ref", sources["ns-ref"], policy=guard)
+    try:
+        # -- cold activation (a directory load) of each tenant, then (a) client
+        # threads: frames -> submit_block -> reply frames, bitwise the engine
+        cold = {}
+        for name in ("north-star", "pension"):
+            s1, p1 = _host_rows(1, policies[name].model.n_features, 0)
+            t0 = time.perf_counter()
+            host.evaluate(name, 0, s1, p1)
+            cold[name] = time.perf_counter() - t0
+
+        def client(name):
+            res = []
+            for i, n in enumerate(HOST_SIZES):
+                s, pr = _host_rows(n, policies[name].model.n_features, n)
+                d = (3 * i + 1) % policies[name].n_dates
+                req = wire.decode_request(wire.encode_request(name, d, s, pr, seq=i + 1))
+                got = host.submit_block(req["tenant"], req["date_idx"], req["states"],
+                                        req["prices"], req["deadlines"]).result(timeout=600)
+                back = wire.decode_reply(wire.encode_reply(got, date_idx=d, seq=req["seq"]))
+                res.append((n, d, s, pr, back))
+            return name, res
+
+        counts.reset()
+        with ThreadPoolExecutor(3) as pool:
+            served = list(pool.map(client, ("north-star", "pension", "ns-ref")))
+        after = counts.read()
+        check(all(v == 0 for v in after.values()),
+              f"the per-date lane launches no kernel ({after})")
+        for name, res in served:
+            for n, d, s, pr, back in res:
+                want = direct[name].evaluate(d, s, pr)
+                check(back.n_served == n and np.array_equal(back.phi, want[0])
+                      and np.array_equal(back.psi, want[1]) and np.array_equal(back.value, want[2]),
+                      f"[host] {name}: {n} rows at date {d} bitwise the tenant's engine")
+        print(f"[host] 3 client threads x {len(HOST_SIZES)} blocks ({', '.join(map(str, HOST_SIZES))}"
+              f" rows) as orp-ingest-v2 frames through ServeHost(max_live_engines=2): every "
+              f"served row bitwise the tenant's own HedgeEngine; no kernel launched (the "
+              f"per-date lane is cuBLAS); activations {[host.stats()[k]['activations'] for k in sources]}",
+              flush=True)
+
+        # -- (b) the mixed-date lane: single-row requests at many dates ride one
+        # dispatch through K2 (two launches for the pension's two param sets)
+        k2 = {}
+        for name in ("north-star", "pension"):
+            pol = policies[name]
+            s, pr = _host_rows(HOST_MIXED_ROWS, pol.model.n_features, 5)
+            dates = (np.arange(HOST_MIXED_ROWS) * 7) % pol.n_dates
+            batcher = _hold(host, name)
+            counts.reset()
+            with batcher._cv:
+                futs = [host.submit(name, int(dates[i]), s[i:i + 1], pr[i:i + 1])
+                        for i in range(HOST_MIXED_ROWS)]
+            got = [f.result(timeout=120) for f in futs]
+            torch.cuda.synchronize()
+            k2[name] = counts.only("mixed_head", f"[host] {name}'s mixed-date requests")
+            check(k2[name] == (2 if pol.dual_mode != "mse_only" else 1),
+                  f"[host] {name}: one dispatch, {k2[name]} K2 launch(es)")
+            plain = HedgeEngine(pol, device="cpu").evaluate_mixed_async(dates, s, pr).result()
+            for j, col in enumerate(("phi", "psi", "value")):
+                mine = np.concatenate([g[j] for g in got])
+                np.testing.assert_allclose(mine, plain[j], rtol=1e-5, atol=1e-6, err_msg=col)
+        out["k2_launches"] = sum(k2.values())
+        # K2 alone at the host batch's shape against its plain version (not counted)
+        m = ns.model
+        p = {k: v.to(dev) for k, v in ns.backward.params1_by_date.items()}
+        d_t = torch.from_numpy((np.arange(HOST_MIXED_ROWS) * 7 % ns.n_dates).astype(np.int32)).to(dev)
+        f_t = torch.from_numpy(_host_rows(HOST_MIXED_ROWS, 1, 5)[0]).to(dev)
+        packed = megakernel.pack_head_params(m, p)
+        kern = megakernel.mixed_head_forward(m, p, d_t, f_t, packed=packed)
+        ref = megakernel.mixed_head_plain(m, p, d_t, f_t)
+        out["k2_err"] = float((kern - ref).abs().max())
+        check(bool(torch.allclose(kern, ref, rtol=1e-5, atol=1e-6)),
+              f"[host] K2 at {HOST_MIXED_ROWS} rows within rtol 1e-5 of mixed_head_plain")
+        out["k2_ms"] = cuda_ms(lambda: megakernel.mixed_head_forward(m, p, d_t, f_t,
+                                                                     packed=packed), reps=200)
+        out["k2_plain_ms"] = cuda_ms(lambda: megakernel.mixed_head_plain(m, p, d_t, f_t), reps=20)
+        out["k2_bound"] = k2_bound_ms(m, HOST_MIXED_ROWS, ns.n_dates)
+        print(f"[host] {HOST_MIXED_ROWS} single-row requests at {ns.n_dates} / {pen.n_dates} "
+              f"dates through the mixed-date lane: north star {k2['north-star']} K2 launch, "
+              f"pension {k2['pension']}, each within rtol 1e-5 of the plain version on the CPU; "
+              f"K2 alone {out['k2_ms']:.4f} ms (max |kernel - plain| {out['k2_err']:.2e}, "
+              f"bound {out['k2_bound'][0]:.6f} ms by {out['k2_bound'][1]}, plain "
+              f"{out['k2_plain_ms']:.3f} ms)", flush=True)
+
+        # -- (c) shed statuses and (d) a retry, on the guarded tenant
+        s, pr = _host_rows(4096, 1, 9)
+        budgets = np.where(np.arange(4096) % 5 == 0, -1.0, 60.0)
+        want = direct["ns-ref"].evaluate(5, s, pr)
+        batcher = _hold(host, "ns-ref")
+        sb, pb = _host_rows(N_FULL, 1, 10)
+        with batcher._cv:  # both blocks queue: 4,096 + 1,048,576 rows against the watermark
+            a = host.submit_block("ns-ref", 5, s, pr, budgets)
+            b = host.submit_block("ns-ref", 5, sb, pb)
+        ra, rb = a.result(timeout=600), b.result(timeout=600)
+        live = ra.status == SERVED
+        check(np.array_equal(ra.status, np.where(np.arange(4096) % 5 == 0, SHED_DEADLINE,
+                                                 SERVED))
+              and np.array_equal(ra.phi[live], want[0][live]),
+              "[host] deadline: every fifth row shed, the rest bitwise")
+        n_ok = N_FULL - 4096
+        want_b = direct["ns-ref"].evaluate(5, sb[:n_ok], pb[:n_ok])
+        check(np.array_equal(rb.status, np.r_[np.full(n_ok, SERVED), np.full(4096, SHED_WATERMARK)])
+              and np.array_equal(rb.phi[:n_ok], want_b[0]),
+              f"[host] watermark: the block's tail past {N_FULL} queued rows shed, the head "
+              "bitwise (coalesced with the first block)")
+        with faults(FaultPlan(fail={"serve/dispatch": 2})) as inj:
+            rr = host.submit_block("ns-ref", 5, s, pr).result(timeout=120)
+        check(len(inj.log) == 2 and rr.n_served == 4096 and np.array_equal(rr.phi, want[0]),
+              "[host] FaultPlan(fail={'serve/dispatch': 2}): two retries, served bitwise")
+        print(f"[host] GuardPolicy(deadline_ms=60000, queue_watermark={N_FULL}, "
+              f"max_retries=3): {ra.shed_counts()} of 4096 rows, {rb.shed_counts()} of "
+              f"{N_FULL}; the retried block bitwise", flush=True)
+
+        # -- (e) eviction to warm and back: no build, no params copy
+        name = "pension"
+        host.evaluate("north-star", 0, *_host_rows(1, 1, 0))
+        host.evaluate("ns-ref", 0, *_host_rows(1, 1, 0))
+        check(host.stats()[name]["tier"] == "warm", f"[host] {name} evicted to warm")
+        res = host._tenants[name].resident
+        ptr, mixed = res.p1["w0"].data_ptr(), res.mixed
+        builds = dict(cuda_build.BUILD_STATS)
+        s3, p3 = _host_rows(1, 3, 0)
+        t0 = time.perf_counter()
+        warm_out = host.evaluate(name, 0, s3, p3)
+        out["warm_s"] = time.perf_counter() - t0
+        eng = host._tenants[name].engine
+        check(eng.resident is res and eng._p1["w0"].data_ptr() == ptr
+              and eng._mixed_params() is mixed and mixed is not None
+              and cuda_build.BUILD_STATS == builds,
+              f"[host] warm re-activation: no build ({builds}), params at the same address")
+        check(np.array_equal(warm_out[0], direct[name].evaluate(0, s3, p3)[0]),
+              "[host] warm re-activation serves bitwise")
+        out["cold_s"] = cold[name]
+        print(f"[host] activation (the first 1-row request): cold {cold[name]:.4f} s "
+              f"(load_bundle + params to the card), warm {out['warm_s']:.4f} s; "
+              f"tiers {host.tiers.counts()}", flush=True)
+
+        # -- (f) the canary, (g) the quality-gated reload, (h) the tier drill
+        s, pr = _host_rows(64, 1, 2)
+        before = host.evaluate("north-star", 3, s, pr)
+        t0 = time.perf_counter()
+        check(host.reload_tenant("north-star")["swapped"], "[host] same bundle promotes")
+        out["reload_s"] = time.perf_counter() - t0
+        with faults(FaultPlan(corrupt_reload=1)):
+            try:
+                host.reload_tenant("north-star")
+                check(False, "[host] corrupt_reload must be rejected")
+            except CanaryRejected:
+                pass
+        check(all(np.array_equal(a_, b_) for a_, b_ in zip(host.evaluate("north-star", 3, s, pr),
+                                                          before)),
+              "[host] after the reject the incumbent serves its bits")
+        spec = ValidationSpec(kind="gbm", n_steps=52, rebalance_every=1, n_paths=2048,
+                              replicates=4)
+        t0 = time.perf_counter()
+        q = host.reload_tenant("north-star", require_same_bits=False, quality_band=0.05,
+                               validation=spec)
+        out["reload_quality_s"] = time.perf_counter() - t0
+        check(q["quality"]["regression"] == 0.0, "[host] the same policy regresses 0 on the "
+              f"paired validation set ({q['quality']})")
+        drill = promotion_drill(dataclasses.replace(ns, validation=spec), s,
+                                quality_band=0.05, device=dev)
+        check([d["tier"] for d in drill] == ["bf16", "int8"]
+              and all(d["refused_under_bitwise"] and d["outcome"] in ("promoted", "rejected")
+                      for d in drill), f"[host] the tier drill ({drill})")
+        out["drill"] = drill
+        print(f"[host] reload_tenant: bitwise canary {out['reload_s']:.3f} s (promoted; a "
+              f"corrupt_reload rejected, the incumbent's bits untouched), quality-gated "
+              f"{out['reload_quality_s']:.3f} s (hedge error {q['quality']['incumbent']['mean']:.6f}"
+              f" both, {spec.n_paths} paths x {spec.replicates} replicates, {spec.n_steps} "
+              f"steps); tier drill: " + "; ".join(
+                  f"{d['tier']} refused under bits, {d['outcome']}"
+                  + (f" (regression {d['regression']:+.4%})" if "regression" in d else "")
+                  for d in drill), flush=True)
+
+        # -- latency and rows/s: host vs bare engine, in turns, in this call, and
+        # the host's parts: a lone MicroBatcher (its 200 us coalescing window,
+        # then none) and the tenant's drift monitor on the block lane
+        s1, p1 = _host_rows(1, 1, 1)
+        bare = direct["north-star"]
+        sb, pb = _host_rows(N_FULL, 1, 3)
+        lat = {"host": [], "batcher": [], "batcher_nowait": [], "engine": []}
+        rps = {"host": [], "batcher": [], "engine": []}
+        drift = host._tenants["north-star"].drift
+        with MicroBatcher(bare) as mb, MicroBatcher(bare, max_wait_us=0.0) as mb0:
+            for _ in range(3):
+                lat["host"].append(_median_ms(lambda: host.evaluate("north-star", 7, s1, p1)))
+                lat["batcher"].append(_median_ms(lambda: mb.evaluate(7, s1, p1)))
+                lat["batcher_nowait"].append(_median_ms(lambda: mb0.evaluate(7, s1, p1)))
+                lat["engine"].append(_median_ms(lambda: bare.evaluate(7, s1, p1)))
+            for _ in range(3):
+                for key, fn in (("host", lambda: host.submit_block("north-star", 9, sb, pb)
+                                 .result(timeout=120)),
+                                ("batcher", lambda: mb.submit_block(9, sb, pb).result(timeout=120)),
+                                ("engine", lambda: bare.evaluate(9, sb, pb))):
+                    t0 = time.perf_counter()
+                    fn()
+                    rps[key].append(N_FULL / (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        drift.update(sb)
+        out["drift_ms"] = (time.perf_counter() - t0) * 1e3
+        for key, v in lat.items():
+            out[f"lat_{key}_ms"] = sorted(v)[1]
+        for key, v in rps.items():
+            out[f"rps_{key}"] = sorted(v)[1]
+        print(f"[host] 1-row latency host to host (median of 3 x 31, in turns): ServeHost "
+              f"{out['lat_host_ms']:.3f} ms, a lone MicroBatcher {out['lat_batcher_ms']:.3f} ms "
+              f"(max_wait_us=0: {out['lat_batcher_nowait_ms']:.3f} ms), bare HedgeEngine "
+              f"{out['lat_engine_ms']:.3f} ms; {N_FULL}-row block (median of 3): "
+              f"ServeHost.submit_block {out['rps_host']:,.0f} rows/s, MicroBatcher.submit_block "
+              f"{out['rps_batcher']:,.0f}, engine {out['rps_engine']:,.0f}; the tenant's drift "
+              f"monitor folds the block in {out['drift_ms']:.2f} ms | {card_line()}", flush=True)
+    finally:
+        host.close()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[host] training the served policies at {HOST_TRAIN_PATHS} paths "
+          f"{out['train_s']:.2f} s; the phase {out['phase_s']:.2f} s", flush=True)
+    return out
+
+
 def mesh_tool():
     """``tools/torch_mesh_ranks.py``, the launcher of one process a rank."""
     import importlib.util
@@ -2876,6 +3206,8 @@ def main() -> int:
     greeks = greeks_phases(dev)
     exotics = exotics_phases(dev, counts, fused["bench_fused_s"])
     mesh = mesh_phases(dev, adam.pop("exact_n"))
+    hosted = host_phases(dev, counts)
+    launches["mixed_head_host"] = hosted["k2_launches"]
 
     # -- 19. times at the main paths' shapes ----------------------------------
     k1 = lambda: fused_gbm.gbm_log_fused(N_FULL, N_STEPS, **gbm_kw)  # noqa: E731
@@ -3063,7 +3395,22 @@ def main() -> int:
          "max_abs_err": basket["assets"]["k2b_err"], "ms": k2b["bf16"],
          "plain_ms": k2b["bf16_plain"], "bound_ms": k2b["bf16_bound"][0],
          "bound_by": k2b["bf16_bound"][1], "library_ms": None},
+        # K2 on the single-host serve path: the mixed-date lane's single-row
+        # requests of the north star and the pension, one dispatch each ([host])
+        {"name": "mixed_head_host", "route": "cuda",
+         "source": "orp_tpu_torch/csrc/mixed_head.cu",
+         "replaces": "orp_tpu/serve/megakernel.py:85", "launches": launches["mixed_head_host"],
+         "max_abs_err": hosted["k2_err"], "ms": hosted["k2_ms"],
+         "plain_ms": hosted["k2_plain_ms"], "bound_ms": hosted["k2_bound"][0],
+         "bound_by": hosted["k2_bound"][1], "library_ms": None},
     ]}
+    print(f"[times] the single-host serve path: 1-row latency ServeHost "
+          f"{hosted['lat_host_ms']:.3f} ms vs HedgeEngine {hosted['lat_engine_ms']:.3f} ms; "
+          f"{N_FULL}-row submit_block {hosted['rps_host']:,.0f} rows/s vs engine "
+          f"{hosted['rps_engine']:,.0f}; reload_tenant {hosted['reload_s']:.3f} s bitwise, "
+          f"{hosted['reload_quality_s']:.3f} s quality-gated; activation cold "
+          f"{hosted['cold_s']:.4f} s, warm {hosted['warm_s']:.4f} s; [host] "
+          f"{hosted['phase_s']:.1f} s", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels))
     print(card_line())

@@ -254,6 +254,10 @@ class PipelineResult:
     holdings_combine: str | None = None
     cost_of_capital: float | None = None
     model: HedgeMLP | None = None
+    # the model-health baseline the export bakes (obs/quality.py, _attach_baseline)
+    feature_sketch: object | None = None
+    validation: object | None = None
+    hedge_error_baseline: float | None = None
 
     @property
     def v0(self) -> float:
@@ -268,6 +272,38 @@ class PipelineResult:
         return self.report.psi0
 
 
+def _maybe_export(result: PipelineResult, export_dir) -> PipelineResult:
+    """The ``export_dir`` hook: persist the trained policy as a serve bundle
+    right after training (``serve/bundle.export_bundle``)."""
+    if export_dir is not None:
+        from orp_tpu_torch.serve.bundle import export_bundle
+
+        export_bundle(result, export_dir)
+    return result
+
+
+def _attach_baseline(result: PipelineResult, features, validation=None) -> PipelineResult:
+    """Attach the model-health baseline (``obs/quality.py``) the export bakes
+    into the bundle: the per-feature sketch of the TRAINING features, taken
+    on their device (this rank's block under a mesh), the pinned validation
+    set when the pipeline has one, and the training hedge-error level
+    (``cv_std`` in the walk's normalised units, else the residual-P&L std)."""
+    from orp_tpu_torch.obs.quality import FeatureSketch
+
+    result.feature_sketch = FeatureSketch.from_features(features)
+    result.validation = validation
+    rep = result.report
+    if getattr(rep, "cv_std", None) is not None:
+        result.hedge_error_baseline = float(rep.cv_std) / float(result.adjustment_factor)
+    else:
+        stats = getattr(rep, "residual_stats", None) or {}
+        if stats.get("std") is not None:
+            # residual_stats are adjusted by the report: divide back to the
+            # normalised units of the cv_std branch and the validation estimate
+            result.hedge_error_baseline = float(stats["std"]) / float(result.adjustment_factor)
+    return result
+
+
 def _result(report, res, times, s0, sim: SimConfig, train: TrainConfig, model) -> PipelineResult:
     return PipelineResult(report=report, backward=res, times=times, adjustment_factor=s0,
                           sim_seed=sim.seed_fund, dual_mode=train.dual_mode,
@@ -280,13 +316,15 @@ def european_hedge(euro: EuropeanConfig = EuropeanConfig(),
                                               rebalance_every=7),
                    train: TrainConfig = TrainConfig(dual_mode="mse_only"), *,
                    quantile_method: str = "sort", warm_start=None, mesh=None,
-                   device=None) -> PipelineResult:
+                   device=None, export_dir=None) -> PipelineResult:
     """Weekly-rebalanced European option hedge, trained by the backward walk.
 
     Features, prices and values are in units of ``S0``; the output bias starts
     at the normalised mean payoff. ``warm_start``: optional ``(params1,
     params2)`` for ``backward_induction(initial_params=...)``. ``device=None``
-    is the card. ``mesh``: this rank's block of the paths (module docstring)."""
+    is the card. ``mesh``: this rank's block of the paths (module docstring).
+    The result carries its model-health baseline (a ``gbm`` validation set);
+    ``export_dir``: also export it as a serve bundle there."""
     mesh, dev = _placement(mesh, device)
     full_f32()
     _check_quantile_method(quantile_method)
@@ -303,13 +341,22 @@ def european_hedge(euro: EuropeanConfig = EuropeanConfig(),
     model = HedgeMLP(n_features=1, constrain_self_financing=euro.constrain_self_financing)
     e_payoff_n = float(path_mean(torch.mean(payoff), mesh)) / s0
     bias = (e_payoff_n,) if euro.constrain_self_financing else (e_payoff_n, 0.0)
-    res = backward_induction(model, (s / s0)[:, :, None], s / s0, b / s0, payoff / s0,
+    features = (s / s0)[:, :, None]
+    res = backward_induction(model, features, s / s0, b / s0, payoff / s0,
                              _backward_cfg(train), bias_init=bias, initial_params=warm_start,
                              mesh=mesh)
     times = coarse.times().numpy()
     with obs_span("pipeline/report"):
         report = _report(res, s, payoff, euro.r, euro.strike, s0, times, quantile_method, mesh)
-    return _result(report, res, times, s0, sim, train, model)
+    from orp_tpu_torch.obs.quality import ValidationSpec
+
+    result = _attach_baseline(_result(report, res, times, s0, sim, train, model), features,
+                              ValidationSpec(kind="gbm", s0=euro.s0, r=euro.r, sigma=euro.sigma,
+                                             strike=euro.strike, option_type=euro.option_type,
+                                             T=sim.T, n_steps=sim.n_steps,
+                                             rebalance_every=sim.rebalance_every,
+                                             n_paths=min(sim.n_paths, 2048)))
+    return _maybe_export(result, export_dir)
 
 
 def european_oos(trained, euro: EuropeanConfig = EuropeanConfig(),
@@ -352,11 +399,12 @@ def heston_hedge(heston: HestonConfig | None = None,
                                             rebalance_every=7),
                  train: TrainConfig = TrainConfig(dual_mode="mse_only"), *,
                  quantile_method: str = "sort", warm_start=None, mesh=None,
-                 device=None) -> PipelineResult:
+                 device=None, export_dir=None) -> PipelineResult:
     """European hedge under risk-neutral Heston stochastic vol. The network sees
     ``(S_t/S0, v_t)``; the report carries the unbiased CV and OLS-martingale
-    prices (discounted S is still a Q-martingale). Training and ``mesh`` as
-    in :func:`european_hedge`. ``device=None`` is the card."""
+    prices (discounted S is still a Q-martingale). Training, ``mesh``, the
+    baseline (a ``heston-<scheme>`` validation set) and ``export_dir`` as in
+    :func:`european_hedge`. ``device=None`` is the card."""
     mesh, dev = _placement(mesh, device)
     full_f32()
     _check_quantile_method(quantile_method)
@@ -374,13 +422,24 @@ def heston_hedge(heston: HestonConfig | None = None,
     s0 = h.s0
     model = HedgeMLP(n_features=2)
     e_payoff_n = float(path_mean(torch.mean(payoff), mesh)) / s0
-    res = backward_induction(model, torch.stack([s / s0, v], dim=-1), s / s0, b / s0,
+    features = torch.stack([s / s0, v], dim=-1)
+    res = backward_induction(model, features, s / s0, b / s0,
                              payoff / s0, _backward_cfg(train), bias_init=(e_payoff_n, 0.0),
                              initial_params=warm_start, mesh=mesh)
     times = coarse.times().numpy()
     with obs_span("pipeline/report"):
         report = _report(res, s, payoff, h.r, h.strike, s0, times, quantile_method, mesh)
-    return _result(report, res, times, s0, sim, train, model)
+    from orp_tpu_torch.obs.quality import ValidationSpec
+
+    scheme = resolve_heston_scheme(h.scheme, "heston_hedge")
+    result = _attach_baseline(_result(report, res, times, s0, sim, train, model), features,
+                              ValidationSpec(kind=f"heston-{scheme}", s0=h.s0, r=h.r, v0=h.v0,
+                                             kappa=h.kappa, theta=h.theta, xi=h.xi, rho=h.rho,
+                                             strike=h.strike, option_type=h.option_type,
+                                             T=sim.T, n_steps=sim.n_steps,
+                                             rebalance_every=sim.rebalance_every,
+                                             n_paths=min(sim.n_paths, 2048)))
+    return _maybe_export(result, export_dir)
 
 
 def heston_oos(trained, heston: HestonConfig | None = None,
@@ -513,7 +572,7 @@ def basket_hedge(basket: BasketConfig = BasketConfig(),
                                             rebalance_every=1),
                  train: TrainConfig = TrainConfig(dual_mode="mse_only"), *,
                  quantile_method: str = "sort", instruments: str = "basket", mesh=None,
-                 device=None) -> PipelineResult:
+                 device=None, export_dir=None) -> PipelineResult:
     """A-asset basket-call hedge (BASELINE.json config 5), trained by the
     backward walk. The network sees the A moneyness features ``S_i/S0_i``.
 
@@ -526,7 +585,8 @@ def basket_hedge(basket: BasketConfig = BasketConfig(),
 
     Prices, values and payoff are in units of the strike. Scan engine only
     (``engine="pallas"`` is refused, as in the JAX package). ``device=None`` is
-    the card; ``mesh`` as in :func:`european_hedge`."""
+    the card; ``mesh`` and ``export_dir`` as in :func:`european_hedge` (the
+    baseline is the feature sketch alone: there is no basket validation kind)."""
     mesh, dev = _placement(mesh, device)
     full_f32()
     _check_quantile_method(quantile_method)
@@ -538,7 +598,8 @@ def basket_hedge(basket: BasketConfig = BasketConfig(),
     res = backward_induction(inp.model, inp.features, inp.hedge_prices, inp.b, inp.terminal,
                              _backward_cfg(train), bias_init=inp.bias_init, mesh=mesh)
     with obs_span("pipeline/report"):
-        return _basket_result(basket, sim, train, inp, res, quantile_method, mesh)
+        result = _basket_result(basket, sim, train, inp, res, quantile_method, mesh)
+    return _maybe_export(_attach_baseline(result, inp.features), export_dir)
 
 
 def basket_oos(trained, basket: BasketConfig = BasketConfig(),
@@ -636,7 +697,7 @@ def _pension_result(cfg: HedgeRunConfig, inp: PensionInputs, res: BackwardResult
 
 
 def pension_hedge(cfg: HedgeRunConfig = HedgeRunConfig(), *, quantile_method: str = "sort",
-                  mesh=None, device=None) -> PipelineResult:
+                  mesh=None, device=None, export_dir=None) -> PipelineResult:
     """Dynamic pension-liability hedge (RP.py:29-235; the SV variant, :237-459,
     when ``cfg.sv`` is set), trained by the backward walk.
 
@@ -648,7 +709,10 @@ def pension_hedge(cfg: HedgeRunConfig = HedgeRunConfig(), *, quantile_method: st
     is ``normal`` or ``inversion``, as the JAX package's Pallas engine's).
     ``device=None`` is the card; ``mesh`` as in :func:`european_hedge` (exact
     thinning draws each path's deaths by its global index, so a sharded run's
-    paths are the single-device run's)."""
+    paths are the single-device run's). ``export_dir`` as in
+    :func:`european_hedge`; the baseline is the feature sketch alone (there
+    is no pension validation kind, so the quality gate needs an explicit
+    spec)."""
     mesh, dev = _placement(mesh, device)
     full_f32()
     _check_quantile_method(quantile_method)
@@ -662,7 +726,8 @@ def pension_hedge(cfg: HedgeRunConfig = HedgeRunConfig(), *, quantile_method: st
     res = backward_induction(model, inp.features, inp.y, inp.b, inp.terminal, bcfg,
                              bias_init=inp.bias_init, mesh=mesh)
     with obs_span("pipeline/report"):
-        return _pension_result(cfg, inp, res, model, quantile_method, mesh)
+        result = _pension_result(cfg, inp, res, model, quantile_method, mesh)
+    return _maybe_export(_attach_baseline(result, inp.features), export_dir)
 
 
 def pension_oos(trained, cfg: HedgeRunConfig = HedgeRunConfig(), *,

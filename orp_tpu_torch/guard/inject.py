@@ -1,6 +1,8 @@
-"""Deterministic, seed-driven fault injection for the backward walk (the walk's part of ``orp_tpu/guard/inject.py``).
+"""Deterministic, seed-driven fault injection for the backward walk and the serve
+path (counterpart of ``orp_tpu/guard/inject.py``).
 
-The guard's proofs drive the real walk through these hooks:
+The guard's proofs drive the real walk and the real serve path through these
+hooks:
 
 - ``corrupt_target``: NaN-poison a fraction of a date's fit target (proves the
   NaN sentinel and the trainer ladder). The rows come from
@@ -9,12 +11,29 @@ The guard's proofs drive the real walk through these hooks:
 - ``kill_after_step``: raise :class:`WalkKilled` right after date ``k``'s
   checkpoint is saved (proves kill-and-resume equality);
 - ``corrupt_bytes``: flip seeded bytes of a blob (proves checkpoint tamper
-  detection).
+  detection);
+- ``fail(site)``: raise :class:`InjectedFault` (a transient dispatch error)
+  for the first ``n`` calls at a site (proves retry-with-backoff);
+- ``delay(site)``: sleep a fixed, small duration for the first ``n`` calls
+  (proves deadlines and shedding; a delay at ``serve/execute`` past
+  ``GuardPolicy.hard_wall_ms`` is the watchdog's hung launch);
+- ``device_loss(site)``: raise :class:`InjectedDeviceLoss` (structural,
+  carries the surviving device count) for the first ``n`` calls;
+- ``corrupt_reload``: perturb one param leaf of an already-loaded policy
+  (corruption the on-disk checks cannot see; proves the hot-reload canary
+  gate, ``serve/host.py``).
+
+Serve sites: ``serve/dispatch`` in ``HedgeEngine.evaluate_async`` and
+``evaluate_mixed_async``, ``serve/execute`` in ``PendingEval.result``,
+``serve/bundle_reload`` in ``ServeHost.reload_tenant``. The wire faults
+(``torn_send``, ``stall_send``, ``kill_gateway_at_frame``) belong to the
+gateway, which is not ported yet.
 
 Hooks fire only while a plan is installed (``with faults(plan):``); the clean
-path pays one module-global load per hook site. The serve-site faults of the
-JAX package (``fail``, ``delay``, ``device_loss`` and the rest) wait for the
-port's serve planes.
+path pays one module-global load per hook site. Per-site call counters advance
+under one lock, so the fault sequence is a deterministic function of the call
+order. The walk's faults draw from the plan's generator exactly as before:
+the site counters draw nothing.
 """
 
 from __future__ import annotations
@@ -22,9 +41,21 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
+import time
 
 import numpy as np
 import torch
+
+from orp_tpu_torch.guard.serve import DeviceLostError, TransientDispatchError
+
+
+class InjectedFault(TransientDispatchError):
+    """A synthetic transient failure (retryable by construction)."""
+
+
+class InjectedDeviceLoss(DeviceLostError):
+    """A synthetic device loss (structural: recovery means resharding, not
+    retrying)."""
 
 
 class WalkKilled(RuntimeError):
@@ -34,12 +65,21 @@ class WalkKilled(RuntimeError):
 
 @dataclasses.dataclass
 class FaultPlan:
-    """What to inject into the walk."""
+    """What to inject, where, how often."""
 
     seed: int = 0
     nan_dates: frozenset[int] = frozenset()  # walk step indices (0 = the latest date)
     nan_frac: float = 0.01                   # fraction of the target's rows poisoned
     kill_after_step: int | None = None       # raise WalkKilled after this step's save
+    # site faults: site -> how many of its first calls fail / are delayed
+    fail: dict[str, int] = dataclasses.field(default_factory=dict)
+    delay: dict[str, tuple[int, float]] = dataclasses.field(
+        default_factory=dict)  # site -> (n_calls, seconds)
+    # site -> first n calls raise InjectedDeviceLoss reporting `survivors`
+    device_loss: dict[str, int] = dataclasses.field(default_factory=dict)
+    survivors: int | None = None
+    # the first n corrupt_policy() calls perturb the loaded params
+    corrupt_reload: int = 0
 
 
 class FaultInjector:
@@ -51,6 +91,7 @@ class FaultInjector:
         self.log: list[tuple[str, str]] = []
         self._rng = np.random.default_rng(plan.seed)
         self._lock = threading.Lock()
+        self._site_calls: dict[str, int] = {}
 
     def corrupt_target(self, step_i: int, target: torch.Tensor) -> torch.Tensor:
         """``target`` with NaN in the plan's rows when ``step_i`` is a NaN date
@@ -76,6 +117,59 @@ class FaultInjector:
                 self.log.append(("train/kill", f"step={step_i}"))
             raise WalkKilled(f"injected process death after backward step {step_i} "
                              "(checkpoint for this date is already on disk)")
+
+    def _take(self, site: str, budget: int) -> int | None:
+        """Consume one call at ``site``: its 0-based index when inside
+        ``budget``, else None."""
+        with self._lock:
+            i = self._site_calls.get(site, 0)
+            self._site_calls[site] = i + 1
+            return i if i < budget else None
+
+    def fire(self, site: str, **attrs) -> None:
+        """One production call passed ``site``: sleep and/or raise per the
+        plan. Delay comes before failure (a slow, then failing dependency);
+        device loss outranks a transient failure."""
+        n_delay, secs = self.plan.delay.get(site, (0, 0.0))
+        if n_delay and self._take(f"delay:{site}", n_delay) is not None:
+            with self._lock:
+                self.log.append((site, f"delay {secs * 1e3:.0f}ms {attrs}"))
+            time.sleep(secs)
+        n_lost = self.plan.device_loss.get(site, 0)
+        if n_lost and self._take(f"device_loss:{site}", n_lost) is not None:
+            with self._lock:
+                self.log.append((site, f"device_loss survivors={self.plan.survivors} {attrs}"))
+            raise InjectedDeviceLoss(f"injected device loss at {site} {attrs}",
+                                     survivors=self.plan.survivors)
+        n_fail = self.plan.fail.get(site, 0)
+        if n_fail and self._take(f"fail:{site}", n_fail) is not None:
+            with self._lock:
+                self.log.append((site, f"fail {attrs}"))
+            raise InjectedFault(f"injected fault at {site} {attrs}")
+
+    def corrupt_policy(self, policy):
+        """For the first ``plan.corrupt_reload`` calls, a copy of ``policy``
+        with one params leaf perturbed (its first element ``x * 1.25 +
+        0.25``: finite and bit-visible); later calls return ``policy``
+        untouched. The caller's policy is never mutated, so a rollback still
+        has clean bits to serve."""
+        if not self.plan.corrupt_reload:
+            return policy
+        if self._take("corrupt_reload", self.plan.corrupt_reload) is None:
+            return policy
+        bw = policy.backward
+        names = sorted(bw.params1_by_date)  # the order of a flattened params dict
+        with self._lock:
+            li = int(self._rng.integers(len(names)))
+            self.log.append(("serve/bundle_reload", f"leaf={li}"))
+        leaf = bw.params1_by_date[names[li]]
+        bad = leaf.clone() if isinstance(leaf, torch.Tensor) else torch.as_tensor(
+            np.array(leaf, copy=True))
+        flat = bad.view(-1)
+        flat[0] = flat[0] * 1.25 + 0.25
+        bad_bw = dataclasses.replace(bw, params1_by_date={**bw.params1_by_date,
+                                                         names[li]: bad})
+        return dataclasses.replace(policy, backward=bad_bw)
 
     def corrupt_bytes(self, blob: bytes, n_flips: int = 8) -> bytes:
         """Flip ``n_flips`` seeded byte positions of ``blob``."""

@@ -1,11 +1,10 @@
 """Serve benchmark phases (counterpart of parts of ``orp_tpu/serve/bench.py``).
 
-Ported so far: the precision-tier sweep (:func:`precision_phase`) and the
-mixed-date kernel A/B (:func:`megakernel_phase`), with the reference's
+Ported so far: the precision-tier sweep (:func:`precision_phase`, with the
+reference's promotion drill through ``serve/host.py``) and the mixed-date
+kernel A/B (:func:`megakernel_phase`), with the reference's
 :data:`PRECISION_BANDS`. Each phase gates what it measures and RAISES when a
-gate fails: a phase that returns a record is a phase that passed. The
-reference's promotion drill needs ``serve/host.py`` (not ported yet), so the
-precision record says so instead of carrying one.
+gate fails: a phase that returns a record is a phase that passed.
 """
 
 from __future__ import annotations
@@ -46,15 +45,16 @@ def _engines(policy, device, engines):
 
 
 def precision_phase(policy, *, rows: int, repeats: int, seed: int, device=None,
-                    engines: dict | None = None) -> dict:
+                    engines: dict | None = None, quality_band: float = 0.05) -> dict:
     """The precision-tier sweep: the same feature rows through one engine per
     tier (``engines``, ``{tier: HedgeEngine}``, built from ``policy`` on
     ``device`` by default), each prewarmed, evaluated at date 0, then timed on
-    ``repeats`` evaluations cycling the dates.
+    ``repeats`` evaluations cycling the dates; then the promotion drill
+    (:func:`promotion_drill`).
 
     Gates (RuntimeError): the f32 tier is bitwise itself on a second
     evaluation; each reduced tier's max |dphi| and |dpsi| against the f32 tier
-    lies within :data:`PRECISION_BANDS`."""
+    lies within :data:`PRECISION_BANDS`; the drill's refusal gate."""
     rng = np.random.default_rng(seed)
     engines = _engines(policy, device, engines)
     n_features = engines["f32"].model.n_features
@@ -95,7 +95,57 @@ def precision_phase(policy, *, rows: int, repeats: int, seed: int, device=None,
     return {"rows": int(rows), "device": str(engines["f32"].device), "tiers": levels,
             "speedup_vs_f32": {lv["tier"]: lv["rows_per_s"] / max(f32, 1e-9)
                                for lv in levels if lv["tier"] != "f32"},
-            "promotion_drill": "waits for serve/host.py"}
+            "quality_band": float(quality_band),
+            "promotion_drill": promotion_drill(policy, feats[:64], quality_band=quality_band,
+                                               device=engines["f32"].device)}
+
+
+def promotion_drill(policy, probe, *, quality_band: float = 0.05, device=None) -> list:
+    """Tiers promote through the quality band (the reference's drill): on a
+    ``ServeHost`` serving ``policy`` at f32 (activated on ``probe``), each
+    reduced tier is (1) refused outright by the bitwise route
+    (``reload_tenant(precision=tier)`` must raise ValueError; passing raises
+    RuntimeError), then (2) promoted through the paired-RQMC quality band
+    against the f32 incumbent (``require_same_bits=False``, ``quality_band``)
+    and demoted back to f32, so every tier is judged against the f32
+    incumbent. A reject is a verdict the record carries; "skipped" is
+    recorded only when the policy bakes no validation set. Returns one
+    record per reduced tier."""
+    from orp_tpu_torch.serve.host import CanaryRejected, ServeHost
+
+    spec = getattr(policy, "validation", None)
+    drill = []
+    with ServeHost(max_live_engines=2, engine_kwargs={"device": device}) as host:
+        host.add_tenant("bench", policy)
+        host.evaluate("bench", 0, probe)  # activate the f32 incumbent
+        for tier in [t for t in TIERS if t != "f32"]:
+            try:
+                host.reload_tenant("bench", precision=tier)
+            except ValueError:
+                pass  # the documented refusal; the guarded route follows
+            else:
+                raise RuntimeError(
+                    f"tier promotion to {tier!r} passed under require_same_bits=True: "
+                    "different bits by construction should make that impossible; the "
+                    "refusal gate regressed")
+            if spec is None:
+                drill.append({"tier": tier, "outcome": "skipped",
+                              "why": "policy bakes no validation set",
+                              "refused_under_bitwise": True})
+                continue
+            try:
+                out = host.reload_tenant("bench", require_same_bits=False,
+                                         quality_band=quality_band, precision=tier)
+            except CanaryRejected as e:
+                drill.append({"tier": tier, "outcome": "rejected", "refused_under_bitwise": True,
+                              "quality_band": quality_band, "why": str(e)[:200]})
+                continue
+            drill.append({"tier": tier, "outcome": "promoted", "refused_under_bitwise": True,
+                          "version": out["version"], "quality_band": quality_band,
+                          "regression": out["quality"]["regression"]})
+            host.reload_tenant("bench", require_same_bits=False, quality_band=quality_band,
+                               precision="f32")
+    return drill
 
 
 def megakernel_phase(policy, *, rows: int, repeats: int, seed: int, device=None,

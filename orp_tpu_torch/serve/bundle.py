@@ -11,6 +11,14 @@ numpy arrays, not a framework's checkpoint, carry the weights, so a policy
 trained by the JAX package is served here unchanged: :func:`policy_from_numpy`
 builds the port's policy from the JAX package's ``params1_by_date`` as numpy
 arrays. Loading verifies the params' shapes against the recorded model.
+
+:func:`export_bundle` writes a trained ``PipelineResult`` as a bundle with its
+``run_fingerprint.txt`` (``utils/fingerprint.policy_fingerprint``, refused on
+a mismatched re-export and verified by :func:`load_bundle` where present) and
+``bundle.json``'s ``baseline``: the training-feature sketch, the pinned
+validation set and the training hedge-error level (``obs/quality.py``), as the
+JAX package's export writes them. The committed bundles carry neither file nor
+baseline and load as before, their baseline fields ``None``.
 """
 
 from __future__ import annotations
@@ -24,7 +32,10 @@ import torch
 
 from orp_tpu_torch.models.mlp import HedgeMLP
 from orp_tpu_torch.train.backward import BackwardResult
-from orp_tpu_torch.utils.fingerprint import verify_policy_compat
+from orp_tpu_torch.utils.atomic import atomic_write_text
+from orp_tpu_torch.utils.fingerprint import (policy_fingerprint, read_fingerprint,
+                                             verify_fingerprint, verify_policy_compat,
+                                             write_fingerprint)
 
 FORMAT = "orp-bundle-npz-v1"
 META = "bundle.json"
@@ -45,6 +56,11 @@ class PolicyBundle:
     holdings_combine: str
     cost_of_capital: float
     sim_seed: int | None       # training path seed; european_oos refuses it
+    # what export_bundle records (None on a bundle written without it):
+    fingerprint: str | None = None
+    feature_sketch: object | None = None       # obs.quality.FeatureSketch
+    validation: object | None = None           # obs.quality.ValidationSpec
+    hedge_error_baseline: float | None = None  # normalised units
 
     @property
     def n_dates(self) -> int:
@@ -121,7 +137,7 @@ def save_bundle(directory, meta: dict, params1: dict, params2: dict | None = Non
         arrays[k] = np.asarray(v)
     policy = policy_from_numpy({**meta, **(metrics or {})}, params1, params2)
     np.savez(d / POLICY, **arrays)
-    (d / META).write_text(json.dumps(meta, indent=1, sort_keys=True))
+    atomic_write_text(d / META, json.dumps(meta, indent=1, sort_keys=True))
     return policy
 
 
@@ -142,4 +158,74 @@ def load_bundle(directory) -> PolicyBundle:
     if int(meta["n_dates"]) != len(meta["times"]) - 1:
         raise ValueError(f"{d}: n_dates {meta['n_dates']} disagrees with "
                          f"{len(meta['times'])} knot times")
-    return policy_from_numpy({**meta, **metrics}, params1, params2 or None)
+    policy = policy_from_numpy({**meta, **metrics}, params1, params2 or None)
+    fp = None
+    if read_fingerprint(d) is not None:
+        fp = _fingerprint(policy.model, policy.n_dates, meta)
+        verify_fingerprint(d, fp, what="bundle dir")
+    sketch = validation = err0 = None
+    baseline = meta.get("baseline")
+    if baseline:
+        from orp_tpu_torch.obs.quality import FeatureSketch, ValidationSpec
+
+        if baseline.get("sketch"):
+            sketch = FeatureSketch.from_meta(baseline["sketch"])
+        if baseline.get("validation"):
+            validation = ValidationSpec.from_meta(baseline["validation"])
+        err0 = baseline.get("hedge_error")
+    return dataclasses.replace(policy, fingerprint=fp, feature_sketch=sketch,
+                               validation=validation,
+                               hedge_error_baseline=None if err0 is None else float(err0))
+
+
+def _fingerprint(model, n_dates: int, meta: dict) -> str:
+    return policy_fingerprint(model, n_dates, dual_mode=meta["dual_mode"],
+                              holdings_combine=meta["holdings_combine"],
+                              cost_of_capital=float(meta["cost_of_capital"]))
+
+
+def _host(params: dict | None) -> dict | None:
+    return None if params is None else {
+        k: (v.detach().float().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+        for k, v in params.items()}
+
+
+def export_bundle(result, directory) -> PolicyBundle:
+    """Export a trained ``PipelineResult`` (it must carry its ``model`` and
+    per-date params) as a bundle under ``directory``: ``bundle.json`` with
+    the baseline the pipelines attach (``feature_sketch``, ``validation``,
+    ``hedge_error_baseline``), ``policy.npz`` and ``run_fingerprint.txt``.
+    Re-exporting the same policy config over a bundle overwrites it; another
+    config refuses, as a checkpoint directory does. Returns the loaded
+    equivalent ``PolicyBundle``. (The JAX package's ``store=`` publishing
+    waits for the port's content-addressed catalog.)"""
+    model = getattr(result, "model", None)
+    if model is None:
+        raise ValueError("result carries no model (PipelineResult.model is None)")
+    bw = result.backward
+    times = np.asarray(result.times, np.float64)
+    n_dates = len(times) - 1
+    verify_policy_compat("export_bundle", model, n_dates, bw.params1_by_date)
+    meta = {"model": model_meta(model), "times": times.tolist(),
+            "adjustment_factor": float(result.adjustment_factor),
+            "dual_mode": result.dual_mode, "holdings_combine": result.holdings_combine,
+            "cost_of_capital": float(result.cost_of_capital), "sim_seed": result.sim_seed}
+    fp = _fingerprint(model, n_dates, meta)
+    d = pathlib.Path(directory)
+    if (d / META).exists():
+        verify_fingerprint(d, fp, what="bundle dir")
+    sketch = getattr(result, "feature_sketch", None)
+    validation = getattr(result, "validation", None)
+    err0 = getattr(result, "hedge_error_baseline", None)
+    if sketch is not None or validation is not None:
+        meta["baseline"] = {
+            "sketch": None if sketch is None else sketch.to_meta(),
+            "validation": None if validation is None else validation.to_meta(),
+            "hedge_error": None if err0 is None else float(err0)}
+    metrics = {k: np.asarray(getattr(bw, k)) for k in METRICS}
+    policy = save_bundle(d, meta, _host(bw.params1_by_date), _host(bw.params2_by_date),
+                         metrics)
+    write_fingerprint(d, fp)
+    return dataclasses.replace(policy, fingerprint=fp, feature_sketch=sketch,
+                               validation=validation,
+                               hedge_error_baseline=None if err0 is None else float(err0))

@@ -37,8 +37,18 @@ outside one); the counters ``serve/bucket_hits`` (registry only),
 ``serve/megakernel_dispatches``; under ``obs.devprof`` attribution each
 :class:`PendingEval` carries its launch instant and :meth:`PendingEval.result`
 waits for the device before it copies the rows back, so the queue / device
-split ends at the device's completion. AOT executables and the guard's
-circuit breaker are not ported yet.
+split ends at the device's completion.
+Guard hooks (``guard/inject.py``, each a no-op without an installed plan): the
+``serve/dispatch`` fault site fires in :meth:`HedgeEngine.evaluate_async` and
+:meth:`HedgeEngine.evaluate_mixed_async` before the launch, ``serve/execute``
+in :meth:`PendingEval.result` before the copy; the counters move only after a
+dispatch succeeded, so a retried transient fault counts once. The
+stuck-dispatch watchdog's trips count on a :class:`CircuitBreaker`
+(:meth:`HedgeEngine.watchdog_trip`). The engine's device params live in a
+:class:`ResidentParams` that another engine of the same policy, tier and
+device may share (``resident=``): the warm tier of ``serve/host.py`` rebuilds
+an engine with no host-to-device copy and no kernel build. AOT executables
+are not ported yet.
 Buckets bound the set of shapes a request can take, which keeps the kernel's
 launch shapes and the caching allocator's block sizes to a small fixed set.
 """
@@ -46,10 +56,13 @@ launch shapes and the caching allocator's block sizes to a small fixed set.
 from __future__ import annotations
 
 import time
+import warnings
 
 import numpy as np
 import torch
 
+from orp_tpu_torch.guard import inject as _inject
+from orp_tpu_torch.guard.serve import CircuitBreaker
 from orp_tpu_torch.obs import count as obs_count
 from orp_tpu_torch.obs import devprof as _devprof
 from orp_tpu_torch.obs import enabled as obs_enabled
@@ -152,6 +165,11 @@ class PendingEval:
         (``serve/device_seconds{bucket}``), then copies and unpads under
         ``serve/unpad``; otherwise the copy itself waits, as it always has."""
         n = self._n
+        inj = _inject.active()
+        if inj is not None:
+            # the block-time fault site: a hung launch is a delay here past
+            # GuardPolicy.hard_wall_ms, a transient surfacing at completion a fail
+            inj.fire("serve/execute", bucket=self.bucket)
         prof = self._prof
         if prof is not None or obs_enabled():
             t_block = time.perf_counter()
@@ -167,6 +185,25 @@ class PendingEval:
         return phi, psi, value
 
 
+class ResidentParams:
+    """A policy's params as one engine serves them: the tier's per-date params
+    on ``device`` (``p1``, ``p2``) and, once a mixed-date batch needed them,
+    the mixed-date kernel's dequantized and packed params (``mixed``).
+    Engines built with ``resident=`` share them: no host-to-device copy, no
+    repacking."""
+
+    __slots__ = ("tier", "device", "p1", "p2", "mixed")
+
+    def __init__(self, backward, model, tier: str, device: torch.device):
+        self.tier, self.device = tier, device
+        self.p1 = prepare_params(backward.params1_by_date, tier, model_dtype=model.dtype,
+                                 device=device)
+        p2 = prepare_params(backward.params2_by_date, tier, model_dtype=model.dtype,
+                            device=device)
+        self.p2 = self.p1 if p2 is None else p2
+        self.mixed = None
+
+
 class HedgeEngine:
     """Evaluate a hedge policy (a ``PolicyBundle`` or a result carrying its
     model) for arbitrary request sizes on one device.
@@ -174,10 +211,13 @@ class HedgeEngine:
     ``hits``/``misses`` count bucket reuse: a miss is the first request that
     lands in a bucket. ``precision`` is the serving tier (``"f32"``, ``"bf16"``,
     ``"int8"`` or a ``PrecisionPolicy``). ``mesh``: serve over a paths mesh
-    (module docstring); every rank of the mesh makes the same calls."""
+    (module docstring); every rank of the mesh makes the same calls.
+    ``resident``: a :class:`ResidentParams` of this policy to serve from
+    (used when its tier and device are this engine's, else built anew);
+    ``engine.resident`` is the engine's own."""
 
     def __init__(self, policy, *, min_bucket: int = 8, max_bucket: int = 1 << 20,
-                 device=None, precision="f32", mesh=None):
+                 device=None, precision="f32", mesh=None, resident=None):
         model = getattr(policy, "model", None)
         if model is None:
             raise ValueError("policy carries no model — pass a PolicyBundle")
@@ -196,17 +236,18 @@ class HedgeEngine:
         # the tier's params, on the device once; every request indexes into them
         self.precision = normalize_precision(precision)
         tier = self.precision.tier
-        self._p1 = prepare_params(bw.params1_by_date, tier, model_dtype=model.dtype,
-                                  device=self.device)
-        p2 = prepare_params(bw.params2_by_date, tier, model_dtype=model.dtype,
-                            device=self.device)
-        self._p2 = self._p1 if p2 is None else p2
+        if resident is None or resident.tier != tier or resident.device != self.device:
+            resident = ResidentParams(bw, model, tier, self.device)
+        self.resident = resident
+        self._p1, self._p2 = resident.p1, resident.p2
         self.n_dates = int(self._p1["b0"].shape[0])
         # price legs per row: risky legs then bond
         self.n_instruments = 2 if model.constrain_self_financing else model.n_outputs
         # host rows are padded in the model's dtype and cast to the tier's on the device
         self._np_dt = np.dtype(str(model.dtype).removeprefix("torch."))
-        self._mixed = None  # the mixed-date kernel's params, built on first use
+        # the watchdog's hang streaks (serve/health.py); no AOT bucket to demote yet
+        self._breaker = CircuitBreaker(3)
+        self._mixed = None  # the mixed-date kernel's params (``resident.mixed``), on first use
         self.hits = 0
         self.misses = 0
         self._buckets: set[int] = set()
@@ -308,7 +349,12 @@ class HedgeEngine:
         b = self.bucket_for(n)
         with span("serve/pad"):
             feats, pr = self._pad(states, prices, n, b)
+        inj = _inject.active()
         with span("serve/dispatch", attrs={"bucket": b, "aot": False}):
+            if inj is not None:
+                # may sleep and/or raise a TransientDispatchError, which the
+                # batcher's retry-with-backoff policy handles
+                inj.fire("serve/dispatch", bucket=b)
             phi, psi, v = self._gather(*_eval_tiled(
                 self.model, self._p1, self._p2, idx, feats, pr, self.cost_of_capital,
                 dual_mode=self.dual_mode, holdings_combine=self.holdings_combine,
@@ -340,7 +386,10 @@ class HedgeEngine:
             dcol = np.zeros(b, np.int32)
             dcol[:n] = dates  # padded rows use date 0 and are sliced off
             dcol = torch.from_numpy(dcol).to(self.device)
+        inj = _inject.active()
         with span("serve/dispatch", attrs={"bucket": b, "mixed": True}):
+            if inj is not None:
+                inj.fire("serve/dispatch", bucket=b, mixed=True)
             p1, p2, packed1, packed2 = self._mixed_params()
             phi, psi, v = _eval_core_mixed(
                 self.model, p1, p2, dcol, feats, pr, self.cost_of_capital,
@@ -356,7 +405,10 @@ class HedgeEngine:
         scale`` as per request, so the same bits (``_eval_core_mixed``'s own
         dequantization then passes them through). On the card the params are
         also packed in the tier's dtype (``packed`` None on the CPU)."""
-        if self._mixed is None:
+        if self._mixed is not None:
+            return self._mixed
+        res = self.resident
+        if res.mixed is None:
             p1, p2 = self._p1, self._p2
             if self.precision.tier == "int8":
                 p1 = dequantize_params(p1)
@@ -367,8 +419,29 @@ class HedgeEngine:
                 check_head_shape(m, self.n_dates, m.dtype)
                 packed1 = pack_head_params(m, p1)
                 packed2 = packed1 if p2 is p1 else pack_head_params(m, p2)
-            self._mixed = (p1, p2, packed1, packed2)
+            res.mixed = (p1, p2, packed1, packed2)
+        self._mixed = res.mixed
         return self._mixed
+
+    def watchdog_trip(self, bucket) -> None:
+        """The stuck-dispatch watchdog (``serve/health.py``) force-failed a
+        hung batch in ``bucket``: count it (``guard/aot_exec_failure{kind=
+        "hang"}``) on the engine's circuit breaker under its own streak key
+        ``hang:<bucket>`` (a hang surfaces after a successful dispatch, so a
+        dispatch success must not reset it); the breaker opens
+        (``guard/circuit_open``) after 3 hangs in a row, as in the JAX package.
+        The port has no AOT buckets yet, so an open circuit demotes nothing;
+        the AOT plane (ROADMAP A9.4) will give it a bucket to demote."""
+        obs_count("guard/aot_exec_failure", bucket=str(bucket), kind="hang")
+        if self._breaker.record_failure(f"hang:{bucket}"):
+            warnings.warn(f"bucket {bucket} exceeded the dispatch hard wall "
+                          f"{self._breaker.threshold} consecutive times; circuit opened",
+                          stacklevel=3)
+
+    def watchdog_ok(self, bucket) -> None:
+        """The watchdog saw ``bucket``'s batch complete inside the wall: break
+        its hang streak (flakes never accumulate into an open circuit)."""
+        self._breaker.record_success(f"hang:{bucket}")
 
     def prewarm(self, sizes) -> dict:
         """Evaluate one request in the bucket of each of ``sizes`` (deduplicated

@@ -30,6 +30,9 @@ SOURCES = ("mixed_head", "fused_mf")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: what this process has built and loaded: ``nvcc`` runs started and libraries
+#: loaded (a warm re-activation of a served policy moves neither)
+BUILD_STATS = {"nvcc": 0, "loads": 0}
 
 
 def nvcc_path() -> str:
@@ -64,6 +67,7 @@ def _start(name: str, nvcc: str):
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    BUILD_STATS["nvcc"] += 1
     return proc, tmp, out
 
 
@@ -101,6 +105,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+            BUILD_STATS["loads"] += 1
         return _libs[name]
 
 

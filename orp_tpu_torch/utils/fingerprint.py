@@ -8,11 +8,17 @@ ValueError instead of resuming stale or shape-garbled state.
 The per-date params a trained result or bundle carries must be exactly the
 shapes its model over ``n_dates`` dates implies; a mismatch raises a
 ValueError naming both signatures before any path is simulated.
+
+:func:`policy_fingerprint` is a trained policy's compatibility string, the
+one a bundle directory records; it is the JAX package's string for the same
+policy, so either package's bundle guard reads the other's.
 """
 
 from __future__ import annotations
 
 import pathlib
+
+import torch
 
 from orp_tpu_torch.utils.atomic import atomic_write_text
 
@@ -72,6 +78,30 @@ def describe_model_params(model, n_dates: int) -> str:
         parts.append(f"w{i}:{(n_dates, fan_in, fan_out)}")
         parts.append(f"b{i}:{(n_dates, fan_out)}")
     return ", ".join(sorted(parts))
+
+
+#: a model dtype as the JAX package's model repr spells it
+_REFERENCE_DTYPE = {torch.float32: "<class 'jax.numpy.float32'>",
+                    torch.float64: "<class 'jax.numpy.float64'>",
+                    torch.bfloat16: "<class 'jax.numpy.bfloat16'>"}
+
+
+def _model_repr(model) -> str:
+    """``repr(model)`` with the dtype spelled as the JAX package's model repr
+    spells it (the only field the two reprs write differently)."""
+    return repr(model).replace(f"dtype={model.dtype}", f"dtype={_REFERENCE_DTYPE[model.dtype]}")
+
+
+def policy_fingerprint(model, n_dates: int, *, dual_mode: str, holdings_combine: str,
+                       cost_of_capital: float) -> str:
+    """The full compatibility string of a trained hedge policy: model config,
+    date count, per-date param shapes and the value/holdings combine
+    semantics; nothing path-simulation-specific (one policy serves any path
+    set)."""
+    return (f"orp-policy-v1 model={_model_repr(model)} n_dates={n_dates} "
+            f"dual_mode={dual_mode} holdings_combine={holdings_combine} "
+            f"cost_of_capital={cost_of_capital} "
+            f"params=[{describe_model_params(model, n_dates)}]")
 
 
 def verify_policy_compat(name: str, model, n_dates: int, params_by_date: dict) -> None:

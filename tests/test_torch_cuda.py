@@ -892,3 +892,92 @@ def test_obs_span_waits_for_the_card_and_refuses_under_capture(cuda):
     probe, captured = sink.events
     assert probe["ok"] is True and probe["dur_s"] >= 0.05
     assert captured["name"] == "captured" and captured["ok"] is False
+
+
+# -- the single-host serve path on the card ------------------------------------
+
+HOST_SIZES = [1, 2, 7, 8, 9, 100, 4096, 65_535, 65_536, 65_537, 1 << 20]
+
+
+def _host_rows(n, n_features, seed):
+    rng = np.random.default_rng(seed)
+    return (1.0 + 0.05 * rng.standard_normal((n, n_features))).astype(np.float32)
+
+
+def test_host_path_bitwise_the_engine_at_every_bucket(cuda):
+    """``ServeHost.submit_block`` (and per-request ``evaluate``) serve bitwise
+    what the tenant's own ``HedgeEngine`` serves, at buckets 1 to 1,048,576:
+    the per-date forward runs in fixed row tiles, so no row depends on the
+    bucket it rode in; coalesced blocks too."""
+    from orp_tpu_torch.serve import ServeHost
+
+    policy = load_bundle(NORTH_STAR_POLICY)
+    direct = HedgeEngine(policy, device=cuda)
+    with ServeHost(max_live_engines=2,
+                   batcher_kwargs={"mixed_dates": True, "coalesce_blocks": True,
+                                   "max_batch": 1 << 20}) as host:
+        host.add_tenant("ns", policy)
+        for n in HOST_SIZES:
+            states = _host_rows(n, 1, n)
+            d = n % direct.n_dates
+            want = direct.evaluate(d, states)
+            got = host.submit_block("ns", d, states).result(timeout=120)
+            assert np.array_equal(got.phi, want[0]) and np.array_equal(got.psi, want[1]), n
+            assert np.array_equal(host.evaluate("ns", d, states[:3])[0], want[0][:3])
+        states = _host_rows(5000, 1, 1)
+        want = direct.evaluate(4, states)
+        _t, batcher = host._claim_batcher("ns")
+        host._release_claim(_t)
+        with batcher._cv:  # three blocks queue, then ride one dispatch
+            futs = [host.submit_block("ns", 4, states[a:b])
+                    for a, b in ((0, 1), (1, 4000), (4000, 5000))]
+        got = np.concatenate([f.result(timeout=120).phi for f in futs])
+        assert np.array_equal(got, want[0])
+
+
+def test_host_mixed_lane_launches_k2_and_warm_reactivation(cuda):
+    """Single-row requests at many dates fuse into one K2 launch (bitwise the
+    engine's own mixed-date dispatch of the same rows, within 1e-5 of the
+    per-date lane); an evicted tenant re-activates from the warm tier with
+    no build and its params at the same device address; the canary promotes
+    the same bundle and rejects a corrupted one with the bits untouched."""
+    from orp_tpu_torch.guard import FaultPlan, faults
+    from orp_tpu_torch.serve import CanaryRejected, ServeHost
+    from orp_tpu_torch.utils import cuda_build
+
+    policy = load_bundle(NORTH_STAR_POLICY)
+    direct = HedgeEngine(policy, device=cuda)
+    n = 512
+    states = _host_rows(n, 1, 3)
+    dates = (np.arange(n) * 7) % direct.n_dates
+    with ServeHost(max_live_engines=1, batcher_kwargs={"mixed_dates": True}) as host:
+        host.add_tenant("ns", policy)
+        host.add_tenant("other", policy)
+        host.evaluate("ns", 0, states[:1])
+        t, batcher = host._claim_batcher("ns")
+        host._release_claim(t)
+        before = megakernel.mixed_head_forward.launches
+        with batcher._cv:
+            futs = [host.submit("ns", int(dates[i]), states[i:i + 1]) for i in range(n)]
+        got = np.concatenate([f.result(timeout=120)[0] for f in futs])
+        torch.cuda.synchronize()
+        assert megakernel.mixed_head_forward.launches == before + 1
+        want = direct.evaluate_mixed_async(dates, states).result()[0]
+        assert np.array_equal(got, want)
+        per_date = megakernel.loop_of_buckets(direct, dates, states)[0]
+        np.testing.assert_allclose(got, per_date, rtol=1e-5, atol=1e-6)
+        ptr = t.engine._p1["w0"].data_ptr()
+        packed = t.engine._mixed_params()[2].data_ptr()
+        host.evaluate("other", 0, states[:1])  # evicts "ns" to the warm tier
+        assert host.stats()["ns"]["tier"] == "warm"
+        builds = dict(cuda_build.BUILD_STATS)
+        again = host.evaluate("ns", 0, states[:64])
+        eng = host._tenants["ns"].engine
+        assert eng._p1["w0"].data_ptr() == ptr and eng._mixed_params()[2].data_ptr() == packed
+        assert cuda_build.BUILD_STATS == builds
+        assert np.array_equal(again[0], direct.evaluate(0, states[:64])[0])
+        assert host.reload_tenant("ns")["swapped"]
+        with faults(FaultPlan(corrupt_reload=1)), pytest.warns(UserWarning):
+            with pytest.raises(CanaryRejected):
+                host.reload_tenant("ns")
+        assert np.array_equal(host.evaluate("ns", 0, states[:64])[0], again[0])

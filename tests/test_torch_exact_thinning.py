@@ -32,6 +32,17 @@ from orp_tpu_torch.utils import threefry
 KW = dict(y0=1.0, mu=0.08, sigma=0.15, l0=0.01, mort_c=0.075, eta=0.000597, n0=10000.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's tests: their tensors are a few
+    thousand rows, and under the suite's parallel workers every worker's
+    default pool (one thread a core) oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PARITY_GRID = dict(n_paths=8192, T=10.0, n_steps=120, store=12)  # PARITY.md: monthly
 _PARITY_RUNS: dict = {}
 

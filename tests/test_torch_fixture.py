@@ -53,6 +53,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
@@ -76,6 +77,17 @@ N_BLOCK = 4096
 OOS_SEED = 4321
 BLOCK_SEED = 20261016
 REPORT_KEYS = ("v0", "phi0", "psi0", "v0_plain", "v0_cv", "cv_std", "v0_acv", "acv_std")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's tests: their tensors are a few
+    thousand rows, and under the suite's parallel workers every worker's
+    default pool (one thread a core) oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 HESTON_N = 4096
 # The 4,096-path x 52-date f32 walk is chaotic: one-ulp changes of the paths
 # flip Levenberg-Marquardt accept/reject steps and part the trajectory. Over

@@ -13,12 +13,24 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from orp_tpu_torch import HESTON_WALK
 from orp_tpu_torch import api as tapi
 from orp_tpu_torch.serve import load_bundle
 from test_torch_fixture import (HESTON_N, REPORT_KEYS, assert_heston_band, heston_configs,
                                 heston_jax_run, heston_report, load_heston_init)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's tests: their tensors are a few
+    thousand rows, and under the suite's parallel workers every worker's
+    default pool (one thread a core) oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_heston_fixture_matches_jax_today():

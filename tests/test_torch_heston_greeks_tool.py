@@ -8,10 +8,32 @@ import json
 import pathlib
 from contextlib import redirect_stdout
 
+import numpy as np
 import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread_and_one_quadrature():
+    """One intra-op thread for this module (512-path runs; under the suite's
+    parallel workers every worker's default pool oversubscribes the machine),
+    and the oracle's 2,048-node Gauss-Legendre rule computed once rather than
+    once a characteristic-function price (13 prices an oracle; the same nodes
+    and weights, so the same oracle)."""
+    rule = np.polynomial.legendre.leggauss(2048)
+    leggauss = np.polynomial.legendre.leggauss
+
+    def cached(n):
+        return tuple(a.copy() for a in rule) if n == 2048 else leggauss(n)
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(np.polynomial.legendre, "leggauss", cached)
+        yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -35,7 +35,8 @@ def _sources():
                                          ROOT / "tools" / "torch_adam_walk.py",
                                          ROOT / "tools" / "torch_fused_walk.py",
                                          ROOT / "tools" / "torch_mesh_ranks.py",
-                                         ROOT / "tools" / "torch_mesh_probe.py"]
+                                         ROOT / "tools" / "torch_mesh_probe.py",
+                                         ROOT / "tools" / "torch_host_phase.py"]
 
 
 def test_prefix_rule():
@@ -94,6 +95,15 @@ def test_sources_include_the_obs_package():
                                     "flight", "report", "tracetree", "devprof")} <= names
 
 
+def test_sources_include_the_serve_path():
+    """The import rule walks every module of the single-host serve path: the
+    host-only ones are the port's own copies."""
+    names = {p.relative_to(PORT).as_posix() for p in _sources() if PORT in p.parents}
+    assert {"guard/serve.py", "guard/cooldown.py", "serve/metrics.py", "serve/ingest.py",
+            "serve/wire.py", "serve/ragged.py", "serve/health.py", "serve/batcher.py",
+            "serve/host.py", "store/__init__.py", "store/tier.py", "obs/quality.py"} <= names
+
+
 def test_entry_points_default_to_the_card():
     """Without ``device=`` an entry point means the card, and raises without one."""
     if torch.cuda.is_available():
@@ -110,15 +120,22 @@ def test_entry_points_default_to_the_card():
                                     lookback_floating_qmc, price_surface)
     from orp_tpu_torch.train import bermudan_lsm, bermudan_lsm_heston
     from orp_tpu_torch.sde import TimeGrid, simulate_gbm_arithmetic, simulate_gbm_basket
-    from orp_tpu_torch.serve import HedgeEngine, load_bundle
+    from orp_tpu_torch.obs.quality import ValidationSpec, evaluate_quality
+    from orp_tpu_torch.serve import HedgeEngine, MicroBatcher, ServeHost, load_bundle
 
     policy = load_bundle(NORTH_STAR_POLICY)
+    host = ServeHost()
+    host.add_tenant("t", policy)
     sim = SimConfig(n_paths=64, T=1.0, dt=0.25, rebalance_every=1)
     train = TrainConfig(dual_mode="mse_only", optimizer="gauss_newton")
     heston = dict(s0=1.0, mu=0.0, v0=0.04, kappa=1.0, theta=0.04, xi=0.3, rho=-0.5, dt=0.1)
     basket = dict(s0=[1.0, 1.0], drift=[0.0, 0.0], sigma=[0.1, 0.2],
                   corr=[[1.0, 0.3], [0.3, 1.0]])
     calls = [lambda: HedgeEngine(policy), lambda: european_oos(policy),
+             lambda: MicroBatcher(HedgeEngine(policy)),
+             lambda: host.evaluate("t", 0, np.ones((1, 1), np.float32)),
+             lambda: host.prefetch(["t"]),
+             lambda: evaluate_quality(policy, ValidationSpec(n_steps=364, rebalance_every=7)),
              lambda: gbm_log_fused(128, 8, s0=1.0, drift=0.0, sigma=0.1, dt=0.1),
              lambda: european_hedge(sim=sim, train=train),
              lambda: heston_hedge(sim=sim, train=train),
@@ -181,6 +198,7 @@ def test_entry_points_default_to_the_card():
             assert path_indices(8, mesh=make_mesh(device="cpu")).device.type == "cpu"
         finally:
             dist.destroy_process_group()
+    host.close()
     assert HedgeEngine(policy, device="cpu").device.type == "cpu"
     assert simulate_gbm_basket(np.arange(8), TimeGrid(1.0, 4), **basket,
                                device="cpu").shape == (8, 5, 2)

@@ -40,6 +40,17 @@ N_PATHS, N_STEPS, STORE = 512, 40, 10
 VARIANTS = [(mode, sv) for mode in ("normal", "inversion") for sv in (False, True)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's tests: their tensors are a few
+    thousand rows, and under the suite's parallel workers every worker's
+    default pool (one thread a core) oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(d):
     return {k: np.asarray(v) for k, v in d.items()}
 

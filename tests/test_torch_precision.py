@@ -453,7 +453,11 @@ def test_committed_policies_deviate_from_f32_as_the_reference_does(which):
 def test_precision_phase_runs_and_gates(trained):
     rec = precision_phase(trained, rows=64, repeats=3, seed=0, device="cpu")
     tiers = {lv["tier"]: lv for lv in rec["tiers"]}
-    assert list(tiers) == list(TIERS) and rec["promotion_drill"] == "waits for serve/host.py"
+    assert list(tiers) == list(TIERS)
+    # the promotion drill: refused under bits, then skipped (no baked validation set)
+    assert [(d["tier"], d["outcome"], d["refused_under_bitwise"])
+            for d in rec["promotion_drill"]] == [("bf16", "skipped", True),
+                                                 ("int8", "skipped", True)]
     assert tiers["f32"]["bitwise_equal_to_f32"]
     for tier in ("bf16", "int8"):
         lv = tiers[tier]
