@@ -244,6 +244,29 @@ last line):
     bits, then judged by the quality band); 1-row latency and 1M-row rows/s
     through the host beside the bare engine; reload and activation seconds.
 
+30. [gateway] the network and fleet plane (``gateway_phases``), with the
+    committed north-star policy (106 params x 52 dates): the policy exported
+    with ``export_bundle(store=)`` into a fresh content-addressed store under
+    two tenants (one tree, two manifests), a ``store://`` tenant's 65,536-row
+    block bitwise the directory-loaded engine, gc of the removed tenant
+    freeing its manifest only; blocks of 1 to 1,048,576 rows through TCP v1
+    (``GatewayClient``), TCP v2 (``ResilientGatewayClient``) and the
+    shared-memory ring (32 + 64 MiB rings in ``tempfile.gettempdir()``), every
+    served row bitwise the tenant's ``HedgeEngine``, and a wrap-around run;
+    512 single-row frames at 52 dates from 8 client threads through TCP and
+    from one ring client, each batch one dispatch and one K2 launch, within
+    ``rtol=1e-5, atol=1e-6`` of the plain version on the CPU; K2 alone at that
+    batch against its plain version (``mixed_head_gateway``); the delivery
+    drills (``serve/bench.gateway_drill``: kill at frame 20, a new gateway on
+    the same port, 3 runs; a torn and a stalled send at ``client/send``; BUSY
+    backpressure; drain-and-redirect A -> B), each with zero loss and no
+    duplicate; ``serve/bench.fleet_phase`` at 1 and 2 replicas behind 2 fleet
+    gateways, every replica a ``ServeHost`` on this card, with its
+    kill-one-replica drill; where a fleet hop's time goes; the live scrape
+    through ``MetricsServer``. Printed: 1-row round trips per lane beside
+    ``ServeHost`` direct and each lane's PING alone, rows/s per lane, the
+    drill's MTTR, the fleet's rows/s and p99, the store's seconds.
+
 Output: a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -2639,6 +2662,468 @@ def host_phases(dev, counts) -> dict:
     return out
 
 
+# [gateway]: the block sizes through each lane, the mixed-date batch of
+# single-row frames, and the rings sized for a 1,048,576-row block of one
+# feature (a 4 MiB request frame, a ~13 MiB reply; a record may take a quarter
+# of its ring)
+GATEWAY_SIZES = (1, 1024, 65_536, N_FULL)
+GATEWAY_MIXED_ROWS = 512
+RING_REQ_BYTES, RING_REP_BYTES = 32 << 20, 64 << 20
+
+
+def _lane_rows_per_s(submit, n: int, states, d: int, want, what: str) -> float:
+    """Median of 3 serial round trips of one ``n``-row block, each bitwise ``want``."""
+    import numpy as np
+
+    rates = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = submit(d, states)
+        rates.append(n / (time.perf_counter() - t0))
+        check(res.n_served == n and np.array_equal(res.phi, want[0])
+              and np.array_equal(res.psi, want[1]),
+              f"[gateway] {what}: {n} rows at date {d} bitwise the tenant's HedgeEngine")
+    return sorted(rates)[1]
+
+
+def _fleet_breakdown(policy, tenants: int = 6, blocks: int = 10, rows: int = 1024) -> dict:
+    """Where a fleet hop's time goes: the same pipelined traffic ([gateway]'s
+    fleet shape, one replica) through ``ServeHost.submit_block`` direct, one
+    replica gateway through a resilient client, and a fleet gateway in front
+    of it with the fleet phase's 50 ms health polling and with 1 s polling;
+    and the replica gateway with ``max_inflight_replies`` raised from its
+    default 8 to the client's window of 32 (past the bound, frames come back
+    BUSY and the client backs off). Rows/s of each, median of 3, every block
+    bitwise."""
+    import numpy as np
+
+    from orp_tpu_torch.serve import HedgeEngine, ResilientGatewayClient, ServeGateway, ServeHost
+    from orp_tpu_torch.serve.fleet import FleetHost, ReplicaSpec
+
+    names = [f"tenant-{i:02d}" for i in range(tenants)]
+    traffic = [(t, _host_rows(rows, 1, 500 + 10 * i + j)[0])
+               for i, t in enumerate(names) for j in range(blocks)]
+    direct = HedgeEngine(policy)
+    want = [direct.evaluate(0, b) for _, b in traffic]
+
+    def rate(submit, what):
+        rates = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            futs = [submit(t, b) for t, b in traffic]
+            got = [f.result(timeout=120) for f in futs]
+            rates.append(len(traffic) * rows / (time.perf_counter() - t0))
+            check(all(np.array_equal(g.phi, w[0]) for g, w in zip(got, want)),
+                  f"[gateway] breakdown {what}: bitwise")
+        return sorted(rates)[1]
+
+    out = {}
+    with ServeHost(max_live_engines=tenants) as host:
+        for t in names:
+            host.add_tenant(t, policy)
+            host.evaluate(t, 0, traffic[0][1][:1])
+        out["host"] = rate(lambda t, b: host.submit_block(t, 0, b), "host")
+        with ServeGateway(host, port=0, max_inflight_replies=32) as gw:
+            with ResilientGatewayClient(*gw.address, window=32, timeout_s=120.0) as c:
+                out["replica_gateway_inflight32"] = rate(
+                    lambda t, b: c.submit_block_async(t, 0, b), "one replica gateway, 32")
+        with ServeGateway(host, port=0) as gw:
+            with ResilientGatewayClient(*gw.address, window=32, timeout_s=120.0) as c:
+                out["replica_gateway"] = rate(lambda t, b: c.submit_block_async(t, 0, b),
+                                              "one replica gateway")
+                out["busy"] = c.stats["busy"]
+            for poll in (0.05, 1.0):
+                fh = FleetHost([ReplicaSpec("r0", *gw.address)], health_poll_s=poll,
+                               health_fail_after=1)
+                try:
+                    with ServeGateway(fh, port=0) as fg, \
+                            ResilientGatewayClient(*fg.address, window=32,
+                                                   timeout_s=120.0) as c:
+                        out[f"fleet_poll_{poll}"] = rate(
+                            lambda t, b: c.submit_block_async(t, 0, b), f"fleet, poll {poll}")
+                finally:
+                    fh.close()
+    return out
+
+
+def gateway_phases(dev, counts) -> dict:
+    """[gateway]: the network and fleet plane over ``ServeHost`` on the card,
+    with the committed north-star policy: the content-addressed store, the TCP
+    gateway through the v1 and the resilient v2 clients, the mixed-date batch
+    of single-row frames through TCP and through the ring (one K2 launch
+    each), the delivery drills, the ring at 1,048,576 rows, the fleet at one
+    and two replicas with its kill drill, and the live scrape."""
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from orp_tpu_torch import NORTH_STAR_POLICY, obs
+    from orp_tpu_torch.guard import FaultPlan, faults
+    from orp_tpu_torch.serve import (GatewayClient, HedgeEngine, MetricsServer,
+                                     ResilientGatewayClient, ServeGateway, ServeHost,
+                                     export_bundle, load_bundle, megakernel, parse_prometheus,
+                                     wire)
+    from orp_tpu_torch.serve import bench as serve_bench
+    from orp_tpu_torch.serve.shm import RingClient, RingPair, RingServer
+    from orp_tpu_torch.store import open_store
+    from orp_tpu_torch.utils.measure import cuda_ms
+
+    t_phase = time.perf_counter()
+    out = {}
+    policy = load_bundle(NORTH_STAR_POLICY)
+    direct = HedgeEngine(policy)
+    nd = policy.n_dates
+    root = pathlib.Path(tempfile.mkdtemp(prefix="orp-gateway-"))
+    rows = {n: _host_rows(n, 1, 100 + i)[0] for i, n in enumerate(GATEWAY_SIZES)}
+    want = {n: direct.evaluate((5 * i + 3) % nd, rows[n]) for i, n in enumerate(GATEWAY_SIZES)}
+    dates = {n: (5 * i + 3) % nd for i, n in enumerate(GATEWAY_SIZES)}
+    try:
+        # -- 1. the store: one tree, two manifests; store:// serves bitwise
+        store = open_store(root / "store")
+        t0 = time.perf_counter()
+        export_bundle(policy, root / "ns", store=store, tenant="ns-a")
+        store.publish("ns-b", root / "ns")
+        out["publish_s"] = time.perf_counter() - t0
+        st = store.stats()
+        check(st["tenants"] == 2 and st["manifests"] == 2 and st["blobs"] == 2 + 3,
+              f"[gateway] store: two tenants over one tree ({st})")
+        t0 = time.perf_counter()
+        warm_dir = store.materialize("ns-a")
+        out["materialize_s"] = time.perf_counter() - t0
+        shutil.rmtree(warm_dir)
+        t0 = time.perf_counter()
+        via = load_bundle(f"store://{root / 'store'}#ns-a")
+        out["first_load_s"] = time.perf_counter() - t0
+        check(all(torch.equal(via.backward.params1_by_date[k], policy.backward.params1_by_date[k])
+                  for k in policy.backward.params1_by_date),
+              "[gateway] store:// params bitwise the directory's")
+        n = GATEWAY_SIZES[2]  # 65,536 rows
+        with ServeHost(max_live_engines=1) as sh:
+            sh.add_tenant("ns-a", f"store://{root / 'store'}#ns-a")
+            got = sh.submit_block("ns-a", dates[n], rows[n]).result(timeout=120)
+        check(np.array_equal(got.phi, want[n][0]) and np.array_equal(got.psi, want[n][1]),
+              f"[gateway] a store:// tenant serves {n} rows bitwise the directory-loaded engine")
+        store.remove("ns-b")
+        gc = store.gc()
+        check(gc["removed"] == 1 and store.stats()["blobs"] == st["blobs"] - 1,
+              f"[gateway] gc of the removed tenant frees its manifest only ({gc})")
+        print(f"[gateway] store: export_bundle(store=) + a second tenant {out['publish_s']:.4f} s "
+              f"({st['blobs']} blobs, {st['blob_bytes']} bytes, dedup {st['dedup_ratio']}), "
+              f"materialize {out['materialize_s']:.4f} s, first store:// load "
+              f"{out['first_load_s']:.4f} s; a store:// tenant's {n}-row block bitwise; gc "
+              f"freed {gc['removed']} blob | {card_line()}", flush=True)
+
+        # -- 2. the TCP gateway: v1 and v2, bitwise, rows/s, 1-row latency
+        host = ServeHost(max_live_engines=2)
+        host.add_tenant("ns", NORTH_STAR_POLICY)
+        gw = ServeGateway(host, port=0)
+        pair = None
+        try:
+            host.evaluate("ns", 0, rows[1])
+            rps = {}
+            with GatewayClient(*gw.address, timeout_s=300.0) as v1, \
+                    ResilientGatewayClient(*gw.address, window=8, timeout_s=300.0) as v2:
+                for lane, c in (("v1", v1), ("v2", v2)):
+                    for n in GATEWAY_SIZES:
+                        rps[(lane, n)] = _lane_rows_per_s(
+                            lambda d, x, c=c: c.submit_block("ns", d, x), n, rows[n], dates[n],
+                            want[n], f"TCP {lane}")
+                s1 = rows[1]
+                lat = {"v1": [], "v2": [], "host": [], "host_block": []}
+                for _ in range(3):
+                    lat["v1"].append(_median_ms(lambda: v1.submit_block("ns", 7, s1)))
+                    lat["v2"].append(_median_ms(lambda: v2.submit_block("ns", 7, s1)))
+                    lat["host"].append(_median_ms(lambda: host.evaluate("ns", 7, s1)))
+                    lat["host_block"].append(_median_ms(
+                        lambda: host.submit_block("ns", 7, s1).result(timeout=60)))
+                lat["v1_ping"] = [_median_ms(v1.ping) for _ in range(3)]
+                lat["v2_ping"] = [_median_ms(lambda: v2.ping(timeout_s=60.0))
+                                  for _ in range(3)]
+                check(v2.stats["duplicate_replies"] == 0 and v2.stats["reconnects"] == 0,
+                      f"[gateway] v2 clean run ({v2.stats})")
+            # the ring, sized for a 1M-row block, in the temp directory
+            tmp = pathlib.Path(tempfile.gettempdir())
+            pair = RingPair.create(req_capacity=RING_REQ_BYTES, rep_capacity=RING_REP_BYTES)
+            out["ring_file"] = str(pair.path)
+            check(pair.path.parent == tmp and pair.path.stat().st_size
+                  == RING_REQ_BYTES + RING_REP_BYTES + 192,
+                  f"[gateway] the ring file in {tmp} ({pair.path})")
+            with RingServer(host, pair, default_tenant="ns") as rs, \
+                    RingClient(pair, window=8, timeout_s=300.0) as rc:
+                for n in GATEWAY_SIZES:
+                    rps[("ring", n)] = _lane_rows_per_s(
+                        lambda d, x: rc.submit_block("ns", d, x), n, rows[n], dates[n],
+                        want[n], "ring")
+                lat["ring"] = [_median_ms(lambda: rc.submit_block("ns", 7, s1))
+                               for _ in range(3)]
+                lat["ring_ping"] = [_median_ms(lambda: rc.ping(timeout_s=60.0))
+                                    for _ in range(3)]
+                check(rc.stats["duplicate_replies"] == 0 and rs.totals()["errors"] == 0,
+                      f"[gateway] ring clean run ({rc.stats}, {rs.totals()})")
+            pair.unlink()
+            # wrap-around: 96 frames of 4,096 rows through 1 MiB rings
+            pair = RingPair.create(req_capacity=1 << 20, rep_capacity=1 << 20)
+            blocks = [_host_rows(4096, 1, 300 + i)[0] for i in range(96)]
+            with RingServer(host, pair, default_tenant="ns"), \
+                    RingClient(pair, window=4, timeout_s=120.0) as rc:
+                futs = [rc.submit_block_async("ns", i % nd, b) for i, b in enumerate(blocks)]
+                got = [f.result(timeout=120) for f in futs]
+                check(rc.stats["duplicate_replies"] == 0, "[gateway] wrap-around: no duplicate")
+            for i, (b, g) in enumerate(zip(blocks, got)):
+                w = direct.evaluate(i % nd, b)
+                check(np.array_equal(g.phi, w[0]) and np.array_equal(g.psi, w[1]),
+                      f"[gateway] wrap-around frame {i} bitwise")
+            pair.unlink()
+            pair = None
+            for k, v in lat.items():
+                out[f"lat_{k}_ms"] = sorted(v)[1]
+            # the codec's share of a 1-row round trip: both frames encoded and decoded
+            one = host.submit_block("ns", 7, s1).result(timeout=60)
+            out["codec_1row_ms"] = _median_ms(lambda: [wire.decode_reply(wire.encode_reply(
+                one, seq=wire.decode_request(wire.encode_request("ns", 7, s1, seq=1))["seq"]))
+                for _ in range(100)]) / 100
+            out["rps"] = {f"{lane}@{n}": v for (lane, n), v in rps.items()}
+            print(f"[gateway] blocks of {', '.join(map(str, GATEWAY_SIZES))} rows through TCP v1 "
+                  f"(GatewayClient), TCP v2 (ResilientGatewayClient) and the ring "
+                  f"({RING_REQ_BYTES >> 20} + {RING_REP_BYTES >> 20} MiB in {tmp}): every "
+                  f"served row bitwise the tenant's HedgeEngine; 96 frames of 4,096 rows "
+                  f"through 1 MiB rings (wrap-around) bitwise", flush=True)
+            print("[gateway] rows/s (median of 3 serial blocks): " + "; ".join(
+                f"{lane} " + ", ".join(f"{n}: {rps[(lane, n)]:,.0f}" for n in GATEWAY_SIZES[1:])
+                for lane in ("v1", "v2", "ring")) + f" | {card_line()}", flush=True)
+            print(f"[gateway] 1-row round trip (median of 3 x 31): TCP v1 "
+                  f"{out['lat_v1_ms']:.3f} ms, TCP v2 {out['lat_v2_ms']:.3f} ms, ring "
+                  f"{out['lat_ring_ms']:.3f} ms; ServeHost direct: evaluate "
+                  f"{out['lat_host_ms']:.3f} ms, submit_block {out['lat_host_block_ms']:.3f} ms; "
+                  f"PING/PONG alone: v1 {out['lat_v1_ping_ms']:.3f} ms, v2 "
+                  f"{out['lat_v2_ping_ms']:.3f} ms, ring {out['lat_ring_ping_ms']:.3f} ms; both "
+                  f"frames' encode + decode {out['codec_1row_ms'] * 1e3:.1f} us "
+                  f"| {card_line()}", flush=True)
+        finally:
+            if pair is not None:
+                pair.unlink()
+            gw.close()
+            host.close()
+
+        # -- 3. the mixed-date batch of single-row frames: one K2 launch, TCP
+        # and ring; the batch fills the batcher's max_batch, so it is one dispatch
+        m_rows = GATEWAY_MIXED_ROWS
+        ms_states = _host_rows(m_rows, 1, 5)[0]
+        m_dates = (np.arange(m_rows) * 7) % nd
+        plain = HedgeEngine(policy, device="cpu").evaluate_mixed_async(
+            m_dates, ms_states).result()
+        k2 = {}
+        mixed_kw = {"mixed_dates": True, "max_batch": m_rows, "max_wait_us": 20e6}
+        with ServeHost(max_live_engines=1, batcher_kwargs=mixed_kw) as mh:
+            mh.add_tenant("ns", NORTH_STAR_POLICY)
+            _hold(mh, "ns")  # activate with no request: a lone one would wait out the window
+            with ServeGateway(mh, port=0, max_inflight_replies=m_rows,
+                              reply_cache=m_rows) as mgw:
+                res = [None] * m_rows
+                per = m_rows // 8
+
+                def producer(k):
+                    with ResilientGatewayClient(*mgw.address, window=per,
+                                                timeout_s=120.0) as c:
+                        idx = range(k * per, (k + 1) * per)
+                        futs = [c.submit_block_async("ns", int(m_dates[i]), ms_states[i:i + 1])
+                                for i in idx]
+                        for i, f in zip(idx, futs):
+                            res[i] = f.result(timeout=120)
+
+                counts.reset()
+                threads = [threading.Thread(target=producer, args=(k,)) for k in range(8)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(180)
+                torch.cuda.synchronize()
+                k2["tcp"] = counts.only("mixed_head", "[gateway] the TCP mixed-date frames")
+            check(all(r is not None and r.n_served == 1 for r in res),
+                  "[gateway] every mixed-date frame served")
+            check(k2["tcp"] == 1, f"[gateway] TCP: one K2 launch ({k2['tcp']})")
+            tcp_phi = np.concatenate([r.phi for r in res])
+            np.testing.assert_allclose(tcp_phi, plain[0], rtol=1e-5, atol=1e-6)
+            np.testing.assert_allclose(np.concatenate([r.psi for r in res]), plain[1],
+                                       rtol=1e-5, atol=1e-6)
+            rpair = RingPair.create(req_capacity=1 << 20, rep_capacity=1 << 20)
+            try:
+                with RingServer(mh, rpair, default_tenant="ns"), \
+                        RingClient(rpair, window=m_rows, timeout_s=120.0) as rc:
+                    counts.reset()
+                    futs = [rc.submit_block_async("ns", int(m_dates[i]), ms_states[i:i + 1])
+                            for i in range(m_rows)]
+                    rres = [f.result(timeout=120) for f in futs]
+                    torch.cuda.synchronize()
+                    k2["ring"] = counts.only("mixed_head", "[gateway] the ring's mixed-date frames")
+            finally:
+                rpair.unlink()
+            check(k2["ring"] == 1, f"[gateway] ring: one K2 launch ({k2['ring']})")
+            np.testing.assert_allclose(np.concatenate([r.phi for r in rres]), plain[0],
+                                       rtol=1e-5, atol=1e-6)
+        out["k2_launches"] = k2["tcp"]
+        m = policy.model
+        p = {k: v.to(dev) for k, v in policy.backward.params1_by_date.items()}
+        d_t = torch.from_numpy(m_dates.astype(np.int32)).to(dev)
+        f_t = torch.from_numpy(ms_states).to(dev)
+        packed = megakernel.pack_head_params(m, p)
+        kern = megakernel.mixed_head_forward(m, p, d_t, f_t, packed=packed)
+        ref = megakernel.mixed_head_plain(m, p, d_t, f_t)
+        out["k2_err"] = float((kern - ref).abs().max())
+        check(bool(torch.allclose(kern, ref, rtol=1e-5, atol=1e-6)),
+              f"[gateway] K2 at {m_rows} rows within rtol 1e-5 of mixed_head_plain")
+        out["k2_ms"] = cuda_ms(lambda: megakernel.mixed_head_forward(m, p, d_t, f_t,
+                                                                     packed=packed), reps=200)
+        out["k2_plain_ms"] = cuda_ms(lambda: megakernel.mixed_head_plain(m, p, d_t, f_t), reps=20)
+        out["k2_bound"] = k2_bound_ms(m, m_rows, nd)
+        print(f"[gateway] {m_rows} single-row frames at {nd} dates from 8 client threads "
+              f"(TCP v2) and from one ring client: {k2['tcp']} and {k2['ring']} K2 launch(es), "
+              f"each within rtol 1e-5 of the plain version on the CPU; K2 alone "
+              f"{out['k2_ms']:.4f} ms (max |kernel - plain| {out['k2_err']:.2e}, bound "
+              f"{out['k2_bound'][0]:.6f} ms by {out['k2_bound'][1]}, plain "
+              f"{out['k2_plain_ms']:.3f} ms) | {card_line()}", flush=True)
+
+        # -- 4. the delivery drills
+        t0 = time.perf_counter()
+        drill = serve_bench.gateway_drill(policy, blocks=64, block_rows=1024, kill_at_frame=20,
+                                          seed=7, repeats=3, device=dev)
+        check(drill["rows_lost"] == 0 and drill["duplicate_serves"] == 0
+              and drill["replayed_bits_equal"] and drill["mttr_runs"] == 3,
+              f"[gateway] kill at frame 20: zero loss, no duplicate, bits equal ({drill})")
+        out["drill"] = drill
+        out["drill_s"] = time.perf_counter() - t0
+        blocks = [_host_rows(1024, 1, 400 + i)[0] for i in range(12)]
+        wants = [direct.evaluate(0, b) for b in blocks]
+
+        def delivered(results, what):
+            check(len(results) == len(blocks) and all(
+                r.n_served == 1024 and np.array_equal(r.phi, w[0])
+                and np.array_equal(r.psi, w[1]) for r, w in zip(results, wants)),
+                f"[gateway] {what}: every row served once, bitwise")
+
+        drills = {}
+        with ServeHost(max_live_engines=1, batcher_kwargs={"max_wait_us": 30_000.0}) as dh:
+            dh.add_tenant("d", NORTH_STAR_POLICY)
+            dh.evaluate("d", 0, rows[1])
+            with ServeGateway(dh, port=0, frame_deadline_s=0.05) as g:
+                for name, plan in (("torn", FaultPlan(torn_send={"client/send": 1})),
+                                   ("stall", FaultPlan(stall_send={"client/send": (1, 0.2)}))):
+                    with ResilientGatewayClient(*g.address, window=2, timeout_s=120.0) as rc:
+                        with faults(plan) as inj:
+                            got = [rc.submit_block("d", 0, b) for b in blocks]
+                        check(len(inj.log) == 1 and rc.stats["reconnects"] >= 1
+                              and rc.stats["duplicate_replies"] == 0,
+                              f"[gateway] {name}_send re-delivered ({inj.log}, {rc.stats})")
+                        drills[name] = dict(rc.stats)
+                    delivered(got, f"{name}_send")
+            with ServeGateway(dh, port=0, max_inflight_replies=1) as g:
+                with ResilientGatewayClient(*g.address, window=4, timeout_s=120.0) as rc:
+                    futs = [rc.submit_block_async("d", 0, b) for b in blocks]
+                    got = [f.result(timeout=120) for f in futs]
+                    drills["busy"] = dict(rc.stats)
+                check(drills["busy"]["busy"] >= 1 and drills["busy"]["duplicate_replies"] == 0,
+                      f"[gateway] BUSY tripped, nothing duplicated ({drills['busy']})")
+                delivered(got, "BUSY backpressure (no row shed)")
+            gw_a, gw_b = ServeGateway(dh, port=0), ServeGateway(dh, port=0)
+            try:
+                with ResilientGatewayClient(*gw_a.address, window=4, timeout_s=120.0) as rc:
+                    futs, closer = [], None
+                    for i, b in enumerate(blocks):
+                        futs.append(rc.submit_block_async("d", 0, b))
+                        if i == 5:
+                            closer = threading.Thread(target=gw_a.close,
+                                                      kwargs={"successor": gw_b.address})
+                            closer.start()
+                    got = [f.result(timeout=120) for f in futs]
+                    drills["redirect"] = dict(rc.stats)
+                closer.join(60)
+                ta, tb = gw_a.totals(), gw_b.totals()
+            finally:
+                gw_a.close()
+                gw_b.close()
+            check(drills["redirect"]["redirects"] >= 1
+                  and drills["redirect"]["duplicate_replies"] == 0
+                  and ta["rows"] + tb["rows"] == 1024 * len(blocks) and ta["rows"] > 0
+                  and tb["rows"] > 0, f"[gateway] drain-and-redirect A -> B: ledgers {ta['rows']}"
+                  f" + {tb['rows']} rows ({drills['redirect']})")
+            delivered(got, "drain-and-redirect")
+        out["drills"] = drills
+        print(f"[gateway] drills: kill at frame {drill['kill_at_frame']} of {drill['blocks']} x "
+              f"{drill['block_rows']:,} rows ({drill['repeats']} runs): rows lost "
+              f"{drill['rows_lost']}, duplicate serves {drill['duplicate_serves']}, replayed "
+              f"bits equal, MTTR {drill['mttr_ms']:.1f} ms (IQR {drill['mttr_ms_iqr']:.1f}); "
+              f"torn_send and stall_send (0.2 s against a 0.05 s frame deadline) re-delivered; "
+              f"BUSY x {drills['busy']['busy']} with no row shed; drain-and-redirect A -> B "
+              f"{ta['rows']} + {tb['rows']} rows | {card_line()}", flush=True)
+
+        # -- 5. the fleet at one and two replicas on the card, then its kill drill
+        t0 = time.perf_counter()
+        fleet = serve_bench.fleet_phase(policy, replica_counts=(1, 2), gateways=2, tenants=6,
+                                        blocks_per_tenant=10, block_rows=1024, repeats=3,
+                                        device=dev)
+        out["fleet_s"] = time.perf_counter() - t0
+        out["fleet"] = fleet
+        kd = fleet["kill_drill"]
+        check(kd["rows_lost"] == 0 and kd["duplicate_serves"] == 0
+              and kd["rows_served"] == kd["rows_sent"],
+              f"[gateway] fleet kill drill: zero loss, no duplicate ({kd})")
+        lv = {x["replicas"]: x for x in fleet["levels"]}
+        print(f"[gateway] fleet ({fleet['gateways']} fleet gateways, {fleet['tenants']} tenants x "
+              f"{fleet['blocks_per_tenant']} blocks of {fleet['block_rows']:,} rows, every "
+              f"replica a ServeHost on this card): 1 replica {lv[1]['rows_per_s']:,.0f} rows/s, "
+              f"p99 {lv[1]['p99_ms']:.2f} ms; 2 replicas {lv[2]['rows_per_s']:,.0f} rows/s, p99 "
+              f"{lv[2]['p99_ms']:.2f} ms; routing identical across gateways, every tenant "
+              f"bitwise; kill {kd['killed']}: {kd['tenants_remapped']} tenants remapped, rows "
+              f"lost 0, duplicates 0, MTTR {kd['mttr_ms']:.1f} ms; coalescing "
+              f"{fleet['coalesce']['dispatches_coalesced']} vs "
+              f"{fleet['coalesce']['dispatches_uncoalesced']} dispatches bitwise; "
+              f"{out['fleet_s']:.1f} s | {card_line()}", flush=True)
+
+        t0 = time.perf_counter()
+        out["fleet_breakdown"] = bd = _fleet_breakdown(policy)
+        print(f"[gateway] where a fleet hop's time goes (6 tenants x 10 blocks of 1,024 rows, "
+              f"pipelined, one replica, median of 3): ServeHost.submit_block "
+              f"{bd['host']:,.0f} rows/s, one replica gateway {bd['replica_gateway']:,.0f} "
+              f"({bd['busy']} BUSY frames in 3 runs at max_inflight_replies=8, the client's "
+              f"window 32; at 32: {bd['replica_gateway_inflight32']:,.0f}), a fleet gateway in "
+              f"front (health poll 50 ms) {bd['fleet_poll_0.05']:,.0f}, (1 s) "
+              f"{bd['fleet_poll_1.0']:,.0f}; {time.perf_counter() - t0:.1f} s | {card_line()}",
+              flush=True)
+
+        # -- 6. the live scrape
+        with obs.telemetry(None), ServeHost(max_live_engines=1) as sh:
+            sh.add_tenant("ns", NORTH_STAR_POLICY)
+            with ServeGateway(sh, port=0) as g, \
+                    MetricsServer(g.metrics_text, health_fn=g.health_report) as srv:
+                with GatewayClient(*g.address, timeout_s=60.0) as c:
+                    c.submit_block("ns", 3, rows[1024])
+                    try:
+                        c.submit_block("nobody", 3, rows[1])
+                        check(False, "[gateway] an unknown tenant must be refused")
+                    except Exception:  # noqa: BLE001 - the refusal is the check
+                        pass
+                with urllib.request.urlopen("http://%s:%d/metrics" % srv.address,
+                                            timeout=30) as r:
+                    series = parse_prometheus(r.read().decode())
+        names = ("serve_requests_total", "serve_request_latency_seconds",
+                 "serve_queue_age_seconds", "guard_shed", "serve_gateway_rows",
+                 "serve_gateway_errors")
+        check(all(n in series for n in names)
+              and any(lb.get("stage") == "serve" for lb, _ in series["serve_gateway_errors"]),
+              f"[gateway] the live scrape carries the serve series ({sorted(series)})")
+        print(f"[gateway] MetricsServer /metrics: {len(series)} series, among them "
+              + ", ".join(names) + " (stage=serve)", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[gateway] the phase {out['phase_s']:.2f} s | {card_line()}", flush=True)
+    return out
+
+
 def mesh_tool():
     """``tools/torch_mesh_ranks.py``, the launcher of one process a rank."""
     import importlib.util
@@ -3208,6 +3693,8 @@ def main() -> int:
     mesh = mesh_phases(dev, adam.pop("exact_n"))
     hosted = host_phases(dev, counts)
     launches["mixed_head_host"] = hosted["k2_launches"]
+    gated = gateway_phases(dev, counts)
+    launches["mixed_head_gateway"] = gated["k2_launches"]
 
     # -- 19. times at the main paths' shapes ----------------------------------
     k1 = lambda: fused_gbm.gbm_log_fused(N_FULL, N_STEPS, **gbm_kw)  # noqa: E731
@@ -3403,6 +3890,14 @@ def main() -> int:
          "max_abs_err": hosted["k2_err"], "ms": hosted["k2_ms"],
          "plain_ms": hosted["k2_plain_ms"], "bound_ms": hosted["k2_bound"][0],
          "bound_by": hosted["k2_bound"][1], "library_ms": None},
+        # K2 behind the socket: the mixed-date batch of single-row frames through
+        # the TCP gateway, one dispatch ([gateway])
+        {"name": "mixed_head_gateway", "route": "cuda",
+         "source": "orp_tpu_torch/csrc/mixed_head.cu",
+         "replaces": "orp_tpu/serve/megakernel.py:85", "launches": launches["mixed_head_gateway"],
+         "max_abs_err": gated["k2_err"], "ms": gated["k2_ms"],
+         "plain_ms": gated["k2_plain_ms"], "bound_ms": gated["k2_bound"][0],
+         "bound_by": gated["k2_bound"][1], "library_ms": None},
     ]}
     print(f"[times] the single-host serve path: 1-row latency ServeHost "
           f"{hosted['lat_host_ms']:.3f} ms vs HedgeEngine {hosted['lat_engine_ms']:.3f} ms; "
@@ -3411,6 +3906,12 @@ def main() -> int:
           f"{hosted['reload_quality_s']:.3f} s quality-gated; activation cold "
           f"{hosted['cold_s']:.4f} s, warm {hosted['warm_s']:.4f} s; [host] "
           f"{hosted['phase_s']:.1f} s", flush=True)
+    print(f"[times] the network plane: 1-row round trip TCP v1 {gated['lat_v1_ms']:.3f} ms, "
+          f"v2 {gated['lat_v2_ms']:.3f} ms, ring {gated['lat_ring_ms']:.3f} ms vs ServeHost "
+          f"{gated['lat_host_ms']:.3f} ms; {N_FULL}-row blocks v1 {gated['rps'][f'v1@{N_FULL}']:,.0f}"
+          f", v2 {gated['rps'][f'v2@{N_FULL}']:,.0f}, ring {gated['rps'][f'ring@{N_FULL}']:,.0f} "
+          f"rows/s; kill drill MTTR {gated['drill']['mttr_ms']:.1f} ms; [gateway] "
+          f"{gated['phase_s']:.1f} s", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels))
     print(card_line())

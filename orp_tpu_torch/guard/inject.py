@@ -25,9 +25,22 @@ hooks:
 
 Serve sites: ``serve/dispatch`` in ``HedgeEngine.evaluate_async`` and
 ``evaluate_mixed_async``, ``serve/execute`` in ``PendingEval.result``,
-``serve/bundle_reload`` in ``ServeHost.reload_tenant``. The wire faults
-(``torn_send``, ``stall_send``, ``kill_gateway_at_frame``) belong to the
-gateway, which is not ported yet.
+``serve/bundle_reload`` in ``ServeHost.reload_tenant``.
+
+Wire faults, with the gateway (``serve/gateway.py``, ``serve/client.py``):
+
+- ``torn_send(site)``: write half a frame, then kill the socket (the gateway
+  discards the partial; the resilient client's replay re-delivers it);
+- ``stall_send(site)``: write half a frame and hold the socket open and
+  silent for a fixed time (the gateway's ``frame_deadline_s`` evicts it);
+- ``gateway_kill(n)``: abort the whole gateway right after its ``n``-th
+  admitted frame (``kill_gateway_at_frame``, one-shot: the restarted
+  gateway's own counter passes ``n`` too);
+- ``fail`` at ``gateway/reply``: the gateway closes the connection instead of
+  sending the reply it just cached, so the replay is answered from the cache.
+
+Wire sites: ``client/send`` in ``ResilientGatewayClient``, ``gateway/reply``
+and the admitted-frame counter in ``ServeGateway``.
 
 Hooks fire only while a plan is installed (``with faults(plan):``); the clean
 path pays one module-global load per hook site. Per-site call counters advance
@@ -80,6 +93,13 @@ class FaultPlan:
     survivors: int | None = None
     # the first n corrupt_policy() calls perturb the loaded params
     corrupt_reload: int = 0
+    # wire faults: site -> first n sends write half the frame then kill the
+    # socket (torn) / hold it open silently for `secs` (stalled reader)
+    torn_send: dict[str, int] = dataclasses.field(default_factory=dict)
+    stall_send: dict[str, tuple[int, float]] = dataclasses.field(
+        default_factory=dict)  # site -> (n_calls, seconds held open)
+    # abort the whole gateway right after its n-th admitted frame (None = never)
+    kill_gateway_at_frame: int | None = None
 
 
 class FaultInjector:
@@ -146,6 +166,38 @@ class FaultInjector:
             with self._lock:
                 self.log.append((site, f"fail {attrs}"))
             raise InjectedFault(f"injected fault at {site} {attrs}")
+
+    def torn_send(self, site: str) -> bool:
+        """True when this send should tear: write half the frame, then kill
+        the socket (the caller's contract, ``serve/client.py``)."""
+        budget = self.plan.torn_send.get(site, 0)
+        if not budget or self._take(f"torn:{site}", budget) is None:
+            return False
+        with self._lock:
+            self.log.append((site, "torn"))
+        return True
+
+    def stall_send(self, site: str) -> float | None:
+        """Seconds to hold a half-written frame open and silent, or None when
+        this send is clean."""
+        n, secs = self.plan.stall_send.get(site, (0, 0.0))
+        if not n or self._take(f"stall:{site}", n) is None:
+            return None
+        with self._lock:
+            self.log.append((site, f"stall {secs * 1e3:.0f}ms"))
+        return secs
+
+    def gateway_kill(self, frame_no: int) -> bool:
+        """True exactly once, when ``frame_no`` (the gateway's admitted-frame
+        counter) is the planned kill point: the caller aborts the gateway."""
+        k = self.plan.kill_gateway_at_frame
+        if k is None or frame_no != k:
+            return False
+        if self._take("gateway_kill", 1) is None:
+            return False
+        with self._lock:
+            self.log.append(("gateway/kill", f"frame={frame_no}"))
+        return True
 
     def corrupt_policy(self, policy):
         """For the first ``plan.corrupt_reload`` calls, a copy of ``policy``

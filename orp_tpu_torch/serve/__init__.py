@@ -20,14 +20,28 @@ its precision tiers, and the single-host serve path on top of them:
 - ``host``    - ``ServeHost``: many tenants under an LRU engine cap with a
   warm tier, quotas, SLO burn rates, canary-gated hot reload and tier
   promotion through the quality band;
-- ``bench``   - the precision-tier sweep with its promotion drill, and the
-  mixed-date A/B.
+- ``gateway`` - ``ServeGateway``: the ``orp-ingest`` TCP front over a host
+  (sessions, the dedup window and reply cache, the frame deadline, BUSY,
+  drain-and-redirect, METRICS / HEALTH), and ``GatewayClient`` (v1);
+- ``client``  - ``ResilientGatewayClient``: the v2 producer (send window,
+  reconnect with backoff, RESUME and replay, REDIRECT);
+- ``shm``     - ``RingPair`` / ``RingServer`` / ``RingClient``: the same frames
+  through a shared-memory ring (imported from its module);
+- ``scrape``  - ``MetricsServer`` (the HTTP scrape) and the exposition's read
+  side (``parse_prometheus``, ``top_snapshot``, ``render_top``);
+- ``fleet``   - ``FleetHost`` and its rendezvous ``RoutingTable`` (imported
+  from its module, which loads standalone with the stdlib alone);
+- ``bench``   - the precision-tier sweep with its promotion drill, the
+  mixed-date A/B, and the network plane's phases (the ingest lanes, the
+  gateway-kill drill, the fleet).
 """
 
 from orp_tpu_torch.serve.batcher import MicroBatcher, SlimFuture
 from orp_tpu_torch.serve.bundle import (PolicyBundle, export_bundle, load_bundle,
                                         policy_from_numpy, save_bundle)
+from orp_tpu_torch.serve.client import ResilientGatewayClient
 from orp_tpu_torch.serve.engine import HedgeEngine, PendingEval, ResidentParams, next_bucket
+from orp_tpu_torch.serve.gateway import FrameStall, GatewayClient, GatewayError, ServeGateway
 from orp_tpu_torch.serve.health import DispatchWatchdog
 from orp_tpu_torch.serve.host import CanaryRejected, ServeHost, SloPolicy, burn_rate
 from orp_tpu_torch.serve.ingest import (SERVED, SHED_DEADLINE, SHED_QUOTA, SHED_WATERMARK,
@@ -37,11 +51,14 @@ from orp_tpu_torch.serve.megakernel import (loop_of_buckets, mixed_head_forward,
 from orp_tpu_torch.serve.metrics import ServingMetrics
 from orp_tpu_torch.serve.precision import TIERS, PrecisionPolicy, normalize_precision
 from orp_tpu_torch.serve.ragged import BucketPlanner
+from orp_tpu_torch.serve.scrape import MetricsServer, parse_prometheus, render_top, top_snapshot
 
-__all__ = ["BlockResult", "BucketPlanner", "CanaryRejected", "DispatchWatchdog", "HedgeEngine",
-           "MicroBatcher", "PendingEval", "PolicyBundle", "PrecisionPolicy", "ResidentParams",
-           "SERVED", "SHED_DEADLINE", "SHED_QUOTA", "SHED_WATERMARK", "STATUS_NAMES",
-           "ServeHost", "ServingMetrics", "SloPolicy", "SlimFuture", "TIERS", "burn_rate",
-           "concat_results", "export_bundle", "load_bundle", "loop_of_buckets",
-           "mixed_head_forward", "mixed_head_plain", "next_bucket", "normalize_precision",
-           "policy_from_numpy", "save_bundle"]
+__all__ = ["BlockResult", "BucketPlanner", "CanaryRejected", "DispatchWatchdog", "FrameStall",
+           "GatewayClient", "GatewayError", "HedgeEngine", "MetricsServer", "MicroBatcher",
+           "PendingEval", "PolicyBundle", "PrecisionPolicy", "ResidentParams",
+           "ResilientGatewayClient", "SERVED", "SHED_DEADLINE", "SHED_QUOTA", "SHED_WATERMARK",
+           "STATUS_NAMES", "ServeGateway", "ServeHost", "ServingMetrics", "SloPolicy",
+           "SlimFuture", "TIERS", "burn_rate", "concat_results", "export_bundle",
+           "load_bundle", "loop_of_buckets", "mixed_head_forward", "mixed_head_plain",
+           "next_bucket", "normalize_precision", "parse_prometheus", "policy_from_numpy",
+           "render_top", "save_bundle", "top_snapshot"]

@@ -246,9 +246,15 @@ class MicroBatcher:
     ``ragged=True`` (optionally with a shared ``planner``) turns on
     pad-waste-aware dispatch planning (:mod:`orp_tpu_torch.serve.ragged`);
     ``mixed_dates=True`` fuses requests at different rebalance dates into
-    one megakernel dispatch (:mod:`orp_tpu_torch.serve.megakernel`). Both are
-    opt-in: default-off keeps the per-date always-merge dispatch shape
-    existing tests and benches pin.
+    one megakernel dispatch (:mod:`orp_tpu_torch.serve.megakernel`); with
+    ``coalesce_blocks`` it fuses admitted blocks at different dates the same
+    way (the gateway's single-row frames from many connections), while blocks
+    that share one date keep the bitwise per-date path. Both are opt-in:
+    default-off keeps the per-date always-merge dispatch shape existing tests
+    and benches pin.
+
+    The worker thread pins its current CUDA device to the engine's (the
+    current device is per thread), so engines on ``cuda:N`` launch there.
     """
 
     def __init__(self, engine, *, max_batch: int = 1024,
@@ -520,6 +526,11 @@ class MicroBatcher:
     # whose JOB is to block.
 
     def _run(self) -> None:
+        dev = getattr(self.engine, "device", None)
+        if getattr(dev, "type", None) == "cuda" and dev.index is not None:
+            import torch
+
+            torch.cuda.set_device(dev)
         inflight: collections.deque[list[_Group]] = collections.deque()
         while True:
             # only block waiting for work when the device has none either —
@@ -636,7 +647,9 @@ class MicroBatcher:
         out: list[_Group] = []
         for req in batch:
             if isinstance(req, Block):
-                key = (req.date_idx, req.features.shape[1],
+                # mixed-date lane: blocks drop the date from the key too
+                key = ((None if self.mixed_dates else req.date_idx),
+                       req.features.shape[1],
                        None if req.prices is None else req.prices.shape[1])
                 block_groups.setdefault(key, []).append(req)
                 continue
@@ -647,6 +660,17 @@ class MicroBatcher:
                    None if req.prices is None else req.prices.shape[1])
             groups.setdefault(key, []).append(req)
         for (date_idx, _, pwidth), blks in block_groups.items():
+            if date_idx is None:
+                if len({b.date_idx for b in blks}) > 1:
+                    # genuinely mixed dates: one fused megakernel dispatch
+                    # when coalescing, else one dispatch a block
+                    if self.coalesce_blocks:
+                        out.append(self._dispatch_coalesced(
+                            blks[0].date_idx, pwidth, blks, mixed=True))
+                    else:
+                        out.extend(self._dispatch_block(b) for b in blks)
+                    continue
+                date_idx = blks[0].date_idx
             if (len(blks) > 1 and self.coalesce_blocks
                     and self.planner is not None):
                 # ragged: the planner's DP picks merge vs keep-separate
@@ -731,13 +755,17 @@ class MicroBatcher:
             self.metrics.record_dispatch(1, g.rows, cap)
         return g
 
-    def _dispatch_coalesced(self, date_idx: int, pwidth, blks) -> _Group:
+    def _dispatch_coalesced(self, date_idx: int, pwidth, blks, *,
+                            mixed: bool = False) -> _Group:
         """Cross-connection coalescing: N admitted blocks with one
         executable key ride ONE device dispatch. The concatenation order is
         admission order, and each block's live-row count is kept so the
         resolve stage slices every origin's columns back out — bitwise what
         a per-block dispatch serves (the forward is per-row, and bucket
-        padding rides OUTSIDE the sliced rows)."""
+        padding rides OUTSIDE the sliced rows). ``mixed``: the blocks' dates
+        differ, and their rows ride one mixed-date dispatch with a per-row
+        date column (the megakernel lane: bitwise the engine's own
+        ``evaluate_mixed_async`` of the rows, not the per-date path's)."""
         has_prices = pwidth is not None
         lives = []
         feat_cols = []
@@ -754,7 +782,15 @@ class MicroBatcher:
             g.feats = np.concatenate(feat_cols, axis=0)
             g.prices = (np.concatenate(price_cols, axis=0)
                         if has_prices else None)
-            g.pending = self._dispatch_planned(date_idx, g.feats, g.prices)
+            if mixed:
+                g.dates = np.concatenate(
+                    [np.full(n, blk.date_idx, np.int32)
+                     for blk, n in zip(blks, lives)])
+                g.pending = self._dispatch_engine(date_idx, g.feats, g.prices,
+                                                  dates=g.dates)
+            else:
+                g.pending = self._dispatch_planned(date_idx, g.feats,
+                                                   g.prices)
         except Exception as e:  # delivered to every block future by _resolve
             g.error = e
             return g

@@ -3,12 +3,25 @@
 Ported so far: the precision-tier sweep (:func:`precision_phase`, with the
 reference's promotion drill through ``serve/host.py``) and the mixed-date
 kernel A/B (:func:`megakernel_phase`), with the reference's
-:data:`PRECISION_BANDS`. Each phase gates what it measures and RAISES when a
+:data:`PRECISION_BANDS`; the network plane's phases: the ingest lanes
+(:func:`ingest_phase` over :func:`columnar_level`, :func:`gateway_level` and
+the interleaved TCP / shared-memory pair :func:`paired_levels`), the tracing
+bill (:func:`trace_overhead`), the gateway-kill drill (:func:`gateway_drill`)
+and the fleet (:func:`fleet_phase`, with its coalescing pin
+:func:`coalesce_pin`). Each phase gates what it measures and RAISES when a
 gate fails: a phase that returns a record is a phase that passed.
+
+The reference records ``xla_compiles`` from its engine's counter; the port
+compiles no XLA programs and reports its kernel-build counters
+(``utils/cuda_build.BUILD_STATS``: ``nvcc`` runs and library loads) instead.
+The reference's drift and device-attribution overhead lanes are not part of
+:func:`ingest_phase` yet.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 
 import numpy as np
@@ -203,3 +216,655 @@ def megakernel_phase(policy, *, rows: int, repeats: int, seed: int, device=None,
                        "kernel_launches_on": int(launches),
                        "speedup": on_s["median"] / max(off_s["median"], 1e-9)})
     return {"rows": int(rows), "device": str(engines["f32"].device), "tiers": levels}
+
+
+# -- the network plane ---------------------------------------------------------
+
+#: headline phases repeat this many times by default (median + IQR ride along)
+DEFAULT_REPEATS = 3
+#: the tracing bill per frame, as a share of the disabled lane's ns/row
+TRACE_OVERHEAD_GATE_PCT = 5.0
+
+
+def _build_stats() -> dict:
+    from orp_tpu_torch.utils import cuda_build
+
+    return dict(cuda_build.BUILD_STATS)
+
+
+def _host(device, **kw):
+    from orp_tpu_torch.serve.host import ServeHost
+
+    return ServeHost(engine_kwargs={"device": device}, **kw)
+
+
+def _feats(rng, rows: int, n_features: int):
+    return (1.0 + 0.1 * rng.standard_normal((rows, n_features))).astype(np.float32)
+
+
+def columnar_level(engine, feats, bsz: int, top: int, max_wait_us: float, pin,
+                   repeats: int = DEFAULT_REPEATS) -> dict:
+    """One columnar-lane point, ``repeats`` times: the rows through
+    ``MicroBatcher.submit_block`` at block size ``bsz``; ``submit_ns_per_row``
+    times the submit calls only, ``ingest_rows_per_s`` the end-to-end serve
+    (medians, IQRs alongside). ``pin`` raises on a changed bit."""
+    from orp_tpu_torch.serve.batcher import MicroBatcher
+
+    rows = feats.shape[0]
+    submit_ns, rows_per_s = [], []
+    for _ in range(max(1, int(repeats))):
+        with MicroBatcher(engine, max_batch=max(top, bsz), max_wait_us=max_wait_us) as mb:
+            t0 = time.perf_counter()
+            futures = [mb.submit_block(0, feats[o:o + bsz]) for o in range(0, rows, bsz)]
+            t1 = time.perf_counter()
+            results = [f.result(timeout=120) for f in futures]
+            t_done = time.perf_counter()
+        pin(np.concatenate([r.phi for r in results]),
+            np.concatenate([r.psi for r in results]), f"columnar@{bsz}")
+        if any(r.status.any() for r in results):
+            raise RuntimeError("columnar lane shed rows with no guard policy installed")
+        submit_ns.append((t1 - t0) / rows * 1e9)
+        rows_per_s.append(rows / (t_done - t0))
+    sub, rps = summarize_repeats(submit_ns), summarize_repeats(rows_per_s)
+    return {"block": bsz, "repeats": sub["repeats"], "submit_ns_per_row": sub["median"],
+            "submit_ns_per_row_iqr": sub["iqr"], "ingest_rows_per_s": rps["median"],
+            "ingest_rows_per_s_iqr": rps["iqr"]}
+
+
+def gateway_level(client, feats, bsz: int, pin, *, tenant: str = "bench",
+                  date_idx: int = 0) -> dict:
+    """One gateway round-trip point: encode → TCP → decode →
+    ``submit_block`` → encode reply, serially a block (one untimed warm-up
+    block first). ``pin`` raises on a changed bit."""
+    rows = feats.shape[0]
+    client.submit_block(tenant, date_idx, feats[:bsz])
+    t0 = time.perf_counter()
+    results = [client.submit_block(tenant, date_idx, feats[o:o + bsz])
+               for o in range(0, rows, bsz)]
+    t_done = time.perf_counter()
+    pin(np.concatenate([r.phi for r in results]),
+        np.concatenate([r.psi for r in results]), f"gateway@{bsz}")
+    return {"block": bsz, "rows_per_s": rows / (t_done - t0),
+            "rtt_us_per_block": (t_done - t0) / (rows // bsz) * 1e6}
+
+
+def shm_level(client, feats, bsz: int, pin, *, window: int = 8, lane: str = "shm",
+              tenant: str = "bench", date_idx: int = 0) -> dict:
+    """One windowed point through a ring client (or its pipelined-TCP twin,
+    a ``ResilientGatewayClient``): the rows as sequenced frames through
+    ``submit_block_async`` with ``window`` in flight; rows/s end to end, the
+    submit wall per row alongside."""
+    rows = feats.shape[0]
+    client.submit_block(tenant, date_idx, feats[:bsz])
+    t0 = time.perf_counter()
+    futures, oldest = [], 0
+    for o in range(0, rows, bsz):
+        futures.append(client.submit_block_async(tenant, date_idx, feats[o:o + bsz]))
+        if len(futures) - oldest >= window:
+            futures[oldest].result(timeout=120)
+            oldest += 1
+    t1 = time.perf_counter()
+    results = [f.result(timeout=120) for f in futures]
+    t_done = time.perf_counter()
+    pin(np.concatenate([r.phi for r in results]),
+        np.concatenate([r.psi for r in results]), f"{lane}@{bsz}")
+    return {"block": bsz, "rows_per_s": rows / (t_done - t0),
+            "submit_ns_per_row": (t1 - t0) / rows * 1e9}
+
+
+def median_level(draws: list) -> dict:
+    """The element-median draw of one lane level (by rows/s): every field from
+    one run, with the repeats and the IQR alongside."""
+    s = summarize_repeats([d["rows_per_s"] for d in draws])
+    mid = min(draws, key=lambda d: abs(d["rows_per_s"] - s["median"]))
+    return {**mid, "repeats": s["repeats"], "rows_per_s_iqr": s["iqr"]}
+
+
+def paired_levels(rclient, rc, feats, block_sizes, pin, repeats):
+    """The pipelined-TCP twin and the shared-memory ring over the same rows,
+    interleaved repeat by repeat so load drift lands on both lanes."""
+    out_tcp, out_shm = [], []
+    for bsz in block_sizes:
+        draws = [(shm_level(rclient, feats, bsz, pin, lane="gateway_pipelined"),
+                  shm_level(rc, feats, bsz, pin)) for _ in range(max(1, int(repeats)))]
+        out_tcp.append(median_level([d[0] for d in draws]))
+        out_shm.append(median_level([d[1] for d in draws]))
+    return out_tcp, out_shm
+
+
+def trace_bill_s(feats, iters: int = 2000) -> float:
+    """The wall of what tracing adds to one frame's life through the batcher,
+    in a tight loop: the producer stamp, the admit / dispatch instants and
+    ``Block.trace_report`` (the segment emission and the server-timing pair),
+    under a live in-memory session; the median of three batches."""
+    from orp_tpu_torch import obs
+    from orp_tpu_torch.obs.sink import ListSink
+    from orp_tpu_torch.serve.batcher import SlimFuture
+    from orp_tpu_torch.serve.ingest import Block
+
+    blk = Block(0, feats, None, SlimFuture(), time.perf_counter(), None, trace=(1, 1))
+
+    def batch() -> float:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            blk.trace = obs.new_trace()
+            blk.t_admit = time.perf_counter()
+            blk.t_dispatch = time.perf_counter()
+            blk.trace_report(time.perf_counter())
+        return (time.perf_counter() - t0) / iters
+
+    with obs.suspended(), obs.active(sink=ListSink()):
+        walls = sorted(batch() for _ in range(3))
+    return walls[1]
+
+
+def trace_overhead(engine, feats, max_wait_us: float, repeats: int = 15) -> dict:
+    """Tracing's cost on the columnar lane, three lanes over the same rows:
+    telemetry off (``obs.suspended``), on but untraced, on and every block
+    traced. The gated ``overhead_pct`` is :func:`trace_bill_s` amortized over
+    the block against the disabled lane's ns/row (a difference of two
+    multi-ms walls is noise at a few percent); ``measured_delta_pct``, the
+    traced-untraced median delta, is recorded beside it. Blocks of
+    ``min(1024, rows)`` rows, at least 32,768 rows per timed run, untraced and
+    traced runs alternated. The record carries :data:`TRACE_OVERHEAD_GATE_PCT`
+    for its reader's gate."""
+    from orp_tpu_torch import obs
+    from orp_tpu_torch.obs.sink import ListSink
+    from orp_tpu_torch.serve.batcher import MicroBatcher
+
+    rows = feats.shape[0]
+    bsz = min(rows, 1024)
+    passes = max(1, -(-32768 // rows))
+    total = rows * passes
+    offsets = [o for _ in range(passes) for o in range(0, rows, bsz)]
+
+    def run_once(traced: bool) -> float:
+        with MicroBatcher(engine, max_batch=bsz, max_wait_us=max_wait_us) as mb:
+            t0 = time.perf_counter()
+            futures = [mb.submit_block(0, feats[o:o + bsz],
+                                       trace=obs.new_trace() if traced else None)
+                       for o in offsets]
+            for f in futures:
+                f.result(timeout=120)
+            return time.perf_counter() - t0
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    with obs.suspended():
+        off = med([run_once(False) for _ in range(repeats)])
+        pairs = []
+        with obs.active(sink=ListSink()):
+            run_once(True)
+            for i in range(repeats):
+                if i % 2:
+                    t, u = run_once(True), run_once(False)
+                else:
+                    u, t = run_once(False), run_once(True)
+                pairs.append((u, t))
+    untraced, traced = med([u for u, _ in pairs]), med([t for _, t in pairs])
+    delta = med([t - u for u, t in pairs])
+    bill_s = trace_bill_s(feats[:bsz])
+    disabled_ns = off / total * 1e9
+    overhead_pct = (bill_s / bsz * 1e9) / disabled_ns * 100.0
+    return {"block": int(bsz), "rows": int(total), "repeats": int(repeats),
+            "disabled_ns_per_row": disabled_ns,
+            "enabled_untraced_ns_per_row": untraced / total * 1e9,
+            "enabled_ns_per_row": traced / total * 1e9,
+            "spine_overhead_pct": (untraced - off) / off * 100.0,
+            "measured_delta_pct": delta / untraced * 100.0,
+            "trace_bill_us_per_frame": bill_s * 1e6, "overhead_pct": overhead_pct,
+            "gate_pct": TRACE_OVERHEAD_GATE_PCT}
+
+
+def ring_capacity(max_block: int, n_features: int) -> int:
+    """A ring size whose record cap (``capacity // MAX_FRAME_FRACTION``) takes
+    a ``max_block``-row request of ``n_features`` f32 columns and its reply
+    (status + three f32 columns), with room for a window of frames."""
+    from orp_tpu_torch.serve.shm import MAX_FRAME_FRACTION
+
+    frame_bytes = max_block * max(n_features * 4, 13) + 256
+    return max(1 << 20, 1 << (frame_bytes * MAX_FRAME_FRACTION * 2).bit_length())
+
+
+def ingest_phase(policy, *, rows: int, block_sizes, seed: int, max_wait_us: float = 200.0,
+                 repeats: int = DEFAULT_REPEATS, device=None) -> dict:
+    """The ingest sweep: the same rows through the per-request lane, the
+    columnar lane at each block size, the v1 gateway (serial round trips),
+    and the pipelined TCP / shared-memory pair, each pinned BITWISE to a
+    direct ``engine.evaluate`` of the rows (RAISES on any changed bit), then
+    the tracing bill. The ring must not sit significantly below its TCP twin
+    at any block (a deficit past max(4 IQR, 5%) raises) and, when a block of
+    1,024 rows or more is benched, must significantly beat it at one block."""
+    from orp_tpu_torch import obs
+    from orp_tpu_torch.serve.batcher import MicroBatcher
+    from orp_tpu_torch.serve.client import ResilientGatewayClient
+    from orp_tpu_torch.serve.gateway import GatewayClient, ServeGateway
+    from orp_tpu_torch.serve.shm import RingClient, RingPair, RingServer
+
+    block_sizes = tuple(int(b) for b in block_sizes)
+    top = max(block_sizes)
+    if any(rows % b for b in block_sizes):
+        raise ValueError(f"rows {rows} must be divisible by every block size {block_sizes} "
+                         "so each lane serves identical rows")
+    engine = HedgeEngine(policy, device=device)
+    feats = _feats(np.random.default_rng(seed), rows, engine.model.n_features)
+    sizes, b = [], engine.min_bucket
+    while b <= engine.bucket_for(top):
+        sizes.append(b)
+        b *= 2
+    engine.prewarm(sizes)
+    ref_phi, ref_psi, _ = engine.evaluate(0, feats)
+    builds0 = _build_stats()
+
+    def pin(phi, psi, lane):
+        if not (np.array_equal(phi, ref_phi) and np.array_equal(psi, ref_psi)):
+            raise RuntimeError(f"ingest lane {lane!r} served different BITS than a direct "
+                               "engine.evaluate of the same rows — a broken lane, not a fast one")
+
+    pr_submit, pr_rate = [], []
+    for _ in range(max(1, int(repeats))):
+        with MicroBatcher(engine, max_batch=top, max_wait_us=max_wait_us) as mb:
+            t0 = time.perf_counter()
+            futures = [mb.submit(0, feats[i:i + 1]) for i in range(rows)]
+            t1 = time.perf_counter()
+            got = [f.result(timeout=120) for f in futures]
+            t_done = time.perf_counter()
+        pin(np.concatenate([g[0] for g in got]), np.concatenate([g[1] for g in got]),
+            "per_request")
+        pr_submit.append((t1 - t0) / rows * 1e9)
+        pr_rate.append(rows / (t_done - t0))
+    pr_sub = summarize_repeats(pr_submit)
+    per_request = {"rows": rows, "repeats": pr_sub["repeats"],
+                   "submit_ns_per_row": pr_sub["median"], "submit_ns_per_row_iqr": pr_sub["iqr"],
+                   "rows_per_s": summarize_repeats(pr_rate)["median"]}
+    columnar = [columnar_level(engine, feats, bsz, top, max_wait_us, pin, repeats=repeats)
+                for bsz in block_sizes]
+    with _host(device, max_live_engines=1) as host:
+        host.add_tenant("bench", policy)
+        with ServeGateway(host, port=0) as gw, GatewayClient(*gw.address) as client:
+            gateway = [gateway_level(client, feats, bsz, pin) for bsz in block_sizes]
+    ring_cap = ring_capacity(top, feats.shape[1])
+    with _host(device, max_live_engines=1) as tcp_host, \
+            _host(device, max_live_engines=1) as shm_host:
+        tcp_host.add_tenant("bench", policy)
+        shm_host.add_tenant("bench", policy)
+        pair = RingPair.create(req_capacity=ring_cap, rep_capacity=ring_cap)
+        try:
+            with ServeGateway(tcp_host, port=0) as gw2, \
+                    ResilientGatewayClient(*gw2.address, window=8) as rcl, \
+                    RingServer(shm_host, pair, default_tenant="bench"), \
+                    RingClient(pair, window=8) as rc:
+                gateway_pipelined, shm = paired_levels(rcl, rc, feats, block_sizes, pin, repeats)
+                shm_busy, shm_dups = rc.stats["busy"], rc.stats["duplicate_replies"]
+        finally:
+            pair.unlink()
+    if shm_dups:
+        raise RuntimeError(f"shm lane delivered {shm_dups} duplicate replies — the ring's "
+                           "seq correlation broke")
+    tracing = trace_overhead(engine, feats, max_wait_us)
+    shm_won = False
+    for tcp_lv, shm_lv in zip(gateway_pipelined, shm):
+        noise = max(4.0 * max(tcp_lv["rows_per_s_iqr"], shm_lv["rows_per_s_iqr"]),
+                    0.05 * tcp_lv["rows_per_s"])
+        gap = shm_lv["rows_per_s"] - tcp_lv["rows_per_s"]
+        if gap < -noise:
+            obs.count("quality/gate_trip", gate="shm_vs_tcp")
+            raise RuntimeError(
+                f"shm-lane gate violated: at block {shm_lv['block']} the ring served "
+                f"{shm_lv['rows_per_s']:.1f} rows/s vs the pipelined TCP loopback's "
+                f"{tcp_lv['rows_per_s']:.1f}, a deficit past the pair's noise band "
+                f"({noise:.1f} rows/s)")
+        shm_won = shm_won or gap > noise
+    if not shm_won and max(block_sizes) >= 1024:
+        obs.count("quality/gate_trip", gate="shm_vs_tcp")
+        raise RuntimeError("shm-lane gate violated: no benched block shows the ring "
+                           "significantly beating the pipelined TCP loopback")
+    best = max(columnar, key=lambda c: c["block"])
+    shm_best = max(shm, key=lambda c: c["block"])
+    builds = _build_stats()
+    return {"rows": rows, "block_sizes": list(block_sizes), "device": str(engine.device),
+            "per_request": per_request, "columnar": columnar, "gateway": gateway,
+            "gateway_pipelined": gateway_pipelined, "shm": shm, "shm_beats_tcp": shm_won,
+            "shm_busy": int(shm_busy), "shm_rows_per_s": shm_best["rows_per_s"],
+            "ring_capacity": ring_cap, "trace_overhead": tracing,
+            "submit_ns_per_row": best["submit_ns_per_row"],
+            "ingest_rows_per_s": max(c["ingest_rows_per_s"] for c in columnar),
+            "submit_speedup_vs_per_request": per_request["submit_ns_per_row"]
+            / max(best["submit_ns_per_row"], 1e-9),
+            "bitwise_equal_to_per_request": True,
+            "kernel_builds": {k: builds[k] - builds0[k] for k in builds}}
+
+
+def coalesce_pin(engine, feats, *, blocks: int, block_rows: int, max_wait_us: float) -> dict:
+    """The same small blocks through a coalescing batcher and a non-coalescing
+    one: each origin's sliced-back reply must be BITWISE the uncoalesced
+    dispatch's, and the coalescing run must take fewer dispatches (RAISES
+    otherwise)."""
+    from orp_tpu_torch.serve.batcher import MicroBatcher
+    from orp_tpu_torch.serve.metrics import ServingMetrics
+
+    cols = [np.ascontiguousarray(feats[i * block_rows:(i + 1) * block_rows])
+            for i in range(blocks)]
+    out, results = {}, {}
+    for coalesce in (True, False):
+        metrics = ServingMetrics()
+        with MicroBatcher(engine, max_batch=blocks * block_rows,
+                          max_wait_us=max(max_wait_us, 2000.0), metrics=metrics,
+                          coalesce_blocks=coalesce) as mb:
+            with mb._cv:  # the whole burst is admitted together
+                futures = [mb.submit_block(0, c) for c in cols]
+            results[coalesce] = [f.result(timeout=120) for f in futures]
+        out["dispatches_coalesced" if coalesce else "dispatches_uncoalesced"] = \
+            metrics.summary()["dispatches"]
+    for a, b in zip(results[True], results[False]):
+        if not (np.array_equal(a.phi, b.phi) and np.array_equal(a.psi, b.psi)
+                and np.array_equal(a.status, b.status)):
+            raise RuntimeError("coalesced block replies are NOT bitwise the uncoalesced "
+                               "dispatch's — the per-origin slice bookkeeping is broken")
+    if not out["dispatches_coalesced"] < out["dispatches_uncoalesced"]:
+        raise RuntimeError(f"coalescing merged nothing: {out['dispatches_coalesced']} dispatches "
+                           f"for {blocks} blocks (uncoalesced {out['dispatches_uncoalesced']})")
+    return {"blocks": int(blocks), "block_rows": int(block_rows), **out, "bitwise_equal": True}
+
+
+def fleet_phase(policy, *, replica_counts=(1, 2, 4), gateways: int = 2, tenants: int = 6,
+                blocks_per_tenant: int = 10, block_rows: int = 64, seed: int = 0,
+                repeats: int = DEFAULT_REPEATS, max_wait_us: float = 500.0,
+                device=None) -> dict:
+    """The fleet: ``gateways`` fleet gateways (``FleetHost`` behind a
+    ``ServeGateway``) fan sequenced frames out to M replicas (each a
+    ``ServeHost`` behind its own gateway, every engine on ``device``), the
+    tenant→replica mapping computed by every gateway from the rendezvous
+    table. Per replica count: rows/s and the client-observed p99 (median and
+    IQR of ``repeats``), the routing-agreement pin (every gateway's version
+    and mapping identical) and the bits pin (every tenant's columns bitwise a
+    direct evaluation, nothing shed). At the largest count, the
+    kill-one-replica drill: the replica serving most tenants is aborted
+    mid-stream, its tenants remap and every in-flight frame re-routes; the
+    record carries the fleet MTTR with ``rows_lost`` 0 and
+    ``duplicate_serves`` 0. Then :func:`coalesce_pin`. RAISES on any
+    contract violation. On one card every replica shares the device."""
+    from orp_tpu_torch.serve.client import ResilientGatewayClient
+    from orp_tpu_torch.serve.fleet import FleetHost, ReplicaSpec, route_weight
+    from orp_tpu_torch.serve.gateway import GatewayClient, ServeGateway
+
+    engine = HedgeEngine(policy, device=device)  # the bit oracle
+    nf = engine.model.n_features
+    rng = np.random.default_rng(seed)
+    names = [f"tenant-{i:02d}" for i in range(int(tenants))]
+    streams = {t: [_feats(rng, block_rows, nf) for _ in range(int(blocks_per_tenant))]
+               for t in names}
+    ref = {t: [engine.evaluate(0, b) for b in blks] for t, blks in streams.items()}
+    total_rows = tenants * blocks_per_tenant * block_rows
+
+    def build_fleet(n_replicas: int):
+        hosts, rep_gws, specs = [], [], []
+        for i in range(n_replicas):
+            h = _host(device, max_live_engines=max(4, tenants))
+            for t in names:
+                h.add_tenant(t, policy)
+            g = ServeGateway(h, port=0)
+            hosts.append(h)
+            rep_gws.append(g)
+            specs.append(ReplicaSpec(f"r{i}", *g.address))
+        # every tenant warm on every replica, off the routing plane: the
+        # drill's MTTR then measures detection + remap + replay, not a build
+        warm = np.ascontiguousarray(streams[names[0]][0][:1])
+        for g in rep_gws:
+            with GatewayClient(*g.address, timeout_s=120.0) as wc:
+                for t in names:
+                    wc.submit_block(t, 0, warm)
+        fleet_hosts, fleet_gws = [], []
+        for _ in range(int(gateways)):
+            fh = FleetHost(specs, health_poll_s=0.05, health_timeout_s=2.0,
+                           health_fail_after=1)
+            fleet_hosts.append(fh)
+            fleet_gws.append(ServeGateway(fh, port=0))
+        return hosts, rep_gws, specs, fleet_hosts, fleet_gws
+
+    def teardown(hosts, rep_gws, fleet_hosts, fleet_gws):
+        for g in fleet_gws:
+            g.close(timeout=5.0)
+        for fh in fleet_hosts:
+            fh.close()
+        for g in rep_gws:
+            g.close(timeout=5.0)
+        for h in hosts:
+            h.close()
+
+    def drive(fleet_gws, *, kill=None):
+        """Every tenant's stream through its gateway (tenants spread over the
+        gateways by a salt-free hash), all frames pipelined, each block's
+        latency stamped. ``kill``: ``(victim_gateway, t_kill_box)`` aborts
+        the victim replica gateway once half the stream is submitted."""
+        clients = [ResilientGatewayClient(*g.address, window=32) for g in fleet_gws]
+        latencies, lat_cv, futures = [], threading.Condition(), []
+        try:
+            order = [(t, b) for t in names for b in streams[t]]
+            half = len(order) // 2
+            for i, (t, b) in enumerate(order):
+                if kill is not None and i == half:
+                    kill[1][0] = time.perf_counter()
+                    kill[0].abort()
+                c = clients[route_weight(t, "gateway") % len(clients)]
+                t_sub = time.perf_counter()
+                fut = c.submit_block_async(t, 0, b)
+
+                def _stamp(f, t_sub=t_sub, tenant=t):
+                    with lat_cv:
+                        latencies.append((tenant, t_sub, time.perf_counter()))
+                        lat_cv.notify_all()
+
+                fut.add_done_callback(_stamp)
+                futures.append((t, fut))
+            results = {}
+            for t, fut in futures:
+                results.setdefault(t, []).append(fut.result(timeout=120))
+            wall_end = time.perf_counter()
+            # waiters wake before done-callbacks run: wait the stamps out
+            with lat_cv:
+                deadline = time.monotonic() + 30.0
+                while len(latencies) < len(futures) and time.monotonic() < deadline:
+                    lat_cv.wait(0.05)
+                if len(latencies) < len(futures):
+                    raise RuntimeError(f"{len(futures) - len(latencies)} latency stamps never "
+                                       "arrived — a done-callback died")
+            dup = sum(c.stats["duplicate_replies"] for c in clients)
+            return results, latencies, dup, wall_end
+        finally:
+            for c in clients:
+                c.close()
+
+    def pin_bits(results):
+        for t in names:
+            got = results.get(t, [])
+            if len(got) != blocks_per_tenant:
+                raise RuntimeError(f"fleet lost blocks for {t}: {len(got)} of "
+                                   f"{blocks_per_tenant}")
+            for r, (p_, s_, _v) in zip(got, ref[t]):
+                if not (np.array_equal(r.phi, p_) and np.array_equal(r.psi, s_)):
+                    raise RuntimeError(f"fleet served different BITS for {t} than a direct "
+                                       "engine evaluation — a broken fleet, not a fast one")
+                if r.status.any():
+                    raise RuntimeError(f"fleet shed rows for {t} with no guard policy — "
+                                       "rows_lost != 0")
+
+    levels = []
+    for n_rep in replica_counts:
+        hosts, rep_gws, specs, fleet_hosts, fleet_gws = build_fleet(int(n_rep))
+        try:
+            views = [fh.route_sample(names) for fh in fleet_hosts]
+            if any(v["version"] != views[0]["version"] or v["map"] != views[0]["map"]
+                   for v in views[1:]):
+                raise RuntimeError("fleet gateways DISAGREE on the routing table: "
+                                   f"{[v['version'] for v in views]}")
+            rates, p99s = [], []
+            for _ in range(max(1, int(repeats))):
+                results, lats, dup, wall_end = drive(fleet_gws)
+                pin_bits(results)
+                if dup:
+                    raise RuntimeError(f"duplicate_serves={dup} on the clean fleet path")
+                t0 = min(t for _, t, _d in lats)
+                rates.append(total_rows / (wall_end - t0))
+                per_block = sorted((d - t) * 1e3 for _, t, d in lats)
+                p99s.append(per_block[min(len(per_block) - 1, int(0.99 * len(per_block)))])
+            rate, p99 = summarize_repeats(rates), summarize_repeats(p99s)
+            levels.append({"replicas": int(n_rep), "gateways": int(gateways),
+                           "tenants": int(tenants), "rows": total_rows,
+                           "repeats": rate["repeats"], "rows_per_s": rate["median"],
+                           "rows_per_s_iqr": rate["iqr"], "p99_ms": p99["median"],
+                           "p99_ms_iqr": p99["iqr"], "routing_version": views[0]["version"],
+                           "routing_consistent": True, "bitwise_equal": True})
+        finally:
+            teardown(hosts, rep_gws, fleet_hosts, fleet_gws)
+
+    n_rep = int(max(replica_counts))
+    mttrs, drill = [], None
+    for _ in range(max(1, int(repeats)) if n_rep > 1 else 0):
+        hosts, rep_gws, specs, fleet_hosts, fleet_gws = build_fleet(n_rep)
+        try:
+            mapping = fleet_hosts[0].table().mapping(names)
+            by_rep: dict[str, int] = {}
+            for t, r in mapping.items():
+                by_rep[r] = by_rep.get(r, 0) + 1
+            victim = max(by_rep, key=lambda r: (by_rep[r], r))
+            t_kill = [None]
+            results, lats, dup, _wall = drive(fleet_gws, kill=(rep_gws[int(victim[1:])], t_kill))
+            pin_bits(results)
+            if dup:
+                raise RuntimeError(f"duplicate_serves={dup} through the kill — "
+                                   "exactly-once-serve broke")
+            remapped = fleet_hosts[0].table().mapping(names)
+            if any(r == victim for r in remapped.values()):
+                raise RuntimeError(f"tenants still mapped to the killed replica {victim}")
+            affected = {t for t, r in mapping.items() if r == victim}
+            after = [d for t, s_, d in lats if t in affected and d >= t_kill[0]]
+            mttrs.append((max(after) - t_kill[0]) * 1e3 if after else 0.0)
+            drill = {"replicas": n_rep, "killed": victim,
+                     "tenants_remapped": sum(mapping[t] != remapped[t] for t in names),
+                     "rows_sent": total_rows,
+                     "rows_served": sum(r.n_served for rs in results.values() for r in rs),
+                     "rows_lost": 0, "duplicate_serves": 0}
+        finally:
+            teardown(hosts, rep_gws, fleet_hosts, fleet_gws)
+    if drill is not None:
+        m = summarize_repeats(mttrs)
+        drill.update(repeats=m["repeats"], mttr_ms=m["median"], mttr_ms_iqr=m["iqr"])
+    coalesce = coalesce_pin(engine, _feats(np.random.default_rng(seed + 3), 8 * block_rows, nf),
+                            blocks=8, block_rows=block_rows, max_wait_us=max_wait_us)
+    out = {"replica_counts": [int(n) for n in replica_counts], "gateways": int(gateways),
+           "tenants": int(tenants), "blocks_per_tenant": int(blocks_per_tenant),
+           "block_rows": int(block_rows), "device": str(engine.device), "levels": levels,
+           "coalesce": coalesce}
+    if drill is not None:
+        out["kill_drill"] = drill
+    return out
+
+
+def gateway_drill(policy, *, blocks: int, block_rows: int, kill_at_frame: int, seed: int,
+                  window: int = 8, repeats: int = DEFAULT_REPEATS, device=None) -> dict:
+    """The gateway-kill drill: a ``ResilientGatewayClient`` streams ``blocks``
+    sequenced frames; right after the gateway admits frame ``kill_at_frame``
+    it is aborted (``FaultPlan(kill_gateway_at_frame=...)``) and a new
+    gateway binds the same port. The client reconnects, RESUMEs and replays.
+    The record: ``rows_lost`` (rows sent minus served), ``duplicate_serves``,
+    ``mttr_ms`` (kill instant to the first reply of the restarted gateway;
+    median of ``repeats`` kill runs) and ``replayed_bits_equal`` (every kill
+    run's served columns bitwise an uninterrupted run's)."""
+    from orp_tpu_torch import guard
+    from orp_tpu_torch.serve.client import ResilientGatewayClient
+    from orp_tpu_torch.serve.gateway import ServeGateway
+    from orp_tpu_torch.serve.ingest import concat_results
+
+    if not 0 < int(kill_at_frame) <= int(blocks):
+        raise ValueError(f"kill_at_frame={kill_at_frame} is outside the frame stream "
+                         f"[1, {blocks}] — the kill would never fire")
+    rng = np.random.default_rng(seed)
+    feats = [_feats(rng, block_rows, policy.model.n_features) for _ in range(blocks)]
+
+    def run(kill: bool) -> tuple:
+        with _host(device, max_live_engines=1) as host:
+            host.add_tenant("drill", policy)
+            gw_a = ServeGateway(host, port=0, frame_deadline_s=5.0)
+            addr, port = gw_a.address
+            gw_b_box, t_kill, t_up = [None], [None], [None]
+
+            def restart():
+                # the supervisor: notice the death, rebind the same port
+                gw_a.aborted.wait(timeout=60)
+                if not gw_a.aborted.is_set():
+                    return
+                t_kill[0] = time.perf_counter()
+                for _ in range(500):
+                    try:
+                        gw_b_box[0] = ServeGateway(host, addr=addr, port=port,
+                                                   frame_deadline_s=5.0)
+                        t_up[0] = time.perf_counter()
+                        return
+                    except OSError:  # the port is mid-release: retry
+                        time.sleep(0.01)
+
+            sup = threading.Thread(target=restart, daemon=True)
+            if kill:
+                sup.start()
+            plan = guard.FaultPlan(kill_gateway_at_frame=kill_at_frame)
+            try:
+                with ResilientGatewayClient(addr, port, window=window) as client:
+                    resolved_at = [None] * blocks
+
+                    def stamp(i):
+                        return lambda f: resolved_at.__setitem__(i, time.perf_counter())
+
+                    with guard.faults(plan) if kill else contextlib.nullcontext():
+                        futures = []
+                        for i, f in enumerate(feats):
+                            fut = client.submit_block_async("drill", 0, f)
+                            fut.add_done_callback(stamp(i))
+                            futures.append(fut)
+                        results = [f.result(timeout=120) for f in futures]
+                    stats = dict(client.stats)
+            finally:
+                gw_a.close(timeout=5.0)
+                if kill:
+                    sup.join(timeout=60)
+                gw_b = gw_b_box[0]
+                totals = gw_a.totals()
+                if gw_b is not None:
+                    tb = gw_b.totals()
+                    totals = {k: totals.get(k, 0) + tb.get(k, 0) for k in set(totals) | set(tb)}
+                    gw_b.close(timeout=5.0)
+        mttr_ms = None
+        if kill and t_kill[0] is not None and t_up[0] is not None:
+            after = [t for t in resolved_at if t is not None and t >= t_up[0]]
+            if after:
+                mttr_ms = (min(after) - t_kill[0]) * 1e3
+        return concat_results(results), stats, totals, mttr_ms
+
+    base, _, _, _ = run(kill=False)
+    total_rows = blocks * block_rows
+    mttrs, rep, bits_equal_all = [], None, True
+    for _ in range(max(1, int(repeats))):
+        served, stats, totals, mttr_ms = run(kill=True)
+        bits_equal_all = bits_equal_all and bool(
+            np.array_equal(served.phi, base.phi) and np.array_equal(served.psi, base.psi)
+            and np.array_equal(served.status, base.status))
+        badness = (total_rows - served.n_served, stats["duplicate_replies"])
+        # the representative run is the worst one, so its counters and the
+        # contract fields describe the same run
+        if rep is None or badness > rep[0]:
+            rep = (badness, served, stats, totals)
+        if mttr_ms is not None:
+            mttrs.append(mttr_ms)
+    (rows_lost, duplicate_serves), served, stats, totals = rep
+    mttr = summarize_repeats(mttrs) if mttrs else None
+    return {"blocks": int(blocks), "block_rows": int(block_rows),
+            "kill_at_frame": int(kill_at_frame), "repeats": max(1, int(repeats)),
+            "rows_sent": total_rows, "rows_served": served.n_served, "rows_lost": rows_lost,
+            "duplicate_serves": duplicate_serves, "reconnects": stats["reconnects"],
+            "replayed_frames": stats["replayed_frames"],
+            "frames_submitted_total": totals["submitted_frames"],
+            "replayed_from_cache": totals.get("replayed_from_cache", 0),
+            "mttr_ms": None if mttr is None else mttr["median"],
+            "mttr_ms_iqr": None if mttr is None else mttr["iqr"], "mttr_runs": len(mttrs),
+            "replayed_bits_equal": bits_equal_all}

@@ -19,6 +19,12 @@ a mismatched re-export and verified by :func:`load_bundle` where present) and
 validation set and the training hedge-error level (``obs/quality.py``), as the
 JAX package's export writes them. The committed bundles carry neither file nor
 baseline and load as before, their baseline fields ``None``.
+
+``export_bundle(..., store=, tenant=)`` also publishes the export into a
+content-addressed store (``store/catalog.py``), and :func:`load_bundle` takes a
+``store://<root>#<tenant>[@version]`` URI, as the JAX package's do. The store
+only hashes and copies files, so it holds the port's ``.npz`` bundles and the
+JAX package's orbax ones alike.
 """
 
 from __future__ import annotations
@@ -142,7 +148,17 @@ def save_bundle(directory, meta: dict, params1: dict, params2: dict | None = Non
 
 
 def load_bundle(directory) -> PolicyBundle:
-    """Load and shape-verify a bundle written by :func:`save_bundle`."""
+    """Load and shape-verify a bundle written by :func:`save_bundle`.
+
+    ``directory`` may also be a ``store://<root>#<tenant>[@version]`` URI: the
+    tenant's manifest is resolved from the catalog, its blobs digest-verified
+    and materialized into the store's shared warm directory, and the load
+    proceeds from there, bitwise a load of the published directory."""
+    if isinstance(directory, str) and directory.startswith("store://"):
+        from orp_tpu_torch.store.catalog import open_store, parse_store_uri
+
+        root, tenant_name, version = parse_store_uri(directory)
+        return open_store(root).load(tenant_name, version)
     d = pathlib.Path(directory)
     meta_file = d / META
     if not meta_file.exists():
@@ -190,15 +206,19 @@ def _host(params: dict | None) -> dict | None:
         for k, v in params.items()}
 
 
-def export_bundle(result, directory) -> PolicyBundle:
+def export_bundle(result, directory, *, store=None, tenant: str | None = None) -> PolicyBundle:
     """Export a trained ``PipelineResult`` (it must carry its ``model`` and
     per-date params) as a bundle under ``directory``: ``bundle.json`` with
     the baseline the pipelines attach (``feature_sketch``, ``validation``,
     ``hedge_error_baseline``), ``policy.npz`` and ``run_fingerprint.txt``.
     Re-exporting the same policy config over a bundle overwrites it; another
     config refuses, as a checkpoint directory does. Returns the loaded
-    equivalent ``PolicyBundle``. (The JAX package's ``store=`` publishing
-    waits for the port's content-addressed catalog.)"""
+    equivalent ``PolicyBundle``.
+
+    With ``store`` (a ``BundleStore`` or its root directory) the finished
+    export is also published into the content-addressed catalog under
+    ``tenant`` (default: the bundle directory's name), for replicas to load
+    as ``store://<root>#<tenant>``."""
     model = getattr(result, "model", None)
     if model is None:
         raise ValueError("result carries no model (PipelineResult.model is None)")
@@ -226,6 +246,11 @@ def export_bundle(result, directory) -> PolicyBundle:
     policy = save_bundle(d, meta, _host(bw.params1_by_date), _host(bw.params2_by_date),
                          metrics)
     write_fingerprint(d, fp)
+    if store is not None:
+        from orp_tpu_torch.store.catalog import open_store
+
+        st = store if hasattr(store, "publish") else open_store(store)
+        st.publish(tenant if tenant is not None else d.name, d)
     return dataclasses.replace(policy, fingerprint=fp, feature_sketch=sketch,
                                validation=validation,
                                hedge_error_baseline=None if err0 is None else float(err0))

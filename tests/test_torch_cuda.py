@@ -981,3 +981,141 @@ def test_host_mixed_lane_launches_k2_and_warm_reactivation(cuda):
             with pytest.raises(CanaryRejected):
                 host.reload_tenant("ns")
         assert np.array_equal(host.evaluate("ns", 0, states[:64])[0], again[0])
+
+
+# -- the network and fleet plane on the card --------------------------------------
+
+
+def _mixed_frames(address, dates, states, producers, client_cls):
+    """Single-row frames at ``dates`` from ``producers`` threads, each its own
+    client; the results in row order."""
+    import threading
+
+    out = [None] * len(dates)
+    per = len(dates) // producers
+
+    def producer(k):
+        with client_cls(*address, window=per, timeout_s=60.0) as c:
+            idx = range(k * per, (k + 1) * per)
+            futs = [c.submit_block_async("ns", int(dates[i]), states[i:i + 1]) for i in idx]
+            for i, f in zip(idx, futs):
+                out[i] = f.result(timeout=60)
+
+    threads = [threading.Thread(target=producer, args=(k,)) for k in range(producers)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 65_536])
+def test_gateway_loopback_bitwise_the_engine(cuda, n):
+    """TCP v1 and v2 serve bitwise the tenant's own ``HedgeEngine`` on the card."""
+    from orp_tpu_torch.serve import (GatewayClient, ResilientGatewayClient, ServeGateway,
+                                     ServeHost)
+
+    policy = load_bundle(NORTH_STAR_POLICY)
+    direct = HedgeEngine(policy, device=cuda)
+    states = _host_rows(n, 1, n + 3)
+    want = direct.evaluate(5, states)
+    with ServeHost(max_live_engines=1) as host:
+        host.add_tenant("ns", policy)
+        with ServeGateway(host, port=0) as gw:
+            with GatewayClient(*gw.address, timeout_s=60.0) as v1, \
+                    ResilientGatewayClient(*gw.address, timeout_s=60.0) as v2:
+                for got in (v1.submit_block("ns", 5, states), v2.submit_block("ns", 5, states)):
+                    assert np.array_equal(got.phi, want[0]) and np.array_equal(got.psi, want[1])
+
+
+@pytest.mark.parametrize("n", [1, 65_536])
+def test_ring_round_trip_bitwise_the_engine(cuda, n, tmp_path):
+    from orp_tpu_torch.serve import ServeHost
+    from orp_tpu_torch.serve.shm import RingClient, RingPair, RingServer
+
+    policy = load_bundle(NORTH_STAR_POLICY)
+    direct = HedgeEngine(policy, device=cuda)
+    states = _host_rows(n, 1, n + 4)
+    want = direct.evaluate(6, states)
+    with ServeHost(max_live_engines=1) as host:
+        host.add_tenant("ns", policy)
+        pair = RingPair.create(tmp_path / "r.shm", req_capacity=8 << 20, rep_capacity=8 << 20)
+        try:
+            with RingServer(host, pair, default_tenant="ns"), \
+                    RingClient(pair, timeout_s=60.0) as rc:
+                got = rc.submit_block("ns", 6, states)
+        finally:
+            pair.unlink()
+    assert np.array_equal(got.phi, want[0]) and np.array_equal(got.psi, want[1])
+
+
+@pytest.mark.parametrize("lane", ["gateway", "ring"])
+def test_gateway_and_ring_mixed_frames_ride_one_k2_launch(cuda, lane, tmp_path):
+    """512 single-row frames at 52 dates fill one batch (``max_batch`` rows) of
+    the mixed-date lane: one K2 launch, bitwise the engine's own mixed-date
+    dispatch of the rows, within 1e-5 of the per-date lane."""
+    from orp_tpu_torch.serve import ResilientGatewayClient, ServeGateway, ServeHost
+    from orp_tpu_torch.serve.shm import RingClient, RingPair, RingServer
+
+    policy = load_bundle(NORTH_STAR_POLICY)
+    direct = HedgeEngine(policy, device=cuda)
+    n = 512
+    states = _host_rows(n, 1, 21)
+    dates = (np.arange(n) * 7) % direct.n_dates
+    kw = {"mixed_dates": True, "max_batch": n, "max_wait_us": 20e6}
+    with ServeHost(max_live_engines=1, batcher_kwargs=kw) as host:
+        host.add_tenant("ns", policy)
+        t, _b = host._claim_batcher("ns")
+        host._release_claim(t)
+        before = megakernel.mixed_head_forward.launches
+        if lane == "gateway":
+            with ServeGateway(host, port=0, max_inflight_replies=n, reply_cache=n) as gw:
+                out = _mixed_frames(gw.address, dates, states, 8, ResilientGatewayClient)
+        else:
+            pair = RingPair.create(tmp_path / "r.shm", req_capacity=1 << 20,
+                                   rep_capacity=1 << 20)
+            try:
+                with RingServer(host, pair, default_tenant="ns"), \
+                        RingClient(pair, window=n, timeout_s=60.0) as rc:
+                    futs = [rc.submit_block_async("ns", int(dates[i]), states[i:i + 1])
+                            for i in range(n)]
+                    out = [f.result(timeout=60) for f in futs]
+            finally:
+                pair.unlink()
+        torch.cuda.synchronize()
+        assert megakernel.mixed_head_forward.launches == before + 1
+    got = np.concatenate([r.phi for r in out])
+    assert np.array_equal(got, direct.evaluate_mixed_async(dates, states).result()[0])
+    np.testing.assert_allclose(got, loop_of_buckets(direct, dates, states)[0],
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_gateway_kill_drill_on_the_card(cuda):
+    from orp_tpu_torch.serve import bench
+
+    rec = bench.gateway_drill(load_bundle(NORTH_STAR_POLICY), blocks=32, block_rows=1024,
+                              kill_at_frame=10, seed=3, repeats=1, device=cuda)
+    assert rec["rows_lost"] == 0 and rec["duplicate_serves"] == 0
+    assert rec["replayed_bits_equal"] and rec["reconnects"] >= 1
+
+
+def test_fleet_phase_on_the_card(cuda):
+    from orp_tpu_torch.serve import bench
+
+    rec = bench.fleet_phase(load_bundle(NORTH_STAR_POLICY), replica_counts=(1, 2), gateways=2,
+                            tenants=3, blocks_per_tenant=4, block_rows=256, repeats=1,
+                            device=cuda)
+    assert all(lv["bitwise_equal"] and lv["routing_consistent"] for lv in rec["levels"])
+    assert rec["kill_drill"]["rows_lost"] == 0 and rec["kill_drill"]["duplicate_serves"] == 0
+    assert rec["coalesce"]["bitwise_equal"]
+
+
+def test_gateway_ingest_phase_on_the_card(cuda):
+    """The ingest lanes bitwise a direct evaluation, the ring against its
+    pipelined-TCP twin under the phase's own gate."""
+    from orp_tpu_torch.serve import bench
+
+    rec = bench.ingest_phase(load_bundle(NORTH_STAR_POLICY), rows=8192, block_sizes=(64, 1024),
+                             seed=0, repeats=3, device=cuda)
+    assert rec["bitwise_equal_to_per_request"] and rec["device"].startswith("cuda")
+    assert rec["kernel_builds"]["nvcc"] == 0

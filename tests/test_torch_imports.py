@@ -36,7 +36,8 @@ def _sources():
                                          ROOT / "tools" / "torch_fused_walk.py",
                                          ROOT / "tools" / "torch_mesh_ranks.py",
                                          ROOT / "tools" / "torch_mesh_probe.py",
-                                         ROOT / "tools" / "torch_host_phase.py"]
+                                         ROOT / "tools" / "torch_host_phase.py",
+                                         ROOT / "tools" / "torch_gateway_phase.py"]
 
 
 def test_prefix_rule():
