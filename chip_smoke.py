@@ -8,7 +8,10 @@ last line):
 
 1. card: ``nvidia-smi`` name and power limit; a CUDA device is required;
 2. build: every CUDA kernel from ``orp_tpu_torch/csrc`` with ``nvcc`` for
-   ``sm_90a``, one ``nvcc`` per source, all at once;
+   ``sm_90a``, one ``nvcc`` per source, all at once (``mixed_head`` in a
+   process of its own, waited for before K2's first check: its long build
+   runs beside the path kernels' checks and phases 5-9, and K2's checks of
+   phase 3 and phase 4 run after phase 9);
 3. kernel vs plain version on the card: K1 (fused Sobol-GBM, the GbmLog step
    of the multi-factor kernel) at 33, 65,536, 1,048,576 and 2,097,185 paths
    x 364 steps, store 7, and at 65,536 x 364 stored every step (365 knots,
@@ -213,8 +216,8 @@ last line):
     four ``gloo`` ranks sharing the card, 262,144 paths each: the walk within
     ``rtol=1e-5`` on ``v0_cv`` and 10% on ``v0``, the sharded engine bitwise,
     ``fused=True`` and ``engine="pallas"`` refused in the reference's words,
-    and exact thinning at 262,144 x 1,000 a rank, the blocks bitwise [exact]'s
-    run. Every rank is a process of its own (``tools/torch_mesh_ranks.py``)
+    and exact thinning at 262,144 x 250 steps a rank, the blocks bitwise the
+    first knots of [exact]'s run. Every rank is a process of its own (``tools/torch_mesh_ranks.py``)
     under a hard timeout; a rank that fails fails the phase; no rank launches
     a kernel;
 28. times: each kernel and its plain version with CUDA events at the main
@@ -267,12 +270,53 @@ last line):
     ``ServeHost`` direct and each lane's PING alone, rows/s per lane, the
     drill's MTTR, the fleet's rows/s and p99, the store's seconds.
 
+31. [aot] the compile-and-perf plane (``aot_plane_phases``), with the committed
+    north-star policy exported as a bundle: ``export_aot`` of its buckets
+    (``DEFAULT_BUCKETS`` plus 65,536 and 1,048,576 rows) at f32 and bf16; a
+    fresh process (``tools/torch_aot_child.py serve``) with
+    ``ORP_TORCH_CACHE_DIR`` at an empty directory loads the bundle: 0 ``nvcc``
+    runs, every request an AOT hit, every bucket at dates 0, 25 and 51 and both
+    tiers bitwise an eager engine; a tampered manifest (``device_kind``) gives
+    one warning, one ``aot/fingerprint_mismatch`` event, no AOT bucket and the
+    same bits; three ``serve/aot_dispatch`` faults demote one bucket, the bits
+    unchanged; an AOT tenant of a ``ServeHost`` evicted to warm and
+    re-activated with 0 ``nvcc`` runs and 0 graph captures, bitwise;
+    ``warm_fused_walk`` into an empty cache (a child process),
+    then a fresh process runs the fused north star at 65,536 paths with 0
+    ``nvcc`` runs; printed: the cold start (an engine with an empty cache and
+    no AOT set, plus its first mixed-date and bucketed requests, in a child
+    process) against the same from the bundle, and graph replay against the
+    eager engine in turns (1-row latency, 1M-row rows/s);
+32. [perf] ``obs/perf.measure_serve_phase`` through ``gate_cli`` twice (the
+    baseline, then within noise), then a ``serve/dispatch`` delay trips
+    ``regression``; the ledger in a temporary directory, the repo root's
+    ``PERF_LEDGER.jsonl`` and ``BENCH_serve.json`` unchanged (sha256); the
+    roofline of K2's 1M-row block and of the engine's headline bucket against
+    the H100 row (``peak_source == "table"``, fractions <= 1);
+33. [profile] ``profile_north_star(20)``: its stage table (wall, compile,
+    execute, host/device, fraction of peak), K1 launched exactly once (the
+    ``sim`` stage), every fraction <= 1 on the execute wall; ``profile_serve``
+    of the AOT bundle:
+    the per-bucket table, the device utilization, a roofline with no error;
+34. [degrade] ``serve/bench._degrade_drill`` on one card from the AOT bundle:
+    0 requests failed, at least one replayed, the recovery bitwise, the
+    rebuild with 0 ``nvcc`` runs; the MTTR;
+35. [serve-bench] ``serve/bench.serve_bench(prewarm=True)`` with the sweep at
+    concurrency 1, 4 and 16, the degrade drill, ingest, precision (with the
+    mixed-date kernel's A/B and ragged batching) and density at 100 tenants,
+    on a policy trained on the card at the reference's precision-test
+    configuration (its holdings inside ``PRECISION_BANDS``); the record
+    written under a temporary directory by ``write_bench_record``, its
+    ``ledger_records`` valid ``orp-perf-v1`` records; req/s and p99 at each
+    concurrency; K2 launched by the megakernel phase.
+
 Output: a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import atexit
 import json
 import math
 import pathlib
@@ -282,10 +326,16 @@ import time
 
 HERE = pathlib.Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12          # 132 SMs x 128 lanes x 2 (FMA) x 1.98 GHz
-INT32_OP_PER_S = 16.7e12        # 132 SMs x 64 INT32 lanes x 1.98 GHz
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit), read from the
+# port's one copy of them (``orp_tpu_torch/utils/flops.py``); copied alone, the
+# script has none and main() refuses before any bound is computed
+sys.path.insert(0, str(HERE))
+try:
+    from orp_tpu_torch.utils.flops import HBM_BYTES_H100 as HBM_BYTES_PER_S
+    from orp_tpu_torch.utils.flops import PEAK_F32_H100 as F32_FLOP_PER_S
+    from orp_tpu_torch.utils.flops import PEAK_INT32_H100 as INT32_OP_PER_S
+except ImportError:
+    HBM_BYTES_PER_S = F32_FLOP_PER_S = INT32_OP_PER_S = None
 
 N_FULL = 1 << 20
 N_FIXTURE = 4096
@@ -3124,6 +3174,425 @@ def gateway_phases(dev, counts) -> dict:
     return out
 
 
+AOT_EXTRA_BUCKETS = (65_536, N_FULL)
+AOT_DATES = (0, 25, 51)
+AOT_WALK_PATHS = 1 << 16
+
+
+def _aot_child(mode: str, cache_dir, *args) -> subprocess.Popen:
+    """``tools/torch_aot_child.py`` in a fresh process with ``ORP_TORCH_CACHE_DIR``
+    at ``cache_dir`` (the caller waits and reads its last line)."""
+    import os
+
+    env = {**os.environ, "ORP_TORCH_CACHE_DIR": str(cache_dir)}
+    env.pop("ORP_TESTS_NO_COMPILE_CACHE", None)
+    return subprocess.Popen([sys.executable, str(HERE / "tools" / "torch_aot_child.py"), mode,
+                             *map(str, args)], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+
+
+def _stop(proc: subprocess.Popen) -> None:
+    """End a child started in a session of its own, and what it started
+    (``nvcc`` and its compilers)."""
+    import os
+    import signal
+
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def _aot_result(proc: subprocess.Popen, what: str, timeout: float = 600) -> dict:
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        _stop(proc)
+    check(proc.returncode == 0, f"{what}: rc {proc.returncode}\n{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _sha(path) -> str | None:
+    import hashlib
+
+    return hashlib.sha256(path.read_bytes()).hexdigest() if path.exists() else None
+
+
+def _turns(fa, fb, n: int) -> tuple[float, float]:
+    """Medians of ``fa`` and ``fb``'s host-to-host walls (ms), taken in turns."""
+    wa, wb = [], []
+    for i in range(n):
+        for f, w in ((fa, wa), (fb, wb)) if i % 2 == 0 else ((fb, wb), (fa, wa)):
+            t0 = time.perf_counter()
+            f()
+            w.append((time.perf_counter() - t0) * 1e3)
+    return sorted(wa)[n // 2], sorted(wb)[n // 2]
+
+
+def aot_plane_phases(dev, counts) -> dict:
+    """[aot], [perf], [profile], [degrade] and [serve-bench]: the
+    compile-and-perf plane on the card (the phases 31-35 of the module
+    docstring). Returns the numbers the kernels line and [times] print."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from orp_tpu_torch import NORTH_STAR_POLICY, obs
+    from orp_tpu_torch.aot import export_aot
+    from orp_tpu_torch.aot.bundle_exec import AOT_META, DEFAULT_BUCKETS
+    from orp_tpu_torch.api import EuropeanConfig, SimConfig, TrainConfig, european_hedge
+    from orp_tpu_torch.guard import FaultPlan, faults
+    from orp_tpu_torch.obs import devprof, perf
+    from orp_tpu_torch.obs.sink import ListSink
+    from orp_tpu_torch.serve import HedgeEngine, export_bundle, load_bundle, megakernel
+    from orp_tpu_torch.serve import bench
+    from orp_tpu_torch.utils import cuda_build
+    from orp_tpu_torch.utils.measure import cuda_ms
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    root = pathlib.Path(tempfile.mkdtemp(prefix="orp-aot-"))
+    card = card_line()
+    background: list = []
+    try:
+        # -- [aot] ---------------------------------------------------------------
+        t0 = time.perf_counter()
+        bdir = root / "bundle"
+        policy = export_bundle(load_bundle(NORTH_STAR_POLICY), bdir)
+        # the cold start (an nvcc-bound child on an empty cache) runs beside the
+        # phases below, on one of the host's cores
+        background.append(("cold", _aot_child("cold", root / "cache_cold", "--bundle", bdir)))
+        buckets = (*DEFAULT_BUCKETS, *AOT_EXTRA_BUCKETS)
+        exported = {tier: export_aot(bdir, policy, buckets=buckets, precision=tier)
+                    for tier in ("f32", "bf16")}
+        export_s = time.perf_counter() - t0
+        want_buckets = sorted(HedgeEngine(policy, use_aot=False).bucket_for(b) for b in buckets)
+        aot_policy = load_bundle(bdir)
+        check(aot_policy.aot_dir == bdir, "the exported bundle carries its AOT set")
+        ser = _aot_result(_aot_child("serve", root / "cache_serve", "--bundle", bdir,
+                                     "--tiers", "f32,bf16",
+                                     "--dates", ",".join(map(str, AOT_DATES))),
+                          "the fresh AOT process")
+        check(ser["nvcc"] == 0, f"the fresh AOT process ran nvcc {ser['nvcc']} time(s)")
+        for tier, t in ser["tiers"].items():
+            check(t["aot_buckets"] == want_buckets,
+                  f"{tier}: AOT buckets {t['aot_buckets']} != {want_buckets}")
+            check(t["requests"] == len(want_buckets) * len(AOT_DATES)
+                  and t["aot_hits"] == t["requests"],
+                  f"{tier}: {t['aot_hits']} AOT hits for {t['requests']} requests")
+            check(t["mismatches"] == [], f"{tier}: AOT replay differs from the eager engine "
+                                         f"at (bucket, date) {t['mismatches']}")
+        # warm_fused_walk into an empty cache: another nvcc-bound child
+
+        def warm():
+            """``warm_fused_walk`` of the north star's fused GN walk into an empty
+            cache, in a process of its own."""
+            code = ("import json, sys; sys.path.insert(0, %r)\n"
+                    "from orp_tpu_torch.aot import warm_fused_walk\n"
+                    "from orp_tpu_torch.api import TrainConfig\n"
+                    "from orp_tpu_torch.api.pipelines import _backward_cfg\n"
+                    "from orp_tpu_torch.models import HedgeMLP\n"
+                    "r = warm_fused_walk(HedgeMLP(n_features=1, constrain_self_financing="
+                    "False), _backward_cfg(TrainConfig(dual_mode='mse_only', optimizer="
+                    "'gauss_newton', fused=True)), n_paths=%d, n_dates=52)\n"
+                    "print(json.dumps(r))\n" % (str(HERE), AOT_WALK_PATHS))
+            import os
+
+            env = {**os.environ, "ORP_TORCH_CACHE_DIR": str(root / "cache_walk")}
+            env.pop("ORP_TESTS_NO_COMPILE_CACHE", None)
+            return subprocess.Popen([sys.executable, "-c", code], env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                    start_new_session=True)
+
+        background.append(("warm", warm()))
+        # a tampered manifest: one warning, one counter event, no AOT bucket, the same bits
+        tdir = root / "tampered"
+        shutil.copytree(bdir, tdir)
+        topo = next(k for k in exported["f32"]["topologies"])
+        mf = tdir / "aot" / topo / AOT_META
+        m = json.loads(mf.read_text())
+        m["fingerprint"]["device_kind"] = "NVIDIA H200"
+        mf.write_text(json.dumps(m))
+        eager = HedgeEngine(policy, use_aot=False)
+        rows = {n: _host_rows(n, 1, 300 + n % 97)[0] for n in (1, 1000, N_FULL)}
+        sink = ListSink()
+        with obs.active(sink=sink), warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            tampered = HedgeEngine(load_bundle(tdir))
+        mism = [e for e in sink.events if e.get("name") == "aot/fingerprint_mismatch"]
+        n_warn = sum("unusable" in str(w.message) for w in caught)
+        check(n_warn == 1 and len(mism) == 1 and tampered.cache_info()["aot_buckets"] == [],
+              f"tampered manifest: {n_warn} warning(s), {len(mism)} event(s), AOT buckets "
+              f"{tampered.cache_info()['aot_buckets']}")
+        for n, x in rows.items():
+            got, want = tampered.evaluate(25, x), eager.evaluate(25, x)
+            check(all(np.array_equal(a, b) for a, b in zip(got, want) if a is not None),
+                  f"tampered fallback bits at {n} rows")
+        # three serve/aot_dispatch faults demote one bucket, the bits unchanged
+        aot = HedgeEngine(aot_policy)
+        check(aot.cache_info()["aot_buckets"] == want_buckets, "the parent's AOT engine")
+        x8 = rows[1]
+        want8 = eager.evaluate(7, x8)
+        with faults(FaultPlan(fail={"serve/aot_dispatch": 3})), \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for _ in range(3):
+                got = aot.evaluate(7, x8)
+                check(all(np.array_equal(a, b) for a, b in zip(got, want8) if a is not None),
+                      "a failed replay serves the eager bits")
+        info = aot.cache_info()
+        check(info["aot_circuit_open"] == [8] and 8 not in info["aot_buckets"]
+              and sum("circuit opened" in str(w.message) for w in caught) == 1,
+              f"three aot_dispatch faults demote bucket 8 ({info})")
+        got = aot.evaluate(7, x8)
+        check(all(np.array_equal(a, b) for a, b in zip(got, want8) if a is not None),
+              "the demoted bucket serves the eager bits")
+        # an AOT tenant through ServeHost, evicted to warm by another and
+        # re-activated: no nvcc run, no graph capture (its resident params keep
+        # their graphs), AOT hits, the eager bits
+        from orp_tpu_torch.serve.host import ServeHost
+
+        x1k = rows[1000]
+        want1k = eager.evaluate(25, x1k)
+        with ServeHost(max_live_engines=1) as host:
+            for name in ("a", "b"):
+                host.add_tenant(name, str(bdir))
+            host.evaluate("a", 25, x1k)
+            host.evaluate("b", 25, x1k)  # evicts "a" to warm
+            check(host.stats()["a"]["live"] is False, "tenant a evicted to warm")
+            b0 = dict(cuda_build.BUILD_STATS)
+            t1 = time.perf_counter()
+            got = host.evaluate("a", 25, x1k)
+            warm_ms = (time.perf_counter() - t1) * 1e3
+            builds = {k: cuda_build.BUILD_STATS[k] - b0[k] for k in ("nvcc", "captures")}
+            info = host._tenants["a"].engine.cache_info()
+        check(builds == {"nvcc": 0, "captures": 0} and info["aot_hits"] == 1
+              and info["aot_buckets"] == want_buckets,
+              f"the warm re-activation of an AOT tenant: {builds}, {info}")
+        check(all(np.array_equal(a, b) for a, b in zip(got, want1k) if a is not None),
+              "the re-activated AOT tenant serves the eager bits")
+        out["aot_warm_ms"] = warm_ms
+        # graph replay against the eager engine, in turns
+        fresh = HedgeEngine(aot_policy)
+        xr, xb = rows[1], rows[N_FULL]
+        lat_aot, lat_eager = _turns(lambda: fresh.evaluate(3, xr), lambda: eager.evaluate(3, xr),
+                                    31)
+        big_aot, big_eager = _turns(lambda: fresh.evaluate(3, xb), lambda: eager.evaluate(3, xb),
+                                    5)
+        check(all(np.array_equal(a, b) for a, b in zip(fresh.evaluate(3, xb),
+                                                        eager.evaluate(3, xb))
+                  if a is not None), "1M-row replay bitwise the eager engine")
+        out.update(export_s=export_s, aot_wall_s=ser["wall_s"], lat_aot_ms=lat_aot,
+                   lat_eager_ms=lat_eager, rps_aot=N_FULL / (big_aot / 1e3),
+                   rps_eager=N_FULL / (big_eager / 1e3), aot_captures=ser["captures"],
+                   export_buckets=len(want_buckets))
+        print(f"[aot] export_aot of {len(want_buckets)} buckets ({want_buckets[0]} to "
+              f"{want_buckets[-1]} rows) at f32 and bf16 {export_s:.2f} s; a fresh process on "
+              f"an empty cache: 0 nvcc runs, {ser['captures']} graphs captured, "
+              f"{sum(t['aot_hits'] for t in ser['tiers'].values())} AOT hits of as many "
+              f"requests, every bucket at dates {AOT_DATES} at f32 and bf16 bitwise the eager "
+              f"engine; engine + first mixed and bucketed requests {ser['wall_s']:.2f} s; a "
+              f"tampered device_kind: 1 warning, 1 aot/fingerprint_mismatch, eager bits; 3 "
+              f"serve/aot_dispatch faults demote bucket 8, bits unchanged; a ServeHost AOT "
+              f"tenant's warm re-activation + 1000-row request {warm_ms:.3f} ms, 0 nvcc runs, "
+              f"0 graph captures, bitwise | {card}", flush=True)
+        print(f"[aot] graph replay vs eager, in turns: 1-row latency {lat_aot:.3f} ms vs "
+              f"{lat_eager:.3f} ms (median of 31); {N_FULL}-row request "
+              f"{out['rps_aot']:,.0f} vs {out['rps_eager']:,.0f} rows/s (median of 5) | {card}",
+              flush=True)
+
+        # -- [perf] ----------------------------------------------------------------
+        t0 = time.perf_counter()
+        guarded = [HERE / "PERF_LEDGER.jsonl", HERE / "BENCH_serve.json"]
+        before = [_sha(p) for p in guarded]
+        led = root / "ledger.jsonl"
+        gates = [perf.gate_cli(ledger=led, bundle=policy, repeats=5, evals=32, rows=64)
+                 for _ in range(2)]
+        check(gates[0]["verdict"] == "no_history" and gates[1]["verdict"] == "ok"
+              and all(g["appended"] for g in gates), f"gate: {[g['reason'] for g in gates]}")
+        recs, _ = perf.read_ledger(led)
+        meds = sorted(r["median"] for r in recs)
+        scale = max(max(r["iqr"] for r in recs), meds[-1] - meds[0])
+        need_s = 4.0 * max(perf.GATE_K * scale, perf.GATE_REL_FLOOR * meds[-1])
+        delay_s = max(0.001, need_s / 32)
+        with faults(FaultPlan(delay={"serve/dispatch": (100_000, delay_s)})):
+            slow = perf.gate_cli(ledger=led, bundle=policy, repeats=5, evals=32, rows=64)
+        check(slow["verdict"] == "regression" and not slow["appended"],
+              f"a serve/dispatch delay of {delay_s * 1e3:.2f} ms trips: {slow['reason']}")
+        check([_sha(p) for p in guarded] == before,
+              "the repo root's PERF_LEDGER.jsonl and BENCH_serve.json unchanged")
+        model = policy.model
+        gen = torch.Generator(device=dev).manual_seed(5)
+        dates = torch.randint(0, policy.n_dates, (N_FULL,), device=dev, generator=gen,
+                              dtype=torch.int32)
+        feats = 1.0 + 0.1 * torch.randn(N_FULL, 1, device=dev, generator=gen)
+        p1 = {k: v.to(dev) for k, v in policy.backward.params1_by_date.items()}
+        packed = megakernel.pack_head_params(model, p1)
+        k2_ms = cuda_ms(lambda: megakernel.mixed_head_forward(model, p1, dates, feats,
+                                                              packed=packed), reps=50)
+        k2_cost = aot.program_cost(N_FULL)
+        rl_k2 = perf.roofline(k2_cost["flops"], k2_cost["bytes_accessed"] + 4 * N_FULL,
+                              k2_ms / 1e3)
+        with devprof.profiling() as prof:
+            for i in range(40):
+                eager.evaluate(i % policy.n_dates, rows[1000])
+            med = prof.bucket_stats()["1024"]["device_s_median"]
+        cost = eager.program_cost(1000)
+        rl_head = perf.roofline(cost["flops"], cost["bytes_accessed"], med)
+        for what, rl in (("K2 1M-row block", rl_k2), ("engine bucket 1024", rl_head)):
+            check(rl["peak_source"] == "table" and rl["frac_peak_flops"] <= 1.0
+                  and rl["frac_peak_bytes"] <= 1.0, f"{what} roofline {rl}")
+        out.update(gate_medians=[g["record"]["median"] for g in gates],
+                   slow_median=slow["record"]["median"], k2_roofline=rl_k2,
+                   head_roofline=rl_head)
+        print(f"[perf] gate_cli twice: {gates[0]['verdict']} then {gates[1]['verdict']} "
+              f"(medians {gates[0]['record']['median']:.6f} / {gates[1]['record']['median']:.6f}"
+              f" s for 32 x 64 rows); a {delay_s * 1e3:.3f} ms serve/dispatch delay: "
+              f"{slow['verdict']} ({slow['record']['median']:.6f} s); ledger in a temporary "
+              f"directory, the root's PERF_LEDGER.jsonl and BENCH_serve.json unchanged; "
+              f"roofline K2 1M rows {k2_ms:.4f} ms: {rl_k2['frac_peak_flops']:.3e} of the f32 "
+              f"peak, {rl_k2['frac_peak_bytes']:.3e} of HBM; engine bucket 1024 "
+              f"{med * 1e3:.4f} ms device: {rl_head['frac_peak_flops']:.3e} / "
+              f"{rl_head['frac_peak_bytes']:.3e}; {time.perf_counter() - t0:.2f} s | {card}",
+              flush=True)
+
+        # -- [profile] -------------------------------------------------------------
+        t0 = time.perf_counter()
+        counts.reset()
+        prof_ns = devprof.profile_north_star(20)
+        out["profile_k1"] = counts.only("fused_gbm", "profile_north_star(20)")
+        check(out["profile_k1"] == 1, f"the sim stage launches K1 once ({out['profile_k1']})")
+        for name, st in prof_ns["stages"].items():
+            rl = st.get("roofline")
+            # on the execute wall: a FLOP count too high must fail here, not move
+            # the stage onto a longer basis
+            check(rl is None or (rl["peak_source"] == "table" and rl["frac_peak_flops"] <= 1.0
+                                 and rl["basis"] == "execute_wall"),
+                  f"stage {name} roofline {rl}")
+            frac = "" if rl is None else (f", {rl['frac_peak_flops']:.4e} of peak on "
+                                          f"{rl['basis']}")
+            print(f"[profile] north star 2^20: {name:9s} wall {st['wall_s']:.3f} s, compile "
+                  f"{st['compile_s']:.3f} s, execute {st['execute_wall_s']:.3f} s, host "
+                  f"{st['host_s']:.3f} s, device wait {st['device_wait_s']:.3f} s{frac}",
+                  flush=True)
+        prof_serve = devprof.profile_serve(str(bdir), n_requests=200)
+        rl = prof_serve["roofline"]
+        check(prof_serve["buckets"] and rl is not None and "error" not in rl
+              and rl["peak_source"] == "table" and rl["frac_peak_flops"] <= 1.0,
+              f"profile_serve roofline {rl}")
+        check(prof_serve["aot_buckets"] == want_buckets, "profile_serve served from the graphs")
+        out.update(profile=prof_ns, profile_serve=prof_serve)
+        print(f"[profile] profile_serve of the AOT bundle (200 requests of 1/7/64/1000 rows): "
+              + ", ".join(f"bucket {k}: {v['count']} x {v['device_s_median'] * 1e3:.4f} ms "
+                          f"device, {v['queue_s_median'] * 1e3:.4f} ms queued"
+                          for k, v in sorted(prof_serve["buckets"].items(), key=lambda kv:
+                                             int(kv[0])))
+              + f"; device utilization {prof_serve['device_utilization']:.4f}; bucket "
+              f"{rl['bucket']} {rl['frac_peak_flops']:.3e} of the f32 peak; "
+              f"{time.perf_counter() - t0:.2f} s | {card}", flush=True)
+
+        # -- [degrade] ---------------------------------------------------------------
+        t0 = time.perf_counter()
+        drill = bench._degrade_drill(aot_policy, degrade_at=5, n_requests=32, survivors=None,
+                                     mesh=None, seed=0)
+        check(drill["failed_during_window"] == 0 and drill["replayed"] >= 1
+              and drill["post_recovery_bitwise_equal"] and drill["rebuild_xla_compiles"] == 0
+              and drill["aot_buckets"] == want_buckets, f"degrade drill {drill}")
+        out["degrade"] = drill
+        print(f"[degrade] device loss at request 5 of 32 on one card, from the AOT bundle: "
+              f"MTTR {drill['mttr_ms']:.3f} ms (drain, rebuild with 0 nvcc runs and "
+              f"{drill['rebuild_graph_captures']} graph captures, replay), "
+              f"{drill['replayed']} replayed, 0 failed, the recovered engine bitwise; "
+              f"{time.perf_counter() - t0:.2f} s | {card}", flush=True)
+
+        # -- [serve-bench] ---------------------------------------------------------
+        t0 = time.perf_counter()
+        small = export_bundle(european_hedge(
+            EuropeanConfig(), SimConfig(n_paths=512, T=1.0, dt=1 / 8, rebalance_every=2),
+            TrainConfig(dual_mode="mse_only", epochs_first=20, epochs_warm=10)),
+            root / "small")
+        counts.reset()
+        rec = bench.serve_bench(small, prewarm=True, sweep_concurrency=(1, 4, 16),
+                                degrade_at=10, degrade_requests=64, ingest=True,
+                                precision=True, density=True, density_tenants=100, repeats=3)
+        got = counts.read()
+        check(got["mixed_head"] >= 1 and got["mixed_head_bf16"] >= 1
+              and all(v == 0 for k, v in got.items()
+                      if k not in ("mixed_head", "mixed_head_bf16")),
+              f"serve_bench's megakernel phase launches K2 and no other kernel ({got})")
+        mk = next(lv for lv in rec["megakernel"]["tiers"] if lv["tier"] == "f32")
+        check(rec["degrade"]["failed_during_window"] == 0
+              and rec["degrade"]["post_recovery_bitwise_equal"], "serve_bench's degrade drill")
+        check(rec["nvcc_runs_after_warmup"] == 0 and rec["graph_captures_after_warmup"] == 0
+              and rec["cache_misses_after_warmup"] == 0, "the warm-up contract")
+        path = root / "bench" / "serve_bench.json"
+        path.parent.mkdir()
+        bench.write_bench_record(rec, path)
+        rows_ = bench.ledger_records(rec)
+        check(rows_ and all(perf.validate_perf_record(r) == [] for r in rows_),
+              "ledger_records validate")
+        check([_sha(p) for p in guarded] == before, "no root record written")
+        # K2 alone at the megakernel phase's shape, against its plain version
+        sm, sp = small.model, {k: v.to(dev) for k, v in small.backward.params1_by_date.items()}
+        gen = torch.Generator(device=dev).manual_seed(7)
+        sd = torch.randint(0, small.n_dates, (mk["rows"],), device=dev, generator=gen,
+                           dtype=torch.int32)
+        sf = 1.0 + 0.1 * torch.randn(mk["rows"], sm.n_features, device=dev, generator=gen)
+        k2_got = megakernel.mixed_head_forward(sm, sp, sd, sf,
+                                               packed=megakernel.pack_head_params(sm, sp))
+        k2_want = megakernel.mixed_head_plain(sm, sp, sd, sf)
+        torch.testing.assert_close(k2_got, k2_want, rtol=1e-5, atol=1e-6)
+        out.update(bench=rec, bench_k2=got["mixed_head"], bench_k2_err=max_err(k2_got, k2_want),
+                   bench_k2_times=k2_times(dev, small, mk["rows"], 7, small=mk["rows"]))
+        for lv in rec["sweep"]:
+            print(f"[serve-bench] concurrency {lv['concurrency']:2d}: {lv['requests_per_s']:,.1f}"
+                  f" req/s (IQR {lv['requests_per_s_iqr']:,.1f}), p99 {lv['p99_ms']:.3f} ms, "
+                  f"{lv['dispatches_per_request']:.4f} dispatches a request | {card}",
+                  flush=True)
+        print(f"[serve-bench] engine {rec['value']:,.1f} req/s, p99 {rec['p99_ms']:.3f} ms; "
+              f"degrade MTTR {rec['mttr_ms']:.3f} ms; ingest {rec['ingest_rows_per_s']:,.0f} "
+              f"rows/s, overheads trace {rec['trace_overhead_pct']:.2f}% drift "
+              f"{rec['drift_overhead_pct']:.2f}% profile {rec['profile_overhead_pct']:.2f}%; "
+              f"precision rows/s "
+              + ", ".join(f"{k} {v:,.0f}" for k, v in rec["precision_rows_per_s"].items())
+              + f"; megakernel speedup "
+              f"{rec['megakernel_speedup']} (K2 launches {got['mixed_head']} f32+int8, "
+              f"{got['mixed_head_bf16']} bf16); ragged saves {rec['pad_waste_saved_rows']} "
+              f"rows; density {rec['density_tenants']} tenants, dedup "
+              f"{rec['density_dedup_ratio']}, cold p99 {rec['density_cold_p99_ms']} ms; "
+              f"{len(rows_)} ledger rows valid; {time.perf_counter() - t0:.2f} s | {card}",
+              flush=True)
+        # the background children, joined last: the cold start, then the warmed walk
+        cold = _aot_result(background[0][1], "the cold-start process", timeout=900)
+        warm = _aot_result(background[1][1], "warm_fused_walk's process", timeout=900)
+        walk = _aot_result(_aot_child("walk", root / "cache_walk", "--paths", AOT_WALK_PATHS),
+                           "the warmed fused north star")
+        background.clear()
+        check(warm["nvcc_runs"] >= 1 and walk["nvcc"] == 0,
+              f"warm_fused_walk built {warm['nvcc_runs']}, the fresh walk ran nvcc "
+              f"{walk['nvcc']} time(s)")
+        check(cold["nvcc"] >= 1, "the cold engine built its library")
+        out.update(cold_s=cold["wall_s"], cold_nvcc_s=cold["nvcc_s"], warm=warm, walk=walk)
+        print(f"[aot] cold start, empty cache and no AOT set (engine + first mixed-date and "
+              f"bucketed requests): {cold['wall_s']:.2f} s ({cold['nvcc']} nvcc run(s), "
+              f"{cold['nvcc_s']:.2f} s) vs {ser['wall_s']:.2f} s from the AOT bundle (0 nvcc); "
+              f"warm_fused_walk into an empty cache {warm['lower_wall_s']:.2f} s of nvcc + "
+              f"{warm['compile_wall_s']:.3f} s of captures ({warm['captures']}), then a fresh "
+              f"fused north star at {AOT_WALK_PATHS} paths {walk['wall_s']:.2f} s with 0 nvcc "
+              f"runs (v0_acv {walk['v0_acv']:.4f}) | {card}", flush=True)
+    finally:
+        for _, proc in background:
+            _stop(proc)
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[aot-plane] the phases {out['phase_s']:.2f} s | {card}", flush=True)
+    return out
+
+
 def mesh_tool():
     """``tools/torch_mesh_ranks.py``, the launcher of one process a rank."""
     import importlib.util
@@ -3153,8 +3622,8 @@ def mesh_phases(dev, exact_n) -> dict:
         of the single-device walk; the sharded engine bitwise per bucket;
         ``fused=True`` refused under ``gloo`` and ``engine="pallas"`` refused
         with a mesh, in the reference's words; exact thinning at 262,144 x
-        1,000 a rank, the four blocks concatenated bitwise [exact]'s one-process
-        run.
+        250 steps a rank (the first quarter of [exact]'s grid), the four blocks
+        concatenated bitwise the first 11 knots of [exact]'s one-process run.
 
     The mesh path runs no kernel (the JAX package's runs none): each rank
     reports its kernels' launch counters, all 0."""
@@ -3223,7 +3692,9 @@ def mesh_phases(dev, exact_n) -> dict:
             f"{len(sizes)} sizes, buckets {eng['buckets'][1]} to {eng['buckets'][1 << 20]}")
 
     # -- (b) four gloo ranks sharing the card ------------------------------------
-    spec = {"n_paths": N_FULL, "T": 10.0, "n_steps": PENSION_STEPS,
+    # the first quarter of [exact]'s grid (the same dt): exact thinning is
+    # addressed by (seed, step, path), so its knots are [exact]'s first ones
+    spec = {"n_paths": N_FULL, "T": 2.5, "n_steps": PENSION_STEPS // 4,
             "kw": dict(PENSION, store_every=PENSION_STORE, binomial_mode="exact", seed=1234)}
     t0 = time.perf_counter()
     res = ranks.launch(4, {"walks": [walk], "engine": engine, "refusals": walk,
@@ -3251,9 +3722,10 @@ def mesh_phases(dev, exact_n) -> dict:
         say(r["refusals"]["pallas"] == "european_hedge: engine='pallas' is single-chip; use "
             "engine='scan' with a mesh", f"[mesh] (b) {r['refusals']['pallas']!r}")
     blocks = torch.cat([r["pension"]["N"] for r in res])
-    say(torch.equal(blocks, exact_n), f"[mesh] (b) exact thinning: four ranks' N blocks of "
-        f"{N_FULL // 4} x {PENSION_STEPS} steps, concatenated, bitwise [exact]'s one-process "
-        f"run ({tuple(blocks.shape)})")
+    say(torch.equal(blocks, exact_n[:, :blocks.shape[1]]),
+        f"[mesh] (b) exact thinning: four ranks' N blocks of {N_FULL // 4} x "
+        f"{spec['n_steps']} steps, concatenated, bitwise the first {blocks.shape[1]} knots of "
+        f"[exact]'s one-process {PENSION_STEPS}-step run ({tuple(blocks.shape)})")
     out["gloo_walk_s"] = max(r["walks"][0]["seconds"][-1] for r in res)
     out["gloo_pension_s"] = max(r["pension"]["seconds"] for r in res)
     print(f"[mesh] (b) four gloo ranks on cuda:0: {out['gloo_s']:.1f} s in all; the walk "
@@ -3299,9 +3771,18 @@ def main() -> int:
     launches = {}
 
     # -- 2. build ------------------------------------------------------------
-    t0 = time.perf_counter()
-    reports = cuda_build.build_all()
-    print(f"[build] {sorted(reports)} in {time.perf_counter() - t0:.2f} s", flush=True)
+    # both sources start now; K2's (the long one) builds in a child while the
+    # path kernels are checked, and is waited for before K2's first check
+    t_build = time.perf_counter()
+    k2_build = subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, %r)\n"
+         "from orp_tpu_torch.utils import cuda_build\n"
+         "print(cuda_build.build_all(('mixed_head',))['mixed_head'])" % str(HERE)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, start_new_session=True)
+    atexit.register(_stop, k2_build)
+    reports = cuda_build.build_all(("fused_mf",))
+    print(f"[build] fused_mf in {time.perf_counter() - t_build:.2f} s (mixed_head building beside "
+          "the path kernels' checks)", flush=True)
     for name, log in reports.items():
         for line in ptxas_lines(log):
             print(f"[build] {name}: {line}")
@@ -3358,99 +3839,6 @@ def main() -> int:
 
     policy = load_bundle(NORTH_STAR_POLICY)
     model, n_dates = policy.model, policy.n_dates
-    p1 = {k: v.to(dev) for k, v in policy.backward.params1_by_date.items()}
-    gen = torch.Generator(device=dev).manual_seed(7)
-    dates = torch.randint(0, n_dates, (N_FULL,), device=dev, generator=gen, dtype=torch.int32)
-    feats = (1.0 + 0.1 * torch.randn(N_FULL, 1, device=dev, generator=gen)).contiguous()
-    packed = megakernel.pack_head_params(model, p1)
-    got = megakernel.mixed_head_forward(model, p1, dates, feats, packed=packed)
-    torch.cuda.synchronize()
-    want = megakernel.mixed_head_plain(model, p1, dates, feats)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    k2_err = max_err(got, want)
-    print(f"[K2] {N_FULL} rows x {n_dates} dates: max|kernel - plain| = {k2_err:.3e} "
-          "(rtol 1e-5, atol 1e-6)", flush=True)
-    bad = megakernel.mixed_head_forward(model, p1, torch.tensor([0, n_dates, -1], device=dev,
-                                                                 dtype=torch.int32),
-                                        feats[:3], packed=packed)
-    check(bool(torch.isfinite(bad[0]).all()) and bool(torch.isnan(bad[1:]).all()),
-          "K2 writes NaN rows for out-of-range dates")
-    # K2's bf16 kernel at the same shapes, against mixed_head_plain in bf16
-    model_bf = model.with_dtype(torch.bfloat16)
-    p1_bf = {k: v.to(torch.bfloat16) for k, v in p1.items()}
-    feats_bf = feats.to(torch.bfloat16)
-    packed_bf = megakernel.pack_head_params(model_bf, p1_bf)
-    got = megakernel.mixed_head_forward(model_bf, p1_bf, dates, feats_bf, packed=packed_bf)
-    torch.cuda.synchronize()
-    want = megakernel.mixed_head_plain(model_bf, p1_bf, dates, feats_bf)
-    torch.cuda.synchronize()
-    check(got.dtype == torch.bfloat16 and got.shape == want.shape, "K2 bf16 output")
-    k2b_agree = bf16_agreement(got, want)
-    check(k2b_agree["ok"], f"K2 bf16 kernel vs plain: {k2b_agree} ({BF16_RULE})")
-    check(torch.equal(got, megakernel.mixed_head_bf16_order(model_bf, p1_bf, dates, feats_bf)),
-          "K2 bf16 bitwise its documented summation order")
-    k2b_err = max_err(got, want)
-    print(f"[K2 bf16] {N_FULL} rows x {n_dates} dates: {k2b_agree['equal_share']:.6%} of "
-          f"elements bitwise equal to mixed_head_plain in bf16, {k2b_agree['n_differ']} "
-          f"differ (f32-accumulation order), max {k2b_agree['max_ulps']:.0f} bf16 spacings, "
-          f"max|kernel - plain| = {k2b_err:.3e} (rule {BF16_RULE}); bitwise its documented "
-          "order", flush=True)
-    bad = megakernel.mixed_head_forward(model_bf, p1_bf, torch.tensor(
-        [0, n_dates, -1], device=dev, dtype=torch.int32), feats_bf[:3], packed=packed_bf)
-    check(bool(torch.isfinite(bad[0]).all()) and bool(torch.isnan(bad[1:]).all()),
-          "K2 bf16 writes NaN rows for out-of-range dates")
-    del got, want
-
-    # -- 4. serve (main path: K2) ---------------------------------------------
-    with np.load(NORTH_STAR_POLICY / "reference.npz") as z:
-        ref = {k: z[k] for k in z.files}
-    engine = HedgeEngine(policy)
-    rng = np.random.default_rng(11)
-    big_dates = rng.integers(0, n_dates, N_FULL).astype(np.int32)
-    big_states = (1.0 + 0.1 * rng.standard_normal((N_FULL, 1))).astype(np.float32)
-    big_prices = np.concatenate([big_states, np.full((N_FULL, 1), 0.0108, np.float32)], 1)
-    t0 = time.perf_counter()
-    for n in (1, 7):
-        phi, psi, v = engine.evaluate_mixed_async(ref["dates"][:n], ref["states"][:n],
-                                                  ref["prices"][:n]).result()
-        check(phi.shape == psi.shape == v.shape == (n,), f"serve block of {n} rows")
-        np.testing.assert_allclose(v, ref["v"][:n], rtol=1e-5, atol=1e-6)
-    phi, psi, v = engine.evaluate_mixed_async(ref["dates"], ref["states"],
-                                              ref["prices"]).result()
-    for got_, k in ((phi, "phi"), (psi, "psi"), (v, "v")):
-        np.testing.assert_allclose(got_, ref[k], rtol=1e-5, atol=1e-6, err_msg=k)
-    d0 = int(ref["dates"][0])
-    m = ref["dates"] == d0
-    phi_d, _, v_d = engine.evaluate(d0, ref["states"][m], ref["prices"][m])
-    np.testing.assert_allclose(v_d, ref["v"][m], rtol=1e-5, atol=1e-6)
-    lat_ms = {}
-    for n in (1, 4096):
-        walls = []
-        for _ in range(31):
-            t1 = time.perf_counter()
-            engine.evaluate_mixed_async(ref["dates"][:n], ref["states"][:n],
-                                        ref["prices"][:n]).result()
-            walls.append((time.perf_counter() - t1) * 1e3)
-        lat_ms[n] = sorted(walls)[len(walls) // 2]
-    counts.reset()
-    t1 = time.perf_counter()
-    phi, psi, v = engine.evaluate_mixed_async(big_dates, big_states, big_prices).result()
-    serve_s = [time.perf_counter() - t1]
-    launches["mixed_head"] = counts.only("mixed_head", "the 1M-row serve request")
-    check(phi.shape == (N_FULL,) and bool(np.isfinite(phi).all() and np.isfinite(v).all()),
-          "1M-row serve block finite")
-    for _ in range(2):
-        t1 = time.perf_counter()
-        engine.evaluate_mixed_async(big_dates, big_states, big_prices).result()
-        serve_s.append(time.perf_counter() - t1)
-    rows_s = N_FULL / sorted(serve_s)[1]
-    print(f"[serve] blocks 1/7/4096/1048576 + evaluate(date {d0}): 4096-row block "
-          f"matches the stored JAX outputs (rtol 1e-5, atol 1e-6); 1M-row block "
-          f"{rows_s:,.0f} rows/s host-to-host (median of 3); request latency host-to-"
-          f"host (median of 31): 1 row {lat_ms[1]:.3f} ms, 4096 rows {lat_ms[4096]:.3f} ms; "
-          f"K2 launches in the 1M-row request {launches['mixed_head']}; "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # -- 5. replay (main path: K1) --------------------------------------------
     stored = json.loads((NORTH_STAR_POLICY / "reference.json").read_text())
@@ -3483,7 +3871,7 @@ def main() -> int:
           f"{N_FULL} paths x {N_STEPS} steps: v0_acv {rep.v0_acv:.6f} vs BS {bs:.6f} "
           f"bp_err {bp_err:+.4f}, cv_std {rep.cv_std:.4f}, acv_std {rep.acv_std:.4f}, "
           f"v0_network {rep.v0:.4f}; wall {oos_s:.2f} s; K1 launches {replay_k1}", flush=True)
-    del res, engine
+    del res
 
     # -- 6. the fixture walk: 4,096 paths from the stored JAX initial params --
     hcfg = HestonConfig()
@@ -3622,6 +4010,112 @@ def main() -> int:
           f"accepted GN iterations {int(eh.backward.epochs_ran.sum())} over 52 dates; "
           f"wall {euro_s:.2f} s; K1 launches {launches['fused_gbm']}", flush=True)
 
+    # -- 3 (K2) and 4, after the path kernels' main paths: K2's library, built
+    # beside everything above
+    log, err = k2_build.communicate(timeout=900)
+    check(k2_build.returncode == 0, f"mixed_head build: rc {k2_build.returncode}\n{err[-3000:]}")
+    reports = cuda_build.build_all()
+    check(all(r == "cached" for r in reports.values()), f"every library built ({reports})")
+    print(f"[build] mixed_head waited for at {time.perf_counter() - t_build:.2f} s into the run",
+          flush=True)
+    for line in ptxas_lines(log):
+        print(f"[build] mixed_head: {line}")
+
+    p1 = {k: v.to(dev) for k, v in policy.backward.params1_by_date.items()}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    dates = torch.randint(0, n_dates, (N_FULL,), device=dev, generator=gen, dtype=torch.int32)
+    feats = (1.0 + 0.1 * torch.randn(N_FULL, 1, device=dev, generator=gen)).contiguous()
+    packed = megakernel.pack_head_params(model, p1)
+    got = megakernel.mixed_head_forward(model, p1, dates, feats, packed=packed)
+    torch.cuda.synchronize()
+    want = megakernel.mixed_head_plain(model, p1, dates, feats)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    k2_err = max_err(got, want)
+    print(f"[K2] {N_FULL} rows x {n_dates} dates: max|kernel - plain| = {k2_err:.3e} "
+          "(rtol 1e-5, atol 1e-6)", flush=True)
+    bad = megakernel.mixed_head_forward(model, p1, torch.tensor([0, n_dates, -1], device=dev,
+                                                                 dtype=torch.int32),
+                                        feats[:3], packed=packed)
+    check(bool(torch.isfinite(bad[0]).all()) and bool(torch.isnan(bad[1:]).all()),
+          "K2 writes NaN rows for out-of-range dates")
+    # K2's bf16 kernel at the same shapes, against mixed_head_plain in bf16
+    model_bf = model.with_dtype(torch.bfloat16)
+    p1_bf = {k: v.to(torch.bfloat16) for k, v in p1.items()}
+    feats_bf = feats.to(torch.bfloat16)
+    packed_bf = megakernel.pack_head_params(model_bf, p1_bf)
+    got = megakernel.mixed_head_forward(model_bf, p1_bf, dates, feats_bf, packed=packed_bf)
+    torch.cuda.synchronize()
+    want = megakernel.mixed_head_plain(model_bf, p1_bf, dates, feats_bf)
+    torch.cuda.synchronize()
+    check(got.dtype == torch.bfloat16 and got.shape == want.shape, "K2 bf16 output")
+    k2b_agree = bf16_agreement(got, want)
+    check(k2b_agree["ok"], f"K2 bf16 kernel vs plain: {k2b_agree} ({BF16_RULE})")
+    check(torch.equal(got, megakernel.mixed_head_bf16_order(model_bf, p1_bf, dates, feats_bf)),
+          "K2 bf16 bitwise its documented summation order")
+    k2b_err = max_err(got, want)
+    print(f"[K2 bf16] {N_FULL} rows x {n_dates} dates: {k2b_agree['equal_share']:.6%} of "
+          f"elements bitwise equal to mixed_head_plain in bf16, {k2b_agree['n_differ']} "
+          f"differ (f32-accumulation order), max {k2b_agree['max_ulps']:.0f} bf16 spacings, "
+          f"max|kernel - plain| = {k2b_err:.3e} (rule {BF16_RULE}); bitwise its documented "
+          "order", flush=True)
+    bad = megakernel.mixed_head_forward(model_bf, p1_bf, torch.tensor(
+        [0, n_dates, -1], device=dev, dtype=torch.int32), feats_bf[:3], packed=packed_bf)
+    check(bool(torch.isfinite(bad[0]).all()) and bool(torch.isnan(bad[1:]).all()),
+          "K2 bf16 writes NaN rows for out-of-range dates")
+    del got, want
+
+    # -- 4. serve (main path: K2) ---------------------------------------------
+    with np.load(NORTH_STAR_POLICY / "reference.npz") as z:
+        ref = {k: z[k] for k in z.files}
+    engine = HedgeEngine(policy)
+    rng = np.random.default_rng(11)
+    big_dates = rng.integers(0, n_dates, N_FULL).astype(np.int32)
+    big_states = (1.0 + 0.1 * rng.standard_normal((N_FULL, 1))).astype(np.float32)
+    big_prices = np.concatenate([big_states, np.full((N_FULL, 1), 0.0108, np.float32)], 1)
+    t0 = time.perf_counter()
+    for n in (1, 7):
+        phi, psi, v = engine.evaluate_mixed_async(ref["dates"][:n], ref["states"][:n],
+                                                  ref["prices"][:n]).result()
+        check(phi.shape == psi.shape == v.shape == (n,), f"serve block of {n} rows")
+        np.testing.assert_allclose(v, ref["v"][:n], rtol=1e-5, atol=1e-6)
+    phi, psi, v = engine.evaluate_mixed_async(ref["dates"], ref["states"],
+                                              ref["prices"]).result()
+    for got_, k in ((phi, "phi"), (psi, "psi"), (v, "v")):
+        np.testing.assert_allclose(got_, ref[k], rtol=1e-5, atol=1e-6, err_msg=k)
+    d0 = int(ref["dates"][0])
+    m = ref["dates"] == d0
+    phi_d, _, v_d = engine.evaluate(d0, ref["states"][m], ref["prices"][m])
+    np.testing.assert_allclose(v_d, ref["v"][m], rtol=1e-5, atol=1e-6)
+    lat_ms = {}
+    for n in (1, 4096):
+        walls = []
+        for _ in range(31):
+            t1 = time.perf_counter()
+            engine.evaluate_mixed_async(ref["dates"][:n], ref["states"][:n],
+                                        ref["prices"][:n]).result()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        lat_ms[n] = sorted(walls)[len(walls) // 2]
+    counts.reset()
+    t1 = time.perf_counter()
+    phi, psi, v = engine.evaluate_mixed_async(big_dates, big_states, big_prices).result()
+    serve_s = [time.perf_counter() - t1]
+    launches["mixed_head"] = counts.only("mixed_head", "the 1M-row serve request")
+    check(phi.shape == (N_FULL,) and bool(np.isfinite(phi).all() and np.isfinite(v).all()),
+          "1M-row serve block finite")
+    for _ in range(2):
+        t1 = time.perf_counter()
+        engine.evaluate_mixed_async(big_dates, big_states, big_prices).result()
+        serve_s.append(time.perf_counter() - t1)
+    rows_s = N_FULL / sorted(serve_s)[1]
+    print(f"[serve] blocks 1/7/4096/1048576 + evaluate(date {d0}): 4096-row block "
+          f"matches the stored JAX outputs (rtol 1e-5, atol 1e-6); 1M-row block "
+          f"{rows_s:,.0f} rows/s host-to-host (median of 3); request latency host-to-"
+          f"host (median of 31): 1 row {lat_ms[1]:.3f} ms, 4096 rows {lat_ms[4096]:.3f} ms; "
+          f"K2 launches in the 1M-row request {launches['mixed_head']}; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    del engine
+
     # -- 10. serve the card-trained Heston policy (K2) ------------------------
     hp = {k: v.detach().cpu().numpy() for k, v in bw.params1_by_date.items()}
     bundle_dir = HERE / "build" / "chip_smoke" / "heston_policy"
@@ -3695,6 +4189,9 @@ def main() -> int:
     launches["mixed_head_host"] = hosted["k2_launches"]
     gated = gateway_phases(dev, counts)
     launches["mixed_head_gateway"] = gated["k2_launches"]
+    plane = aot_plane_phases(dev, counts)
+    launches["fused_gbm_profile"] = plane["profile_k1"]
+    launches["mixed_head_bench"] = plane["bench_k2"]
 
     # -- 19. times at the main paths' shapes ----------------------------------
     k1 = lambda: fused_gbm.gbm_log_fused(N_FULL, N_STEPS, **gbm_kw)  # noqa: E731
@@ -3898,6 +4395,23 @@ def main() -> int:
          "max_abs_err": gated["k2_err"], "ms": gated["k2_ms"],
          "plain_ms": gated["k2_plain_ms"], "bound_ms": gated["k2_bound"][0],
          "bound_by": gated["k2_bound"][1], "library_ms": None},
+        # K1 in the compile-and-perf plane: profile_north_star(20)'s sim stage, the
+        # same 1M x 364 store-7 launch as fused_gbm's (timed there)
+        {"name": "fused_gbm_profile", "route": "cuda",
+         "source": "orp_tpu_torch/csrc/fused_mf.cu (mf_kernel<GbmLog>)",
+         "replaces": "orp_tpu/qmc/pallas_sobol.py:199", "launches": launches["fused_gbm_profile"],
+         "max_abs_err": k1_err, "ms": ms["fused_gbm"], "plain_ms": ms["fused_gbm_plain"],
+         "bound_ms": bounds["fused_gbm"][0], "bound_by": bounds["fused_gbm"][1],
+         "library_ms": None},
+        # K2 in serve_bench's megakernel phase (its f32 and int8 tiers), at that
+        # phase's rows and the card-trained policy's shape ([serve-bench])
+        {"name": "mixed_head_bench", "route": "cuda",
+         "source": "orp_tpu_torch/csrc/mixed_head.cu",
+         "replaces": "orp_tpu/serve/megakernel.py:85", "launches": launches["mixed_head_bench"],
+         "max_abs_err": plane["bench_k2_err"], "ms": plane["bench_k2_times"]["f32"],
+         "plain_ms": plane["bench_k2_times"]["f32_plain"],
+         "bound_ms": plane["bench_k2_times"]["f32_bound"][0],
+         "bound_by": plane["bench_k2_times"]["f32_bound"][1], "library_ms": None},
     ]}
     print(f"[times] the single-host serve path: 1-row latency ServeHost "
           f"{hosted['lat_host_ms']:.3f} ms vs HedgeEngine {hosted['lat_engine_ms']:.3f} ms; "
@@ -3912,6 +4426,13 @@ def main() -> int:
           f", v2 {gated['rps'][f'v2@{N_FULL}']:,.0f}, ring {gated['rps'][f'ring@{N_FULL}']:,.0f} "
           f"rows/s; kill drill MTTR {gated['drill']['mttr_ms']:.1f} ms; [gateway] "
           f"{gated['phase_s']:.1f} s", flush=True)
+    print(f"[times] the compile-and-perf plane: cold start {plane['cold_s']:.2f} s (nvcc "
+          f"{plane['cold_nvcc_s']:.2f} s) vs {plane['aot_wall_s']:.2f} s from the AOT bundle; "
+          f"1-row latency replay {plane['lat_aot_ms']:.3f} ms vs eager "
+          f"{plane['lat_eager_ms']:.3f} ms; {N_FULL} rows replay {plane['rps_aot']:,.0f} vs "
+          f"eager {plane['rps_eager']:,.0f} rows/s; degrade MTTR "
+          f"{plane['degrade']['mttr_ms']:.3f} ms; [aot]..[serve-bench] {plane['phase_s']:.1f} s",
+          flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels))
     print(card_line())

@@ -21,7 +21,11 @@ package reads the other's files:
 - ``report``    - the read side of the walk's convergence record;
 - ``tracetree`` - the read side of tracing: one frame's span tree;
 - ``devprof``   - device-time attribution (the serial completion chain, the
-                  queue / device split, ``serve/device_utilization``).
+                  queue / device split, ``serve/device_utilization``) and
+                  the profile workloads (``profile_north_star``,
+                  ``profile_serve``, ``profile_run``);
+- ``perf``      - the ``orp-perf-v1`` ledger, the noise-aware gate and the
+                  roofline against the H100's row (imported from its module).
 
 Instrumented call sites: ``train/backward`` (``train/walk``, the host
 loop's per-date ``train/fit`` / ``train/fit_quantile`` / ``train/outputs``,
@@ -32,9 +36,7 @@ the ``train/convergence`` record and ``train/gram_cond{date}`` gauges),
 (``serve/pad`` / ``serve/dispatch`` / ``serve/unpad`` and the ``serve/*``
 counters). They pay nothing until a session is active.
 
-Not ported yet: ``obs/quality.py`` (the model-health plane, with the
-single-host serve path), ``obs/perf.py`` and ``devprof``'s ``orp profile``
-workloads (with ``aot/``), the ``train/xla_compiles`` counter (with
+Not ported yet: the ``train/xla_compiles`` counter (with
 ``lint/trace_audit.py``; the port compiles no XLA programs) and the CLI's
 ``--telemetry DIR`` (with ``cli.py``).
 

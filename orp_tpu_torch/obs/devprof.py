@@ -28,9 +28,19 @@ profiling mode that separates them:
 
 On the card ``serve/engine.PendingEval.result`` waits for the device before
 it copies the rows back, so the completion instant is the device's, not the
-copy's. The JAX package's ``orp profile`` workloads (``profile_north_star``,
-``profile_serve``, ``profile_run``) are not ported (they need ``aot/`` and
-``obs/perf.py``).
+copy's.
+
+- :func:`profile_north_star` / :func:`profile_serve` / :func:`profile_run`:
+  the ``orp profile`` workloads. Each stage runs ONCE under a per-stage
+  ``aot.CompileTimeMonitor`` (the port's compile bill: ``nvcc`` runs and
+  CUDA-graph captures, where the reference reads XLA's compile events) and
+  device attribution, so compile vs execute and host vs device split in one
+  run, with the FLOP ledger (``utils/flops.py``) and the roofline join
+  (``obs/perf.py``) per stage. The north star's ``sim`` stage is K1
+  (``qmc/fused_gbm.gbm_log_fused``) on the card. ``trace_dir`` wraps the run
+  in ``torch.profiler`` with CPU and CUDA activities (the obs spans are
+  ``record_function`` regions under it) and writes a Chrome trace there; on
+  a machine where CUPTI records no device activity it raises.
 """
 
 from __future__ import annotations
@@ -218,3 +228,223 @@ def profiling(*, horizon_s: float = 30.0):
         yield prof
     finally:
         _STATE = prev
+
+
+# -- the `orp profile` workloads ----------------------------------------------
+
+
+def _stage(stages: dict, name: str, fn, *, flops: float | None = None,
+           extra: dict | None = None):
+    """Run ``fn`` once as stage ``name``: wall, compile seconds (``nvcc`` and
+    graph captures), execute wall, host/device split, and with ``flops`` the
+    roofline on the first basis of the ladder execute wall, device wait, total
+    wall that keeps the fraction of peak <= 1. Returns ``fn``'s result."""
+    from orp_tpu_torch.aot import CompileTimeMonitor
+    from orp_tpu_torch.obs import perf as _perf
+    from orp_tpu_torch.obs.spans import span
+    from orp_tpu_torch.utils.profiling import block_until_ready
+
+    with CompileTimeMonitor() as mon:
+        with span(f"profile/{name}") as sp:
+            t0 = time.perf_counter()
+            out = sp.set_result(fn())
+            t_pre = time.perf_counter()
+        block_until_ready(f"profile/{name}", out)
+        t_done = time.perf_counter()
+    wall = t_done - t0
+    exec_raw = max(wall - mon.seconds, 0.0)
+    device_raw = t_done - t_pre
+    entry = {"wall_s": round(wall, 3), "compile_s": round(mon.seconds, 3),
+             "execute_wall_s": round(exec_raw, 3), "host_s": round(t_pre - t0, 3),
+             "device_wait_s": round(device_raw, 3)}
+    if flops:
+        candidates = []
+        if exec_raw > 1e-6:
+            candidates.append(("execute_wall", exec_raw))
+        if device_raw > 1e-6:
+            candidates.append(("device_wait", device_raw))
+        candidates.append(("total_wall_including_compile", wall))
+        for basis, basis_s in candidates:
+            rl = _perf.roofline(flops, None, basis_s)
+            frac = rl.get("frac_peak_flops")
+            if frac is None or frac <= 1.0:
+                break
+        entry["flops"] = int(flops)
+        entry["roofline"] = {"basis": basis, **rl}
+    if extra:
+        entry.update(extra)
+    stages[name] = entry
+    return out
+
+
+def _platform(dev) -> str:
+    return "gpu" if dev.type == "cuda" else "cpu"
+
+
+def profile_north_star(n_log2: int = 20, *, quick: bool = False, device=None) -> dict:
+    """Stage-level breakdown of the north-star hedge: sim (K1) -> prep -> fused
+    Adam walk -> fused GN walk, each stage ONE run with its compile seconds,
+    host/device split and FLOP ledger + roofline. ``quick`` shrinks to a smoke
+    shape (2^10 paths, 4 dates, tiny budgets): the same stages and fields."""
+    import dataclasses
+
+    import torch
+
+    from orp_tpu_torch.api import EuropeanConfig, SimConfig, TrainConfig
+    from orp_tpu_torch.api.pipelines import _backward_cfg
+    from orp_tpu_torch.models.mlp import HedgeMLP
+    from orp_tpu_torch.qmc.fused_gbm import gbm_log_fused
+    from orp_tpu_torch.sde import TimeGrid, bond_curve, payoffs
+    from orp_tpu_torch.train.backward import backward_induction
+    from orp_tpu_torch.utils import flops as F
+    from orp_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    if quick:
+        n_log2 = min(n_log2, 10)
+    n_paths = 1 << n_log2
+    euro = EuropeanConfig(constrain_self_financing=False)
+    if quick:
+        sim = SimConfig(n_paths=n_paths, T=1.0, dt=1 / 52, rebalance_every=13)
+        train = TrainConfig(dual_mode="mse_only", epochs_first=8, epochs_warm=4,
+                            batch_size=max(n_paths // 4, 64))
+        gn_first, gn_warm = 4, 2
+    else:
+        sim = SimConfig(n_paths=n_paths, T=1.0, dt=1 / 364, rebalance_every=7)
+        train = TrainConfig(dual_mode="mse_only", epochs_first=120, epochs_warm=30,
+                            batch_size=max(n_paths // 64, 512))
+        gn_first, gn_warm = 60, 30
+    stages: dict = {}
+    grid = TimeGrid(sim.T, sim.n_steps)
+
+    s = _stage(stages, "sim", lambda: gbm_log_fused(
+        n_paths, sim.n_steps, s0=euro.s0, drift=euro.r, sigma=euro.sigma, dt=grid.dt,
+        seed=sim.seed_fund, store_every=sim.rebalance_every, device=dev),
+        flops=F.sim_flops(n_paths, sim.n_steps))
+
+    def prep():
+        coarse = grid.reduced(sim.rebalance_every)
+        b = bond_curve(coarse, euro.r, torch.float32, dev)
+        payoff = payoffs.european(s[:, -1], euro.strike, euro.option_type)
+        sn = s / euro.s0
+        bn = (b / euro.s0).to(torch.float32)
+        terminal = payoff / euro.s0
+        return sn[:, :, None], sn, bn, terminal, float(torch.mean(payoff)) / euro.s0
+
+    features, sn, bn, terminal, e_payoff_n = _stage(stages, "prep", prep)
+    n_dates = sn.shape[1] - 1
+    model = HedgeMLP(n_features=1, constrain_self_financing=False)
+    args = (model, features, sn, bn, terminal)
+    adam_cfg = dataclasses.replace(_backward_cfg(train), fused=True, shuffle="blocks")
+    _stage(stages, "adam_walk",
+           lambda: backward_induction(*args, adam_cfg, bias_init=(e_payoff_n, 0.0)).values,
+           flops=F.adam_walk_flops(n_paths, n_dates, train.epochs_first, train.epochs_warm))
+    gn_cfg = dataclasses.replace(adam_cfg, optimizer="gauss_newton", gn_iters_first=gn_first,
+                                 gn_iters_warm=gn_warm)
+    _stage(stages, "gn_walk",
+           lambda: backward_induction(*args, gn_cfg, bias_init=(e_payoff_n, 0.0)).values,
+           flops=F.gn_walk_flops(n_paths, n_dates, gn_first, gn_warm))
+    return {"workload": "north_star", "n_paths": n_paths, "n_dates": int(n_dates),
+            "quick": bool(quick), "platform": _platform(dev), "stages": stages}
+
+
+def profile_serve(bundle, *, quick: bool = False, n_requests: int = 200,
+                  batch_sizes=(1, 7, 64, 1000), device=None) -> dict:
+    """Device-time breakdown of a serve schedule over ``bundle`` (a directory
+    or a loaded policy; an AOT bundle serves its buckets from graphs): the
+    request mix under attribution, the per-bucket queue/device table, the
+    utilization, and the roofline of the headline bucket's analytic cost
+    (``HedgeEngine.program_cost``) against its median device seconds."""
+    import numpy as np
+
+    from orp_tpu_torch.obs import perf as _perf
+    from orp_tpu_torch.serve.engine import HedgeEngine
+
+    policy = bundle
+    if isinstance(bundle, str):
+        from orp_tpu_torch.serve.bundle import load_bundle
+
+        policy = load_bundle(bundle)
+    if quick:
+        n_requests = min(n_requests, 24)
+        batch_sizes = tuple(b for b in batch_sizes if b <= 64) or (1, 8)
+    engine = HedgeEngine(policy, device=device)
+    rng = np.random.default_rng(0)
+    nf = engine.model.n_features
+    engine.prewarm(batch_sizes)
+    with profiling() as prof:
+        for i in range(n_requests):
+            n = batch_sizes[i % len(batch_sizes)]
+            feats = (1.0 + 0.1 * rng.standard_normal((n, nf))).astype(np.float32)
+            engine.evaluate(i % engine.n_dates, feats)
+        stats = prof.bucket_stats()
+        util = prof.utilization()
+    headline = engine.bucket_for(max(batch_sizes))
+    roofline = None
+    try:
+        cost = engine.program_cost(max(batch_sizes))
+        med = stats.get(str(headline), {}).get("device_s_median")
+        if med and cost.get("flops"):
+            roofline = {"bucket": headline, **cost, "device_s_median": round(med, 6),
+                        **_perf.roofline(cost["flops"], cost.get("bytes_accessed"), med,
+                                         precision=engine.precision.tier)}
+    except Exception as e:  # the degradation is recorded in the record's roofline field
+        roofline = {"error": f"{type(e).__name__}: {e}"}
+    return {"workload": "serve", "n_requests": int(n_requests),
+            "batch_sizes": list(batch_sizes), "quick": bool(quick),
+            "policy": _perf.policy_digest(policy), "platform": _platform(engine.device),
+            "device_utilization": round(util, 4),
+            "buckets": {k: {f: round(v, 6) if isinstance(v, float) else v
+                            for f, v in st.items()} for k, st in stats.items()},
+            "roofline": roofline, "aot_buckets": engine.cache_info()["aot_buckets"]}
+
+
+def profile_run(*, workload: str = "north-star", bundle=None, n_log2: int = 20,
+                quick: bool = False, trace_dir=None, device=None) -> dict:
+    """The ``orp profile`` driver: the selected workload under device
+    attribution (and ``torch.profiler`` with CPU and CUDA activities when
+    ``trace_dir`` is given: a Chrome trace ``trace.json`` lands there, the obs
+    spans naming its regions), the record emitted through obs and returned.
+    A card whose profiler records no device activity (CUPTI refused) raises."""
+    import pathlib
+
+    import torch
+
+    from orp_tpu_torch.obs import spans as _spans
+    from orp_tpu_torch.obs.spans import emit_record
+
+    prof_ctx = contextlib.nullcontext()
+    on_card = torch.cuda.is_available() and (device is None or torch.device(device).type == "cuda")
+    if trace_dir is not None:
+        pathlib.Path(trace_dir).mkdir(parents=True, exist_ok=True)
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if on_card:
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof_ctx = torch.profiler.profile(activities=acts)
+    with contextlib.ExitStack() as stack:
+        if not _spans.enabled():
+            # without a session span() is the no-op: run under a registry-backed
+            # one so the spans name the profiler's regions and block
+            stack.enter_context(_spans.active())
+        stack.enter_context(profiling())
+        tp = stack.enter_context(prof_ctx)
+        if workload == "serve":
+            if bundle is None:
+                raise ValueError("profile workload 'serve' needs bundle= (a bundle directory "
+                                 "or a loaded policy)")
+            out = profile_serve(bundle, quick=quick, device=device)
+        else:
+            out = profile_north_star(n_log2, quick=quick, device=device)
+    if trace_dir is not None:
+        path = pathlib.Path(trace_dir) / "trace.json"
+        tp.export_chrome_trace(str(path))
+        if on_card:
+            dev_us = sum(getattr(e, "device_time_total", 0.0) or 0.0 for e in tp.key_averages())
+            if dev_us <= 0:
+                raise RuntimeError(
+                    f"profile_run(trace_dir={trace_dir!r}): torch.profiler recorded no device "
+                    "activity on this card (CUPTI tracing refused on this machine) — drop "
+                    "trace_dir to profile with the stage table's CUDA-synchronized walls alone")
+        out["trace_dir"] = str(trace_dir)
+    emit_record("profile", out)
+    return out

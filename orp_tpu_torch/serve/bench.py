@@ -1,32 +1,56 @@
-"""Serve benchmark phases (counterpart of parts of ``orp_tpu/serve/bench.py``).
+"""serve-bench: measure the serving path (counterpart of ``orp_tpu/serve/bench.py``).
 
-Ported so far: the precision-tier sweep (:func:`precision_phase`, with the
-reference's promotion drill through ``serve/host.py``) and the mixed-date
-kernel A/B (:func:`megakernel_phase`), with the reference's
-:data:`PRECISION_BANDS`; the network plane's phases: the ingest lanes
-(:func:`ingest_phase` over :func:`columnar_level`, :func:`gateway_level` and
-the interleaved TCP / shared-memory pair :func:`paired_levels`), the tracing
-bill (:func:`trace_overhead`), the gateway-kill drill (:func:`gateway_drill`)
-and the fleet (:func:`fleet_phase`, with its coalescing pin
-:func:`coalesce_pin`). Each phase gates what it measures and RAISES when a
-gate fails: a phase that returns a record is a phase that passed.
+:func:`serve_bench` drives the reference's phases over one loaded policy and
+returns its record (the reference's keyword arguments and record keys):
+
+1. **engine**: direct ``HedgeEngine.evaluate`` calls cycling a mixed
+   batch-size schedule across the dates, every reachable bucket prewarmed,
+   then the same stream replayed under device attribution (``obs/devprof``)
+   with the headline bucket's roofline (``obs/perf``);
+2. **batcher**: a burst of single-row submissions through the continuous
+   batcher;
+3. **sweep**: sustained concurrent traffic (:func:`_sweep_level`, median of
+   ``repeats`` with its IQR);
+
+and on request the phases: the mesh sweep (:func:`_mesh_sweep_phase`, sizes
+up to the ranks of the current group), the degradation drill
+(:func:`_degrade_drill`), the gateway-kill drill (:func:`gateway_drill`),
+the fleet (:func:`fleet_phase`), the tenant-density sweep
+(:func:`_density_phase`), the precision matrix (:func:`_precision_phase` over
+:func:`precision_phase` with its promotion drill, :func:`megakernel_phase`,
+:func:`_ragged_phase`, with the reference's :data:`PRECISION_BANDS`) and the
+ingest lanes (:func:`ingest_phase` over :func:`columnar_level`,
+:func:`gateway_level` and the TCP / shared-memory pair :func:`paired_levels`,
+with the tracing, drift and device-attribution bills :func:`trace_overhead`,
+:func:`_drift_overhead` and :func:`_profile_overhead`). Each phase gates what
+it measures and RAISES when a gate fails: a record returned is a record
+whose gates passed. The pilot drill waits for ``pilot/`` (ROADMAP A9.5).
 
 The reference records ``xla_compiles`` from its engine's counter; the port
-compiles no XLA programs and reports its kernel-build counters
-(``utils/cuda_build.BUILD_STATS``: ``nvcc`` runs and library loads) instead.
-The reference's drift and device-attribution overhead lanes are not part of
-:func:`ingest_phase` yet.
+compiles no XLA programs and reports its own counters instead
+(``utils/cuda_build.BUILD_STATS``: ``nvcc`` runs, library loads and CUDA-graph
+captures; the engine's ``nvcc_runs`` and ``graph_captures``).
+:func:`write_bench_record` takes its path from the caller: the port writes no
+default ``BENCH_serve.json``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import pathlib
 import threading
 import time
 
 import numpy as np
 
+from orp_tpu_torch import obs
+from orp_tpu_torch.obs import devprof as _devprof
+from orp_tpu_torch.obs import perf as _perf
+from orp_tpu_torch.obs.perf import summarize_repeats
+from orp_tpu_torch.serve.batcher import MicroBatcher
 from orp_tpu_torch.serve.engine import HedgeEngine
+from orp_tpu_torch.serve.metrics import ServingMetrics
 from orp_tpu_torch.serve.megakernel import loop_of_buckets, mixed_head_forward
 from orp_tpu_torch.serve.precision import TIERS, bf16_agreement
 
@@ -39,17 +63,6 @@ PRECISION_BANDS = {"f32": 0.0, "bf16": 2e-2, "int8": 5e-3}
 #: the port's f32 tolerance between two f32 paths of one forward
 #: (``tests/test_torch_serve.py``): the same operations summed in other orders
 F32_TOL = {"rtol": 1e-5, "atol": 1e-6}
-
-
-def summarize_repeats(samples) -> dict:
-    """Median and IQR (and the quartiles and extremes) of repeated measurements.
-    Raises on an empty sample set."""
-    xs = sorted(float(s) for s in samples)
-    if not xs:
-        raise ValueError("summarize_repeats: no samples")
-    p25, p50, p75 = (float(v) for v in np.percentile(xs, [25, 50, 75]))
-    return {"repeats": len(xs), "median": p50, "iqr": p75 - p25, "p25": p25, "p75": p75,
-            "min": xs[0], "max": xs[-1]}
 
 
 def _engines(policy, device, engines):
@@ -433,7 +446,9 @@ def ingest_phase(policy, *, rows: int, block_sizes, seed: int, max_wait_us: floa
     columnar lane at each block size, the v1 gateway (serial round trips),
     and the pipelined TCP / shared-memory pair, each pinned BITWISE to a
     direct ``engine.evaluate`` of the rows (RAISES on any changed bit), then
-    the tracing bill. The ring must not sit significantly below its TCP twin
+    the tracing, drift-sketch and device-attribution bills
+    (:func:`trace_overhead`, :func:`_drift_overhead`, :func:`_profile_overhead`;
+    ``serve_bench`` gates each at 5%). The ring must not sit significantly below its TCP twin
     at any block (a deficit past max(4 IQR, 5%) raises) and, when a block of
     1,024 rows or more is benched, must significantly beat it at one block."""
     from orp_tpu_torch import obs
@@ -503,6 +518,8 @@ def ingest_phase(policy, *, rows: int, block_sizes, seed: int, max_wait_us: floa
         raise RuntimeError(f"shm lane delivered {shm_dups} duplicate replies — the ring's "
                            "seq correlation broke")
     tracing = trace_overhead(engine, feats, max_wait_us)
+    drift = _drift_overhead(feats, tracing["disabled_ns_per_row"])
+    profile = _profile_overhead(tracing["disabled_ns_per_row"], block=min(rows, 1024))
     shm_won = False
     for tcp_lv, shm_lv in zip(gateway_pipelined, shm):
         noise = max(4.0 * max(tcp_lv["rows_per_s_iqr"], shm_lv["rows_per_s_iqr"]),
@@ -528,6 +545,7 @@ def ingest_phase(policy, *, rows: int, block_sizes, seed: int, max_wait_us: floa
             "gateway_pipelined": gateway_pipelined, "shm": shm, "shm_beats_tcp": shm_won,
             "shm_busy": int(shm_busy), "shm_rows_per_s": shm_best["rows_per_s"],
             "ring_capacity": ring_cap, "trace_overhead": tracing,
+            "drift_overhead": drift, "profile_overhead": profile,
             "submit_ns_per_row": best["submit_ns_per_row"],
             "ingest_rows_per_s": max(c["ingest_rows_per_s"] for c in columnar),
             "submit_speedup_vs_per_request": per_request["submit_ns_per_row"]
@@ -868,3 +886,882 @@ def gateway_drill(policy, *, blocks: int, block_rows: int, kill_at_frame: int, s
             "mttr_ms": None if mttr is None else mttr["median"],
             "mttr_ms_iqr": None if mttr is None else mttr["iqr"], "mttr_runs": len(mttrs),
             "replayed_bits_equal": bits_equal_all}
+
+
+# -- the engine, batcher and sweep phases and serve_bench -----------------------
+
+DEFAULT_BATCH_SIZES = (1, 7, 64, 1000)
+#: low levels on purpose: submitters are Python threads, and past ~4 of them
+#: GIL churn starves the dispatch loop instead of feeding it
+DEFAULT_SWEEP_CONCURRENCY = (1, 2, 4)
+PROFILE_OVERHEAD_GATE_PCT = 5.0
+DRIFT_OVERHEAD_GATE_PCT = 5.0
+
+
+def _phase_metrics(phase: str) -> ServingMetrics:
+    """A recorder for one bench phase: in the active session's registry
+    (labelled ``phase=...``) under telemetry, else a private one; reset."""
+    st = obs.state()
+    m = ServingMetrics(registry=st.registry if st is not None else None,
+                       labels={"phase": phase} if st is not None else None)
+    m.reset()
+    return m
+
+
+def _request_stream(rng, n_requests, batch_sizes, n_dates, n_features):
+    """The deterministic request schedule: sizes cycle the schedule, dates
+    cycle the walk, features near moneyness 1."""
+    for i in range(n_requests):
+        n = batch_sizes[i % len(batch_sizes)]
+        feats = 1.0 + 0.1 * rng.standard_normal((n, n_features))
+        yield i % n_dates, feats.astype(np.float32)
+
+
+def _sweep_level(engine, *, concurrency: int, n_requests: int, max_batch: int,
+                 max_wait_us: float, seed: int, window: int | None = None,
+                 repeats: int = DEFAULT_REPEATS) -> dict:
+    """One sweep point measured ``repeats`` times: the median-throughput run's
+    fields, with the cross-run IQRs beside them."""
+    runs = [_sweep_level_once(engine, concurrency=concurrency, n_requests=n_requests,
+                              max_batch=max_batch, max_wait_us=max_wait_us,
+                              seed=seed + 7919 * r, window=window)
+            for r in range(max(1, int(repeats)))]
+    rps = summarize_repeats([r_["requests_per_s"] for r_ in runs])
+    p99 = summarize_repeats([r_["p99_ms"] for r_ in runs])
+    out = dict(sorted(runs, key=lambda r_: r_["requests_per_s"])[len(runs) // 2])
+    out.update(repeats=rps["repeats"], requests_per_s_iqr=round(rps["iqr"], 2),
+               p99_ms_iqr=round(p99["iqr"], 4))
+    return out
+
+
+def _sweep_level_once(engine, *, concurrency: int, n_requests: int, max_batch: int,
+                      max_wait_us: float, seed: int, window: int | None = None) -> dict:
+    """``concurrency`` threads stream their share of ``n_requests`` single-row
+    requests through ONE continuous batcher (``window`` bounds each thread's
+    in flight), timed submit to all resolved."""
+    nf = engine.model.n_features
+    rng = np.random.default_rng(seed)
+    per = n_requests // concurrency
+    feats = [[(1.0 + 0.1 * rng.standard_normal((1, nf))).astype(np.float32)
+              for _ in range(per)] for _ in range(concurrency)]
+    metrics = _phase_metrics(f"sweep_c{concurrency}")
+    errors: list[Exception] = []
+
+    def stream(mb, tid):
+        try:
+            inflight = []
+            for i, f in enumerate(feats[tid]):
+                inflight.append(mb.submit((tid + i) % engine.n_dates, f))
+                if window is not None and len(inflight) >= window:
+                    inflight.pop(0).result(timeout=120)
+            for f in inflight:
+                f.result(timeout=120)
+        except Exception as e:  # re-raised on the bench thread after the join
+            errors.append(e)
+
+    with MicroBatcher(engine, max_batch=max_batch, max_wait_us=max_wait_us,
+                      metrics=metrics) as mb:
+        threads = [threading.Thread(target=stream, args=(mb, t), daemon=True)
+                   for t in range(concurrency)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    s = metrics.summary()
+    return {"concurrency": concurrency, "requests": concurrency * per,
+            "requests_per_s": s["requests_per_s"], "wall_s": round(wall, 4),
+            "p50_ms": s["p50_ms"], "p99_ms": s["p99_ms"], "rows_per_s": s["rows_per_s"],
+            "dispatches": s["dispatches"],
+            "dispatches_per_request": s["dispatches_per_request"],
+            "batch_occupancy": s["batch_occupancy"]}
+
+
+def _mesh_sweep_phase(policy, mesh_sizes, *, rows: int, repeats: int, seed: int,
+                      device=None) -> list[dict]:
+    """Throughput by topology: one engine per mesh size over the same policy,
+    prewarmed, then ``repeats`` big-batch evaluations, each checked BITWISE
+    against the first. Sizes run up to the ranks of the current
+    ``torch.distributed`` group (1 = no mesh); every rank of the group must
+    make the call."""
+    import torch.distributed as dist
+
+    from orp_tpu_torch.parallel.mesh import make_mesh, pad_to_mesh
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if any(int(n) > world for n in mesh_sizes):
+        raise ValueError(f"mesh_sweep={tuple(mesh_sizes)} asks for more ranks than the "
+                         f"current group's {world} — start the group with that many ranks "
+                         "(parallel.multihost.initialize_multihost) or lower the sizes")
+    out, ref = [], None
+    for n_dev in mesh_sizes:
+        mesh = None if n_dev <= 1 else make_mesh(int(n_dev), device=device)
+        engine = HedgeEngine(policy, max_bucket=1 << 22, mesh=mesh, device=device)
+        n = pad_to_mesh(rows, mesh)
+        rng = np.random.default_rng(seed)
+        feats = (1.0 + 0.1 * rng.standard_normal((n, engine.model.n_features))
+                 ).astype(np.float32)
+        engine.prewarm([n])
+        t0 = time.perf_counter()
+        for r in range(repeats):
+            phi, psi, _ = engine.evaluate(r % engine.n_dates, feats)
+        wall = time.perf_counter() - t0
+        if ref is None:
+            ref, bitwise = (phi, psi), True
+        else:
+            m = min(len(phi), len(ref[0]))
+            bitwise = bool((phi[:m] == ref[0][:m]).all() and (psi[:m] == ref[1][:m]).all())
+        info = engine.cache_info()
+        out.append({"n_devices": int(n_dev), "rows": int(n), "repeats": int(repeats),
+                    "rows_per_s": round(repeats * n / wall, 1),
+                    "bitwise_equal_to_first": bitwise, "aot_buckets": info["aot_buckets"],
+                    "nvcc_runs": info["nvcc_runs"], "graph_captures": info["graph_captures"]})
+    return out
+
+
+def _profile_overhead(disabled_ns_per_row: float, block: int = 1024) -> dict:
+    """Device attribution's bill on the columnar lane: the dispatch stamp plus
+    ``DevProf.complete`` in a tight loop, amortized over ``block`` rows against
+    the disabled lane's measured ns/row (the trace and drift lanes'
+    estimator)."""
+    from orp_tpu_torch.obs.sink import ListSink
+
+    iters = 2000
+    with obs.suspended(), obs.active(sink=ListSink()):
+        with _devprof.profiling() as prof:
+
+            def batch() -> float:
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    t_d = time.perf_counter()
+                    prof.complete(t_d, t_d, bucket=block)
+                return (time.perf_counter() - t0) / iters
+
+            walls = sorted(batch() for _ in range(3))
+    bill_s = walls[1]
+    return {"block": int(block), "profile_bill_us_per_dispatch": round(bill_s * 1e6, 3),
+            "disabled_ns_per_row": round(disabled_ns_per_row, 1),
+            "overhead_pct": round((bill_s / block * 1e9) / disabled_ns_per_row * 100.0, 2),
+            "gate_pct": PROFILE_OVERHEAD_GATE_PCT}
+
+
+def _drift_overhead(feats, disabled_ns_per_row: float) -> dict:
+    """The per-block drift-sketch bill (``obs.quality.DriftMonitor.update``) in
+    a tight loop at the headline block, amortized per row against the
+    disabled lane's ns/row."""
+    from orp_tpu_torch.obs.quality import DriftMonitor, FeatureSketch
+    from orp_tpu_torch.obs.registry import Registry
+
+    bsz = min(feats.shape[0], 1024)
+    block = np.ascontiguousarray(feats[:bsz])
+    monitor = DriftMonitor(FeatureSketch.from_features(block), registry=Registry(),
+                           tenant="bench")
+    iters = 2000
+
+    def batch() -> float:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            monitor.update(block)
+        return (time.perf_counter() - t0) / iters
+
+    bill_s = sorted(batch() for _ in range(3))[1]
+    return {"block": int(bsz), "drift_bill_us_per_block": round(bill_s * 1e6, 3),
+            "disabled_ns_per_row": round(disabled_ns_per_row, 1),
+            "overhead_pct": round((bill_s / bsz * 1e9) / disabled_ns_per_row * 100.0, 2),
+            "gate_pct": DRIFT_OVERHEAD_GATE_PCT}
+
+
+def _degrade_drill(policy, *, degrade_at: int, n_requests: int, survivors: int | None,
+                   mesh, seed: int, device=None, engine_kwargs: dict | None = None) -> dict:
+    """The degradation drill: single-row requests through a
+    ``guard.DegradeManager`` with a device loss injected at dispatch at
+    request ``degrade_at``. The record: the drain -> rebuild -> replay MTTR,
+    ``failed_during_window`` (the contract is 0: trapped requests replay), the
+    rebuild's build count (``rebuild_xla_compiles``: ``nvcc`` runs), and
+    whether the recovered engine serves the healthy engine's exact bits."""
+    from orp_tpu_torch import guard
+    from orp_tpu_torch.guard import DegradeManager, FaultPlan
+    from orp_tpu_torch.parallel.mesh import spec_of
+
+    if not 0 <= int(degrade_at) < int(n_requests):
+        raise ValueError(f"degrade_at={degrade_at} is outside the request stream "
+                         f"[0, {n_requests}) — the loss would never be injected; raise "
+                         "degrade_requests or lower degrade_at")
+    kw = {"device": device, **(engine_kwargs or {})}
+    spec = spec_of(mesh)
+    n_dev = 1 if spec is None else (spec.n_devices or 1)
+    ref = HedgeEngine(policy, **kw)  # the healthy engine's bits
+    nf = ref.model.n_features
+    rng = np.random.default_rng(seed)
+    feats = [(1.0 + 0.1 * rng.standard_normal((1, nf))).astype(np.float32)
+             for _ in range(n_requests)]
+    probe = (1.0 + 0.05 * np.random.default_rng(seed + 1).standard_normal((8, nf))
+             ).astype(np.float32)
+    ref_phi, ref_psi, _ = ref.evaluate(0, probe)
+    failed = 0
+    with DegradeManager(policy, mesh=spec, engine_kwargs=kw) as mgr:
+        futures = []
+        surv = n_dev - 1 if survivors is None else int(survivors)
+        plan = FaultPlan(device_loss={"serve/dispatch": 1}, survivors=surv)
+        for i, f in enumerate(feats):
+            if i == degrade_at:
+                with guard.faults(plan):
+                    futures.append(mgr.submit(i % ref.n_dates, f))
+                    futures[-1].exception(timeout=120)
+            else:
+                futures.append(mgr.submit(i % ref.n_dates, f))
+        for fut in futures:
+            if fut.exception(timeout=120) is not None:
+                failed += 1
+        phi, psi, _ = mgr.evaluate(0, probe)
+        # the replayed futures resolve before the recovery thread records its MTTR
+        if mgr._recovery_thread is not None:
+            mgr._recovery_thread.join(timeout=120)
+        st = mgr.stats()
+    rec = st["recoveries"][0] if st["recoveries"] else {}
+    return {"degrade_at": int(degrade_at), "requests": int(n_requests),
+            "devices_before": n_dev, "devices_after": st["mesh_devices"],
+            "mttr_ms": st["mttr_ms"], "replayed": rec.get("replayed"),
+            "failed_during_window": failed,
+            "rebuild_xla_compiles": rec.get("rebuild_xla_compiles"),
+            "rebuild_graph_captures": rec.get("rebuild_graph_captures"),
+            "aot_buckets": rec.get("aot_buckets"),
+            "post_recovery_bitwise_equal": bool(np.array_equal(phi, ref_phi)
+                                                and np.array_equal(psi, ref_psi))}
+
+
+def _lat_hist(walls_ms) -> dict:
+    """Latency histogram summary of per-event walls (ms)."""
+    xs = np.asarray(sorted(walls_ms), dtype=float)
+    if xs.size == 0:
+        return {"count": 0}
+    p25, p50, p75, p95, p99 = (float(v) for v in np.percentile(xs, [25, 50, 75, 95, 99]))
+    return {"count": int(xs.size), "p50_ms": round(p50, 3), "p95_ms": round(p95, 3),
+            "p99_ms": round(p99, 3), "iqr_ms": round(p75 - p25, 3),
+            "mean_ms": round(float(xs.mean()), 3), "max_ms": round(float(xs[-1]), 3)}
+
+
+def _density_phase(policy, *, tenants: int, rows: int, max_live: int, repeats: int,
+                   seed: int, budget_ms: float, warm_sample: int = 64, device=None) -> dict:
+    """The tenant-density sweep: the policy exported once and published under
+    ``tenants`` catalog names (the CAS dedup ratio measured, gated > 1), one
+    ``ServeHost`` capped at ``max_live`` engines serving one request a tenant
+    (COLD activations, the cumulative p99 checkpointed at rising counts), the
+    evicted tenants re-activated WARM ``repeats`` times over a sample (gated
+    at 0 ``nvcc`` runs, ``warm_xla_compiles``, and 0 CUDA-graph captures: the
+    rebuilt engine replays its resident params' graphs), and the live tail
+    HOT."""
+    import shutil
+    import tempfile
+
+    from orp_tpu_torch.serve.bundle import export_bundle
+    from orp_tpu_torch.serve.host import ServeHost
+    from orp_tpu_torch.store.catalog import open_store
+    from orp_tpu_torch.store.tier import TierManager
+
+    tenants = int(tenants)
+    max_live = max(1, min(int(max_live), tenants))
+    rng = np.random.default_rng(seed)
+    workdir = pathlib.Path(tempfile.mkdtemp(prefix="orp-density-"))
+    try:
+        bundle_dir = workdir / "bundle"
+        bundle = export_bundle(policy, bundle_dir)
+        store = open_store(workdir / "store")
+        names = [f"tenant-{i:05d}" for i in range(tenants)]
+        t0 = time.perf_counter()
+        store.publish_many(names, bundle_dir)
+        publish_s = time.perf_counter() - t0
+        stats = store.stats()
+        if tenants > 1 and stats["dedup_ratio"] <= 1.0:
+            obs.count("quality/gate_trip", gate="density_dedup")
+            raise RuntimeError(
+                f"density dedup contract violated: {tenants} identical-policy tenants stored "
+                f"at dedup ratio {stats['dedup_ratio']} (must be > 1 — the CAS is copying "
+                "instead of sharing)")
+        nf = bundle.model.n_features
+        n_dates = bundle.n_dates
+        feats = (1.0 + 0.1 * rng.standard_normal((rows, nf))).astype(np.float32)
+        uri_root = str(workdir / "store")
+        levels = sorted({max(1, tenants // 10), max(1, tenants // 3), tenants})
+        warm_walls, warm_medians, hot_walls, cold_walls, level_rows = [], [], [], [], []
+        warm_builds = warm_captures = 0
+        with ServeHost(max_live_engines=max_live, tiers=TierManager(max_warm=tenants),
+                       engine_kwargs={"device": device}) as host:
+            for name in names:
+                host.add_tenant(name, f"store://{uri_root}#{name}")
+            for i, name in enumerate(names):
+                t1 = time.perf_counter()
+                host.evaluate(name, i % n_dates, feats)
+                cold_walls.append((time.perf_counter() - t1) * 1e3)
+                if i + 1 in levels:
+                    h = _lat_hist(cold_walls)
+                    level_rows.append({"tenants": i + 1, "cold_p50_ms": h["p50_ms"],
+                                       "cold_p99_ms": h["p99_ms"]})
+            sample = names[:min(warm_sample, tenants)]
+            for _ in range(max(1, int(repeats))):
+                walls = []
+                for i, name in enumerate(sample):
+                    if host._tenants[name].batcher is not None:
+                        continue  # hot: not a re-activation
+                    b0 = dict(_build_stats())
+                    t1 = time.perf_counter()
+                    host.evaluate(name, i % n_dates, feats)
+                    walls.append((time.perf_counter() - t1) * 1e3)
+                    now = _build_stats()
+                    warm_builds = max(warm_builds, now["nvcc"] - b0["nvcc"])
+                    warm_captures = max(warm_captures, now["captures"] - b0["captures"])
+                if walls:
+                    warm_walls.extend(walls)
+                    warm_medians.append(float(np.median(walls)))
+            if warm_builds or warm_captures:
+                obs.count("quality/gate_trip", gate="density_warm_compile")
+                raise RuntimeError(
+                    f"density warm-tier contract violated: a warm re-activation ran nvcc "
+                    f"{warm_builds} time(s) and captured {warm_captures} CUDA graph(s) (the "
+                    "retained-policy rebuild must reuse the built libraries and the resident "
+                    "params' graphs)")
+            live = [n for n, st in host.stats().items() if st["live"]]
+            for _ in range(max(1, int(repeats))):
+                for i, name in enumerate(live):
+                    t1 = time.perf_counter()
+                    host.evaluate(name, i % n_dates, feats)
+                    hot_walls.append((time.perf_counter() - t1) * 1e3)
+            tier_counts = host.tiers.counts()
+        warm_summary = summarize_repeats(warm_medians) if warm_medians else None
+        within = 0
+        for lv in level_rows:
+            if lv["cold_p99_ms"] <= budget_ms:
+                within = lv["tenants"]
+        phase = {"tenants": tenants, "rows": int(rows), "max_live_engines": max_live,
+                 "publish_s": round(publish_s, 3),
+                 "store": {k: stats[k] for k in ("blobs", "blob_bytes", "ref_bytes",
+                                                 "manifests", "dedup_ratio", "dangling_refs",
+                                                 "orphan_blobs")},
+                 "dedup_ratio": stats["dedup_ratio"], "tiers": tier_counts,
+                 "activation_ms": {"cold": _lat_hist(cold_walls), "warm": _lat_hist(warm_walls),
+                                   "hot": _lat_hist(hot_walls)},
+                 "warm_xla_compiles": warm_builds, "levels": level_rows,
+                 "p99_budget_ms": float(budget_ms), "tenants_within_budget": within}
+        if warm_summary is not None:
+            phase["warm_activation_ms"] = {"repeats": warm_summary["repeats"],
+                                           "median_ms": round(warm_summary["median"], 3),
+                                           "iqr_ms": round(warm_summary["iqr"], 3)}
+        return phase
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _precision_phase(policy, *, rows: int, repeats: int, seed: int,
+                     quality_band: float = 0.05, device=None) -> dict:
+    """:func:`precision_phase` with each tier's roofline: the bucket's analytic
+    cost (``HedgeEngine.program_cost``) over the median wall of its timed
+    evaluations, priced at the tier's ceiling."""
+    engines = _engines(policy, device, None)
+    out = precision_phase(policy, rows=rows, repeats=repeats, seed=seed, device=device,
+                          engines=engines, quality_band=quality_band)
+    for lv in out["tiers"]:
+        cost = engines[lv["tier"]].program_cost(rows)
+        lv["roofline"] = _perf.roofline(cost["flops"], cost["bytes_accessed"],
+                                        rows / lv["rows_per_s"], precision=lv["tier"])
+    return out
+
+
+def _ragged_phase(policy, *, repeats: int, seed: int, counts=(520, 130, 17),
+                  max_wait_us: float = 2000.0, device=None) -> dict:
+    """The ragged-vs-pow2 batching A/B: the same burst of coalescible blocks
+    through a power-of-two batcher and a ``ragged=True`` one, bits pinned
+    BITWISE per block against a direct evaluation, the pad waste read from the
+    ``serve/pad_waste_rows`` counter each arm billed (the ragged arm must not
+    bill more)."""
+    from orp_tpu_torch.obs.sink import ListSink
+
+    engine = HedgeEngine(policy, device=device)
+    nf = engine.model.n_features
+    rng = np.random.default_rng(seed)
+    blocks = [(1.0 + 0.1 * rng.standard_normal((int(c), nf))).astype(np.float32)
+              for c in counts]
+    total = int(sum(counts))
+    sizes, b = [], engine.min_bucket
+    while b <= engine.bucket_for(total):
+        sizes.append(b)
+        b *= 2
+    engine.prewarm(sizes)
+    ref = [engine.evaluate(0, blk) for blk in blocks]
+
+    def run_arm(ragged: bool) -> dict:
+        rates, waste = [], None
+        for _ in range(max(1, int(repeats))):
+            with obs.suspended(), obs.active(sink=ListSink()):
+                with MicroBatcher(engine, max_batch=1 << 14, max_wait_us=max_wait_us,
+                                  coalesce_blocks=True, ragged=ragged) as mb:
+                    t0 = time.perf_counter()
+                    futures = [mb.submit_block(0, blk) for blk in blocks]
+                    results = [f.result(timeout=120) for f in futures]
+                    wall = time.perf_counter() - t0
+                waste = int(obs.state().registry.counter("serve/pad_waste_rows").value)
+            rates.append(total / wall)
+            for r, (pphi, ppsi, _pv) in zip(results, ref):
+                if not (np.array_equal(r.phi, pphi) and np.array_equal(r.psi, ppsi)):
+                    obs.count("quality/gate_trip", gate="ragged_bitwise")
+                    raise RuntimeError(
+                        f"{'ragged' if ragged else 'pow2'} arm served different BITS than a "
+                        "direct engine evaluation — splitting a dispatch changed an answer")
+        s = summarize_repeats(rates)
+        return {"rows_per_s": round(s["median"], 1), "rows_per_s_iqr": round(s["iqr"], 1),
+                "repeats": s["repeats"], "pad_waste_rows": waste}
+
+    pow2 = run_arm(False)
+    ragged = run_arm(True)
+    if ragged["pad_waste_rows"] > pow2["pad_waste_rows"]:
+        obs.count("quality/gate_trip", gate="ragged_pad_waste")
+        raise RuntimeError(f"ragged planner INCREASED pad waste: {ragged['pad_waste_rows']} "
+                           f"rows vs the pow2 baseline's {pow2['pad_waste_rows']}")
+    return {"counts": [int(c) for c in counts], "rows": total, "pow2": pow2, "ragged": ragged,
+            "pad_waste_saved_rows": pow2["pad_waste_rows"] - ragged["pad_waste_rows"],
+            "speedup": round(ragged["rows_per_s"] / max(pow2["rows_per_s"], 1e-9), 2),
+            "bitwise_equal": True}
+
+
+#: phase blocks (and their derived headline fields) a re-run that did not
+#: re-measure them carries forward from ``previous``
+STICKY_PHASES: dict[str, tuple[str, ...]] = {
+    "ingest": ("ingest_rows_per_s", "submit_ns_per_row", "shm_ns_per_row", "shm_rows_per_s"),
+    "fleet": ("fleet_rows_per_s", "fleet_p99_ms", "fleet_mttr_ms"),
+    "gateway_drill": ("mttr_ms",),
+    "density": ("density_tenants", "density_cold_p99_ms", "density_warm_activation_ms",
+                "density_dedup_ratio", "density_tenants_within_budget"),
+    "pilot": ("pilot_rows_lost", "pilot_time_to_promote_s"),
+    "degrade": ("mttr_ms",),
+    "mesh_sweep": (),
+    "quality": (),
+    "trace_overhead_pct": (),
+    "drift_overhead_pct": (),
+    "profile_overhead_pct": (),
+    "precision_tiers": ("precision_rows_per_s", "precision_fraction_of_peak",
+                        "precision_fraction_of_peak_delta"),
+    "megakernel": ("megakernel_speedup",),
+    "ragged": ("pad_waste_saved_rows",),
+}
+
+
+#: ``serve_bench``'s ``gateway_drill`` flag shadows the phase's name inside it
+_gateway_drill = gateway_drill
+
+
+def _megakernel_f32(mk: dict) -> dict:
+    """The f32 tier's row of :func:`megakernel_phase` (the headline arm)."""
+    return next(lv for lv in mk["tiers"] if lv["tier"] == "f32")
+
+
+def serve_bench(
+    policy,
+    *,
+    n_requests: int = 200,
+    batch_sizes: tuple[int, ...] = DEFAULT_BATCH_SIZES,
+    batcher_requests: int = 256,
+    max_wait_us: float = 500.0,
+    seed: int = 0,
+    prewarm: bool = False,
+    sweep_concurrency: tuple[int, ...] = DEFAULT_SWEEP_CONCURRENCY,
+    sweep_requests: int = 2048,
+    sweep_max_batch: int = 1024,
+    mesh=None,
+    mesh_sweep: tuple[int, ...] = (),
+    mesh_sweep_rows: int = 1 << 15,
+    mesh_sweep_repeats: int = 8,
+    degrade_at: int | None = None,
+    degrade_requests: int = 64,
+    degrade_survivors: int | None = None,
+    ingest: bool = False,
+    ingest_rows: int = 4096,
+    ingest_block_sizes: tuple[int, ...] = (1, 64, 1024),
+    gateway_drill: bool = False,
+    drill_blocks: int = 64,
+    drill_block_rows: int = 256,
+    drill_kill_at: int = 20,
+    fleet: bool = False,
+    fleet_replicas: tuple[int, ...] = (1, 2, 4),
+    fleet_gateways: int = 2,
+    fleet_tenants: int = 6,
+    fleet_blocks: int = 10,
+    fleet_block_rows: int = 64,
+    density: bool = False,
+    density_tenants: int = 1000,
+    density_rows: int = 8,
+    density_max_live: int = 8,
+    density_budget_ms: float = 500.0,
+    pilot: bool = False,
+    pilot_quick: bool = False,
+    precision: bool = False,
+    precision_rows: int = 4096,
+    precision_quality_band: float = 0.05,
+    megakernel_rows: int = 2048,
+    ragged_counts: tuple[int, ...] = (520, 130, 17),
+    repeats: int = DEFAULT_REPEATS,
+    previous: dict | None = None,
+    device=None,
+) -> dict:
+    """Run the engine, batcher and sweep phases against ``policy`` (and the
+    phases the flags ask for, module docstring) and return the record, with
+    the reference's keyword arguments and record keys (``xla_compiles``
+    becomes ``nvcc_runs`` and ``graph_captures``; ``platform`` is ``"gpu"`` on
+    the card). ``device`` is the card by default.
+
+    ``prewarm=True`` asserts the warm-up contract: no bucket miss, no ``nvcc``
+    run and no graph capture inside the measured window. ``pilot=True``
+    refuses until ``pilot/`` is ported. ``previous`` carries the synchronous
+    tier's baseline forward as ``batcher_before`` and the phase blocks this run
+    did not re-measure (:data:`STICKY_PHASES`)."""
+    if pilot:
+        raise ValueError("serve_bench(pilot=True): the closed-loop pilot drill needs "
+                         "orp_tpu_torch/pilot/, which is not ported yet (ROADMAP A9.5) — "
+                         "drop pilot=True")
+    engine = HedgeEngine(policy, mesh=mesh, device=device)
+    n_features = engine.model.n_features
+    rng = np.random.default_rng(seed)
+
+    sizes, b = [], engine.min_bucket
+    top = engine.bucket_for(max(*batch_sizes, sweep_max_batch if sweep_concurrency else 1))
+    while b <= top:
+        sizes.append(b)
+        b *= 2
+    engine.prewarm(sizes)
+    warm_misses = engine.misses
+    warm = engine.cache_info()
+
+    metrics = _phase_metrics("engine")
+    for date_idx, feats in _request_stream(rng, n_requests, batch_sizes, engine.n_dates,
+                                           n_features):
+        t0 = time.perf_counter()
+        engine.evaluate(date_idx, feats)
+        metrics.record(time.perf_counter() - t0, feats.shape[0])
+    engine_summary = metrics.summary()
+    cache = engine.cache_info()
+    served = cache["hits"] + cache["misses"]
+
+    with _devprof.profiling() as dev_prof:
+        for date_idx, feats in _request_stream(np.random.default_rng(seed + 1), n_requests,
+                                               batch_sizes, engine.n_dates, n_features):
+            engine.evaluate(date_idx, feats)
+        dev_stats = dev_prof.bucket_stats()
+        dev_util = dev_prof.utilization()
+    roofline_row = None
+    try:
+        cost = engine.program_cost(max(batch_sizes))
+        med = dev_stats.get(str(cost["bucket"]), {}).get("device_s_median")
+        if med and cost.get("flops"):
+            roofline_row = {"bucket": cost["bucket"], "flops": cost["flops"],
+                            "bytes_accessed": cost.get("bytes_accessed"),
+                            **_perf.roofline(cost["flops"], cost.get("bytes_accessed"), med,
+                                             precision=engine.precision.tier)}
+    except Exception as e:  # recorded in the record's roofline field
+        roofline_row = {"error": f"{type(e).__name__}: {e}"[:200]}
+
+    bmetrics = _phase_metrics("batcher")
+    with MicroBatcher(engine, max_batch=max(batch_sizes), max_wait_us=max_wait_us,
+                      metrics=bmetrics) as mb:
+        futures = [mb.submit(i % engine.n_dates,
+                             1.0 + 0.1 * rng.standard_normal((1, n_features)))
+                   for i in range(batcher_requests)]
+        for f in futures:
+            f.result(timeout=120)
+    batcher_summary = bmetrics.summary()
+
+    sweep = [_sweep_level(engine, concurrency=c, n_requests=sweep_requests,
+                          max_batch=sweep_max_batch, max_wait_us=max_wait_us, seed=seed + c,
+                          repeats=repeats)
+             for c in sweep_concurrency]
+    best = max(sweep, key=lambda r: r["requests_per_s"]) if sweep else None
+    after = engine.cache_info()
+
+    record = {
+        "metric": "serve_requests_per_sec",
+        "value": engine_summary["requests_per_s"],
+        "unit": "req/s",
+        "n_requests": n_requests,
+        "batch_sizes": list(batch_sizes),
+        "n_dates": engine.n_dates,
+        "policy": _perf.policy_digest(policy),
+        "p50_ms": engine_summary["p50_ms"],
+        "p95_ms": engine_summary["p95_ms"],
+        "p99_ms": engine_summary["p99_ms"],
+        "rows_per_s": engine_summary["rows_per_s"],
+        "cache_hit_rate": round(cache["hits"] / max(served, 1), 4),
+        "cache_buckets": cache["buckets"],
+        "cache_misses_after_warmup": cache["misses"] - warm_misses,
+        "aot_buckets": cache["aot_buckets"],
+        "aot_hits": cache["aot_hits"],
+        # the port's compile bill: since construction, and inside the measured
+        # window (after the prewarm, through the sweep)
+        "nvcc_runs": cache["nvcc_runs"],
+        "graph_captures": cache["graph_captures"],
+        "nvcc_runs_after_warmup": after["nvcc_runs"] - warm["nvcc_runs"],
+        "graph_captures_after_warmup": after["graph_captures"] - warm["graph_captures"],
+        "prewarm": prewarm,
+        "batcher_requests": batcher_requests,
+        "batcher_dispatches": batcher_summary["dispatches"],
+        "batcher_dispatches_per_request": batcher_summary["dispatches_per_request"],
+        "batcher_batch_occupancy": batcher_summary["batch_occupancy"],
+        "batcher_requests_per_s": batcher_summary["requests_per_s"],
+        "batcher_p50_ms": batcher_summary["p50_ms"],
+        "batcher_p99_ms": batcher_summary["p99_ms"],
+    }
+    record["mesh_devices"] = cache["mesh_devices"]
+    record["device_utilization"] = round(dev_util, 4)
+    record["device_seconds"] = {
+        k: {"count": v["count"], "device_s_median": round(v["device_s_median"], 7),
+            "queue_s_median": round(v["queue_s_median"], 7)}
+        for k, v in sorted(dev_stats.items(), key=lambda kv: int(kv[0]))}
+    if roofline_row is not None:
+        record["roofline"] = roofline_row
+    if mesh_sweep:
+        record["mesh_sweep"] = _mesh_sweep_phase(policy, mesh_sweep, rows=mesh_sweep_rows,
+                                                 repeats=mesh_sweep_repeats, seed=seed,
+                                                 device=device)
+    if degrade_at is not None:
+        drill = _degrade_drill(policy, degrade_at=degrade_at, n_requests=degrade_requests,
+                               survivors=degrade_survivors, mesh=mesh, seed=seed, device=device)
+        record["degrade"] = drill
+        record["mttr_ms"] = drill["mttr_ms"]
+    if gateway_drill:
+        drill = _gateway_drill(policy, blocks=drill_blocks, block_rows=drill_block_rows,
+                               kill_at_frame=drill_kill_at, seed=seed, repeats=repeats,
+                               device=device)
+        record["gateway_drill"] = drill
+        if (drill["rows_lost"] or drill["duplicate_serves"]
+                or not drill["replayed_bits_equal"]):
+            raise RuntimeError(
+                f"gateway drill contract violated: rows_lost={drill['rows_lost']} "
+                f"duplicate_serves={drill['duplicate_serves']} "
+                f"replayed_bits_equal={drill['replayed_bits_equal']}")
+    if fleet:
+        fl = fleet_phase(policy, replica_counts=fleet_replicas, gateways=fleet_gateways,
+                         tenants=fleet_tenants, blocks_per_tenant=fleet_blocks,
+                         block_rows=fleet_block_rows, seed=seed, repeats=repeats,
+                         max_wait_us=max_wait_us, device=device)
+        record["fleet"] = fl
+        top_level = max(fl["levels"], key=lambda lv: lv["replicas"])
+        record["fleet_rows_per_s"] = top_level["rows_per_s"]
+        record["fleet_p99_ms"] = top_level["p99_ms"]
+        if "kill_drill" in fl:
+            record["fleet_mttr_ms"] = fl["kill_drill"]["mttr_ms"]
+    if density:
+        dn = _density_phase(policy, tenants=density_tenants, rows=density_rows,
+                            max_live=density_max_live, repeats=repeats, seed=seed,
+                            budget_ms=density_budget_ms, device=device)
+        record["density"] = dn
+        record["density_tenants"] = dn["tenants"]
+        record["density_dedup_ratio"] = dn["dedup_ratio"]
+        record["density_tenants_within_budget"] = dn["tenants_within_budget"]
+        record["density_cold_p99_ms"] = dn["activation_ms"]["cold"]["p99_ms"]
+        if "warm_activation_ms" in dn:
+            record["density_warm_activation_ms"] = dn["warm_activation_ms"]["median_ms"]
+    if precision:
+        pr = _precision_phase(policy, rows=precision_rows, repeats=repeats, seed=seed,
+                              quality_band=precision_quality_band, device=device)
+        record["precision_tiers"] = pr
+        mk = megakernel_phase(policy, rows=megakernel_rows, repeats=repeats, seed=seed,
+                              device=device)
+        record["megakernel"] = mk
+        rg = _ragged_phase(policy, repeats=repeats, seed=seed, counts=ragged_counts,
+                           device=device)
+        record["ragged"] = rg
+        record["precision_rows_per_s"] = {lv["tier"]: lv["rows_per_s"] for lv in pr["tiers"]}
+        fracs = {lv["tier"]: lv["roofline"].get("frac_peak_flops") for lv in pr["tiers"]}
+        if fracs.get("f32"):
+            record["precision_fraction_of_peak"] = fracs
+            record["precision_fraction_of_peak_delta"] = {
+                t: round(f - fracs["f32"], 4)
+                for t, f in fracs.items() if t != "f32" and f is not None}
+        record["megakernel_speedup"] = round(_megakernel_f32(mk)["speedup"], 2)
+        record["pad_waste_saved_rows"] = rg["pad_waste_saved_rows"]
+    if ingest:
+        ing = ingest_phase(policy, rows=ingest_rows, block_sizes=ingest_block_sizes,
+                           seed=seed, max_wait_us=max_wait_us, repeats=repeats, device=device)
+        record["ingest"] = ing
+        record["submit_ns_per_row"] = ing["submit_ns_per_row"]
+        record["ingest_rows_per_s"] = ing["ingest_rows_per_s"]
+        record["shm_rows_per_s"] = ing["shm_rows_per_s"]
+        record["shm_ns_per_row"] = 1e9 / max(ing["shm_rows_per_s"], 1e-9)
+        record["trace_overhead_pct"] = ing["trace_overhead"]["overhead_pct"]
+        record["drift_overhead_pct"] = ing["drift_overhead"]["overhead_pct"]
+        record["profile_overhead_pct"] = ing["profile_overhead"]["overhead_pct"]
+        for lane, gate_pct in (("profile_overhead", PROFILE_OVERHEAD_GATE_PCT),
+                               ("trace_overhead", TRACE_OVERHEAD_GATE_PCT),
+                               ("drift_overhead", DRIFT_OVERHEAD_GATE_PCT)):
+            if ing[lane]["overhead_pct"] > gate_pct:
+                obs.count("quality/gate_trip", gate=lane)
+                raise RuntimeError(
+                    f"{lane} gate violated: its bill costs {ing[lane]['overhead_pct']}% of the "
+                    f"disabled columnar lane (gate {gate_pct}%) — do not commit this record")
+        if getattr(policy, "validation", None) is not None:
+            from orp_tpu_torch.obs.quality import evaluate_quality
+
+            record["quality"] = evaluate_quality(policy, engine=engine)
+    if sweep:
+        record["sweep"] = sweep
+        record["batcher_sustained_requests_per_s"] = best["requests_per_s"]
+        record["batcher_sustained_p99_ms"] = best["p99_ms"]
+        record["batcher_sustained_concurrency"] = best["concurrency"]
+    if previous is not None:
+        before = previous.get("batcher_before")
+        if before is None and "sweep" not in previous:
+            before = {k: previous[k]
+                      for k in ("batcher_requests_per_s", "batcher_p50_ms", "batcher_p99_ms",
+                                "batcher_dispatches", "batcher_requests")
+                      if k in previous}
+        if before:
+            record["batcher_before"] = before
+            prev_rps = before.get("batcher_requests_per_s")
+            if prev_rps and sweep:
+                record["batcher_speedup_vs_sync"] = round(best["requests_per_s"] / prev_rps, 2)
+        for block, derived in STICKY_PHASES.items():
+            if block in record or block not in previous:
+                continue
+            record[block] = previous[block]
+            record.setdefault("carried_forward", []).append(block)
+            for k in derived:
+                if k in previous and k not in record:
+                    record[k] = previous[k]
+    record["platform"] = "gpu" if engine.device.type == "cuda" else "cpu"
+    if prewarm and (record["cache_misses_after_warmup"] or record["nvcc_runs_after_warmup"]
+                    or record["graph_captures_after_warmup"]):
+        raise RuntimeError(
+            "prewarm contract violated: inside the measured window "
+            f"{record['cache_misses_after_warmup']} bucket miss(es), "
+            f"{record['nvcc_runs_after_warmup']} nvcc run(s) and "
+            f"{record['graph_captures_after_warmup']} graph capture(s) landed (bucket set "
+            "changed mid-bench?)")
+    obs.emit_record("serve_bench", record)
+    return record
+
+
+def write_bench_record(record: dict, path: str | pathlib.Path) -> None:
+    """Persist the record as one JSON object with a trailing newline at
+    ``path`` (the caller's: the port has no default record file)."""
+    p = pathlib.Path(path)
+    p.write_text(json.dumps(record, indent=1, sort_keys=False) + "\n")
+
+
+def ledger_records(record: dict) -> list[dict]:
+    """The ``orp-perf-v1`` records a serve-bench record seeds, one per headline
+    phase with a repeats / median / IQR triple (the reference's rows; the
+    megakernel rows read the f32 tier of the port's per-tier phase). Appends
+    nothing: the caller picks the ledger (``obs.perf.ledger_append``). Blocks
+    carried forward from a previous record seed nothing."""
+    out: list[dict] = []
+    carried = set(record.get("carried_forward", ()))
+
+    def fresh(name: str):
+        return None if name in carried else record.get(name)
+
+    cfg = {"n_dates": record.get("n_dates"), "mesh_devices": record.get("mesh_devices"),
+           "policy": record.get("policy")}
+    sweep = record.get("sweep") or []
+    if sweep:
+        best = max(sweep, key=lambda r: r["requests_per_s"])
+        if "repeats" in best:
+            out.append(_perf.make_record_from_summary(
+                "serve_bench", "sweep_requests_per_s", repeats=best["repeats"],
+                median=best["requests_per_s"], iqr=best.get("requests_per_s_iqr", 0.0),
+                unit="req/s", direction="higher",
+                fingerprint_extra={**cfg,
+                                   "concurrency_levels": sorted(r["concurrency"] for r in sweep),
+                                   "requests": max(r["requests"] for r in sweep)},
+                extra={"winning_concurrency": best["concurrency"]}))
+    ing = fresh("ingest")
+    if ing:
+        best = max(ing["columnar"], key=lambda c: c["block"])
+        fp = {**cfg, "rows": ing["rows"], "block": best["block"]}
+        if "repeats" in best:
+            out.append(_perf.make_record_from_summary(
+                "serve_bench", "ingest_submit_ns_per_row", repeats=best["repeats"],
+                median=best["submit_ns_per_row"], iqr=best.get("submit_ns_per_row_iqr", 0.0),
+                unit="ns", direction="lower", fingerprint_extra=fp))
+            out.append(_perf.make_record_from_summary(
+                "serve_bench", "ingest_rows_per_s", repeats=best["repeats"],
+                median=best["ingest_rows_per_s"], iqr=best.get("ingest_rows_per_s_iqr", 0.0),
+                unit="rows/s", direction="higher", fingerprint_extra=fp))
+        if ing.get("shm"):
+            shm_best = max(ing["shm"], key=lambda c: c["block"])
+            out.append(_perf.make_record_from_summary(
+                "serve_bench", "shm_rows_per_s", repeats=shm_best.get("repeats", 1),
+                median=shm_best["rows_per_s"], iqr=shm_best.get("rows_per_s_iqr", 0.0),
+                unit="rows/s", direction="higher",
+                fingerprint_extra={**cfg, "rows": ing["rows"], "block": shm_best["block"],
+                                   "lane": "shm"}))
+    fl = fresh("fleet")
+    if fl:
+        fp_fleet = {**cfg, **{k: fl[k] for k in ("replica_counts", "gateways", "tenants",
+                                                 "blocks_per_tenant", "block_rows")}}
+        top_level = max(fl["levels"], key=lambda lv: lv["replicas"])
+        if "repeats" in top_level:
+            out.append(_perf.make_record_from_summary(
+                "serve_bench", "fleet_rows_per_s", repeats=top_level["repeats"],
+                median=top_level["rows_per_s"], iqr=top_level.get("rows_per_s_iqr", 0.0),
+                unit="rows/s", direction="higher", fingerprint_extra=fp_fleet,
+                extra={"replicas": top_level["replicas"]}))
+        kd = fl.get("kill_drill")
+        if kd and kd.get("mttr_ms") is not None and kd.get("repeats"):
+            out.append(_perf.make_record_from_summary(
+                "serve_bench", "fleet_kill_mttr_ms", repeats=kd["repeats"],
+                median=kd["mttr_ms"], iqr=kd.get("mttr_ms_iqr") or 0.0, unit="ms",
+                direction="lower", fingerprint_extra=fp_fleet,
+                extra={"killed_replicas": 1, "fleet_replicas": kd["replicas"]}))
+    dn = fresh("density")
+    if dn:
+        fp_density = {**cfg, "tenants": dn["tenants"], "rows": dn["rows"],
+                      "max_live": dn["max_live_engines"]}
+        warm = dn.get("warm_activation_ms")
+        if warm:
+            out.append(_perf.make_record_from_summary(
+                "serve_bench", "density_warm_activation_ms", repeats=warm["repeats"],
+                median=warm["median_ms"], iqr=warm["iqr_ms"], unit="ms", direction="lower",
+                fingerprint_extra=fp_density,
+                extra={"warm_xla_compiles": dn["warm_xla_compiles"]}))
+        cold = dn["activation_ms"]["cold"]
+        if cold.get("count"):
+            out.append(_perf.make_record_from_summary(
+                "serve_bench", "density_cold_activation_ms", repeats=cold["count"],
+                median=cold["p50_ms"], iqr=cold.get("iqr_ms", 0.0), unit="ms",
+                direction="lower", fingerprint_extra=fp_density,
+                extra={"p99_ms": cold["p99_ms"], "dedup_ratio": dn["dedup_ratio"]}))
+    pr = fresh("precision_tiers")
+    if pr:
+        for lv in pr["tiers"]:
+            out.append(_perf.make_record_from_summary(
+                "serve_bench", "precision_rows_per_s", repeats=lv["repeats"],
+                median=lv["rows_per_s"], iqr=lv.get("rows_per_s_iqr", 0.0), unit="rows/s",
+                direction="higher", fingerprint_extra={**cfg, "rows": lv["rows"],
+                                                       "tier": lv["tier"]},
+                extra={"max_abs_dphi_vs_f32": lv["max_abs_dphi_vs_f32"], "band": lv["band"]}))
+    mk = fresh("megakernel")
+    if mk:
+        lv = _megakernel_f32(mk)
+        fp_mk = {**cfg, "rows": lv["rows"], "distinct_dates": lv["distinct_dates"]}
+        for arm in ("on", "off"):
+            out.append(_perf.make_record_from_summary(
+                "serve_bench", f"megakernel_{arm}_rows_per_s", repeats=lv["repeats"],
+                median=lv[f"{arm}_rows_per_s"], iqr=lv.get(f"{arm}_rows_per_s_iqr", 0.0),
+                unit="rows/s", direction="higher", fingerprint_extra=fp_mk,
+                extra={"speedup": lv["speedup"], "kernel_launches_on": lv["kernel_launches_on"]}))
+    rg = fresh("ragged")
+    if rg:
+        fp_rg = {**cfg, "counts": rg["counts"]}
+        for arm in ("ragged", "pow2"):
+            out.append(_perf.make_record_from_summary(
+                "serve_bench", f"ragged_{arm}_rows_per_s", repeats=rg[arm]["repeats"],
+                median=rg[arm]["rows_per_s"], iqr=rg[arm].get("rows_per_s_iqr", 0.0),
+                unit="rows/s", direction="higher", fingerprint_extra={**fp_rg, "arm": arm},
+                extra={"pad_waste_rows": rg[arm]["pad_waste_rows"]}))
+    drill = fresh("gateway_drill")
+    if drill and drill.get("mttr_ms") is not None and drill.get("mttr_runs"):
+        out.append(_perf.make_record_from_summary(
+            "serve_bench", "gateway_drill_mttr_ms", repeats=drill["mttr_runs"],
+            median=drill["mttr_ms"], iqr=drill.get("mttr_ms_iqr") or 0.0, unit="ms",
+            direction="lower", fingerprint_extra={**cfg, "blocks": drill["blocks"],
+                                                  "block_rows": drill["block_rows"]}))
+    return out

@@ -67,6 +67,9 @@ class PolicyBundle:
     feature_sketch: object | None = None       # obs.quality.FeatureSketch
     validation: object | None = None           # obs.quality.ValidationSpec
     hedge_error_baseline: float | None = None  # normalised units
+    # the bundle dir when it ships an AOT set (<dir>/aot/aot.json, aot/bundle_exec.py);
+    # HedgeEngine installs its libraries and captures its bucket graphs at construction
+    aot_dir: pathlib.Path | None = None
 
     @property
     def n_dates(self) -> int:
@@ -189,9 +192,11 @@ def load_bundle(directory) -> PolicyBundle:
         if baseline.get("validation"):
             validation = ValidationSpec.from_meta(baseline["validation"])
         err0 = baseline.get("hedge_error")
+    has_aot = (d / "aot" / "aot.json").exists()
     return dataclasses.replace(policy, fingerprint=fp, feature_sketch=sketch,
                                validation=validation,
-                               hedge_error_baseline=None if err0 is None else float(err0))
+                               hedge_error_baseline=None if err0 is None else float(err0),
+                               aot_dir=d if has_aot else None)
 
 
 def _fingerprint(model, n_dates: int, meta: dict) -> str:

@@ -47,8 +47,20 @@ stuck-dispatch watchdog's trips count on a :class:`CircuitBreaker`
 (:meth:`HedgeEngine.watchdog_trip`). The engine's device params live in a
 :class:`ResidentParams` that another engine of the same policy, tier and
 device may share (``resident=``): the warm tier of ``serve/host.py`` rebuilds
-an engine with no host-to-device copy and no kernel build. AOT executables
-are not ported yet.
+an engine with no host-to-device copy and no kernel build.
+AOT bundles (``aot/bundle_exec.py``): a policy loaded from a bundle that ships
+an AOT set (``policy.aot_dir``) has its libraries installed into the build
+cache and one CUDA graph captured per shipped bucket when the first engine
+of its :class:`ResidentParams` is built (``use_aot=True``, the default;
+``use_aot=False`` keeps today's engine exactly); engines sharing the resident
+params replay the same graphs, so a warm re-activation captures nothing.
+A request in such a bucket copies its padded rows and date into the graph's
+static buffers and replays it (its ``serve/dispatch`` span says ``aot: True``,
+and it passes the ``serve/aot_dispatch`` fault site); the replay is bitwise
+the eager forward. A failed replay serves that request eagerly, and
+``aot_failure_threshold`` failures of a bucket in a row (or as many
+``watchdog_trip`` hangs) demote it to the eager path for good
+(``guard/circuit_open``), as the JAX package's circuit breaker does.
 Buckets bound the set of shapes a request can take, which keeps the kernel's
 launch shapes and the caching allocator's block sizes to a small fixed set.
 """
@@ -82,6 +94,7 @@ from orp_tpu_torch.serve.precision import (
     normalize_precision,
     prepare_params,
 )
+from orp_tpu_torch.utils import cuda_build
 from orp_tpu_torch.utils.device import resolve_device
 from orp_tpu_torch.utils.precision import full_f32
 from orp_tpu_torch.utils.profiling import block_until_ready, trace
@@ -102,7 +115,8 @@ def _eval_core(model, p1_all, p2_all, date_idx: int, feats, prices, cost_of_capi
 
     ``precision`` is the tier (``serve/precision.py``): ``int8`` dequantizes
     the gathered weights to f32 before the f32 forward, ``bf16`` runs the bf16
-    model on bf16 rows; outputs are f32 either way."""
+    model on bf16 rows; outputs are f32 either way. ``date_idx`` is an int, or
+    a 0-d device tensor (a captured graph's date)."""
     p1, p2 = gather_date(p1_all, date_idx), gather_date(p2_all, date_idx)
     if precision == "int8":
         p1, p2 = dequantize_params(p1), dequantize_params(p2)
@@ -188,11 +202,14 @@ class PendingEval:
 class ResidentParams:
     """A policy's params as one engine serves them: the tier's per-date params
     on ``device`` (``p1``, ``p2``) and, once a mixed-date batch needed them,
-    the mixed-date kernel's dequantized and packed params (``mixed``).
+    the mixed-date kernel's dequantized and packed params (``mixed``), and
+    the AOT sets loaded for them (``aot``: ``{(aot_dir, policy fingerprint):
+    {bucket: AotExecutable}}``, the graphs captured on these params at this
+    tier; a set that fell back to the eager path is not kept).
     Engines built with ``resident=`` share them: no host-to-device copy, no
-    repacking."""
+    repacking, no graph capture."""
 
-    __slots__ = ("tier", "device", "p1", "p2", "mixed")
+    __slots__ = ("tier", "device", "p1", "p2", "mixed", "aot")
 
     def __init__(self, backward, model, tier: str, device: torch.device):
         self.tier, self.device = tier, device
@@ -202,6 +219,7 @@ class ResidentParams:
                             device=device)
         self.p2 = self.p1 if p2 is None else p2
         self.mixed = None
+        self.aot: dict = {}
 
 
 class HedgeEngine:
@@ -214,10 +232,13 @@ class HedgeEngine:
     (module docstring); every rank of the mesh makes the same calls.
     ``resident``: a :class:`ResidentParams` of this policy to serve from
     (used when its tier and device are this engine's, else built anew);
-    ``engine.resident`` is the engine's own."""
+    ``engine.resident`` is the engine's own. ``use_aot`` and
+    ``aot_failure_threshold``: the AOT set of the policy's bundle (module
+    docstring)."""
 
     def __init__(self, policy, *, min_bucket: int = 8, max_bucket: int = 1 << 20,
-                 device=None, precision="f32", mesh=None, resident=None):
+                 use_aot: bool = True, aot_failure_threshold: int = 3, device=None,
+                 precision="f32", mesh=None, resident=None):
         model = getattr(policy, "model", None)
         if model is None:
             raise ValueError("policy carries no model — pass a PolicyBundle")
@@ -245,13 +266,31 @@ class HedgeEngine:
         self.n_instruments = 2 if model.constrain_self_financing else model.n_outputs
         # host rows are padded in the model's dtype and cast to the tier's on the device
         self._np_dt = np.dtype(str(model.dtype).removeprefix("torch."))
-        # the watchdog's hang streaks (serve/health.py); no AOT bucket to demote yet
-        self._breaker = CircuitBreaker(3)
         self._mixed = None  # the mixed-date kernel's params (``resident.mixed``), on first use
         self.hits = 0
         self.misses = 0
+        self.aot_hits = 0
         self._buckets: set[int] = set()
         self._mixed_buckets: set[int] = set()
+        # AOT failures and the watchdog's hang streaks demote a bucket to the eager path
+        self._breaker = CircuitBreaker(aot_failure_threshold, what="aot_bucket")
+        self._aot: dict = {}
+        aot_dir = getattr(policy, "aot_dir", None)
+        if use_aot and aot_dir is not None:
+            fingerprint = getattr(policy, "fingerprint", None)
+            key = (str(aot_dir), fingerprint)
+            aot = resident.aot.get(key)
+            if aot is None:
+                from orp_tpu_torch.aot.bundle_exec import load_aot
+
+                aot = load_aot(aot_dir, policy_fingerprint=fingerprint, mesh=self.mesh,
+                               precision=tier, engine=self) or {}
+                if aot:  # a fallback is not kept: the next engine checks (and warns) again
+                    resident.aot[key] = aot
+            # this engine's own view: a demotion leaves the shared set whole
+            self._aot = dict(aot)
+        # the build and capture baseline of cache_info's nvcc_runs / graph_captures
+        self._builds0 = dict(cuda_build.BUILD_STATS)
 
     def bucket_for(self, n_rows: int) -> int:
         """The padded size requests of ``n_rows`` dispatch at: the next power of
@@ -303,12 +342,19 @@ class HedgeEngine:
         full = path_gather(packed, self.mesh)
         return (full[:, :-2].reshape(-1, *phi.shape[1:]), full[:, -2], full[:, -1])
 
-    def _count(self, seen: set, b: int, n: int, *, mixed: bool = False) -> None:
+    def _count(self, seen: set, b: int, n: int, *, mixed: bool = False,
+               aot: bool = False) -> None:
         """The bucket's hit or miss and the request's counters: per-request
-        ones registry-only, the rare miss (once a bucket) an event."""
+        ones registry-only, the rare miss (once a bucket) an event. The first
+        touch of an AOT bucket is a hit (``serve/bucket_aot_warm``): its graph
+        came with the bundle."""
         if b in seen:
             self.hits += 1
             obs_count("serve/bucket_hits", sink_event=False)
+        elif aot:
+            self.hits += 1
+            seen.add(b)
+            obs_count("serve/bucket_aot_warm", bucket=str(b))
         else:
             self.misses += 1
             seen.add(b)
@@ -350,17 +396,46 @@ class HedgeEngine:
         with span("serve/pad"):
             feats, pr = self._pad(states, prices, n, b)
         inj = _inject.active()
-        with span("serve/dispatch", attrs={"bucket": b, "aot": False}):
+        aot_ex = self._aot.get(b)
+        with span("serve/dispatch", attrs={"bucket": b, "aot": aot_ex is not None}):
             if inj is not None:
                 # may sleep and/or raise a TransientDispatchError, which the
                 # batcher's retry-with-backoff policy handles
                 inj.fire("serve/dispatch", bucket=b)
-            phi, psi, v = self._gather(*_eval_tiled(
-                self.model, self._p1, self._p2, idx, feats, pr, self.cost_of_capital,
-                dual_mode=self.dual_mode, holdings_combine=self.holdings_combine,
-                precision=self.precision.tier))
-        self._count(self._buckets, b, n)
+            if aot_ex is not None:
+                phi, psi, v = self._dispatch_aot(aot_ex, b, idx, feats, pr, inj)
+            else:
+                phi, psi, v = self._eager_eval(idx, feats, pr)
+        self._count(self._buckets, b, n, aot=aot_ex is not None)
         return self._pending(phi, psi, v, n, prices is not None, b)
+
+    def _eager_eval(self, idx: int, feats, pr):
+        """The always-correct eager path: the tiled forward, op by op."""
+        return self._gather(*_eval_tiled(
+            self.model, self._p1, self._p2, idx, feats, pr, self.cost_of_capital,
+            dual_mode=self.dual_mode, holdings_combine=self.holdings_combine,
+            precision=self.precision.tier))
+
+    def _dispatch_aot(self, aot_ex, b: int, idx: int, feats, pr, inj):
+        """Replay bucket ``b``'s graph; any failure serves this request eagerly
+        (the same forward, the same bits) and feeds the circuit breaker, which
+        after ``aot_failure_threshold`` failures in a row demotes the bucket to
+        the eager path for the process's lifetime (``guard/circuit_open``)."""
+        try:
+            if inj is not None:
+                inj.fire("serve/aot_dispatch", bucket=b)
+            out = aot_ex.call(idx, feats, pr)
+        except Exception as e:  # noqa: BLE001 — counted, breakered, served eagerly
+            obs_count("guard/aot_exec_failure", bucket=str(b))
+            if self._breaker.record_failure(b):
+                self._aot.pop(b, None)
+                warnings.warn(f"AOT graph for bucket {b} failed {self._breaker.threshold} "
+                              f"consecutive times ({type(e).__name__}: {e}); circuit opened — "
+                              "bucket demoted to the eager path for this process", stacklevel=3)
+            return self._eager_eval(idx, feats, pr)
+        self.aot_hits += 1
+        self._breaker.record_success(b)
+        return out
 
     def evaluate_mixed_async(self, dates, states, prices=None) -> PendingEval:
         """One date index per ROW; the whole block runs through the mixed-date
@@ -428,15 +503,16 @@ class HedgeEngine:
         hung batch in ``bucket``: count it (``guard/aot_exec_failure{kind=
         "hang"}``) on the engine's circuit breaker under its own streak key
         ``hang:<bucket>`` (a hang surfaces after a successful dispatch, so a
-        dispatch success must not reset it); the breaker opens
-        (``guard/circuit_open``) after 3 hangs in a row, as in the JAX package.
-        The port has no AOT buckets yet, so an open circuit demotes nothing;
-        the AOT plane (ROADMAP A9.4) will give it a bucket to demote."""
+        dispatch success must not reset it); after ``aot_failure_threshold``
+        hangs in a row the circuit opens (``guard/circuit_open``) and an AOT
+        bucket is demoted to the eager path, as in the JAX package (an eager
+        bucket has nothing to demote)."""
         obs_count("guard/aot_exec_failure", bucket=str(bucket), kind="hang")
         if self._breaker.record_failure(f"hang:{bucket}"):
+            self._aot.pop(bucket, None)
             warnings.warn(f"bucket {bucket} exceeded the dispatch hard wall "
-                          f"{self._breaker.threshold} consecutive times; circuit opened",
-                          stacklevel=3)
+                          f"{self._breaker.threshold} consecutive times; circuit opened — "
+                          "bucket demoted to the eager path for this process", stacklevel=3)
 
     def watchdog_ok(self, bucket) -> None:
         """The watchdog saw ``bucket``'s batch complete inside the wall: break
@@ -455,8 +531,31 @@ class HedgeEngine:
         return self.cache_info()
 
     def cache_info(self) -> dict:
+        """Bucket counters, the AOT set's (``aot_buckets`` still served by
+        graphs, ``aot_hits``, ``aot_circuit_open``), and the port's
+        counterparts of the JAX package's ``xla_compiles``: ``nvcc_runs`` and
+        ``graph_captures``, the ``nvcc`` runs and CUDA-graph captures of this
+        process since the engine was built (``cuda_build.BUILD_STATS`` is
+        process-wide, so another engine's traffic in between counts too)."""
+        now = cuda_build.BUILD_STATS
         return {"hits": self.hits, "misses": self.misses,
                 "precision": self.precision.tier,
                 "mesh_devices": mesh_size(self.mesh),
                 "buckets": sorted(self._buckets),
-                "mixed_buckets": sorted(self._mixed_buckets)}
+                "mixed_buckets": sorted(self._mixed_buckets),
+                "aot_buckets": sorted(self._aot),
+                "aot_hits": self.aot_hits,
+                "aot_circuit_open": self._breaker.open_keys,
+                "nvcc_runs": now["nvcc"] - self._builds0["nvcc"],
+                "graph_captures": now["captures"] - self._builds0["captures"]}
+
+    def program_cost(self, n_rows: int) -> dict:
+        """The analytic FLOPs and bytes of the bucket serving ``n_rows``-row
+        requests (``aot/compile.cost_summary``: one forward per param set),
+        the numerator of the roofline join (``obs/perf.py``)."""
+        from orp_tpu_torch.aot.compile import cost_summary
+
+        b = self.bucket_for(n_rows)
+        return {"bucket": b, **cost_summary(
+            self.model, b, n_heads=1 if self.dual_mode == "mse_only" else 2,
+            precision=self.precision.tier)}

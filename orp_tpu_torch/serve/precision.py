@@ -109,8 +109,15 @@ def dequantize_params(tree: dict) -> dict:
 
 def gather_date(tree: dict, t) -> dict:
     """Date ``t``'s slice of every leaf of a date-stacked params dict, quantized
-    nodes included (``scale`` keeps its broadcast shape)."""
-    return {k: ({n: x[t] for n, x in v.items()} if is_quantized(v) else v[t])
+    nodes included (``scale`` keeps its broadcast shape). ``t`` is an int, or a
+    0-d integer tensor on the params' device (a CUDA graph's date: the slices
+    are then gathered copies, the same values, read with no host sync)."""
+    if isinstance(t, torch.Tensor):
+        idx = t.reshape(1)
+        at = lambda x: x.index_select(0, idx).squeeze(0)  # noqa: E731
+    else:
+        at = lambda x: x[t]  # noqa: E731
+    return {k: ({n: at(x) for n, x in v.items()} if is_quantized(v) else at(v))
             for k, v in tree.items()}
 
 

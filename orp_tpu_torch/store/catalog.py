@@ -19,8 +19,9 @@ plus an existence check, not a second copy.
 
 The documents are canonical JSON with no clock or random field, so one bundle
 directory published by either package gives byte-identical blobs, manifests and
-``catalog.json``. ``aot_topologies`` stays in the manifest and is ``[]`` for
-the port's bundles, which carry no ``aot/`` tree.
+``catalog.json``. ``aot_topologies`` lists the bundle's ``aot/`` entries (the
+port's sets, ``aot/bundle_exec.py``, under their ``<topo>[+tier]`` keys), read
+off the published tree as the JAX package reads its own.
 
 ``serve/bundle.py`` speaks this layer through ``store://<root>#<tenant>``
 source URIs (``load_bundle`` resolves them here) and ``export_bundle``'s

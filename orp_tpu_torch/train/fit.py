@@ -49,11 +49,13 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Callable
 
 import torch
 
 from orp_tpu_torch.parallel.mesh import mesh_rank, mesh_size, path_mean, path_sum
+from orp_tpu_torch.utils import cuda_build
 from orp_tpu_torch.utils.precision import full_f32
 
 B1, B2, EPS, EPS_ROOT = 0.9, 0.999, 1e-8, 0.0  # optax.adam's defaults
@@ -270,9 +272,11 @@ class _EpochProgram:
         with torch.cuda.stream(side):
             self.epoch()
         torch.cuda.current_stream(self.theta.device).wait_stream(side)
+        t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.epoch()
+        cuda_build.count_capture(time.perf_counter() - t0)
 
     def run_epoch(self) -> None:
         if self.graph is not None:

@@ -55,11 +55,13 @@ before the capture runs it once, so the communicator exists).
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
 from orp_tpu_torch.parallel.mesh import mesh_rank, mesh_size, path_mean, path_means, path_sum
 from orp_tpu_torch.train.losses import mae, mape, mse
+from orp_tpu_torch.utils import cuda_build
 from orp_tpu_torch.utils.precision import full_f32
 
 
@@ -228,9 +230,11 @@ class _GNProblem:
         with torch.cuda.stream(side):
             self.iterate()
         torch.cuda.current_stream(dev).wait_stream(side)
+        t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.iterate()
+        cuda_build.count_capture(time.perf_counter() - t0)
 
     def run(self, n_iters: int) -> None:
         for _ in range(n_iters):

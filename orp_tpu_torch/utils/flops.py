@@ -21,9 +21,15 @@ are reported.
 
 from __future__ import annotations
 
-# NVIDIA H100 80GB HBM3, 700.00 W (the H100 SXM data sheet's dense rates)
-PEAK_BF16_H100 = 989e12  # bf16 on the tensor cores, FLOP/s
-PEAK_F32_H100 = 67e12    # f32 outside the tensor cores, FLOP/s
+# The card's ceilings, read from here by ``obs/perf.PEAK_TABLE`` and
+# ``chip_smoke.py``: NVIDIA H100 80GB HBM3 at its 700 W limit, from NVIDIA's
+# H100 SXM data sheet (dense rates, no sparsity).
+PEAK_BF16_H100 = 989e12   # bf16 on the tensor cores, FLOP/s (data sheet: BF16 Tensor Core)
+PEAK_F32_H100 = 67e12     # f32 outside the tensor cores, FLOP/s (data sheet: FP32;
+#                           132 SMs x 128 lanes x 2 (FMA) x 1.98 GHz)
+PEAK_INT32_H100 = 16.7e12  # int32 ops/s: 132 SMs x 64 INT32 lanes x 1.98 GHz (the
+#                            data sheet's SM count and boost clock)
+HBM_BYTES_H100 = 3.35e12  # HBM3 bytes/s (data sheet: GPU memory bandwidth)
 
 # GBM log-Euler per path-step: inverse normal (~25) + mul/add chain (~5).
 # Sobol itself is uint32 bit arithmetic — integer ops, not FLOPs.

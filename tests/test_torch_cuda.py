@@ -1119,3 +1119,119 @@ def test_gateway_ingest_phase_on_the_card(cuda):
                              seed=0, repeats=3, device=cuda)
     assert rec["bitwise_equal_to_per_request"] and rec["device"].startswith("cuda")
     assert rec["kernel_builds"]["nvcc"] == 0
+
+
+# -- the compile-and-perf plane: AOT sets, their fresh-process load, demotion,
+# the degrade drill (chip_smoke.py [aot] and [degrade] at their full sizes)
+
+AOT_TEST_BUCKETS = (8, 64, 1024, 65_536)
+
+
+@pytest.fixture(scope="module")
+def aot_bundle(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs have no CPU mode)")
+    from orp_tpu_torch.aot import export_aot
+    from orp_tpu_torch.serve import export_bundle
+
+    d = tmp_path_factory.mktemp("aot") / "bundle"
+    policy = export_bundle(load_bundle(NORTH_STAR_POLICY), d)
+    for tier in ("f32", "bf16"):
+        export_aot(d, policy, buckets=AOT_TEST_BUCKETS, precision=tier)
+    return d
+
+
+@pytest.mark.parametrize("tier", ["f32", "bf16"])
+def test_aot_replay_bitwise_the_eager_engine_at_every_bucket(cuda, aot_bundle, tier):
+    policy = load_bundle(aot_bundle)
+    aot = HedgeEngine(policy, precision=tier)
+    eager = HedgeEngine(policy, precision=tier, use_aot=False)
+    assert aot.cache_info()["aot_buckets"] == list(AOT_TEST_BUCKETS)
+    rng = np.random.default_rng(4)
+    for b in AOT_TEST_BUCKETS:
+        states = (1.0 + 0.1 * rng.standard_normal((b - 1, 1))).astype(np.float32)
+        prices = np.concatenate([states, np.full((b - 1, 1), 0.0108, np.float32)], 1)
+        for date in (0, 25, 51):
+            pend = aot.evaluate_async(date, states, prices)
+            aot.evaluate(date, states[::-1].copy(), prices)  # the next replay of the graph
+            for g, w in zip(pend.result(), eager.evaluate(date, states, prices)):
+                assert np.array_equal(g, w)
+    assert aot.cache_info()["aot_hits"] == 2 * 3 * len(AOT_TEST_BUCKETS)
+
+
+def test_aot_fresh_process_on_an_empty_cache_runs_no_nvcc(cuda, aot_bundle, tmp_path):
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    env = {**os.environ, "ORP_TORCH_CACHE_DIR": str(tmp_path / "cache")}
+    env.pop("ORP_TESTS_NO_COMPILE_CACHE", None)
+    proc = subprocess.run([sys.executable, str(root / "tools" / "torch_aot_child.py"), "serve",
+                           "--bundle", str(aot_bundle), "--tiers", "f32,bf16",
+                           "--dates", "0,51"], env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["nvcc"] == 0 and out["first"]["nvcc"] == 0
+    for t in out["tiers"].values():
+        assert t["aot_buckets"] == list(AOT_TEST_BUCKETS) and t["mismatches"] == []
+        assert t["aot_hits"] == t["requests"] == 2 * len(AOT_TEST_BUCKETS)
+    assert sorted(p.name.split("-")[0] for p in (tmp_path / "cache").glob("lib*.so")) == \
+        ["libfused_mf", "libmixed_head"]
+
+
+def test_aot_faults_demote_one_bucket_with_the_bits_unchanged(cuda, aot_bundle):
+    import warnings
+
+    from orp_tpu_torch.guard import FaultPlan, faults
+
+    policy = load_bundle(aot_bundle)
+    aot = HedgeEngine(policy)
+    eager = HedgeEngine(policy, use_aot=False)
+    states = np.ones((40, 1), np.float32)
+    want = eager.evaluate(9, states)
+    with faults(FaultPlan(fail={"serve/aot_dispatch": 3})), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for _ in range(4):
+            got = aot.evaluate(9, states)
+            assert all(np.array_equal(g, w) for g, w in zip(got, want) if g is not None)
+    info = aot.cache_info()
+    assert info["aot_circuit_open"] == [64] and 64 not in info["aot_buckets"]
+    assert sum("circuit opened" in str(w.message) for w in caught) == 1
+
+
+def test_degrade_drill_from_the_aot_bundle(cuda, aot_bundle):
+    from orp_tpu_torch.serve.bench import _degrade_drill
+
+    drill = _degrade_drill(load_bundle(aot_bundle), degrade_at=4, n_requests=16,
+                           survivors=None, mesh=None, seed=0)
+    assert drill["failed_during_window"] == 0 and drill["replayed"] >= 1
+    assert drill["post_recovery_bitwise_equal"] and drill["rebuild_xla_compiles"] == 0
+    assert drill["aot_buckets"] == list(AOT_TEST_BUCKETS) and drill["mttr_ms"] > 0
+
+
+def test_aot_tenant_warm_re_activation_captures_no_graph(cuda, aot_bundle):
+    from orp_tpu_torch.serve.host import ServeHost
+    from orp_tpu_torch.utils import cuda_build
+
+    eager = HedgeEngine(load_bundle(aot_bundle), use_aot=False)
+    states = np.ones((900, 1), np.float32)
+    want = eager.evaluate(25, states)
+    with ServeHost(max_live_engines=1) as host:
+        for name in ("a", "b"):
+            host.add_tenant(name, str(aot_bundle))
+        host.evaluate("a", 25, states)
+        host.evaluate("b", 25, states)  # evicts "a" to warm
+        assert host.stats()["a"]["live"] is False
+        b0 = dict(cuda_build.BUILD_STATS)
+        got = host.evaluate("a", 25, states)
+        assert {k: cuda_build.BUILD_STATS[k] - b0[k] for k in ("nvcc", "captures")} == \
+            {"nvcc": 0, "captures": 0}
+        info = host._tenants["a"].engine.cache_info()
+        assert info["aot_hits"] == 1 and info["aot_buckets"] == list(AOT_TEST_BUCKETS)
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or np.array_equal(g, w)

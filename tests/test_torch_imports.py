@@ -37,7 +37,9 @@ def _sources():
                                          ROOT / "tools" / "torch_mesh_ranks.py",
                                          ROOT / "tools" / "torch_mesh_probe.py",
                                          ROOT / "tools" / "torch_host_phase.py",
-                                         ROOT / "tools" / "torch_gateway_phase.py"]
+                                         ROOT / "tools" / "torch_gateway_phase.py",
+                                         ROOT / "tools" / "torch_aot_child.py",
+                                         ROOT / "tools" / "torch_aot_phase.py"]
 
 
 def test_prefix_rule():
@@ -96,6 +98,15 @@ def test_sources_include_the_obs_package():
                                     "flight", "report", "tracetree", "devprof")} <= names
 
 
+def test_sources_include_the_compile_and_perf_plane():
+    """The import rule walks the AOT plane, the perf ledger, degradation and the
+    host QMC engine."""
+    names = {p.relative_to(PORT).as_posix() for p in _sources() if PORT in p.parents}
+    assert {"aot/__init__.py", "aot/cache.py", "aot/compile.py", "aot/bundle_exec.py",
+            "obs/perf.py", "guard/degrade.py", "native/__init__.py"} <= names
+    assert ROOT / "tools" / "torch_aot_child.py" in _sources()
+
+
 def test_sources_include_the_serve_path():
     """The import rule walks every module of the single-host serve path: the
     host-only ones are the port's own copies."""
@@ -132,7 +143,14 @@ def test_entry_points_default_to_the_card():
     heston = dict(s0=1.0, mu=0.0, v0=0.04, kappa=1.0, theta=0.04, xi=0.3, rho=-0.5, dt=0.1)
     basket = dict(s0=[1.0, 1.0], drift=[0.0, 0.0], sigma=[0.1, 0.2],
                   corr=[[1.0, 0.3], [0.3, 1.0]])
+    from orp_tpu_torch.guard import DegradeManager
+    from orp_tpu_torch.obs.devprof import profile_north_star
+    from orp_tpu_torch.serve.bench import serve_bench
+
     calls = [lambda: HedgeEngine(policy), lambda: european_oos(policy),
+             lambda: serve_bench(policy, n_requests=2, sweep_concurrency=()),
+             lambda: profile_north_star(6, quick=True),
+             lambda: DegradeManager(policy),
              lambda: MicroBatcher(HedgeEngine(policy)),
              lambda: host.evaluate("t", 0, np.ones((1, 1), np.float32)),
              lambda: host.prefetch(["t"]),
@@ -178,6 +196,11 @@ def test_entry_points_default_to_the_card():
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+    # an AOT set is CUDA graphs and sm_90a libraries: without a card it refuses
+    from orp_tpu_torch.aot import AotUnsupported, export_aot
+    with pytest.raises(AotUnsupported, match="needs a CUDA device"):
+        export_aot(ROOT / "nowhere", policy)
+    assert not (ROOT / "nowhere").exists()
     # the paths mesh: path indices, a rank's device, and the mesh entry points
     # (under a 1-rank group, so that building the mesh reaches its device)
     import tempfile

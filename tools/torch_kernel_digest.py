@@ -198,7 +198,7 @@ def main(argv=None) -> int:
     if args.sass:
         result["sass"] = {}
         for lib in reports:
-            result["sass"].update(sass_census(cuda_build._lib_path(lib), cuda_build.nvcc_path()))
+            result["sass"].update(sass_census(cuda_build.lib_path(lib), cuda_build.nvcc_path()))
         for name, c in result["sass"].items():
             print(f"[sass] {name}: {c['instructions']} instructions; {c['top']}", flush=True)
     print(json.dumps(result))
