@@ -213,16 +213,19 @@ last line):
     iteration, the date loop under ``no_host_sync``), ``v0_cv`` / ``v0_acv``
     bitwise the same call without a mesh (else within ``rtol=1e-5``), and the
     sharded engine bitwise the unsharded one at buckets 1 to 1,048,576; (b)
-    four ``gloo`` ranks sharing the card, 262,144 paths each: the walk within
-    ``rtol=1e-5`` on ``v0_cv`` and 10% on ``v0``, the sharded engine bitwise,
-    ``fused=True`` and ``engine="pallas"`` refused in the reference's words,
-    and exact thinning at 262,144 x 250 steps a rank, the blocks bitwise the
-    first knots of [exact]'s run. Every rank is a process of its own (``tools/torch_mesh_ranks.py``)
+    four ``gloo`` ranks sharing the card, 262,144 paths each: the walk (GN
+    3 + 51 x 1) within ``rtol=1e-5`` on ``v0_cv`` and 10% on ``v0`` of the
+    same walk without a mesh, the sharded engine bitwise, ``fused=True`` and
+    ``engine="pallas"`` refused in the reference's words, and exact thinning
+    at 262,144 x 50 steps a rank, the blocks bitwise the first knots of
+    [exact]'s run. Every rank is a process of its own (``tools/torch_mesh_ranks.py``)
     under a hard timeout; a rank that fails fails the phase; no rank launches
     a kernel;
-28. times: each kernel and its plain version with CUDA events at the main
-    paths' shapes (the host's queue filled ahead of each timed round, so a
-    kernel shorter than its wrapper's host cost is timed on the card), beside
+28. times: each kernel with CUDA events at the main paths' shapes (the
+    host's queue filled ahead of each timed round, so a kernel shorter than
+    its wrapper's host cost is timed on the card), its plain version's time
+    from the one run of its check in phase 3 (K1, K3a, K3b at 1M; K3c's in
+    its 1M check; the dense grid timed once here), beside
     the kernel's bound (K2's from [tiers], f32 and bf16 at both shapes, and
     from [basket] at the basket heads); the GN walks' walls at 1M paths and
     the median time of one LM iteration there (MSE and, for the pension, the
@@ -309,6 +312,21 @@ last line):
     written under a temporary directory by ``write_bench_record``, its
     ``ledger_records`` valid ``orp-perf-v1`` records; req/s and p99 at each
     concurrency; K2 launched by the megakernel phase.
+36. [pilot] the closed loop (``pilot_phases``, run after [serve-bench] while
+    the compile-and-perf plane's background builds finish): the reference's drill
+    (``serve_bench(pilot=True)``, 512 paths: reject, promote, promote, 0 rows
+    lost, the resumed policy bitwise, the chain verified); a full-width
+    calibration cycle on phase 9's north-star policy (exported there with
+    its calm-regime calibration and an AOT set): the shifted market's
+    trigger, the warm-started checkpointed retrain at 1,048,576 x 364 (K1
+    once), the candidate promoted through ``reload_tenant(quality_band=
+    0.25)`` (the validation set at 2 of its 8 replicates) under a submitter of per-date blocks and mixed-date single rows
+    (K2), 0 rows lost, every row bitwise the engine that served it; a manual
+    cycle killed after step 1 and resumed by a fresh controller, bitwise an
+    uninterrupted run; ``CompileAudit`` on the walks and the promotions'
+    engines; the capture fallbacks counted; ``doctor_report`` ok on the
+    card, ``perf_peaks`` on the H100 row, a torn journal failing in
+    flag-speak; K1 and K2 at this path's shapes against their plain versions.
 
 Output: a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -432,7 +450,7 @@ def heston_greeks_oracle() -> dict:
 
 
 def max_err(got, want) -> float:
-    return float((got.double() - want.double()).abs().max())
+    return float((got.double() - want.double()).abs().max())  # orp: noqa[ORP001] -- a check's reduction in f64 on the host, not a path's dtype
 
 
 def sobol_int_ops(n_paths: int, n_dims: int) -> int:
@@ -579,7 +597,7 @@ def f64_heston_walk(paths: dict, h, init: dict, device):
     from orp_tpu_torch.sde import TimeGrid, bond_curve, payoffs
     from orp_tpu_torch.train import backward
 
-    f64 = torch.float64
+    f64 = torch.float64  # orp: noqa[ORP001] -- the f64 walk this check holds card against CPU
     s = paths["S"].to(device=device, dtype=f64)
     v = paths["v"].to(device=device, dtype=f64)
     coarse = TimeGrid(1.0, N_STEPS).reduced(STORE)
@@ -644,13 +662,13 @@ def k3c_checks(dev) -> dict:
               f"(N on every knot); plain version {plain_ms / 1e3:.2f} s", flush=True)
         del want
     out["plain_ms"] = plain_ms  # the main variant at the main path's shape, timed once
-    n_t, y_t = got["N"][:, -1].double(), got["Y"][:, -1].double()
+    n_t, y_t = got["N"][:, -1].double(), got["Y"][:, -1].double()  # orp: noqa[ORP001] -- a check's reduction in f64 on the host, not a path's dtype
     laws = (float(n_t.mean()), float(n_t.std()), float(y_t.mean()))
     check(abs(laws[0] - 8616) < 40 and abs(laws[1] - 132) < 30,
           f"population law E[N_T] {laws[0]:.1f} (8616 +- 40), sd {laws[1]:.1f} (132 +- 30)")
     check(abs(laws[2] - math.exp(0.8)) < 0.02, f"fund law E[Y_T] {laws[2]:.5f} vs e^0.8")
     # deaths over the run = the CDF walk's trips (one per death; no CLT draws at dt=0.01)
-    out["trips"] = float((got["N"][:, 0].double() - got["N"][:, -1].double()).sum())
+    out["trips"] = float((got["N"][:, 0].double() - got["N"][:, -1].double()).sum())  # orp: noqa[ORP001] -- a check's reduction in f64 on the host, not a path's dtype
     print(f"[K3c] laws from the kernel's {N_FULL} paths: E[N_T] {laws[0]:.2f} (8616), sd "
           f"{laws[1]:.2f} (132), E[Y_T] {laws[2]:.5f} (e^0.8 = {math.exp(0.8):.5f}); deaths "
           f"(walk trips) {out['trips']:.0f}", flush=True)
@@ -1191,12 +1209,12 @@ def adam_phases(dev, counts, bs: float) -> dict:
     # held to the same fit on the CPU from the card's inputs (its warm params,
     # target and the same orders).
     t1 = time.perf_counter()
-    s = fused_gbm.gbm_log_fused(N_FIXTURE, N_STEPS, s0=100.0, drift=0.08, sigma=0.15,
+    s = fused_gbm.gbm_log_fused(N_FIXTURE, N_STEPS, s0=100.0, drift=0.08, sigma=0.15,  # orp: noqa[ORP001] -- a check's reduction in f64 on the host, not a path's dtype
                                 dt=1 / N_STEPS, seed=1235, store_every=STORE,
                                 device=dev).double() / 100.0
-    b = torch.exp(0.08 * torch.linspace(0.0, 1.0, 53, dtype=torch.float64)) / 100.0
+    b = torch.exp(0.08 * torch.linspace(0.0, 1.0, 53, dtype=torch.float64)) / 100.0  # orp: noqa[ORP001] -- the f64 walk this check holds card against CPU
     term = torch.clamp(s[:, -1] - 1.0, min=0.0)
-    model = HedgeMLP(n_features=1, dtype=torch.float64)
+    model = HedgeMLP(n_features=1, dtype=torch.float64)  # orp: noqa[ORP001] -- the f64 walk this check holds card against CPU
     bias = (float(term.mean()), 0.0)
     sc = s.cpu()
     prices = backward._stack_prices(sc, b)
@@ -1209,7 +1227,7 @@ def adam_phases(dev, counts, bs: float) -> dict:
         host = backward_induction(model, sc[:, :, None], sc, b, term.cpu(), cfg, bias_init=bias)
         p_card = {k: v.cpu() for k, v in card.params1_by_date.items()}
         vals, phi_c, psi_c = card.values.cpu(), card.phi.cpu(), card.psi.cpu()
-        start, _ = backward._initial_params(model, cfg, bias, None, cpu, torch.float64)
+        start, _ = backward._initial_params(model, cfg, bias, None, cpu, torch.float64)  # orp: noqa[ORP001] -- the f64 walk this check holds card against CPU
         err = {"params": 0.0, "values": 0.0, "holdings": 0.0}
         parted[shuffle], profile[shuffle] = None, {}
         for step_i, t in enumerate(range(51, -1, -1)):
@@ -1260,7 +1278,7 @@ def adam_phases(dev, counts, bs: float) -> dict:
     torch.cuda.synchronize()
     euro_s = time.perf_counter() - t1
     er = eu.report
-    resid = eu.backward.var_residuals[:, -1].double().cpu().numpy() * 100.0
+    resid = eu.backward.var_residuals[:, -1].double().cpu().numpy() * 100.0  # orp: noqa[ORP001] -- a check's reduction in f64 on the host, not a path's dtype
     ref = EURO_FLAGSHIP
     gaps = {"v0": er.v0 / ref["v0"] - 1, "phi0": er.phi0 - ref["phi0"],
             "psi0": er.psi0 - ref["psi0"], "disc": er.discounted_payoff / ref["disc"] - 1,
@@ -1326,7 +1344,7 @@ def adam_phases(dev, counts, bs: float) -> dict:
     a = simulate_pension(idx, grid, **kw)
     torch.cuda.synchronize()
     exact_s = time.perf_counter() - t1
-    n_t = a["N"][:, -1].double()
+    n_t = a["N"][:, -1].double()  # orp: noqa[ORP001] -- a check's reduction in f64 on the host, not a path's dtype
     law = (float(n_t.mean()), float(n_t.std()))
     check(a["N"].shape == (N_FULL, PENSION_STEPS // PENSION_STORE + 1), "[exact] shape")
     check(bool(torch.isfinite(a["Y"]).all()) and bool(torch.equal(a["N"], torch.round(a["N"]))),
@@ -1431,7 +1449,7 @@ def fused_phases(dev, counts, euro_host, euro_s: float, pension_host, pension_s:
     # feature, date 51's trained params), op by op and as a graph
     model = HedgeMLP(n_features=1)
     t = 51
-    feats = torch.rand((N_FULL, 1), device=dev) + 0.5
+    feats = torch.rand((N_FULL, 1), device=dev) + 0.5  # orp: noqa[ORP004] -- the inputs of a kernel-vs-plain check: both arms read this same tensor
     prices = torch.stack([feats[:, 0], torch.full_like(feats[:, 0], 0.01083)], -1)
     target = torch.clamp(feats[:, 0] - 1.0, min=0.0)
     prog = gn.gn_program(model, feats, prices, target,
@@ -1794,7 +1812,7 @@ def basket_price_checks(res, r: float, what: str) -> str:
     check(all(math.isfinite(x) for x in report_fields(rep)), f"{what}: report fields finite")
     n = res.backward.values.shape[0]
     # values[:, -1] is the payoff over the strike (adjustment_factor)
-    plain_std = float(torch.std(res.backward.values[:, -1].double(), correction=0))
+    plain_std = float(torch.std(res.backward.values[:, -1].double(), correction=0))  # orp: noqa[ORP001] -- a check's reduction in f64 on the host, not a path's dtype
     se = math.exp(-r * float(res.times[-1])) * plain_std * res.adjustment_factor / math.sqrt(n)
     for name in ("v0_cv", "v0_acv"):
         gap = getattr(rep, name) - rep.v0_plain
@@ -2163,7 +2181,7 @@ def lsm_cross(dev, heston: bool) -> dict:
               f"[exotics] the walk on {d.type} is bermudan_lsm{'_heston' if heston else ''}'s")
         runs.append((res, tau.cpu(), decisions.cpu()))
     card, cpu = runs
-    share = float((card[1] != cpu[1]).double().mean())
+    share = float((card[1] != cpu[1]).double().mean())  # orp: noqa[ORP001] -- a check's reduction in f64 on the host, not a path's dtype
     parted = (card[2] != cpu[2]).sum(dim=0)  # paths whose decision differs, per date
     dates = parted.nonzero().flatten().tolist()
     first = max(dates) if dates else None  # the walk runs from the last date back
@@ -3154,7 +3172,7 @@ def gateway_phases(dev, counts) -> dict:
                     try:
                         c.submit_block("nobody", 3, rows[1])
                         check(False, "[gateway] an unknown tenant must be refused")
-                    except Exception:  # noqa: BLE001 - the refusal is the check
+                    except Exception:  # noqa: BLE001  # orp: noqa[ORP009] -- the refusal is the check
                         pass
                 with urllib.request.urlopen("http://%s:%d/metrics" % srv.address,
                                             timeout=30) as r:
@@ -3176,6 +3194,10 @@ def gateway_phases(dev, counts) -> dict:
 
 AOT_EXTRA_BUCKETS = (65_536, N_FULL)
 AOT_DATES = (0, 25, 51)
+#: [perf]'s measured phase: evaluate calls of 64 rows a repeat (~0.2 s a repeat
+#: on the card; at 32 the ~25 ms draws moved 25% between two back-to-back gate
+#: runs beside the plane's nvcc children, past the gate's 4-IQR band)
+PERF_GATE_EVALS = 256
 AOT_WALK_PATHS = 1 << 16
 
 
@@ -3230,10 +3252,13 @@ def _turns(fa, fb, n: int) -> tuple[float, float]:
     return sorted(wa)[n // 2], sorted(wb)[n // 2]
 
 
-def aot_plane_phases(dev, counts) -> dict:
+def aot_plane_phases(dev, counts, beside=None) -> dict:
     """[aot], [perf], [profile], [degrade] and [serve-bench]: the
     compile-and-perf plane on the card (the phases 31-35 of the module
-    docstring). Returns the numbers the kernels line and [times] print."""
+    docstring). Returns the numbers the kernels line and [times] print.
+    ``beside``: a phase run after [serve-bench] while the background
+    children (the nvcc-bound cold start, the warm build) finish; its result
+    is ``out["beside"]``."""
     import shutil
     import tempfile
     import warnings
@@ -3410,17 +3435,18 @@ def aot_plane_phases(dev, counts) -> dict:
         guarded = [HERE / "PERF_LEDGER.jsonl", HERE / "BENCH_serve.json"]
         before = [_sha(p) for p in guarded]
         led = root / "ledger.jsonl"
-        gates = [perf.gate_cli(ledger=led, bundle=policy, repeats=5, evals=32, rows=64)
-                 for _ in range(2)]
+        gates = [perf.gate_cli(ledger=led, bundle=policy, repeats=5, evals=PERF_GATE_EVALS,
+                               rows=64) for _ in range(2)]
         check(gates[0]["verdict"] == "no_history" and gates[1]["verdict"] == "ok"
               and all(g["appended"] for g in gates), f"gate: {[g['reason'] for g in gates]}")
         recs, _ = perf.read_ledger(led)
         meds = sorted(r["median"] for r in recs)
         scale = max(max(r["iqr"] for r in recs), meds[-1] - meds[0])
         need_s = 4.0 * max(perf.GATE_K * scale, perf.GATE_REL_FLOOR * meds[-1])
-        delay_s = max(0.001, need_s / 32)
+        delay_s = max(0.001, need_s / PERF_GATE_EVALS)
         with faults(FaultPlan(delay={"serve/dispatch": (100_000, delay_s)})):
-            slow = perf.gate_cli(ledger=led, bundle=policy, repeats=5, evals=32, rows=64)
+            slow = perf.gate_cli(ledger=led, bundle=policy, repeats=5, evals=PERF_GATE_EVALS,
+                                 rows=64)
         check(slow["verdict"] == "regression" and not slow["appended"],
               f"a serve/dispatch delay of {delay_s * 1e3:.2f} ms trips: {slow['reason']}")
         check([_sha(p) for p in guarded] == before,
@@ -3451,7 +3477,8 @@ def aot_plane_phases(dev, counts) -> dict:
                    head_roofline=rl_head)
         print(f"[perf] gate_cli twice: {gates[0]['verdict']} then {gates[1]['verdict']} "
               f"(medians {gates[0]['record']['median']:.6f} / {gates[1]['record']['median']:.6f}"
-              f" s for 32 x 64 rows); a {delay_s * 1e3:.3f} ms serve/dispatch delay: "
+              f" s for {PERF_GATE_EVALS} x 64 rows); a {delay_s * 1e3:.3f} ms serve/dispatch "
+              f"delay: "
               f"{slow['verdict']} ({slow['record']['median']:.6f} s); ledger in a temporary "
               f"directory, the root's PERF_LEDGER.jsonl and BENCH_serve.json unchanged; "
               f"roofline K2 1M rows {k2_ms:.4f} ms: {rl_k2['frac_peak_flops']:.3e} of the f32 "
@@ -3566,6 +3593,8 @@ def aot_plane_phases(dev, counts) -> dict:
               f"{rec['density_dedup_ratio']}, cold p99 {rec['density_cold_p99_ms']} ms; "
               f"{len(rows_)} ledger rows valid; {time.perf_counter() - t0:.2f} s | {card}",
               flush=True)
+        if beside is not None:
+            out["beside"] = beside()
         # the background children, joined last: the cold start, then the warmed walk
         cold = _aot_result(background[0][1], "the cold-start process", timeout=900)
         warm = _aot_result(background[1][1], "warm_fused_walk's process", timeout=900)
@@ -3589,8 +3618,435 @@ def aot_plane_phases(dev, counts) -> dict:
             _stop(proc)
         shutil.rmtree(root, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
-    print(f"[aot-plane] the phases {out['phase_s']:.2f} s | {card}", flush=True)
+    with_beside = (f" (with the phase run beside its builds, {out['beside']['phase_s']:.2f} s)"
+                   if isinstance(out.get("beside"), dict) and "phase_s" in out["beside"] else "")
+    print(f"[aot-plane] the phases {out['phase_s']:.2f} s{with_beside} | {card}", flush=True)
     return out
+
+
+PILOT_CALM = dict(a=4.0, b=0.15, c=0.2, mu=0.08, sigma0=0.15)  # serve/bench._pilot_phase's
+PILOT_SHIFT = dict(a=4.0, b=0.45, c=0.3, mu=0.08, sigma0=0.4)  # regimes: b 0.15 -> 0.45
+PILOT_BUCKETS = (8, 4096)     # the candidates' AOT sets: a 4,096-row block's bucket and 1 row's
+PILOT_BLOCK_ROWS = 4096       # the submitter's per-date blocks
+PILOT_MIXED_ROWS = 64         # and its mixed-date single rows (K2), each iteration
+PILOT_PATHS = N_FULL
+PILOT_PACE_S = 0.02           # the submitter's pause between iterations (the GIL's share)
+PILOT_REPLICATES = 2          # the quality gate's RQMC replicates (the bundle's spec has 8)
+
+
+def _pilot_traffic(host, name: str, n_dates: int, stop, log: list, errors: list) -> None:
+    """The submitter: per-date blocks and mixed-date single rows, each
+    iteration's results read before the next (bounded backpressure)."""
+    import numpy as np
+
+    i = 0
+    try:
+        while not stop.is_set():
+            d = i % n_dates
+            s, p = _host_rows(PILOT_BLOCK_ROWS, 1, 1000 + i % 7)
+            block = host.submit_block(name, d, s, p)
+            ms, mp = _host_rows(PILOT_MIXED_ROWS, 1, 2000 + i % 7)
+            dates = (np.arange(PILOT_MIXED_ROWS) * 7 + i) % n_dates
+            singles = [host.submit(name, int(dates[j]), ms[j:j + 1], mp[j:j + 1])
+                       for j in range(PILOT_MIXED_ROWS)]
+            log.append(("block", d, s, p, block.result(timeout=600)))
+            log.append(("mixed", dates, ms, mp, [f.result(timeout=600) for f in singles]))
+            i += 1
+            stop.wait(PILOT_PACE_S)
+    except Exception as e:  # orp: noqa[ORP009] -- re-raised on the phase's thread after the join
+        errors.append(e)
+
+
+def _pilot_stages(records, cycle: int) -> dict:
+    """Seconds from each journaled state of ``cycle`` to the next (the
+    journal's own ``ts_unix`` stamps)."""
+    recs = [r for r in records if r.get("kind") == "transition" and r.get("cycle") == cycle]
+    return {a["state"]: round(b["ts_unix"] - a["ts_unix"], 3) for a, b in zip(recs, recs[1:])}
+
+
+def _pilot_served(log: list, engines: dict) -> dict:
+    """Each served row bitwise one of the tenant's engines (the incumbent
+    before the swap, the candidate after), per row; rows submitted vs served."""
+    import numpy as np
+
+    out = {"submitted": 0, "served": 0, "rows": {k: 0 for k in engines}, "order": []}
+    for kind, d, s, p, res in log:
+        if kind == "block":
+            got = (res.phi, res.psi, res.value)
+            n = res.n_served
+            wants = {k: e.evaluate(d, s, p) for k, e in engines.items()}
+        else:
+            got = tuple(np.concatenate([r[j] for r in res]) for j in range(3))
+            n = len(res)
+            wants = {k: e.evaluate_mixed_async(d, s, p).result() for k, e in engines.items()}
+        out["submitted"] += len(s)
+        out["served"] += n
+        owner = np.full(len(s), "", dtype=object)
+        for k, w in wants.items():
+            same = np.ones(len(s), bool)
+            for g, x in zip(got, w):
+                same &= (np.asarray(g).reshape(len(s), -1) == np.asarray(x).reshape(len(s), -1)
+                         ).all(axis=1)
+            owner[(owner == "") & same] = k
+        check(bool((owner != "").all()), f"[pilot] every served {kind} row bitwise one of the "
+              f"tenant's engines ({int((owner == '').sum())} of {len(s)} rows match neither)")
+        for k in engines:
+            out["rows"][k] += int((owner == k).sum())
+        out["order"].append("candidate" if (owner == "candidate").any() else "incumbent")
+    seen = "".join("c" if o == "candidate" else "i" for o in out["order"])
+    check("ci" not in seen, f"[pilot] no incumbent bits after the first candidate bits ({seen})")
+    return out
+
+
+def pilot_phases(dev, counts, incumbent_dir) -> dict:
+    """[pilot]: the closed loop (``orp_tpu_torch/pilot``) on the card, four parts:
+
+    (a) the reference's drill, ``serve_bench(pilot=True)`` at its own size
+        (512 paths, ``dt=1/8``, ``rebalance_every=2``, ``calib_window=160``):
+        verdicts reject, promote, promote; 0 rows lost; the kill-resumed
+        policy bitwise; the reject left the incumbent; the chain verifies;
+    (b) a full-width cycle on the north-star policy of phase 9 (1,048,576
+        paths x 364 steps, 52 dates, GN 30 + 51 x 10, exported with its
+        calm-regime calibration baked and an AOT set of ``PILOT_BUCKETS``):
+        the shifted market fires a calibration trigger, the warm-started
+        checkpointed retrain launches K1 once, the candidate (exported with
+        its own AOT set) is promoted through ``reload_tenant(quality_band=
+        0.25)``, the gate replaying the incumbent's validation set at
+        ``PILOT_REPLICATES`` replicates, while a submitter sends per-date
+        blocks and mixed-date single rows (K2) — 0 rows lost, every row
+        bitwise the engine that served it;
+        then a manual cycle killed after step 1 and resumed by a fresh
+        controller, its promoted params bitwise an uninterrupted run's.
+        ``CompileAudit`` budgets the retrains (``watch_backward_walk``) and
+        each promotion's serving engine (``watch_serve_engine``: one capture
+        a bucket, none once it serves); the eager fallbacks of bucket
+        captures (``aot/bundle_exec.FALLBACKS``) are counted and printed;
+    (c) ``doctor_report`` on the promoted bundle, the pilot's journal, a
+        temporary perf ledger and the quality probe: ``ok``, ``perf_peaks``
+        covered by the H100 row; a torn journal middle fails
+        ``pilot_journal`` in flag-speak;
+    (d) K1 and K2 at this path's shapes against their plain versions.
+
+    On the CPU (a rehearsal) no AOT set is exported: CUDA graphs need the card."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import threading
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from orp_tpu_torch import guard
+    from orp_tpu_torch.aot import bundle_exec, export_aot
+    from orp_tpu_torch.api import EuropeanConfig, SimConfig, TrainConfig, european_hedge
+    from orp_tpu_torch.lint import CompileAudit, watch_backward_walk, watch_serve_engine
+    from orp_tpu_torch.obs import perf
+    from orp_tpu_torch.obs.manifest import chain_verify, read_chain
+    from orp_tpu_torch.pilot import (PilotConfig, PilotController, TriggerHub, bake_calibration,
+                                     calibrate_window, journal_append, read_journal,
+                                     warm_params)
+    from orp_tpu_torch.pilot.controller import _window_from_meta
+    from orp_tpu_torch.qmc import fused_gbm
+    from orp_tpu_torch.serve import HedgeEngine, ServeHost, load_bundle, megakernel
+    from orp_tpu_torch.serve.bench import _pilot_market, serve_bench
+    from orp_tpu_torch.serve.health import doctor_report
+    from orp_tpu_torch.utils.measure import cuda_ms
+
+    t_phase = time.perf_counter()
+    out = {}
+    aot = dev.type == "cuda"
+    fb0 = dict(bundle_exec.FALLBACKS)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="orp-pilot-"))
+    card = card_line()
+
+    # -- (a) the reference's drill -------------------------------------------
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the drill's reject warns by design
+        rec = serve_bench(load_bundle(incumbent_dir), n_requests=8, batch_sizes=(1,),
+                          batcher_requests=4, sweep_concurrency=(), pilot=True, repeats=1,
+                          device=dev)
+    pl = rec["pilot"]
+    out["drill_s"] = time.perf_counter() - t0
+    verdicts = pl["chain"]["verdicts"]
+    check(verdicts == ["reject", "promote", "promote"] and pl["rows_lost"] == 0
+          and pl["resume"]["bits_equal"] and pl["reject_left_incumbent"] and pl["chain"]["ok"],
+          f"[pilot] (a) the drill: verdicts {verdicts}, rows_lost {pl['rows_lost']}, resume "
+          f"bitwise {pl['resume']['bits_equal']}, reject left the incumbent "
+          f"{pl['reject_left_incumbent']}, chain ok {pl['chain']['ok']}")
+    print(f"[pilot] (a) serve_bench(pilot=True) at {pl['n_paths']} paths x {pl['n_dates']} "
+          f"dates: verdicts {verdicts}; rows {pl['rows_served']:,} of {pl['rows_submitted']:,} "
+          f"served through the swap (0 lost); resume bitwise; calibrated b {pl['baseline_b']} -> "
+          f"{pl['shifted_b']}; time to promote {pl['time_to_promote_s']:.3f} s; drift trips "
+          f"{pl['drift_trips']}, debounced {pl['debounced']}; the drill {out['drill_s']:.2f} s "
+          f"| {card}", flush=True)
+
+    # -- (b) a full-width cycle on the north star ----------------------------
+    inc = root / "incumbent"
+    shutil.copytree(incumbent_dir, inc)
+    inc_policy = load_bundle(inc)
+    n_dates = inc_policy.n_dates
+    if aot:
+        export_aot(inc, inc_policy, buckets=PILOT_BUCKETS)
+    calm = _pilot_market(240, seed=0, **PILOT_CALM)
+    calm_win = calibrate_window(calm[-160:], vol_window=40, n_boot=32, seed=0)
+    bake_calibration(inc, calm_win)
+    shifted = _pilot_market(176, seed=1, **PILOT_SHIFT)
+    prices_csv = root / "prices.csv"
+    prices_csv.write_text("\n".join(repr(float(x)) for x in shifted) + "\n")
+    sim = SimConfig(n_paths=PILOT_PATHS, T=1.0, dt=1 / N_STEPS, rebalance_every=STORE,
+                    engine="pallas")
+    euro = EuropeanConfig(constrain_self_financing=False)
+    base = TrainConfig(dual_mode="mse_only", optimizer="gauss_newton")
+    walk_audit = watch_backward_walk(CompileAudit())
+    walk_deltas = []
+
+    def train_fn(window, warm, ckpt_dir):
+        with walk_audit:
+            res = european_hedge(dataclasses.replace(euro, sigma=float(window.fit.sigma0)), sim,
+                                 dataclasses.replace(base, checkpoint_dir=ckpt_dir),
+                                 warm_start=warm, device=dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+        walk_deltas.append(walk_audit.deltas())
+        return res
+
+    clk = [0.0]  # the hub's cooldown clock: the phase never sleeps
+    hub = TriggerHub("north-star", cooldown=guard.Cooldown(cooldown_s=60.0, backoff=2.0,
+                                                           clock=lambda: clk[0]))
+    cfg = PilotConfig(tenant="north-star", workdir=str(root / "pilot"), quality_band=0.25,
+                      vol_window=40, calib_window=160, n_boot=32, boot_seed=0,
+                      cooldown_s=60.0, aot=aot, aot_buckets=PILOT_BUCKETS,
+                      prices_path=str(prices_csv), events_dir=str(root))
+    host = ServeHost(promotion_chain=root / "promotions.jsonl",
+                     engine_kwargs={"device": dev},
+                     batcher_kwargs={"mixed_dates": True, "coalesce_blocks": True})
+    serve_audit = watch_serve_engine(CompileAudit(), budget=len(PILOT_BUCKETS) if aot else 0)
+    reload_deltas = []
+    orig_reload = host.reload_tenant
+    stop, log, errors = threading.Event(), [], []
+    traffic = threading.Thread(target=_pilot_traffic,
+                               args=(host, "north-star", n_dates, stop, log, errors), daemon=True)
+
+    def audited_reload(*a, **k):  # each promotion's engine: one capture a bucket
+        if not traffic.is_alive() and not stop.is_set():
+            traffic.start()  # the first promotion runs under the submitter's traffic
+            while len(log) < 4 and traffic.is_alive():  # served by the incumbent first
+                time.sleep(0.005)
+        with serve_audit:
+            v = orig_reload(*a, **k)
+        reload_deltas.append(serve_audit.deltas()["serve_bucket"])
+        return v
+
+    host.reload_tenant = audited_reload
+    try:
+        host.add_tenant("north-star", inc)
+        host.evaluate("north-star", 0, *_host_rows(8, 1, 0))  # activated before the cycle
+        # the gate's validation set: the incumbent's pinned spec at fewer
+        # replicates (a cut of depth: each replicate is a 364-step scan of 2,048
+        # paths, and a promotion replays the set on both engines)
+        spec = dataclasses.replace(inc_policy.validation, replicates=PILOT_REPLICATES)
+        ctl = PilotController(host, cfg, train_fn, hub=hub, validation=spec)
+        v0 = host.stats()["north-star"]["version"]
+        evs = [e for e in ctl.poll(calibration_prices=shifted) if e.source == "calibration"]
+        check(bool(evs) and hub.accept(evs[0]),  # orp: noqa[ORP014] -- the debounce door, not a socket
+              "[pilot] (b) the shifted market fires a calibration trigger through the hub")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        counts.reset()
+        t0 = time.perf_counter()
+        try:
+            out_b = ctl.run_cycle(evs[0], shifted)
+            out["cycle_s"] = time.perf_counter() - t0
+            n_after = len(log) + 4
+            while len(log) < n_after and traffic.is_alive():  # traffic on the promoted engine
+                time.sleep(0.005)
+        finally:
+            stop.set()
+            if traffic.is_alive():
+                traffic.join(timeout=600)
+        check(not traffic.is_alive() and not errors and len(log) >= 8,
+              f"[pilot] (b) the submitter ran clean through the swap ({len(log)} results, "
+              f"{errors})")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        got = counts.read()
+        out["k1_launches"], out["k2_launches"] = got["fused_gbm"], got["mixed_head"]
+        check(got["fused_gbm"] == 1 and got["mixed_head"] >= 1
+              and all(v == 0 for k, v in got.items() if k not in ("fused_gbm", "mixed_head")),
+              f"[pilot] (b) the cycle: K1 once (the retrain), K2 on the mixed-date lane, no "
+              f"other kernel ({got})")
+        check(out_b["outcome"] == "promoted" and host.stats()["north-star"]["version"] == v0 + 1,
+              f"[pilot] (b) the calibration cycle promoted ({out_b['outcome']})")
+        candidate = pathlib.Path(out_b["candidate"])
+        engines = {"incumbent": HedgeEngine(load_bundle(inc), device=dev),
+                   "candidate": HedgeEngine(load_bundle(candidate), device=dev)}
+        served = _pilot_served(log, engines)
+        out["rows_lost"] = served["submitted"] - served["served"]
+        check(out["rows_lost"] == 0 and served["rows"]["incumbent"] > 0
+              and served["rows"]["candidate"] > 0,
+              f"[pilot] (b) rows_lost 0 through the swap ({served['served']:,} of "
+              f"{served['submitted']:,}; {served['rows']['incumbent']:,} rows on the incumbent, "
+              f"{served['rows']['candidate']:,} on the candidate, each bitwise its engine)")
+        shifted_b = calibrate_window(shifted[-160:], vol_window=40, n_boot=32,
+                                     seed=0).fit.params.b
+        print(f"[pilot] (b) calibration cycle at {PILOT_PATHS:,} paths x {N_STEPS} steps: b "
+              f"{calm_win.fit.params.b:.4f} -> {shifted_b:.4f}, promoted version "
+              f"{host.stats()['north-star']['version']}; time to promote "
+              f"{out_b['elapsed_s']:.3f} s (the cycle {out['cycle_s']:.3f} s); K1 "
+              f"{out['k1_launches']}, K2 {out['k2_launches']} launch(es); rows "
+              f"{served['served']:,} of {served['submitted']:,} served, bitwise | {card}",
+              flush=True)
+        out["time_to_promote_s"] = out_b["elapsed_s"]
+
+        # the manual cycle: killed after step 1, resumed by a fresh controller
+        journal_append(ctl.journal_path, {"kind": "trigger_request", "source": "manual",
+                                          "tenant": "north-star", "reason": "smoke: manual"})
+        clk[0] += 10_000.0
+        man = [e for e in ctl.poll() if e.source == "manual"]
+        check(bool(man) and hub.accept(man[0]),  # orp: noqa[ORP014] -- the debounce door, not a socket
+              "[pilot] (b) the journaled manual request surfaces as a trigger")
+        killed = False
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the kill warns by design
+            try:
+                with guard.faults(guard.FaultPlan(kill_after_step=1)):
+                    ctl.run_cycle(man[0], shifted)
+            except guard.WalkKilled:
+                killed = True
+        check(killed, "[pilot] (b) the manual cycle's retrain was killed after step 1")
+        t0 = time.perf_counter()
+        out_c = PilotController(host, cfg, train_fn, hub=hub, validation=spec).resume()
+        out["resume_s"] = time.perf_counter() - t0
+        recs, problems = read_journal(ctl.journal_path)
+        train_rec = [r for r in recs if r.get("kind") == "transition"
+                     and r.get("cycle") == out_c["cycle"] and r.get("state") == "training"][-1]
+        ref = train_fn(_window_from_meta(train_rec["calibration"]),
+                       warm_params(load_bundle(train_rec["incumbent"])), None)
+        promoted = load_bundle(out_c["candidate"])
+        want, have = ref.backward.params1_by_date, promoted.backward.params1_by_date
+        bits = sorted(want) == sorted(have) and all(
+            torch.equal(want[k].cpu(), have[k].cpu()) for k in want)
+        check(out_c["outcome"] == "promoted" and bits and not problems,
+              f"[pilot] (b) resumed cycle {out_c['cycle']}: {out_c['outcome']}, the promoted "
+              f"params bitwise an uninterrupted run's ({bits})")
+        cv = chain_verify(root / "promotions.jsonl")
+        verdicts = [r.get("action") for r in read_chain(root / "promotions.jsonl")]
+        check(cv["ok"] and verdicts == ["promote", "promote"],
+              f"[pilot] (b) the chain verifies: {verdicts}")
+        check(all(d["fit_epoch"] == 0 and d["gn_iteration"] <= 2 and d["nvcc"] <= 1
+                  for d in walk_deltas) and len(walk_deltas) >= 3,
+              f"[pilot] (b) CompileAudit: the walks' captures and builds within budget "
+              f"({walk_deltas})")
+        check(all(x <= serve_audit.report()["budgets"]["serve_bucket"] for x in reload_deltas),
+              f"[pilot] (b) CompileAudit: each promotion's engine at most one capture a bucket "
+              f"({reload_deltas})")
+        out["stages"] = {c: _pilot_stages(recs, c) for c in (out_b["cycle"], out_c["cycle"])}
+        out["capture_fallbacks"] = bundle_exec.FALLBACKS["capture"] - fb0["capture"]
+        out["set_fallbacks"] = bundle_exec.FALLBACKS["set"] - fb0["set"]
+        print(f"[pilot] (b) manual cycle killed after step 1, resumed by a fresh controller "
+              f"in {out['resume_s']:.3f} s: promoted, bitwise an uninterrupted run; chain "
+              f"{verdicts}; journaled stage seconds {out['stages']}; CompileAudit walks "
+              f"{walk_deltas}, promotions' bucket captures "
+              f"{reload_deltas}; capture fallbacks {out['capture_fallbacks']} (set refusals "
+              f"{out['set_fallbacks']}) | {card}", flush=True)
+
+        # -- (c) doctor_report on the card ------------------------------------
+        led = root / "ledger.jsonl"
+        perf.ledger_append(led, perf.make_record("pilot", "cycle", [out["cycle_s"]]))
+        t0 = time.perf_counter()
+        rep = doctor_report(out_c["candidate"], perf=str(led), quality=out_c["candidate"],
+                            pilot=ctl.journal_path, device=dev)
+        out["doctor_s"] = time.perf_counter() - t0
+        for c in rep["checks"]:
+            print(f"[pilot] (c) doctor {c['check']}: {'ok' if c['ok'] else 'FAIL'} — "
+                  f"{c['detail']}", flush=True)
+        by = {c["check"]: c for c in rep["checks"]}
+        check(rep["ok"] and "PEAK_TABLE covers" in by["perf_peaks"]["detail"],
+              "[pilot] (c) doctor_report ok on the card, perf_peaks covered by the H100 row")
+        torn = root / "torn.jsonl"
+        torn.write_text("{broken\n" + pathlib.Path(ctl.journal_path).read_text())
+        row = {c["check"]: c for c in doctor_report(pilot=torn, device=dev)["checks"]}[
+            "pilot_journal"]
+        check(not row["ok"] and "move the corrupt file aside" in row.get("fix", ""),
+              f"[pilot] (c) a torn journal middle fails pilot_journal in flag-speak: "
+              f"{row['detail']} / {row.get('fix')}")
+        print(f"[pilot] (c) doctor_report {out['doctor_s']:.2f} s; torn middle: "
+              f"{row.get('fix')} | {card}", flush=True)
+
+        # -- (d) K1 and K2 at this path's shapes against their plain versions
+        sigma = float(_window_from_meta(train_rec["calibration"]).fit.sigma0)
+        kw = dict(s0=100.0, drift=0.08, sigma=sigma, dt=1.0 / N_STEPS, seed=OOS_SEED,
+                  store_every=STORE, device=dev)
+        k1 = fused_gbm.gbm_log_fused(PILOT_PATHS, N_STEPS, **kw)
+        a, b = _events(dev)
+        k1_plain = fused_gbm.gbm_log_plain(PILOT_PATHS, N_STEPS, **kw)
+        out["k1_plain_ms"] = _elapsed(dev, a, b)
+        out["k1_err"] = max_err(k1, k1_plain)
+        check(bool(torch.allclose(k1, k1_plain, rtol=3e-5, atol=0.0)),
+              f"[pilot] (d) K1 at sigma {sigma:.4f} within rtol 3e-5 of gbm_log_plain")
+        del k1, k1_plain
+        out["k1_ms"] = cuda_ms(lambda: fused_gbm.gbm_log_fused(PILOT_PATHS, N_STEPS, **kw),
+                               reps=10)
+        out["k1_bound"] = k1_bound_ms(PILOT_PATHS, N_STEPS, STORE)
+        m = promoted.model
+        p = {k: v.to(dev) for k, v in promoted.backward.params1_by_date.items()}
+        d_t = torch.from_numpy((np.arange(PILOT_MIXED_ROWS) * 7 % n_dates).astype(np.int32)).to(dev)
+        f_t = torch.from_numpy(_host_rows(PILOT_MIXED_ROWS, 1, 2000)[0]).to(dev)
+        packed = megakernel.pack_head_params(m, p)
+        kern = megakernel.mixed_head_forward(m, p, d_t, f_t, packed=packed)
+        plain = megakernel.mixed_head_plain(m, p, d_t, f_t)
+        out["k2_err"] = max_err(kern, plain)
+        check(bool(torch.allclose(kern, plain, rtol=1e-5, atol=1e-6)),
+              f"[pilot] (d) K2 on the promoted params at {PILOT_MIXED_ROWS} rows within rtol "
+              "1e-5 of mixed_head_plain")
+        out["k2_ms"] = cuda_ms(lambda: megakernel.mixed_head_forward(m, p, d_t, f_t,
+                                                                     packed=packed), reps=200)
+        out["k2_plain_ms"] = cuda_ms(lambda: megakernel.mixed_head_plain(m, p, d_t, f_t),
+                                     reps=20)
+        out["k2_bound"] = k2_bound_ms(m, PILOT_MIXED_ROWS, n_dates)
+        print(f"[pilot] (d) K1 {out['k1_ms']:.4f} ms (max |kernel - plain| "
+              f"{out['k1_err']:.2e}, plain {out['k1_plain_ms']:.2f} ms, bound "
+              f"{out['k1_bound'][0]:.4f} ms by {out['k1_bound'][1]}); K2 {out['k2_ms']:.4f} ms "
+              f"(max |kernel - plain| {out['k2_err']:.2e}, plain {out['k2_plain_ms']:.3f} ms, "
+              f"bound {out['k2_bound'][0]:.6f} ms by {out['k2_bound'][1]}) | {card}", flush=True)
+    finally:
+        host.close()
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[pilot] the phase {out['phase_s']:.2f} s (the drill {out['drill_s']:.2f} s, the "
+          f"full-width cycle {out['cycle_s']:.2f} s, the resume {out['resume_s']:.2f} s, "
+          f"doctor {out['doctor_s']:.2f} s); capture fallbacks {out['capture_fallbacks']} "
+          f"| {card}", flush=True)
+    return out
+
+
+def _events(dev):
+    """A started CUDA-event pair (None on the CPU, for a host-clock rehearsal)."""
+    import torch
+
+    if dev.type != "cuda":
+        return None, time.perf_counter()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    return a, b
+
+
+def _elapsed(dev, a, b) -> float:
+    import torch
+
+    if dev.type != "cuda":
+        return (time.perf_counter() - b) * 1e3
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+#: [mesh] (b)'s depth: the gloo ranks' walk at GN 3 + 51 x 1 (first date, warm
+#: dates) and their exact-thinning run at 50 of [exact]'s 1,000 steps
+MESH_GLOO_ITERS = (3, 1)
+MESH_GLOO_PENSION_STEPS = 50
 
 
 def mesh_tool():
@@ -3618,12 +4074,14 @@ def mesh_phases(dev, exact_n) -> dict:
         the sharded engine on the committed north-star policy at buckets 1 to
         1,048,576, bitwise the unsharded one;
     (b) four ``gloo`` ranks sharing the card, 262,144 paths each: the host-loop
-        walk, ``v0_cv`` within ``rtol=1e-5`` and the network ``v0`` within 10%
-        of the single-device walk; the sharded engine bitwise per bucket;
-        ``fused=True`` refused under ``gloo`` and ``engine="pallas"`` refused
-        with a mesh, in the reference's words; exact thinning at 262,144 x
-        250 steps a rank (the first quarter of [exact]'s grid), the four blocks
-        concatenated bitwise the first 11 knots of [exact]'s one-process run.
+        walk at GN ``MESH_GLOO_ITERS`` (3 + 51 x 1: a cut of depth, the four
+        processes share one card), ``v0_cv`` within ``rtol=1e-5`` and the
+        network ``v0`` within 10% of the same walk without a mesh; the sharded
+        engine bitwise per bucket; ``fused=True`` refused under ``gloo`` and
+        ``engine="pallas"`` refused with a mesh, in the reference's words;
+        exact thinning at 262,144 x ``MESH_GLOO_PENSION_STEPS`` (50) steps a
+        rank (the start of [exact]'s grid), the four blocks concatenated
+        bitwise the first 3 knots of [exact]'s one-process run.
 
     The mesh path runs no kernel (the JAX package's runs none): each rank
     reports its kernels' launch counters, all 0."""
@@ -3650,6 +4108,15 @@ def mesh_phases(dev, exact_n) -> dict:
               f"{refs[fused].report.v0_cv!r}, v0_acv {refs[fused].report.v0_acv!r}, "
               f"{wall:.3f} s", flush=True)
     walk = {"sim": sim, "train": train}
+    # (b)'s walk: the same paths, dates and engine at GN 3 + 51 x 1 (a cut of
+    # depth: four processes share the card), held to the same walk without a
+    # mesh in this process
+    gloo_train = dict(train, gn_iters_first=MESH_GLOO_ITERS[0],
+                      gn_iters_warm=MESH_GLOO_ITERS[1])
+    gloo_ref, wall = timed(lambda: european_hedge(EuropeanConfig(), SimConfig(**sim),
+                                                  TrainConfig(**gloo_train)))
+    print(f"[mesh] no mesh, host loop at GN {MESH_GLOO_ITERS[0]} + 51 x {MESH_GLOO_ITERS[1]}: "
+          f"v0_cv {gloo_ref.report.v0_cv!r}, {wall:.3f} s", flush=True)
     sizes = [1, 7, 33] + [1 << k for k in range(3, 21)]
     engine = {"bundle": str(NORTH_STAR_POLICY), "sizes": sizes}
     out = {}
@@ -3659,8 +4126,7 @@ def mesh_phases(dev, exact_n) -> dict:
     # -- (a) NCCL over every visible card ----------------------------------------
     world = torch.cuda.device_count()
     t0 = time.perf_counter()
-    res = ranks.launch(world, {"walks": [dict(walk, repeat=2),
-                                         dict(walk, train=dict(train, fused=True), repeat=2)],
+    res = ranks.launch(world, {"walks": [walk, dict(walk, train=dict(train, fused=True))],
                                "engine": engine, "sync_check": True}, work / "nccl",
                        device="cuda", backend="nccl", timeout=300)
     out["nccl_s"] = time.perf_counter() - t0
@@ -3683,7 +4149,7 @@ def mesh_phases(dev, exact_n) -> dict:
                 f"{'bitwise' if bitwise else 'rtol 1e-5'}")
         walls = res[0]["walks"][i]["seconds"]
         out[f"nccl_{'fused' if fused else 'host'}_s"] = walls[-1]
-        print(f"[mesh] (a) {what}: {walls[0]:.3f} s cold, {walls[1]:.3f} s warm (no mesh "
+        print(f"[mesh] (a) {what}: {walls[0]:.3f} s, the rank's first walk (no mesh "
               f"{'fused' if fused else 'host loop'} above)", flush=True)
     for r in res:
         eng = r["engine"]
@@ -3692,18 +4158,20 @@ def mesh_phases(dev, exact_n) -> dict:
             f"{len(sizes)} sizes, buckets {eng['buckets'][1]} to {eng['buckets'][1 << 20]}")
 
     # -- (b) four gloo ranks sharing the card ------------------------------------
-    # the first quarter of [exact]'s grid (the same dt): exact thinning is
-    # addressed by (seed, step, path), so its knots are [exact]'s first ones
-    spec = {"n_paths": N_FULL, "T": 2.5, "n_steps": PENSION_STEPS // 4,
+    # the start of [exact]'s grid (the same dt): exact thinning is addressed
+    # by (seed, step, path), so its knots are [exact]'s first ones
+    spec = {"n_paths": N_FULL, "T": 10.0 * MESH_GLOO_PENSION_STEPS / PENSION_STEPS,
+            "n_steps": MESH_GLOO_PENSION_STEPS,
             "kw": dict(PENSION, store_every=PENSION_STORE, binomial_mode="exact", seed=1234)}
     t0 = time.perf_counter()
-    res = ranks.launch(4, {"walks": [walk], "engine": engine, "refusals": walk,
+    res = ranks.launch(4, {"walks": [dict(walk, train=gloo_train)], "engine": engine,
+                           "refusals": walk,
                            "pension": spec}, work / "gloo", device="cuda", backend="gloo",
                        timeout=600)
     out["gloo_s"] = time.perf_counter() - t0
     say(all(v == 0 for r in res for v in r["kernel_launches"].values()),
         "[mesh] (b) the mesh path launches no kernel on any rank")
-    ref = refs[False]
+    ref = gloo_ref
     for r in res:
         w = r["walks"][0]
         say(w["values"].shape[0] == N_FULL // 4, f"[mesh] (b) rank {r['rank']} holds "
@@ -3746,13 +4214,16 @@ def main() -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, str(HERE))
+    import tempfile
+
     import numpy as np
 
     from orp_tpu_torch import HESTON_WALK, NORTH_STAR_POLICY
     from orp_tpu_torch.api import (EuropeanConfig, HestonConfig, SimConfig, TrainConfig,
                                    european_hedge, european_oos, heston_hedge, heston_oos)
     from orp_tpu_torch.qmc import fused_gbm, fused_mf
-    from orp_tpu_torch.serve import HedgeEngine, load_bundle, megakernel, save_bundle
+    from orp_tpu_torch.serve import (HedgeEngine, export_bundle, load_bundle, megakernel,
+                                     save_bundle)
     from orp_tpu_torch.serve.bundle import model_meta
     from orp_tpu_torch.serve.precision import BF16_RULE, bf16_agreement
     from orp_tpu_torch.train import backward, gn
@@ -3791,12 +4262,16 @@ def main() -> int:
     gbm_kw = dict(s0=100.0, drift=0.08, sigma=0.15, dt=1.0 / N_STEPS, seed=OOS_SEED,
                   store_every=STORE, device=dev)
     k1_err = 0.0
+    plain_ms = {}  # each plain version's main-path shape, timed in its check (one run)
     # 33 paths: one lane in a second warp; 2,097,185: a partial last warp and
     # index bits above 2^21 (the kernel's warp part and lane part)
     for n in (33, 65_536, N_FULL, N_K1_WIDE):
         got = fused_gbm.gbm_log_fused(n, N_STEPS, **gbm_kw)
         torch.cuda.synchronize()
+        a, b = _events(dev)
         want = fused_gbm.gbm_log_plain(n, N_STEPS, **gbm_kw)
+        if n == N_FULL:
+            plain_ms["fused_gbm"] = _elapsed(dev, a, b)
         torch.cuda.synchronize()
         check(got.shape == (n, N_STEPS // STORE + 1), f"K1 shape {tuple(got.shape)}")
         torch.testing.assert_close(got, want, rtol=3e-5, atol=0.0)
@@ -3823,7 +4298,10 @@ def main() -> int:
         for n in (65_536, N_FULL):
             got = fused(n, N_STEPS, **heston_kw)
             torch.cuda.synchronize()
+            a, b = _events(dev)
             want = plain(n, N_STEPS, **heston_kw)
+            if n == N_FULL:
+                plain_ms["heston_" + scheme] = _elapsed(dev, a, b)
             torch.cuda.synchronize()
             for k in ("S", "v"):
                 check(got[k].shape == (n, N_STEPS // STORE + 1), f"K3 {scheme} {k} shape")
@@ -3999,6 +4477,8 @@ def main() -> int:
     torch.cuda.synchronize()
     euro_s = time.perf_counter() - t1
     launches["fused_gbm"] = counts.only("fused_gbm", "the 1M-path european_hedge")
+    pilot_incumbent = pathlib.Path(tempfile.mkdtemp(prefix="orp-north-star-")) / "bundle"
+    export_bundle(eh, pilot_incumbent)  # [pilot]'s incumbent, served and retrained at the end
     erep = eh.report
     euro_bp = (erep.v0_acv - bs) / bs * 1e4
     check(all(math.isfinite(x) for x in report_fields(erep)), "european_hedge report finite")
@@ -4189,33 +4669,35 @@ def main() -> int:
     launches["mixed_head_host"] = hosted["k2_launches"]
     gated = gateway_phases(dev, counts)
     launches["mixed_head_gateway"] = gated["k2_launches"]
-    plane = aot_plane_phases(dev, counts)
+    # [pilot] runs beside the compile-and-perf plane's background builds
+    plane = aot_plane_phases(dev, counts,
+                             beside=lambda: pilot_phases(dev, counts, pilot_incumbent))
     launches["fused_gbm_profile"] = plane["profile_k1"]
     launches["mixed_head_bench"] = plane["bench_k2"]
+    piloted = plane.pop("beside")
+    launches["fused_gbm_pilot"] = piloted["k1_launches"]
+    launches["mixed_head_pilot"] = piloted["k2_launches"]
 
     # -- 19. times at the main paths' shapes ----------------------------------
     k1 = lambda: fused_gbm.gbm_log_fused(N_FULL, N_STEPS, **gbm_kw)  # noqa: E731
-    k1_plain = lambda: fused_gbm.gbm_log_plain(N_FULL, N_STEPS, **gbm_kw)  # noqa: E731
     qe = lambda: fused_mf.heston_qe_fused(N_FULL, N_STEPS, **heston_kw)  # noqa: E731
-    qe_plain = lambda: fused_mf.heston_qe_plain(N_FULL, N_STEPS, **heston_kw)  # noqa: E731
     eu = lambda: fused_mf.heston_log_fused(N_FULL, N_STEPS, **heston_kw)  # noqa: E731
-    eu_plain = lambda: fused_mf.heston_log_plain(N_FULL, N_STEPS, **heston_kw)  # noqa: E731
     ms = {}
-    ms["fused_gbm_plain"] = cuda_ms(k1_plain, reps=1, rounds=3)
+    ms["fused_gbm_plain"] = plain_ms["fused_gbm"]
     ms["fused_gbm"] = cuda_ms(k1, reps=10)
     # K2 at the north star's shape: timed in [tiers] (k2_times), on section 3's inputs
     ms["mixed_head"] = k2t["north-star"]["f32"]
     ms["mixed_head_plain"] = k2t["north-star"]["f32_plain"]
-    ms["heston_qe_plain"] = cuda_ms(qe_plain, reps=1, rounds=3)
+    ms["heston_qe_plain"] = plain_ms["heston_qe"]
     ms["heston_qe"] = cuda_ms(qe, reps=10)
-    ms["heston_euler_plain"] = cuda_ms(eu_plain, reps=1, rounds=3)
+    ms["heston_euler_plain"] = plain_ms["heston_euler"]
     ms["heston_euler"] = cuda_ms(eu, reps=10)
     ms["heston_qe_2"] = cuda_ms(qe, reps=10)
     ms["fused_gbm_2"] = cuda_ms(k1, reps=10)
     ms["fused_gbm_dense"] = cuda_ms(
         lambda: fused_gbm.gbm_log_fused(N_FULL, N_STEPS, **dense_kw), reps=10)
     ms["fused_gbm_dense_plain"] = cuda_ms(
-        lambda: fused_gbm.gbm_log_plain(N_FULL, N_STEPS, **dense_kw), reps=1, rounds=3)
+        lambda: fused_gbm.gbm_log_plain(N_FULL, N_STEPS, **dense_kw), reps=1, rounds=1)
     pen_kw = dict(PENSION, dt=10.0 / PENSION_STEPS, store_every=PENSION_STORE, device=dev)
     pen = lambda: fused_mf.pension_fused(N_FULL, PENSION_STEPS,  # noqa: E731
                                          binomial_mode="inversion", **pen_kw)
@@ -4225,7 +4707,7 @@ def main() -> int:
     ms["pension_plain"] = k3c["plain_ms"]
     ms["pension_sv"] = cuda_ms(pen_sv, reps=5)
     sv_n = pen_sv()["N"]
-    sv_trips = float((sv_n[:, 0].double() - sv_n[:, -1].double()).sum())
+    sv_trips = float((sv_n[:, 0].double() - sv_n[:, -1].double()).sum())  # orp: noqa[ORP001] -- a check's reduction in f64 on the host, not a path's dtype
     ms["pension_2"] = cuda_ms(pen, reps=5)
     bounds = {"fused_gbm": k1_bound_ms(N_FULL, N_STEPS, STORE),
               "mixed_head": k2t["north-star"]["f32_bound"],
@@ -4412,6 +4894,22 @@ def main() -> int:
          "plain_ms": plane["bench_k2_times"]["f32_plain"],
          "bound_ms": plane["bench_k2_times"]["f32_bound"][0],
          "bound_by": plane["bench_k2_times"]["f32_bound"][1], "library_ms": None},
+        # K1 and K2 on the closed loop ([pilot]): the full-width calibration
+        # cycle's warm-started retrain, and the mixed-date single rows served
+        # through its swap; each held against its plain version at this path's
+        # shapes (the retrain's sigma, the promoted params)
+        {"name": "fused_gbm_pilot", "route": "cuda",
+         "source": "orp_tpu_torch/csrc/fused_mf.cu (mf_kernel<GbmLog>)",
+         "replaces": "orp_tpu/qmc/pallas_sobol.py:199", "launches": launches["fused_gbm_pilot"],
+         "max_abs_err": piloted["k1_err"], "ms": piloted["k1_ms"],
+         "plain_ms": piloted["k1_plain_ms"], "bound_ms": piloted["k1_bound"][0],
+         "bound_by": piloted["k1_bound"][1], "library_ms": None},
+        {"name": "mixed_head_pilot", "route": "cuda",
+         "source": "orp_tpu_torch/csrc/mixed_head.cu",
+         "replaces": "orp_tpu/serve/megakernel.py:85", "launches": launches["mixed_head_pilot"],
+         "max_abs_err": piloted["k2_err"], "ms": piloted["k2_ms"],
+         "plain_ms": piloted["k2_plain_ms"], "bound_ms": piloted["k2_bound"][0],
+         "bound_by": piloted["k2_bound"][1], "library_ms": None},
     ]}
     print(f"[times] the single-host serve path: 1-row latency ServeHost "
           f"{hosted['lat_host_ms']:.3f} ms vs HedgeEngine {hosted['lat_engine_ms']:.3f} ms; "
@@ -4432,6 +4930,12 @@ def main() -> int:
           f"{plane['lat_eager_ms']:.3f} ms; {N_FULL} rows replay {plane['rps_aot']:,.0f} vs "
           f"eager {plane['rps_eager']:,.0f} rows/s; degrade MTTR "
           f"{plane['degrade']['mttr_ms']:.3f} ms; [aot]..[serve-bench] {plane['phase_s']:.1f} s",
+          flush=True)
+    print(f"[times] the closed loop: drill {piloted['drill_s']:.2f} s, the full-width "
+          f"calibration cycle {piloted['cycle_s']:.2f} s (time to promote "
+          f"{piloted['time_to_promote_s']:.3f} s, 0 rows lost), resume "
+          f"{piloted['resume_s']:.2f} s, doctor_report {piloted['doctor_s']:.2f} s; capture "
+          f"fallbacks {piloted['capture_fallbacks']}; [pilot] {piloted['phase_s']:.1f} s",
           flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels))

@@ -97,7 +97,7 @@ class AotExecutable:
             return _eval_tiled(model, p1, p2, d, f, p, coc, **kw)
 
         captured, meta = aot_compile(
-            forward, date, feats, prices, label=f"eval_tiled/{bucket}",
+            forward, date, feats, prices, label=f"eval_tiled/{bucket}", site="serve_bucket",
             cost=cost_summary(model, bucket, n_heads=1 if engine.dual_mode == "mse_only" else 2,
                               precision=engine.precision.tier),
             dual_mode=engine.dual_mode, holdings_combine=engine.holdings_combine,
@@ -336,8 +336,16 @@ def aot_status(directory: str | pathlib.Path, *, mesh=None, precision: str = "f3
     return {**out, "detail": f"set {tdir.name!r} covered (buckets {buckets})"}
 
 
+#: this process's fallbacks to the eager path by kind: a bucket graph whose
+#: capture failed (``"capture"``) or a set refused before any capture
+#: (``"set"``) — read by the smoke's [pilot], which builds engines while
+#: another tenant's batcher is launching
+FALLBACKS = {"capture": 0, "set": 0}
+
+
 def _fallback(directory, reason: str) -> dict:
     """The one warning an unusable set gives before the engine keeps its eager path."""
+    FALLBACKS["capture" if reason.startswith("capture failed") else "set"] += 1
     warnings.warn(f"AOT set under {directory} is unusable ({reason}); serving on the eager "
                   "path (correct, but a cold start pays its builds and op-by-op dispatch)",
                   stacklevel=3)
@@ -383,5 +391,5 @@ def load_aot(directory: str | pathlib.Path, *, policy_fingerprint: str | None = 
         return {b: None for b in buckets}
     try:
         return {b: AotExecutable.capture(engine, b) for b in buckets}
-    except Exception as e:  # every failure here has one answer: the eager path
+    except Exception as e:  # orp: noqa[ORP009] -- every failure here has one answer: the eager path
         return _fallback(directory, f"capture failed: {type(e).__name__}: {e}")

@@ -140,12 +140,14 @@ class CapturedGraph:
         return self.outputs
 
 
-def aot_compile(fn, *args, label: str, cost: dict | None = None, **static_kwargs):
+def aot_compile(fn, *args, label: str, cost: dict | None = None, site: str = "aot_graph",
+                **static_kwargs):
     """Capture ``fn(*args, **static_kwargs)`` as one CUDA graph on the static
     tensors ``args``; returns ``(captured, meta)``. The warm-up call (cuBLAS
     handles, workspaces) runs on a side stream under ``aot/lower``, the
     capture under ``aot/compile``; ``meta`` carries both walls, the ``nvcc``
-    seconds inside them and ``cost``'s FLOPs and bytes."""
+    seconds inside them and ``cost``'s FLOPs and bytes. ``site`` names the
+    capture site it is counted at (``cuda_build.CAPTURE_SITES``)."""
     _need_card("aot_compile")
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     cur = torch.cuda.current_stream(dev)
@@ -166,7 +168,7 @@ def aot_compile(fn, *args, label: str, cost: dict | None = None, **static_kwargs
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 outputs = fn(*args, **static_kwargs)
         t2 = time.perf_counter()
-        cuda_build.count_capture(t2 - t1)
+        cuda_build.count_capture(t2 - t1, site=site)
     meta = {"fn": label, "lower_wall_s": round(t1 - t0, 6),
             "compile_wall_s": round(t2 - t1, 6),
             "backend_compile_s": round(mon.seconds - (t2 - t1), 6), **(cost or {})}
@@ -175,7 +177,7 @@ def aot_compile(fn, *args, label: str, cost: dict | None = None, **static_kwargs
     obs_count("aot/compiles", fn=label)
     for key in ("flops", "bytes_accessed"):
         if key in meta:
-            obs_set_gauge(f"aot_{key}", meta[key], fn=label)
+            obs_set_gauge(f"aot_{key}", meta[key], fn=label)  # orp: noqa[ORP015] -- the name set is the two-element literal tuple above (aot_flops / aot_bytes_accessed): bounded by construction
     return CapturedGraph(graph, args, outputs), meta
 
 

@@ -71,7 +71,7 @@ from orp_tpu_torch.utils.device import resolve_device
 from orp_tpu_torch.utils.fingerprint import verify_policy_compat
 from orp_tpu_torch.utils.precision import full_f32
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}  # orp: noqa[ORP001] -- the walk's dtype table must name every dtype a config may ask for
 
 
 def _check_pallas(sim: SimConfig, mesh, name: str) -> None:

@@ -388,7 +388,7 @@ def profile_serve(bundle, *, quick: bool = False, n_requests: int = 200,
             roofline = {"bucket": headline, **cost, "device_s_median": round(med, 6),
                         **_perf.roofline(cost["flops"], cost.get("bytes_accessed"), med,
                                          precision=engine.precision.tier)}
-    except Exception as e:  # the degradation is recorded in the record's roofline field
+    except Exception as e:  # orp: noqa[ORP009] -- the degradation is recorded in the record's roofline field
         roofline = {"error": f"{type(e).__name__}: {e}"}
     return {"workload": "serve", "n_requests": int(n_requests),
             "batch_sizes": list(batch_sizes), "quick": bool(quick),

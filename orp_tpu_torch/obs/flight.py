@@ -152,7 +152,7 @@ class FlightRecorder:
         # concurrent dumper never sees a half-written black box
         with self._dump_lock:
             tmp = path.with_name(path.name + ".tmp")
-            tmp.write_text("\n".join(lines) + "\n")  # _dump_lock serializes the writes
+            tmp.write_text("\n".join(lines) + "\n")  # orp: noqa[ORP021] -- _dump_lock EXISTS to serialize black-box file writes; hot-path record() takes _lock, never this one
             tmp.replace(path)
         with self._lock:
             self.dumps += 1

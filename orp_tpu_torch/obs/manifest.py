@@ -85,7 +85,7 @@ def build_manifest(*, run_fingerprint: str | None = None,
         m["cuda_version"] = torch.version.cuda
         m["platform"] = "gpu" if torch.cuda.is_available() else "cpu"
         m["device_count"] = torch.cuda.device_count()
-    except Exception as e:  # the error is recorded: provenance must not kill the run
+    except Exception as e:  # orp: noqa[ORP009] -- the error is recorded: provenance must not kill the run
         m["torch_error"] = f"{type(e).__name__}: {e}"
     m["git"] = git_revision()
     if extra:
@@ -184,7 +184,7 @@ def chain_append(path: str | pathlib.Path, record: dict) -> dict:
         # satisfy, the very links verify checks
         stamped = {**record, "schema": CHAIN_SCHEMA, "seq": int(seq),
                    "ts_unix": time.time(), "prev": prev}
-        with open(p, "a") as f:  # the tail read + append is the critical section
+        with open(p, "a") as f:  # orp: noqa[ORP021] -- _CHAIN_LOCK exists to serialize tail-read + append; the file I/O IS the critical section
             if not ends_nl:
                 # a torn tail has no newline — never concatenate the new
                 # record onto it (that would corrupt THIS record too)

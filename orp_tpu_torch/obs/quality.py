@@ -219,7 +219,7 @@ def _sketch_tensor(cls, features) -> FeatureSketch:
     columns. Agrees with the numpy sketch to float64 rounding."""
     import torch
 
-    x = features.detach().to(torch.float64)
+    x = features.detach().to(torch.float64)  # orp: noqa[ORP001] -- the sketch's moments are accumulated in f64 on the host side, as the JAX package's numpy sketch
     if x.ndim == 1:
         x = x[:, None]
     x = x.reshape(-1, x.shape[-1])

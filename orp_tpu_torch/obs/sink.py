@@ -115,7 +115,7 @@ class JsonlSink:
         lands mid-line)."""
         with self._lock:
             if not self._f.closed:
-                self._f.flush()  # under the lock: it excludes concurrent writers and close
+                self._f.flush()  # orp: noqa[ORP021] -- the lock guards the file handle itself; flush must exclude concurrent writers and close
 
     def close(self) -> None:
         with self._lock:

@@ -344,5 +344,5 @@ def replicate_from_first(value: float, mesh, device) -> float:
     ranks add 0), for a host decision that must agree across ranks."""
     if mesh is None:
         return value
-    t = torch.tensor([value if mesh_rank(mesh) == 0 else 0.0], dtype=torch.float64)
+    t = torch.tensor([value if mesh_rank(mesh) == 0 else 0.0], dtype=torch.float64)  # orp: noqa[ORP001] -- a host scalar summed across ranks in f64 so the reduction is exact to the caller's float
     return float(path_sum(t.to(device), mesh).cpu()[0])

@@ -35,7 +35,7 @@ N_BITS = 32
 MASK = 0xFFFFFFFF
 # min(31, mantissa bits): the largest bucket count whose top centre stays
 # below 1.0 after rounding in that dtype
-_BUCKET_BITS = {torch.float32: 23, torch.float64: 31, torch.bfloat16: 7}
+_BUCKET_BITS = {torch.float32: 23, torch.float64: 31, torch.bfloat16: 7}  # orp: noqa[ORP001] -- the bucket table must name every dtype a caller may ask for
 
 
 @functools.cache

@@ -716,7 +716,7 @@ class MicroBatcher:
                 else:
                     g.pending = self._dispatch_planned(g.date_idx, g.feats,
                                                        g.prices)
-            except Exception as e:  # delivered to every future in the group by _resolve
+            except Exception as e:  # orp: noqa[ORP009] -- delivered to every future in the group by _resolve
                 g.error = e
                 continue
             # counters record AFTER the dispatch succeeds: a group whose
@@ -740,7 +740,7 @@ class MicroBatcher:
         try:
             g.feats, g.prices = feats, prices
             g.pending = self._dispatch_planned(g.date_idx, feats, prices)
-        except Exception as e:  # delivered to the block's future by _resolve
+        except Exception as e:  # orp: noqa[ORP009] -- delivered to the block's future by _resolve
             g.error = e
             return g
         if blk.trace is not None:
@@ -791,7 +791,7 @@ class MicroBatcher:
             else:
                 g.pending = self._dispatch_planned(date_idx, g.feats,
                                                    g.prices)
-        except Exception as e:  # delivered to every block future by _resolve
+        except Exception as e:  # orp: noqa[ORP009] -- delivered to every block future by _resolve
             g.error = e
             return g
         now = time.perf_counter()

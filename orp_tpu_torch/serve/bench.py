@@ -24,7 +24,7 @@ ingest lanes (:func:`ingest_phase` over :func:`columnar_level`,
 with the tracing, drift and device-attribution bills :func:`trace_overhead`,
 :func:`_drift_overhead` and :func:`_profile_overhead`). Each phase gates what
 it measures and RAISES when a gate fails: a record returned is a record
-whose gates passed. The pilot drill waits for ``pilot/`` (ROADMAP A9.5).
+whose gates passed. The closed-loop pilot drill is :func:`_pilot_phase`.
 
 The reference records ``xla_compiles`` from its engine's counter; the port
 compiles no XLA programs and reports its own counters instead
@@ -102,7 +102,7 @@ def precision_phase(policy, *, rows: int, repeats: int, seed: int, device=None,
             bitwise = bool(np.array_equal(phi, ref[0]) and np.array_equal(psi, ref[1]))
         band = PRECISION_BANDS[tier]
         if max(dphi, dpsi) > band or (tier == "f32" and not bitwise):
-            raise RuntimeError(
+            raise RuntimeError(  # orp: noqa[ORP016] -- bench harness gate: a record refused on a violated band is never committed, and the raise carries the measured values
                 f"precision band violated: tier {tier!r} served max|dphi|={dphi:.3g} "
                 f"max|dpsi|={dpsi:.3g} against the f32 tier (band {band:g}"
                 f"{', bitwise' if tier == 'f32' else ''})")
@@ -481,14 +481,14 @@ def ingest_phase(policy, *, rows: int, block_sizes, seed: int, max_wait_us: floa
     for _ in range(max(1, int(repeats))):
         with MicroBatcher(engine, max_batch=top, max_wait_us=max_wait_us) as mb:
             t0 = time.perf_counter()
-            futures = [mb.submit(0, feats[i:i + 1]) for i in range(rows)]
+            futures = [mb.submit(0, feats[i:i + 1]) for i in range(rows)]  # orp: noqa[ORP013] -- this loop IS the per-request lane being measured (the ceiling the columnar lane is compared against)
             t1 = time.perf_counter()
             got = [f.result(timeout=120) for f in futures]
             t_done = time.perf_counter()
         pin(np.concatenate([g[0] for g in got]), np.concatenate([g[1] for g in got]),
             "per_request")
-        pr_submit.append((t1 - t0) / rows * 1e9)
-        pr_rate.append(rows / (t_done - t0))
+        pr_submit.append((t1 - t0) / rows * 1e9)  # orp: noqa[ORP013] -- one append per REPEAT, not per row
+        pr_rate.append(rows / (t_done - t0))  # orp: noqa[ORP013] -- one append per REPEAT, not per row
     pr_sub = summarize_repeats(pr_submit)
     per_request = {"rows": rows, "repeats": pr_sub["repeats"],
                    "submit_ns_per_row": pr_sub["median"], "submit_ns_per_row_iqr": pr_sub["iqr"],
@@ -581,7 +581,7 @@ def coalesce_pin(engine, feats, *, blocks: int, block_rows: int, max_wait_us: fl
             raise RuntimeError("coalesced block replies are NOT bitwise the uncoalesced "
                                "dispatch's — the per-origin slice bookkeeping is broken")
     if not out["dispatches_coalesced"] < out["dispatches_uncoalesced"]:
-        raise RuntimeError(f"coalescing merged nothing: {out['dispatches_coalesced']} dispatches "
+        raise RuntimeError(f"coalescing merged nothing: {out['dispatches_coalesced']} dispatches "  # orp: noqa[ORP016] -- a count, not a measured float: coalescing merged nothing is a broken lane, and the raise carries both counts
                            f"for {blocks} blocks (uncoalesced {out['dispatches_uncoalesced']})")
     return {"blocks": int(blocks), "block_rows": int(block_rows), **out, "bitwise_equal": True}
 
@@ -686,7 +686,7 @@ def fleet_phase(policy, *, replica_counts=(1, 2, 4), gateways: int = 2, tenants:
                 while len(latencies) < len(futures) and time.monotonic() < deadline:
                     lat_cv.wait(0.05)
                 if len(latencies) < len(futures):
-                    raise RuntimeError(f"{len(futures) - len(latencies)} latency stamps never "
+                    raise RuntimeError(f"{len(futures) - len(latencies)} latency stamps never "  # orp: noqa[ORP016] -- a count of lost callbacks, not a measured float; the raise carries it
                                        "arrived — a done-callback died")
             dup = sum(c.stats["duplicate_replies"] for c in clients)
             return results, latencies, dup, wall_end
@@ -956,7 +956,7 @@ def _sweep_level_once(engine, *, concurrency: int, n_requests: int, max_batch: i
                     inflight.pop(0).result(timeout=120)
             for f in inflight:
                 f.result(timeout=120)
-        except Exception as e:  # re-raised on the bench thread after the join
+        except Exception as e:  # orp: noqa[ORP009] -- re-raised on the bench thread after the join
             errors.append(e)
 
     with MicroBatcher(engine, max_batch=max_batch, max_wait_us=max_wait_us,
@@ -1204,7 +1204,7 @@ def _density_phase(policy, *, tenants: int, rows: int, max_live: int, repeats: i
             for _ in range(max(1, int(repeats))):
                 walls = []
                 for i, name in enumerate(sample):
-                    if host._tenants[name].batcher is not None:
+                    if host._tenants[name].batcher is not None:  # orp: noqa[ORP020] -- single-threaded bench harness peeking at tier state between phases; no concurrent mutator exists
                         continue  # hot: not a re-activation
                     b0 = dict(_build_stats())
                     t1 = time.perf_counter()
@@ -1325,6 +1325,302 @@ def _ragged_phase(policy, *, repeats: int, seed: int, counts=(520, 130, 17),
             "bitwise_equal": True}
 
 
+def _pilot_market(n, *, a, b, c, mu, sigma0, seed, dt=1 / 252.0):
+    """Synthetic daily prices whose rolling vol follows the CIR the
+    calibrator fits: vol mean-reverts to ``b`` at speed ``a`` with
+    vol-of-vol ``c``, prices diffuse at drift ``mu`` under it — so
+    ``calibrate_window`` recovers the generator up to estimator noise and
+    a regime shift is literally a change of ``b``."""
+    rng = np.random.default_rng(seed)
+    sig = np.empty(n)
+    sig[0] = sigma0
+    for i in range(1, n):
+        sig[i] = abs(sig[i - 1] + a * (b - sig[i - 1]) * dt
+                     + c * np.sqrt(max(sig[i - 1], 1e-8) * dt)
+                     * rng.standard_normal())
+    ret = ((mu - 0.5 * sig[:-1] ** 2) * dt
+           + sig[:-1] * np.sqrt(dt) * rng.standard_normal(n - 1))
+    return 100.0 * np.exp(np.concatenate([np.zeros(1), np.cumsum(ret)]))
+
+
+def _pilot_phase(*, quick: bool, seed: int, device=None) -> dict:
+    """The closed-loop pilot drill (the reference's ``serve-bench --pilot``): a
+    synthetic market regime shift replayed through a LIVE host and the full
+    ``orp_tpu_torch/pilot`` loop — drift trip → recalibrate → warm-start retrain →
+    canary → promote — exercising all three trigger sources and every
+    terminal verdict:
+
+    - cycle 0 (``drift`` trigger): the retrain is sabotaged (sign-flipped
+      per-date params — finite but wrong) so the quality band REJECTS it;
+      the incumbent must keep serving bitwise-untouched and the cooldown
+      escalates (the next trigger is debounced until the window passes);
+    - cycle 1 (``calibration`` trigger): an honest warm-start retrain under
+      the shifted regime promotes through the zero-downtime swap while a
+      concurrent submitter hammers the tenant — ``rows_lost`` (submitted
+      minus served) is the contract, 0. The content-addressed checkpoint
+      dir makes this retrain a REPLAY of cycle 0's walk (the reject-then-
+      retry economics: identical inputs never retrain twice);
+    - cycle 2 (``manual`` trigger): ``FaultPlan(kill_after_step=1)`` kills
+      the pilot mid-training; a FRESH controller resumes from the journal,
+      finishes the cycle, and the promoted policy is BITWISE an
+      uninterrupted reference run's (the walk's resume guarantee carried
+      through the warm-start fingerprint).
+
+    Every verdict lands on the hash-linked promotions chain
+    (``chain_verify`` must stay green) and every transition in the
+    ``orp-pilot-v1`` journal. The drill builds its own tiny incumbent (the
+    benched ``policy``'s topology is arbitrary — a generic drill cannot
+    retrain it), so its numbers are self-contained. ``device`` (the card by
+    default) runs the walks and the host's engines."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from orp_tpu_torch import guard
+    from orp_tpu_torch.api import (EuropeanConfig, SimConfig, TrainConfig,
+                             european_hedge)
+    from orp_tpu_torch.obs import flight
+    from orp_tpu_torch.obs.manifest import chain_verify, read_chain
+    from orp_tpu_torch.pilot import (PilotConfig, PilotController, TriggerHub,
+                               bake_calibration, calibrate_window,
+                               journal_append, read_journal, warm_params)
+    from orp_tpu_torch.pilot.controller import _window_from_meta
+    from orp_tpu_torch.serve.bundle import export_bundle, load_bundle
+    from orp_tpu_torch.serve.host import ServeHost
+
+    n_paths = 256 if quick else 512
+    euro = EuropeanConfig()
+    sim = SimConfig(n_paths=n_paths, T=1.0, dt=1 / 8, rebalance_every=2)
+    first = TrainConfig(dual_mode="mse_only",
+                        epochs_first=12 if quick else 20,
+                        epochs_warm=6 if quick else 10)
+    retrain = TrainConfig(dual_mode="mse_only",
+                          epochs_first=6 if quick else 8,
+                          epochs_warm=3 if quick else 4)
+    calib_window = 160
+    n_boot = 12 if quick else 24
+    workdir = pathlib.Path(tempfile.mkdtemp(prefix="orp-pilot-drill-"))
+    try:
+        t_build = time.perf_counter()
+        incumbent = european_hedge(euro, sim, first, device=device)
+        inc_dir = workdir / "incumbent"
+        export_bundle(incumbent, inc_dir)
+        # the calm-regime band the shifted fit must leave: baked into the
+        # incumbent exactly as an exporting cycle would bake its own
+        calm = _pilot_market(240, a=4.0, b=0.15, c=0.2, mu=0.08,
+                             sigma0=0.15, seed=seed)
+        calm_win = calibrate_window(calm[-calib_window:], vol_window=40,
+                                    n_boot=n_boot, seed=seed)
+        bake_calibration(inc_dir, calm_win)
+        build_s = time.perf_counter() - t_build
+
+        # the regime shift: long-run vol triples (b 0.15 -> 0.45)
+        shifted = _pilot_market(calib_window + 16, a=4.0, b=0.45, c=0.3,
+                                mu=0.08, sigma0=0.4, seed=seed + 1)
+
+        clk = [0.0]  # injected cooldown clock: the drill never sleeps
+        hub = TriggerHub("desk", cooldown=guard.Cooldown(
+            cooldown_s=60.0, backoff=2.0, clock=lambda: clk[0]))
+        sabotage = [False]
+
+        def train_fn(window, warm, ckpt_dir):
+            res = european_hedge(
+                dataclasses.replace(euro, sigma=float(window.fit.sigma0)),
+                sim,
+                dataclasses.replace(retrain, checkpoint_dir=ckpt_dir),
+                warm_start=warm, device=device)
+            if sabotage[0]:
+                # finite-but-wrong: every hedge ratio inverted — exactly
+                # the candidate only the quality band can catch
+                bw = res.backward
+                res = dataclasses.replace(res, backward=dataclasses.replace(
+                    bw, params1_by_date={k: -v for k, v
+                                         in bw.params1_by_date.items()}))
+            return res
+
+        flight.RECORDER.reset()
+        chain_path = workdir / "promotions.jsonl"
+        with ServeHost(promotion_chain=chain_path,
+                       engine_kwargs={"device": device}) as host:
+            host.add_tenant("desk", inc_dir)
+            sketch = load_bundle(inc_dir).feature_sketch
+
+            def traffic(n, shift, seed_):
+                r = np.random.default_rng(seed_)
+                mean = (np.asarray(sketch.mean)
+                        + shift * np.asarray(sketch.std))
+                return (mean + np.asarray(sketch.std)
+                        * r.standard_normal((n, sketch.n_features))
+                        ).astype(np.float32)
+
+            # drifted block-lane traffic trips the serve-side monitor
+            for i in range(4):
+                host.submit_block("desk", 0,
+                                  traffic(256, 5.0, seed + 10 + i)).result()
+            trips = [e for e in flight.RECORDER.snapshot()
+                     if e.get("kind") == "drift_trip"
+                     and e.get("tenant") == "desk"]
+
+            cfg = PilotConfig(tenant="desk", workdir=str(workdir),
+                              quality_band=0.25, vol_window=40,
+                              calib_window=calib_window, n_boot=n_boot,
+                              boot_seed=seed, cooldown_s=60.0)
+            ctl = PilotController(host, cfg, train_fn, hub=hub)
+            v0 = host.stats()["desk"]["version"]
+
+            # -- cycle 0: drift trigger, sabotaged candidate -> REJECT ----
+            evs = ctl.poll(flight_events=flight.RECORDER.snapshot())
+            drift_evs = [e for e in evs if e.source == "drift"]
+            if not drift_evs or not hub.accept(  # orp: noqa[ORP014] -- TriggerHub.accept is the debounce door, not a socket
+                    drift_evs[0]):
+                raise RuntimeError(
+                    "pilot drill: the drift trip never reached the trigger "
+                    "hub — the serve-side monitor or the flight recorder "
+                    "regressed; do not commit this record")
+            sabotage[0] = True
+            out_a = ctl.run_cycle(drift_evs[0], shifted)
+            sabotage[0] = False
+            v_after_reject = host.stats()["desk"]["version"]
+            source_after_reject = str(ctl.host.tenant_source("desk"))
+
+            # -- cycle 1: calibration trigger, honest retrain -> PROMOTE --
+            # the reject escalated the cooldown: the next event is
+            # debounced until the injected clock passes the window
+            evs = ctl.poll(calibration_prices=shifted)
+            cal_evs = [e for e in evs if e.source == "calibration"]
+            debounced = int(bool(cal_evs)
+                            and not hub.accept(cal_evs[0]))  # orp: noqa[ORP014] -- debounce door, not a socket
+            clk[0] += 1000.0
+            evs = ctl.poll(calibration_prices=shifted)
+            cal_evs = [e for e in evs if e.source == "calibration"]
+            if not cal_evs or not hub.accept(  # orp: noqa[ORP014] -- TriggerHub.accept is the debounce door, not a socket
+                    cal_evs[0]):
+                raise RuntimeError(
+                    "pilot drill: the calibration shift never fired after "
+                    "the cooldown reopened — the significance gate or the "
+                    "debounce regressed; do not commit this record")
+            stop = threading.Event()
+            counts = [0, 0]  # rows submitted, rows served
+
+            def pound():
+                # natural backpressure: at most 8 futures in flight, each
+                # consumed before more are submitted
+                futs: list = []
+                while not stop.is_set():
+                    futs.append(host.submit_block(
+                        "desk", 0, traffic(64, 0.0, seed + 50)))
+                    counts[0] += 64
+                    if len(futs) >= 8:
+                        for f in futs:
+                            counts[1] += f.result(timeout=60).n_served
+                        futs = []
+                for f in futs:
+                    counts[1] += f.result(timeout=60).n_served
+
+            th = threading.Thread(target=pound, daemon=True)
+            th.start()
+            try:
+                out_b = ctl.run_cycle(cal_evs[0], shifted)
+            finally:
+                stop.set()
+                th.join(timeout=120)
+
+            # -- cycle 2: manual trigger, kill mid-training, RESUME -------
+            journal_append(ctl.journal_path,
+                           {"kind": "trigger_request", "source": "manual",
+                            "tenant": "desk",
+                            "reason": "pilot drill: manual retrain"})
+            clk[0] += 10000.0
+            evs = ctl.poll()
+            man_evs = [e for e in evs if e.source == "manual"]
+            if not man_evs or not hub.accept(  # orp: noqa[ORP014] -- TriggerHub.accept is the debounce door, not a socket
+                    man_evs[0]):
+                raise RuntimeError(
+                    "pilot drill: the journaled manual request never "
+                    "surfaced as a trigger — unconsumed-request tracking "
+                    "regressed; do not commit this record")
+            killed = False
+            t_c = time.perf_counter()
+            try:
+                with guard.faults(guard.FaultPlan(kill_after_step=1)):
+                    ctl.run_cycle(man_evs[0], shifted)
+            except guard.WalkKilled:
+                killed = True
+            if not killed:
+                raise RuntimeError(
+                    "pilot drill: the injected mid-training kill never "
+                    "fired (checkpoint dir collision? warm start did not "
+                    "change after the promote?); do not commit this record")
+            # the pilot process "restarts": a FRESH controller on the same
+            # journal picks the parked cycle up
+            out_c = PilotController(host, cfg, train_fn, hub=hub).resume()
+            resume_s = time.perf_counter() - t_c
+
+            # bitwise pin: an uninterrupted reference run of the SAME
+            # journaled window + warm start (no checkpoints, no kill) must
+            # reproduce the kill-resumed promoted policy exactly
+            recs, problems = read_journal(ctl.journal_path)
+            train_rec = [r for r in recs
+                         if r.get("kind") == "transition"
+                         and r.get("cycle") == out_c["cycle"]
+                         and r.get("state") == "training"][-1]
+            ref = train_fn(_window_from_meta(train_rec["calibration"]),
+                           warm_params(load_bundle(train_rec["incumbent"])),
+                           None)
+            promoted = load_bundle(out_c["candidate"])
+            want = ref.backward.params1_by_date
+            got = promoted.backward.params1_by_date
+            bits_equal = sorted(want) == sorted(got) and all(
+                torch.equal(want[k].cpu(), got[k].cpu()) for k in want)
+
+        cv = chain_verify(chain_path)
+        verdicts = [r.get("action") for r in read_chain(chain_path)]
+        return {
+            "quick": bool(quick),
+            "n_paths": n_paths,
+            "n_dates": int(promoted.n_dates),
+            "calib_window": calib_window,
+            "n_boot": n_boot,
+            "incumbent_build_s": round(build_s, 3),
+            "drift_trips": len(trips),
+            "debounced": debounced,
+            "trigger_sources": ["drift", "calibration", "manual"],
+            "baseline_b": round(calm_win.fit.params.b, 4),
+            "shifted_b": round(train_rec["calibration"]["fit"]["b"], 4),
+            "cycles": [
+                {"cycle": out_a["cycle"], "trigger": "drift",
+                 "outcome": out_a["outcome"], "why": out_a.get("why"),
+                 "elapsed_s": out_a["elapsed_s"]},
+                {"cycle": out_b["cycle"], "trigger": "calibration",
+                 "outcome": out_b["outcome"],
+                 "elapsed_s": out_b["elapsed_s"],
+                 "checkpoint_reuse": True},
+                {"cycle": out_c["cycle"], "trigger": "manual",
+                 "outcome": out_c["outcome"], "killed_mid_training": True,
+                 "elapsed_s": out_c["elapsed_s"]},
+            ],
+            "reject_left_incumbent": (v_after_reject == v0
+                                      and source_after_reject
+                                      == str(inc_dir)),
+            "time_to_promote_s": out_b["elapsed_s"],
+            "rows_submitted": counts[0],
+            "rows_served": counts[1],
+            "rows_lost": counts[0] - counts[1],
+            "resume": {"outcome": out_c["outcome"],
+                       "wall_s": round(resume_s, 3),
+                       "bits_equal": bool(bits_equal)},
+            "chain": {"ok": cv["ok"], "length": cv["length"],
+                      "verdicts": verdicts},
+            "journal_records": len(recs),
+            "journal_problems": len(problems),
+        }
+    finally:
+        flight.RECORDER.reset()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 #: phase blocks (and their derived headline fields) a re-run that did not
 #: re-measure them carries forward from ``previous``
 STICKY_PHASES: dict[str, tuple[str, ...]] = {
@@ -1412,13 +1708,10 @@ def serve_bench(
 
     ``prewarm=True`` asserts the warm-up contract: no bucket miss, no ``nvcc``
     run and no graph capture inside the measured window. ``pilot=True``
-    refuses until ``pilot/`` is ported. ``previous`` carries the synchronous
+    runs the closed-loop drill (:func:`_pilot_phase`, ``pilot_quick`` its
+    tier-1 size). ``previous`` carries the synchronous
     tier's baseline forward as ``batcher_before`` and the phase blocks this run
     did not re-measure (:data:`STICKY_PHASES`)."""
-    if pilot:
-        raise ValueError("serve_bench(pilot=True): the closed-loop pilot drill needs "
-                         "orp_tpu_torch/pilot/, which is not ported yet (ROADMAP A9.5) — "
-                         "drop pilot=True")
     engine = HedgeEngine(policy, mesh=mesh, device=device)
     n_features = engine.model.n_features
     rng = np.random.default_rng(seed)
@@ -1457,7 +1750,7 @@ def serve_bench(
                             "bytes_accessed": cost.get("bytes_accessed"),
                             **_perf.roofline(cost["flops"], cost.get("bytes_accessed"), med,
                                              precision=engine.precision.tier)}
-    except Exception as e:  # recorded in the record's roofline field
+    except Exception as e:  # orp: noqa[ORP009] -- recorded in the record's roofline field
         roofline_row = {"error": f"{type(e).__name__}: {e}"[:200]}
 
     bmetrics = _phase_metrics("batcher")
@@ -1559,6 +1852,30 @@ def serve_bench(
         record["density_cold_p99_ms"] = dn["activation_ms"]["cold"]["p99_ms"]
         if "warm_activation_ms" in dn:
             record["density_warm_activation_ms"] = dn["warm_activation_ms"]["median_ms"]
+    if pilot:
+        pl = _pilot_phase(quick=pilot_quick, seed=seed, device=device)
+        record["pilot"] = pl
+        # the closed-loop headlines, first-class like p99/mttr
+        record["pilot_time_to_promote_s"] = pl["time_to_promote_s"]
+        record["pilot_rows_lost"] = pl["rows_lost"]
+        outcomes = [c["outcome"] for c in pl["cycles"]]
+        if (pl["rows_lost"] or not pl["chain"]["ok"]
+                or "promoted" not in outcomes
+                or "rejected" not in outcomes
+                or not pl["reject_left_incumbent"]
+                or not pl["resume"]["bits_equal"]
+                or pl["drift_trips"] < 1):
+            # measured values recorded through obs BEFORE the verdict
+            # (ORP016): the record dict path below never runs on a raise
+            obs.count("quality/gate_trip", gate="pilot")
+            raise RuntimeError(
+                "pilot drill contract violated: "
+                f"rows_lost={pl['rows_lost']} "
+                f"chain_ok={pl['chain']['ok']} outcomes={outcomes} "
+                f"reject_left_incumbent={pl['reject_left_incumbent']} "
+                f"resume_bits_equal={pl['resume']['bits_equal']} "
+                f"drift_trips={pl['drift_trips']} — the closed loop "
+                "regressed; do not commit this record")
     if precision:
         pr = _precision_phase(policy, rows=precision_rows, repeats=repeats, seed=seed,
                               quality_band=precision_quality_band, device=device)

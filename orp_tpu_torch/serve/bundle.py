@@ -47,7 +47,7 @@ FORMAT = "orp-bundle-npz-v1"
 META = "bundle.json"
 POLICY = "policy.npz"
 METRICS = ("train_loss", "train_mae", "train_mape", "epochs_ran")
-_DTYPES = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16}  # orp: noqa[ORP001] -- serialization table must name every loadable dtype
 
 
 @dataclasses.dataclass

@@ -64,7 +64,7 @@ DEFAULT_RETRY = GuardPolicy(max_retries=29, backoff_ms=50.0,
 
 
 def _tx(sock: socket.socket, data: bytes) -> None:
-    sock.sendall(data)  # every socket entering this helper was settimeout'd at _open
+    sock.sendall(data)  # orp: noqa[ORP014] -- every socket entering this helper was settimeout'd at _open
 
 
 class _Entry:
@@ -263,7 +263,7 @@ class ResilientGatewayClient:
             def handshake_wall():
                 self._check_interrupt()
                 if time.perf_counter() - t0 > self.timeout_s:
-                    raise OSError(  # the reconnect loop that catches this counts client/reconnects + flight-records the failure with its wall
+                    raise OSError(  # orp: noqa[ORP016] -- the reconnect loop that catches this counts client/reconnects + flight-records the failure with its wall
                         f"no WELCOME within {self.timeout_s}s — the "
                         "endpoint accepts connections but does not speak "
                         "orp-ingest (dead-but-accepting)")

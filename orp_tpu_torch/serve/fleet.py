@@ -306,7 +306,7 @@ class ReplicaHealth:
         while not self._closed.wait(self.poll_s):
             try:
                 self.probe_once()
-            except Exception:  # emitted: the probe-crash counter below is the signal; the poller must outlive one bad round
+            except Exception:  # orp: noqa[ORP009] -- emitted: the probe-crash counter below is the signal; the poller must outlive one bad round
                 self._obs_count("fleet/probe_error")
 
     @staticmethod

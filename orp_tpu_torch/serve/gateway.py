@@ -104,12 +104,12 @@ def _recv_exact(sock: socket.socket, n: int, closed, clock=None,
         if (clock is not None and clock["t0"] is not None
                 and clock["wall"] is not None
                 and time.perf_counter() - clock["t0"] > clock["wall"]):
-            raise FrameStall(  # the catcher emits: the handler's stall eviction counts serve/gateway_errors{stage=stall} + the flight record with the stall wall
+            raise FrameStall(  # orp: noqa[ORP016] -- the catcher emits: the handler's stall eviction counts serve/gateway_errors{stage=stall} + the flight record with the stall wall
                 f"partial frame stalled past the {clock['wall'] * 1e3:.0f}ms "
                 "frame deadline — resetting the connection (a sequenced "
                 "client replays the frame on reconnect)")
         try:
-            k = sock.recv_into(view[got:], n - got)  # the socket's poll timeout is set at accept/connect; `clock` bounds a partial frame
+            k = sock.recv_into(view[got:], n - got)  # orp: noqa[ORP014] -- the socket's poll timeout is set at accept/connect; `clock` bounds a partial frame
         except socket.timeout:
             if closed is None and clock is None and idle is None:
                 raise  # a caller with no polling contract wants its timeout
@@ -127,7 +127,7 @@ def _recv_exact(sock: socket.socket, n: int, closed, clock=None,
 
 
 def _send_frame(sock: socket.socket, frame: bytes) -> None:
-    sock.sendall(_LEN.pack(len(frame)) + frame)  # every socket entering this helper had settimeout applied at accept/connect
+    sock.sendall(_LEN.pack(len(frame)) + frame)  # orp: noqa[ORP014] -- every socket entering this helper had settimeout applied at accept/connect
 
 
 def _recv_frame(sock: socket.socket, closed=None,
@@ -708,7 +708,7 @@ class ServeGateway:
             if inj is not None:
                 try:
                     inj.fire("gateway/reply")
-                except Exception:  # the injected reset IS the emission: the producer must recover from it
+                except Exception:  # orp: noqa[ORP009] -- the injected reset IS the emission: the producer must recover from it
                     # connection-reset-after-submit-before-reply: the reply
                     # stays cached; the producer's replay is answered from it
                     try:
@@ -794,7 +794,7 @@ class ServeGateway:
                     off += st.sock.send(view[off:])  # poll timeout set at accept; the loop carries its own reply_timeout_s deadline
                 except socket.timeout:
                     if time.perf_counter() > deadline:
-                        raise OSError(  # the enclosing except OSError emits serve/gateway_errors{stage=send} + the flight record three lines down
+                        raise OSError(  # orp: noqa[ORP016] -- the enclosing except OSError emits serve/gateway_errors{stage=send} + the flight record three lines down
                             "reply send exceeded reply_timeout_s") from None
             return True
         except OSError:

@@ -1053,7 +1053,7 @@ class ServeHost:
             if slo is None:
                 continue
             # an operator read path: interns an existing per-tenant series
-            hist = self.registry.histogram(LATENCY_HISTOGRAM,
+            hist = self.registry.histogram(LATENCY_HISTOGRAM,  # orp: noqa[ORP015] -- slo_report is an operator read path: this interns an EXISTING per-tenant series (a dict lookup), not hot-path churn
                                            {"tenant": t.name})
             rate = burn_rate(hist, slo)
             out[t.name] = {

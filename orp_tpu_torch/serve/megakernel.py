@@ -190,7 +190,7 @@ def mixed_head_bf16_order(model, params_by_date: dict, dates: torch.Tensor,
     x = feats.float()
     for i in range(n_layers):
         w = params_by_date[f"w{i}"].float()[d]
-        acc = torch.zeros(x.shape[0], w.shape[2], device=x.device)
+        acc = torch.zeros(x.shape[0], w.shape[2], dtype=w.dtype, device=x.device)
         for k in range(x.shape[1]):
             acc = acc + x[:, k:k + 1] * w[:, k, :]
         z = (acc.to(bf).float() + params_by_date[f"b{i}"].float()[d]).to(bf).float()

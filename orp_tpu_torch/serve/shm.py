@@ -266,7 +266,7 @@ class RingPair:
         p = pathlib.Path(path)
         size = p.stat().st_size
         if size < _GLOBAL_BYTES:
-            raise RingError(  # file-format validation (the wire plane's WireError discipline), not a measured acceptance gate
+            raise RingError(  # orp: noqa[ORP016] -- file-format validation (the wire plane's WireError discipline), not a measured acceptance gate
                 f"{p}: {size} bytes is no orp shm ring")
         mm = _map(p, size)
         magic, version, req_cap, rep_cap, _closed = _GLOBAL.unpack_from(mm, 0)
@@ -278,7 +278,7 @@ class RingPair:
                             "upgrade the older side")
         want = _GLOBAL_BYTES + 2 * _CURSOR_BYTES + req_cap + rep_cap
         if size < want:
-            raise RingError(  # file-format validation (the wire plane's WireError discipline), not a measured acceptance gate
+            raise RingError(  # orp: noqa[ORP016] -- file-format validation (the wire plane's WireError discipline), not a measured acceptance gate
                 f"{p}: file is {size} bytes, the header claims "
                 f"{want} — truncated ring")
         return RingPair(p, mm, req_cap, rep_cap, own_file=False)
@@ -615,11 +615,11 @@ class RingClient:
                     raise GatewayError(  # the busy counter above recorded the backpressure before this verdict
                         f"ring full for {self.timeout_s}s — the consumer "
                         "stopped draining; restart the serving process")
-                time.sleep(self._retry.backoff_s(min(attempt, 8)))  # the ring is FULL: every sender must wait, and releasing _send_lock between retries would reorder frames
+                time.sleep(self._retry.backoff_s(min(attempt, 8)))  # orp: noqa[ORP021] -- the ring is FULL: every sender must wait, and releasing _send_lock between retries would reorder frames
 
     def _read_loop(self) -> None:
         idle = 0
-        while not self._closed:  # monotonic shutdown flag: a stale read costs one extra poll iteration, never a wrong result
+        while not self._closed:  # orp: noqa[ORP020] -- monotonic shutdown flag: a stale read costs one extra poll iteration, never a wrong result
             try:
                 frame = self.pair.reply.pop()
             except RingError:

@@ -91,6 +91,7 @@ from orp_tpu_torch.train.fit import FitConfig, fit_core, validate_shuffle
 from orp_tpu_torch.train.gn import GNConfig, GNPinballConfig, fit_gn, fit_gn_pinball
 from orp_tpu_torch.train.losses import mae, make_loss, mape, mse
 from orp_tpu_torch.utils import checkpoint as _ckpt
+from orp_tpu_torch.utils import cuda_build
 from orp_tpu_torch.utils.precision import full_f32, typed_scalar
 
 #: versions the on-disk state layout and the fingerprint's field set of a
@@ -461,10 +462,12 @@ def _fused_programs(model, cfg: BackwardConfig, feats, prices_t1, target, mesh=N
         gn_cfg, gnq_cfg = _gn_cfgs(cfg, max(cfg.gn_iters_first, cfg.gn_iters_warm))
         programs["mse"] = _gn.gn_program(model, feats, prices_t1, target, gn_cfg,
                                          graphs=graphs, mesh=mesh)
+        cuda_build.count_site("walk_program")
         if dual and cfg.gn_quantile:
             programs["q"] = _gn.gn_program(
                 model, feats, prices_t1, target, gnq_cfg, graphs=graphs,
                 loss_fn=make_loss(cfg.quantile_loss, q=cfg.quantile), mesh=mesh)
+            cuda_build.count_site("walk_program")
     adam_legs = [] if gauss_newton else [mse]
     if dual and not (gauss_newton and cfg.gn_quantile):
         adam_legs.append(make_loss(cfg.quantile_loss, q=cfg.quantile))
@@ -472,6 +475,7 @@ def _fused_programs(model, cfg: BackwardConfig, feats, prices_t1, target, mesh=N
         for first in (True, False):
             _fit.prepare(model, feats, prices_t1, target, loss_fn=loss_fn,
                          cfg=_adam_cfg(cfg, first), mesh=mesh)
+            cuda_build.count_site("walk_program")
     return programs
 
 
@@ -719,7 +723,7 @@ def _walk_impl(model, features: torch.Tensor, y_prices: torch.Tensor, b_prices: 
                     _ckpt.save_checkpoint(cfg.checkpoint_dir, step_i, inc)
                 if inj is not None:
                     inj.maybe_kill(step_i)  # a synthetic kill after the date's save
-    m = rows.cpu().double().numpy()  # the fused walk's one host read
+    m = rows.cpu().double().numpy()  # orp: noqa[ORP001] -- the fused walk's one host read: its per-date metrics as f64 host rows
     return BackwardResult(
         values=values, phi=ledgers["phi"], psi=ledgers["psi"], var_residuals=ledgers["var"],
         train_loss=m[:, 0], train_mae=m[:, 1], train_mape=m[:, 2],

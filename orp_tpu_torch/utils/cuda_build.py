@@ -41,6 +41,17 @@ _libs: dict[str, ctypes.CDLL] = {}
 #: capture sites and their seconds (a warm re-activation of a served policy moves
 #: none of them)
 BUILD_STATS = {"nvcc": 0, "nvcc_s": 0.0, "loads": 0, "captures": 0, "capture_s": 0.0}
+#: the port's build and capture sites, by name: ``nvcc`` runs; CUDA graphs
+#: captured of an Adam epoch (``fit_epoch``), a GN iteration
+#: (``gn_iteration``), a served bucket (``serve_bucket``) and any other
+#: ``aot.aot_compile`` (``aot_graph``); and the programs the fused walk builds
+#: before its date loop (``walk_program``, on any device: the card captures
+#: each once)
+CAPTURE_SITES = ("nvcc", "fit_epoch", "gn_iteration", "serve_bucket", "aot_graph",
+                 "walk_program")
+#: this process's count at each site (what ``lint/trace_audit.CompileAudit``
+#: budgets)
+SITE_COUNTS = dict.fromkeys(CAPTURE_SITES, 0)
 #: the directory ``aot.cache.enable_persistent_cache`` pointed the cache at
 _override: pathlib.Path | None = None
 
@@ -61,11 +72,19 @@ def set_build_dir(directory) -> None:
     _override = None if directory is None else pathlib.Path(directory)
 
 
-def count_capture(seconds: float) -> None:
-    """One CUDA graph captured in ``seconds`` (the ``aot`` plane's compile bill)."""
+def count_capture(seconds: float, site: str = "aot_graph") -> None:
+    """One CUDA graph captured at ``site`` in ``seconds`` (the ``aot`` plane's
+    compile bill)."""
     with _lock:
         BUILD_STATS["captures"] += 1
         BUILD_STATS["capture_s"] += float(seconds)
+        SITE_COUNTS[site] += 1
+
+
+def count_site(site: str) -> None:
+    """One event at ``site`` (:data:`CAPTURE_SITES`) that is not a capture."""
+    with _lock:
+        SITE_COUNTS[site] += 1
 
 
 def nvcc_path() -> str:
@@ -104,6 +123,7 @@ def _start(name: str):
     cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     BUILD_STATS["nvcc"] += 1
+    SITE_COUNTS["nvcc"] += 1
     return proc, tmp, out
 
 

@@ -82,7 +82,7 @@ def describe_model_params(model, n_dates: int) -> str:
 
 #: a model dtype as the JAX package's model repr spells it
 _REFERENCE_DTYPE = {torch.float32: "<class 'jax.numpy.float32'>",
-                    torch.float64: "<class 'jax.numpy.float64'>",
+                    torch.float64: "<class 'jax.numpy.float64'>",  # orp: noqa[ORP001] -- the reference repr table must name every dtype a model may carry
                     torch.bfloat16: "<class 'jax.numpy.bfloat16'>"}
 
 

@@ -130,7 +130,7 @@ def lm_census(problem) -> dict:
     t0 = time.perf_counter()
     with torch.cuda.graph(graph):
         problem.iterate()
-    out["capture_s"] = time.perf_counter() - t0
+    out["capture_s"] = time.perf_counter() - t0  # orp: noqa[ORP017] -- times the capture itself: kernels are recorded, not launched, under torch.cuda.graph
     t0 = time.perf_counter()
     if kept:
         graph.instantiate()

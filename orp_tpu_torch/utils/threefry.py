@@ -90,7 +90,7 @@ def _uniform64(bits) -> torch.Tensor:
     """``jax.random.uniform(key, (), float64)`` from the key's hash of counter
     ``(0, 0)``: the top 52 of its 64 bits as the mantissa of ``[1, 2)``, less 1."""
     b0, b1 = bits
-    return ((b0 << 20) | (b1 >> 12)).to(torch.float64) * 2.0 ** -52
+    return ((b0 << 20) | (b1 >> 12)).to(torch.float64) * 2.0 ** -52  # orp: noqa[ORP001] -- jax.random's float64 uniform is f64 by definition (exact thinning's words, bitwise JAX's)
 
 
 def uniform64(k0: torch.Tensor, k1: torch.Tensor) -> torch.Tensor:
@@ -187,7 +187,7 @@ def binomial(k0: torch.Tensor, k1: torch.Tensor, count: torch.Tensor,
     """``jax.random.binomial(key, count, prob)`` per row, in float64, with row
     ``i``'s key ``(k0[i], k1[i])``: ``jax.random._binomial``'s regimes and its
     NaN / inf rules. Returns float64 counts."""
-    count, prob = count.to(torch.float64), prob.to(torch.float64)
+    count, prob = count.to(torch.float64), prob.to(torch.float64)  # orp: noqa[ORP001] -- jax.random._binomial draws in f64 (exact thinning's counts, bitwise JAX's)
     p_lt_half = prob < 0.5
     q = torch.where(p_lt_half, prob, 1.0 - prob)
     count_nan_or_neg = torch.isnan(count) | (count < 0.0)

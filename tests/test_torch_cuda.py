@@ -1235,3 +1235,77 @@ def test_aot_tenant_warm_re_activation_captures_no_graph(cuda, aot_bundle):
         assert info["aot_hits"] == 1 and info["aot_buckets"] == list(AOT_TEST_BUCKETS)
     for g, w in zip(got, want):
         assert (g is None and w is None) or np.array_equal(g, w)
+
+
+# -- the closed loop, the compile audit and doctor_report on the card
+# (chip_smoke.py [pilot] runs the full-width cycle)
+
+
+def test_pilot_drill_on_the_card(cuda):
+    """The reference's drill at its quick size on the card: verdicts reject,
+    promote, promote; 0 rows lost; the kill-resumed policy bitwise."""
+    import warnings
+
+    from orp_tpu_torch.serve.bench import _pilot_phase
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pl = _pilot_phase(quick=True, seed=0)
+    assert pl["chain"]["ok"] and pl["chain"]["verdicts"] == ["reject", "promote", "promote"]
+    assert pl["rows_lost"] == 0 and pl["rows_served"] == pl["rows_submitted"] > 0
+    assert pl["resume"]["bits_equal"] and pl["reject_left_incumbent"]
+
+
+def test_compile_audit_counts_one_capture_a_bucket(cuda, aot_bundle):
+    """``watch_serve_engine``: an engine on an AOT bundle captures exactly one
+    graph a bucket, and serving every bucket afterwards captures none."""
+    from orp_tpu_torch.lint import CompileAudit, CompileBudgetExceeded, watch_serve_engine
+
+    audit = watch_serve_engine(CompileAudit(), budget=len(AOT_TEST_BUCKETS))
+    with audit:
+        engine = HedgeEngine(load_bundle(aot_bundle))
+    assert audit.deltas() == {"serve_bucket": len(AOT_TEST_BUCKETS)}
+    with watch_serve_engine(CompileAudit(), budget=0):
+        for b in AOT_TEST_BUCKETS:
+            engine.evaluate(3, np.ones((b, 1), np.float32))
+    with pytest.raises(CompileBudgetExceeded, match="serve_bucket"):
+        with watch_serve_engine(CompileAudit(), budget=len(AOT_TEST_BUCKETS) - 1):
+            HedgeEngine(load_bundle(aot_bundle))
+
+
+def test_compile_audit_fused_walk_captures_constant_in_dates(cuda):
+    """The fused GN walk captures one LM iteration a leg whatever the date
+    count (``watch_backward_walk``)."""
+    from orp_tpu_torch.lint import CompileAudit, watch_backward_walk
+
+    deltas = []
+    for n_dates in (3, 6):
+        s = fused_gbm.gbm_log_plain(4096, n_dates, s0=1.0, drift=0.08, sigma=0.15,
+                                    dt=1.0 / n_dates, seed=1234, device=cuda).exp()
+        b = torch.exp(0.08 * torch.linspace(0.0, 1.0, n_dates + 1, device=cuda))
+        cfg = BackwardConfig(dual_mode="mse_only", optimizer="gauss_newton", gn_iters_first=4,
+                             gn_iters_warm=2, fused=True)
+        audit = watch_backward_walk(CompileAudit())
+        with audit:
+            backward_induction(HedgeMLP(n_features=1), s[:, :, None], s, b,
+                               torch.clamp(s[:, -1] - 1.0, min=0.0), cfg)
+            torch.cuda.synchronize()
+        deltas.append(audit.deltas())
+    assert deltas[0] == deltas[1] and deltas[0]["gn_iteration"] == 1
+    assert deltas[0]["walk_program"] == 1
+
+
+def test_doctor_report_on_the_card(cuda, tmp_path):
+    """On the card ``doctor_report`` is ok, names the card, and the H100's
+    peak row covers it."""
+    from orp_tpu_torch.obs import perf
+    from orp_tpu_torch.serve.health import doctor_report
+
+    led = tmp_path / "ledger.jsonl"
+    perf.ledger_append(led, perf.make_record("u", "p", [1.0, 1.0, 1.0]))
+    rep = doctor_report(NORTH_STAR_POLICY, perf=str(led), cache_dir=tmp_path / "cache")
+    by = {c["check"]: c for c in rep["checks"]}
+    assert rep["ok"], rep
+    assert torch.cuda.get_device_name(0) in by["devices"]["detail"]
+    assert "(gpu)" in by["devices"]["detail"]
+    assert "PEAK_TABLE covers" in by["perf_peaks"]["detail"]

@@ -39,7 +39,8 @@ def _sources():
                                          ROOT / "tools" / "torch_host_phase.py",
                                          ROOT / "tools" / "torch_gateway_phase.py",
                                          ROOT / "tools" / "torch_aot_child.py",
-                                         ROOT / "tools" / "torch_aot_phase.py"]
+                                         ROOT / "tools" / "torch_aot_phase.py",
+                                         ROOT / "tools" / "torch_pilot_phase.py"]
 
 
 def test_prefix_rule():
@@ -116,6 +117,40 @@ def test_sources_include_the_serve_path():
             "serve/host.py", "store/__init__.py", "store/tier.py", "obs/quality.py"} <= names
 
 
+def test_sources_include_the_pilot_and_lint_planes():
+    """The import rule walks every module of ``pilot/`` and ``lint/``, the
+    doctor's ``serve/health.py`` and the [pilot] phase's tool: the port keeps
+    its own copy of each, host-only ones included."""
+    names = {p.relative_to(PORT).as_posix() for p in _sources() if PORT in p.parents}
+    assert {f"pilot/{m}.py" for m in ("__init__", "calibrate", "controller", "journal",
+                                      "triggers")} <= names
+    assert {f"lint/{m}.py" for m in ("__init__", "__main__", "engine", "rules", "concurrency",
+                                     "lock_audit", "trace_audit")} <= names
+    assert "serve/health.py" in names
+    assert ROOT / "tools" / "torch_pilot_phase.py" in _sources()
+
+
+def test_doctor_report_and_the_lint_load_no_jax():
+    """``doctor_report`` (every probe it runs without a socket) and the lint
+    CLI run in a process that never imports JAX or the JAX package."""
+    code = (
+        "import sys, tempfile\n"
+        "from orp_tpu_torch.serve.health import doctor_report\n"
+        "from orp_tpu_torch.lint.__main__ import main\n"
+        "d = tempfile.mkdtemp()\n"
+        "rep = doctor_report(perf=d + '/led.jsonl', pilot=d + '/pilot.jsonl', device='cpu')\n"
+        "assert [c['check'] for c in rep['checks']][-1] == 'lint_concurrency', rep\n"
+        "assert main(['--select', 'ORP009', 'orp_tpu_torch/pilot']) == 0\n"
+        "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
+        "       or n == 'orp_tpu' or n.startswith('orp_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+
+
 def test_entry_points_default_to_the_card():
     """Without ``device=`` an entry point means the card, and raises without one."""
     if torch.cuda.is_available():
@@ -145,10 +180,11 @@ def test_entry_points_default_to_the_card():
                   corr=[[1.0, 0.3], [0.3, 1.0]])
     from orp_tpu_torch.guard import DegradeManager
     from orp_tpu_torch.obs.devprof import profile_north_star
-    from orp_tpu_torch.serve.bench import serve_bench
+    from orp_tpu_torch.serve.bench import _pilot_phase, serve_bench
 
     calls = [lambda: HedgeEngine(policy), lambda: european_oos(policy),
              lambda: serve_bench(policy, n_requests=2, sweep_concurrency=()),
+             lambda: _pilot_phase(quick=True, seed=0),
              lambda: profile_north_star(6, quick=True),
              lambda: DegradeManager(policy),
              lambda: MicroBatcher(HedgeEngine(policy)),

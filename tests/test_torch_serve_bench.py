@@ -106,9 +106,23 @@ def test_write_bench_record_needs_a_path_and_ledger_rows_validate(pair, tmp_path
     assert again["mttr_ms"] == rec["mttr_ms"]
 
 
-def test_pilot_refuses_naming_its_roadmap_item(pair):
-    with pytest.raises(ValueError, match="A9.5"):
-        bench.serve_bench(pair[1], pilot=True, device="cpu", **SMALL)
+def test_pilot_refuses_naming_its_roadmap_item(pair, monkeypatch):
+    """``pilot=True`` runs the closed-loop drill now that ``pilot/`` is ported
+    (``tests/test_torch_pilot.py`` runs it whole); the record is refused,
+    naming the broken contract, when the drill's contract fields fail: a
+    lost row here."""
+    calls = []
+
+    def drill(*, quick, seed, device):
+        calls.append((quick, seed, device))
+        return {"rows_lost": 1, "chain": {"ok": True}, "reject_left_incumbent": True,
+                "resume": {"bits_equal": True}, "drift_trips": 1, "time_to_promote_s": 1.0,
+                "cycles": [{"outcome": "rejected"}, {"outcome": "promoted"}]}
+
+    monkeypatch.setattr(bench, "_pilot_phase", drill)
+    with pytest.raises(RuntimeError, match="pilot drill contract violated: rows_lost=1"):
+        bench.serve_bench(pair[1], pilot=True, pilot_quick=True, device="cpu", **SMALL)
+    assert calls == [(True, SMALL["seed"], "cpu")]
 
 
 def test_precision_matrix_phases(small_policy):

@@ -150,9 +150,9 @@ def pension_census(n_paths: int, n_steps: int, device) -> dict:
         for name, tr in (("", trips), ("_exit", exit_trips)):
             w_all = warp_groups(tr, n_paths, 0.0).amax(1)
             w_rest = warp_groups(torch.where(sat, 0.0, tr), n_paths, 0.0).amax(1)
-            tally.add("warp_trips" + name, float(w_all.double().sum()), n_warps)
-            tally.add("sat_part" + name, float((w_all - w_rest).double().sum()), n_warps)
-            tally.add("lane_trips" + name, float(tr.double().sum()), n_paths)
+            tally.add("warp_trips" + name, float(w_all.double().sum()), n_warps)  # orp: noqa[ORP001] -- a check's reduction in f64 on the host, not a path's dtype
+            tally.add("sat_part" + name, float((w_all - w_rest).double().sum()), n_warps)  # orp: noqa[ORP001] -- a check's reduction in f64 on the host, not a path's dtype
+            tally.add("lane_trips" + name, float(tr.double().sum()), n_paths)  # orp: noqa[ORP001] -- a check's reduction in f64 on the host, not a path's dtype
         tally.add("sat_lane_steps", float(sat.sum()), n_paths)
         tally.add("walk_warps_mixed", *mixed_warps(trips > 0, live, n_paths))
         return torch.clamp(pop - deaths, min=0.0)
@@ -167,7 +167,7 @@ def pension_census(n_paths: int, n_steps: int, device) -> dict:
     _, traj = kernels.scan_sde(step, state0, kernels._stack_state, idx,
                                TimeGrid(n_steps * dt, n_steps), PENSION_FACTORS, 1234,
                                store_every=n_steps, inverse_normal=inverse_normal)
-    n_t = traj[:, -1, 2].double()
+    n_t = traj[:, -1, 2].double()  # orp: noqa[ORP001] -- a check's reduction in f64 on the host, not a path's dtype
     return {"paths": n_paths, "steps": n_steps, "dt": dt,
             **tally.as241(),
             "clt_lane_steps": int(tally.total("clt_lane_steps")),
