@@ -327,6 +327,22 @@ last line):
     engines; the capture fallbacks counted; ``doctor_report`` ok on the
     card, ``perf_peaks`` on the H100 row, a torn journal failing in
     flag-speak; K1 and K2 at this path's shapes against their plain versions.
+37. [cli] the command line (``orp_tpu_torch/cli.py``, ``cli_phases``), with
+    the built kernels: ``cli.main(["euro", ...])`` with the flags of phase
+    9's configs (``--engine pallas --optimizer gauss_newton``, ``--oos-seed``,
+    ``--export-dir``, ``--telemetry``): its in-sample JSON line bitwise phase
+    9's report, |v0_acv - BS| < 1bp, K1 launched twice (training and
+    ``oos_``) and no other kernel, the exported per-date params bitwise phase
+    9's, ``report --events`` 52 dates; ``serve-gateway`` as a child process
+    (``python -m orp_tpu_torch.cli``) serving that bundle: frames of 1, 4,096
+    and 1,048,576 rows and 512 single rows at mixed dates, each reply
+    bitwise the smoke's own ``HedgeEngine(load_bundle(D))``, ``top`` one
+    snapshot, ``doctor --bundle --gateway`` ok, SIGTERM: exit 0, the ready
+    file gone, every row sent served, ``trace`` of a stamped frame's chain;
+    ``export`` of the precision-test policy and ``serve-bench --quick
+    --precision`` on it in process: K2 launched, held against
+    ``mixed_head_plain`` at the megakernel phase's shape; the child's time
+    from spawn to its ready file, the phase's wall and the whole smoke's.
 
 Output: a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -4022,6 +4038,209 @@ def pilot_phases(dev, counts, incumbent_dir) -> dict:
     return out
 
 
+CLI_FRAME_SIZES = (1, 4096, N_FULL)
+CLI_MIXED_ROWS = 512
+CLI_BUDGET_S = 30.0
+CLI_ROOT_ARGS: list[str] = []  # root options before every command ([] = the card)
+
+
+def _cli(argv: list[str]) -> list[str]:
+    """``orp_tpu_torch.cli.main(argv)`` in this process; its standard output's lines."""
+    import contextlib
+    import io
+
+    from orp_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([*CLI_ROOT_ARGS, *argv])
+    check(not rc, f"cli {argv[0]}: rc {rc}")
+    return buf.getvalue().splitlines()
+
+
+def cli_phases(dev, counts, euro_line: dict, euro_params: dict) -> dict:
+    """[cli]: the command line (``orp_tpu_torch/cli.py``) on the card: ``euro``
+    with phase 9's configs (bitwise its report, K1 twice), ``serve-gateway`` as
+    a child process (replies bitwise this process's engine, ``top``,
+    ``doctor``, the SIGTERM drain, ``trace``), ``export`` and ``serve-bench
+    --quick --precision`` in process (K2 held against its plain version).
+    ``euro_line`` is phase 9's report as the CLI's result line, ``euro_params``
+    its per-date params (on the host)."""
+    import os
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from orp_tpu_torch import cli, obs
+    from orp_tpu_torch.serve import HedgeEngine, ResilientGatewayClient, load_bundle, megakernel
+    from orp_tpu_torch.utils import bs_call
+
+    t_phase = time.perf_counter()
+    out = {}
+    root = pathlib.Path(tempfile.mkdtemp(prefix="orp-cli-"))
+    bundle, tel, tel_gw = root / "bundle", root / "t", root / "t-gw"
+
+    # -- 1. euro in process: phase 9's configs, bitwise its report
+    argv = ["euro", "--paths", str(N_FULL), "--steps", str(N_STEPS), "--rebalance-every",
+            str(STORE), "--unconstrained", "--engine", "pallas", "--optimizer", "gauss_newton",
+            "--dual-mode", "mse_only", "--oos-seed", str(OOS_SEED), "--json", "--export-dir",
+            str(bundle), "--telemetry", str(tel)]
+    torch.cuda.synchronize()
+    counts.reset()
+    t0 = time.perf_counter()
+    lines = [json.loads(x) for x in _cli(argv)]
+    torch.cuda.synchronize()
+    out["euro_s"] = time.perf_counter() - t0
+    got = counts.read()
+    check(got["fused_gbm"] == 2 and all(v == 0 for k, v in got.items() if k != "fused_gbm"),
+          f"[cli] euro launches K1 twice (training, oos_) and no other kernel ({got})")
+    out["k1_launches"] = got["fused_gbm"]
+    check(len(lines) == 2 and set(lines[1]) == {"oos_" + k for k in lines[0]},
+          f"[cli] euro prints the in-sample and the oos_ line ({[sorted(x) for x in lines]})")
+    check(lines[0] == euro_line, f"[cli] euro's line bitwise phase 9's report "
+          f"({lines[0]} vs {euro_line})")
+    bs, _ = bs_call(100.0, 100.0, 0.08, 0.15, 1.0)
+    bp = (lines[0]["v0_acv"] - bs) / bs * 1e4
+    oos_bp = (lines[1]["oos_v0_acv"] - bs) / bs * 1e4
+    check(abs(bp) < 1.0 and abs(oos_bp) < 1.0,
+          f"[cli] |v0_acv - BS| {bp:+.4f}bp, oos {oos_bp:+.4f}bp < 1bp")
+    policy = load_bundle(bundle)
+    exported = policy.backward.params1_by_date
+    check(set(exported) == set(euro_params)
+          and all(torch.equal(exported[k].cpu(), v) for k, v in euro_params.items()),
+          "[cli] the exported per-date params bitwise phase 9's")
+    rec = json.loads(_cli(["report", "--events", str(tel), "--json"])[-1])
+    check(rec.get("n_dates") == 52 and len(rec.get("rungs", ())) == 52,
+          f"[cli] report --events: 52 dates ({rec.get('n_dates')})")
+    print(f"[cli] euro {N_FULL} x {N_STEPS} (--engine pallas --optimizer gauss_newton "
+          f"--oos-seed {OOS_SEED} --export-dir --telemetry): the line bitwise [euro]'s, v0_acv "
+          f"{bp:+.4f}bp, oos {oos_bp:+.4f}bp; K1 {got['fused_gbm']}; exported params bitwise; "
+          f"report 52 dates; {out['euro_s']:.2f} s", flush=True)
+
+    # -- 2. serve-gateway as a child process (started now: it loads beside step 3)
+    ready = root / "gw.addr"
+    env = {**os.environ, "PYTHONPATH": str(HERE)}
+    t_spawn = time.time()  # the ready file's mtime is on this clock
+    child = subprocess.Popen(
+        [sys.executable, "-m", "orp_tpu_torch.cli", *CLI_ROOT_ARGS, "serve-gateway",
+         "--bundle", str(bundle),
+         "--port", "0", "--ready-file", str(ready), "--telemetry", str(tel_gw), "--json"],
+        cwd=str(HERE), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    atexit.register(_stop, child)
+
+    # -- 3. export + serve-bench --quick --precision in process (K2)
+    small = root / "small"
+    t0 = time.perf_counter()
+    _cli(["export", "--pipeline", "euro", "--out", str(small), "--paths", "512", "--steps", "8",
+          "--rebalance-every", "2", "--epochs-first", "20", "--epochs-warm", "10", "--json"])
+    counts.reset()
+    bench_out = root / "bench.json"
+    brec = json.loads(_cli(["serve-bench", "--bundle", str(small), "--quick", "--precision",
+                            "--out", str(bench_out), "--json"])[-1])
+    got = counts.read()
+    check(got["mixed_head"] >= 1 and all(v == 0 for k, v in got.items()
+                                         if k not in ("mixed_head", "mixed_head_bf16")),
+          f"[cli] serve-bench --precision launches K2 and no other kernel ({got})")
+    check(bench_out.exists() and json.loads(bench_out.read_text())["megakernel"]
+          == brec["megakernel"], "[cli] serve-bench wrote its record to --out")
+    out["k2_launches"] = got["mixed_head"]
+    mk = next(lv for lv in brec["megakernel"]["tiers"] if lv["tier"] == "f32")
+    sp = load_bundle(small)
+    sm = sp.model
+    params = {k: v.to(dev) for k, v in sp.backward.params1_by_date.items()}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    sd = torch.randint(0, sp.n_dates, (mk["rows"],), device=dev, generator=gen,
+                       dtype=torch.int32)
+    sf = 1.0 + 0.1 * torch.randn(mk["rows"], sm.n_features, device=dev, generator=gen)
+    k2_got = megakernel.mixed_head_forward(sm, params, sd, sf,
+                                           packed=megakernel.pack_head_params(sm, params))
+    k2_want = megakernel.mixed_head_plain(sm, params, sd, sf)
+    torch.testing.assert_close(k2_got, k2_want, rtol=1e-5, atol=1e-6)
+    out["k2_err"] = max_err(k2_got, k2_want)
+    out["k2_times"] = k2_times(dev, sp, mk["rows"], 11, small=mk["rows"])
+    out["bench_s"] = time.perf_counter() - t0
+    print(f"[cli] export (512 paths, Adam 20/10) + serve-bench --quick --precision: "
+          f"megakernel speedup {brec['megakernel_speedup']}, K2 launches {got['mixed_head']} "
+          f"f32+int8, {got['mixed_head_bf16']} bf16; K2 at {mk['rows']} rows "
+          f"{out['k2_times']['f32']:.4f} ms (plain {out['k2_times']['f32_plain']:.3f} ms), "
+          f"max|kernel - plain| {out['k2_err']:.2e}; {out['bench_s']:.2f} s", flush=True)
+
+    # -- 2 (continued): the gateway's replies against this process's engine
+    deadline = time.perf_counter() + 180
+    while not ready.exists() and child.poll() is None and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    if not ready.exists():
+        _stop(child)
+        check(False, f"[cli] serve-gateway never wrote its ready file (rc {child.returncode})"
+              f"\n{child.stderr.read()[-3000:]}")
+    out["gateway_ready_s"] = ready.stat().st_mtime - t_spawn
+    addr, port = ready.read_text().split()
+    target = f"{addr}:{port}"
+    engine = HedgeEngine(policy, device=dev)
+    nd = policy.n_dates
+    sent = served = 0
+    trace_id = obs.new_trace()
+    with ResilientGatewayClient(addr, int(port), window=8, timeout_s=300.0) as c:
+        for i, n in enumerate(CLI_FRAME_SIZES):
+            states = _host_rows(n, 1, 300 + i)[0]
+            d = (7 * i + 5) % nd
+            want = engine.evaluate(d, states)
+            r = c.submit_block("default", d, states,
+                               trace=trace_id if n == 4096 else None)
+            check(bool((r.status == 0).all()) and np.array_equal(r.phi, want[0])
+                  and np.array_equal(r.psi, want[1]),
+                  f"[cli] a {n}-row frame through serve-gateway bitwise the engine")
+            sent, served = sent + n, served + int((r.status == 0).sum())
+        rng = np.random.default_rng(17)
+        dates = rng.integers(0, nd, CLI_MIXED_ROWS)
+        states = _host_rows(CLI_MIXED_ROWS, 1, 400)[0]
+        mixed_ok = True
+        for j in range(CLI_MIXED_ROWS):
+            row = states[j:j + 1]
+            want = engine.evaluate(int(dates[j]), row)
+            r = c.submit_block("default", int(dates[j]), row)
+            mixed_ok &= bool(r.status[0] == 0 and r.phi[0] == want[0][0]
+                             and r.psi[0] == want[1][0])
+            sent, served = sent + 1, served + int(r.status[0] == 0)
+        check(mixed_ok, f"[cli] {CLI_MIXED_ROWS} single rows at mixed dates bitwise the engine")
+    snap = [json.loads(x) for x in _cli(["top", "--gateway", target, "--interval", "0.2",
+                                         "--json"])]
+    check(len(snap) == 1 and isinstance(snap[0], dict), f"[cli] top: one snapshot ({snap})")
+    doc = json.loads(_cli(["doctor", "--bundle", str(bundle), "--gateway", target,
+                           "--json"])[-1])
+    check(doc["ok"], f"[cli] doctor --bundle --gateway ok ({doc})")
+    child.send_signal(signal.SIGTERM)
+    try:
+        gw_out, gw_err = child.communicate(timeout=60)
+    finally:
+        _stop(child)
+    check(child.returncode == 0, f"[cli] serve-gateway exits 0 on SIGTERM (rc "
+          f"{child.returncode})\n{gw_err[-3000:]}")
+    check(not ready.exists(), "[cli] the drain removed the ready file")
+    check(sent == served, f"[cli] 0 rows lost ({served} of {sent} served)")
+    tr = json.loads(_cli(["trace", obs.trace_hex(trace_id[0]), "--events", str(tel_gw),
+                          "--json"])[-1])
+    chain = [name.split("/")[-1] for name in tr.get("segments", {})]
+    check(chain[:5] == ["decode", "queue", "dispatch", "resolve", "encode"],
+          f"[cli] trace: the stamped frame's chain decode, queue, dispatch, resolve, encode "
+          f"({chain})")
+    out["rows_served"] = served
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[cli] serve-gateway child: ready {out['gateway_ready_s']:.2f} s after spawn; frames "
+          f"of {', '.join(map(str, CLI_FRAME_SIZES))} rows and {CLI_MIXED_ROWS} single rows at "
+          f"mixed dates bitwise the engine; top one snapshot; doctor ok; SIGTERM: rc 0, ready "
+          f"file gone, {served:,} of {sent:,} rows served (0 lost); trace {' > '.join(chain)}",
+          flush=True)
+    # the budget is read, not gated: a slow host must not fail the run on a wall clock
+    verdict = "within" if out["phase_s"] <= CLI_BUDGET_S else "OVER"
+    print(f"[cli] the phase {out['phase_s']:.2f} s, {verdict} its {CLI_BUDGET_S:.0f} s budget | "
+          f"{card_line()}", flush=True)
+    return out
+
+
 def _events(dev):
     """A started CUDA-event pair (None on the CPU, for a host-clock rehearsal)."""
     import torch
@@ -4221,6 +4440,7 @@ def main() -> int:
     from orp_tpu_torch import HESTON_WALK, NORTH_STAR_POLICY
     from orp_tpu_torch.api import (EuropeanConfig, HestonConfig, SimConfig, TrainConfig,
                                    european_hedge, european_oos, heston_hedge, heston_oos)
+    from orp_tpu_torch.cli import result_line
     from orp_tpu_torch.qmc import fused_gbm, fused_mf
     from orp_tpu_torch.serve import (HedgeEngine, export_bundle, load_bundle, megakernel,
                                      save_bundle)
@@ -4480,6 +4700,9 @@ def main() -> int:
     pilot_incumbent = pathlib.Path(tempfile.mkdtemp(prefix="orp-north-star-")) / "bundle"
     export_bundle(eh, pilot_incumbent)  # [pilot]'s incumbent, served and retrained at the end
     erep = eh.report
+    # what [cli]'s `euro` must print and export, bitwise
+    euro_line = result_line(erep)
+    euro_params = {k: v.detach().cpu().clone() for k, v in eh.backward.params1_by_date.items()}
     euro_bp = (erep.v0_acv - bs) / bs * 1e4
     check(all(math.isfinite(x) for x in report_fields(erep)), "european_hedge report finite")
     check(eh.backward.values.shape == (N_FULL, n_dates + 1), "european_hedge ledger shape")
@@ -4677,6 +4900,9 @@ def main() -> int:
     piloted = plane.pop("beside")
     launches["fused_gbm_pilot"] = piloted["k1_launches"]
     launches["mixed_head_pilot"] = piloted["k2_launches"]
+    commanded = cli_phases(dev, counts, euro_line, euro_params)
+    launches["fused_gbm_cli"] = commanded["k1_launches"]
+    launches["mixed_head_cli"] = commanded["k2_launches"]
 
     # -- 19. times at the main paths' shapes ----------------------------------
     k1 = lambda: fused_gbm.gbm_log_fused(N_FULL, N_STEPS, **gbm_kw)  # noqa: E731
@@ -4910,6 +5136,23 @@ def main() -> int:
          "max_abs_err": piloted["k2_err"], "ms": piloted["k2_ms"],
          "plain_ms": piloted["k2_plain_ms"], "bound_ms": piloted["k2_bound"][0],
          "bound_by": piloted["k2_bound"][1], "library_ms": None},
+        # K1 and K2 through the command line ([cli]): `euro --engine pallas`'s
+        # training and oos_ runs (the same 1M x 364 store-7 launch as
+        # fused_gbm's, timed there), and `serve-bench --precision`'s megakernel
+        # phase at its rows of the exported precision-test policy
+        {"name": "fused_gbm_cli", "route": "cuda",
+         "source": "orp_tpu_torch/csrc/fused_mf.cu (mf_kernel<GbmLog>)",
+         "replaces": "orp_tpu/qmc/pallas_sobol.py:199", "launches": launches["fused_gbm_cli"],
+         "max_abs_err": k1_err, "ms": ms["fused_gbm"], "plain_ms": ms["fused_gbm_plain"],
+         "bound_ms": bounds["fused_gbm"][0], "bound_by": bounds["fused_gbm"][1],
+         "library_ms": None},
+        {"name": "mixed_head_cli", "route": "cuda",
+         "source": "orp_tpu_torch/csrc/mixed_head.cu",
+         "replaces": "orp_tpu/serve/megakernel.py:85", "launches": launches["mixed_head_cli"],
+         "max_abs_err": commanded["k2_err"], "ms": commanded["k2_times"]["f32"],
+         "plain_ms": commanded["k2_times"]["f32_plain"],
+         "bound_ms": commanded["k2_times"]["f32_bound"][0],
+         "bound_by": commanded["k2_times"]["f32_bound"][1], "library_ms": None},
     ]}
     print(f"[times] the single-host serve path: 1-row latency ServeHost "
           f"{hosted['lat_host_ms']:.3f} ms vs HedgeEngine {hosted['lat_engine_ms']:.3f} ms; "
@@ -4936,6 +5179,10 @@ def main() -> int:
           f"{piloted['time_to_promote_s']:.3f} s, 0 rows lost), resume "
           f"{piloted['resume_s']:.2f} s, doctor_report {piloted['doctor_s']:.2f} s; capture "
           f"fallbacks {piloted['capture_fallbacks']}; [pilot] {piloted['phase_s']:.1f} s",
+          flush=True)
+    print(f"[times] the command line: euro {commanded['euro_s']:.2f} s, export + serve-bench "
+          f"{commanded['bench_s']:.2f} s, serve-gateway child ready "
+          f"{commanded['gateway_ready_s']:.2f} s after spawn; [cli] {commanded['phase_s']:.2f} s",
           flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels))

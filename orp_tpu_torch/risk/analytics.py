@@ -121,6 +121,27 @@ class HedgeReport:
     times: np.ndarray | None = None
     oracle_mm: float | None = None  # the basket's moment-matched oracle price
 
+    def summary(self) -> str:
+        """The text form of the report (the JAX package's words and layout)."""
+        qs = ", ".join(f"{q:.1%}: {v:,.4f}" for q, v in zip(self.var_qs, self.var_overall))
+        if self.discounted_payoff != 0.0:
+            diff = f"diff {100 * (self.v0 / self.discounted_payoff - 1):+.3f}%"
+        else:
+            diff = "diff n/a (zero payoff)"
+        cv = ""
+        if self.v0_cv is not None:
+            cv = (f"\nunbiased QMC price = {self.v0_plain:,.4f}, "
+                  f"hedged-CV price = {self.v0_cv:,.4f} (per-path std {self.cv_std:,.4f})")
+        if self.v0_acv is not None:
+            cv += (f"\nOLS-martingale price = {self.v0_acv:,.4f} "
+                   f"(per-path std {self.acv_std:,.4f})")
+        return (f"V0 = {self.v0:,.4f} (discounted E[payoff] = {self.discounted_payoff:,.4f}, "
+                f"{diff})\n"
+                f"phi0 = {self.phi0:,.4f}, psi0 = {self.psi0:,.4f}\n"
+                f"overall VaR  {qs}\n"
+                f"residual P&L mean {self.residual_stats['mean']:+.4f} "
+                f"std {self.residual_stats['std']:.4f}" + cv)
+
 
 def build_report(result, *, terminal_payoff: torch.Tensor, r: float, times,
                  adjustment_factor: float = 1.0, holdings_adjustment: float | None = None,

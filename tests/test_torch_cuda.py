@@ -1309,3 +1309,153 @@ def test_doctor_report_on_the_card(cuda, tmp_path):
     assert torch.cuda.get_device_name(0) in by["devices"]["detail"]
     assert "(gpu)" in by["devices"]["detail"]
     assert "PEAK_TABLE covers" in by["perf_peaks"]["detail"]
+
+
+# -- the command line (orp_tpu_torch/cli.py) on the card ----------------------------
+
+CLI_PATHS = 65_536
+CLI_GN = ["--optimizer", "gauss_newton", "--gn-iters-first", "10", "--gn-iters-warm", "4",
+          "--json"]
+
+
+def _cli_lines(argv) -> list:
+    import contextlib
+    import io
+    import json
+
+    from orp_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    return [json.loads(x) for x in buf.getvalue().strip().splitlines()]
+
+
+def _path_launches() -> dict:
+    return {"K1": fused_gbm.gbm_log_fused.launches, "K3b": fused_mf.heston_qe_fused.launches,
+            "K3a": fused_mf.heston_log_fused.launches, "K3c": fused_mf.pension_fused.launches}
+
+
+def _cli_hedge_api(case: str):
+    """The configs the command builds, run through the port's API on the card."""
+    from orp_tpu_torch import api
+
+    gn = dict(optimizer="gauss_newton", gn_iters_first=10, gn_iters_warm=4)
+    train = api.TrainConfig(dual_mode="mse_only", **gn)
+    if case.startswith("euro"):
+        every = 1 if case == "euro-dense" else 7
+        return api.european_hedge(
+            api.EuropeanConfig(constrain_self_financing=False),
+            api.SimConfig(n_paths=CLI_PATHS, T=1.0, dt=1.0 / 364, rebalance_every=every,
+                          engine="pallas"), train)
+    if case.startswith("heston"):
+        return api.heston_hedge(
+            api.HestonConfig(scheme="euler" if case == "heston-euler" else None),
+            api.SimConfig(n_paths=CLI_PATHS, T=1.0, dt=1.0 / 364, rebalance_every=7,
+                          engine="pallas"), train)
+    return api.pension_hedge(api.HedgeRunConfig(
+        sim=api.SimConfig(n_paths=CLI_PATHS, T=10.0, dt=10.0 / 1000, rebalance_every=25,
+                          engine="pallas", binomial_mode="normal"),
+        train=api.TrainConfig(dual_mode="separate", **gn)))
+
+
+# K1 (and K1 on a dense grid: 365 knots, where the reference chains _gbm_kernel_chunk
+# calls), K3b, K3a, K3c
+CLI_HEDGES = {
+    "euro": (["euro", "--steps", "364", "--rebalance-every", "7", "--unconstrained"], "K1"),
+    "euro-dense": (["euro", "--steps", "364", "--rebalance-every", "1", "--unconstrained"],
+                   "K1"),
+    "heston": (["heston", "--steps", "364", "--rebalance-every", "7"], "K3b"),
+    "heston-euler": (["heston", "--steps", "364", "--rebalance-every", "7", "--scheme",
+                      "euler"], "K3a"),
+    "pension": (["pension", "--steps", "1000", "--rebalance-every", "25"], "K3c"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CLI_HEDGES))
+def test_cli_hedge_launches_its_kernel_once_and_equals_the_api(cuda, case):
+    """``<command> --engine pallas`` at 65,536 paths on the card: its kernel
+    launches exactly once and no other path kernel does; the JSON line is
+    bitwise the port's API on the same configs."""
+    from orp_tpu_torch.cli import result_line
+
+    argv, kernel = CLI_HEDGES[case]
+    before = _path_launches()
+    lines = _cli_lines([*argv, "--paths", str(CLI_PATHS), "--engine", "pallas", *CLI_GN])
+    torch.cuda.synchronize()
+    after = _path_launches()
+    assert {k: after[k] - before[k] for k in after} == {k: int(k == kernel) for k in after}
+    rep = _cli_hedge_api(case).report
+    extra = None
+    if case.startswith("heston"):
+        oracle = lines[0]["oracle"]
+        extra = {"oracle": oracle, "cv_err_bp": (rep.v0_cv - oracle) / oracle * 1e4}
+    assert lines == [result_line(rep, extra=extra)]
+
+
+def _cli_child(argv, env_extra=None, timeout=900):
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    env = {**os.environ, "PYTHONPATH": str(root), **(env_extra or {})}
+    env.pop("ORP_TESTS_NO_COMPILE_CACHE", None)
+    r = subprocess.run([sys.executable, "-m", "orp_tpu_torch.cli", *argv], env=env,
+                       cwd=str(root), capture_output=True, text=True, timeout=timeout)
+    assert r.returncode == 0, r.stderr[-3000:]
+    return r.stdout
+
+
+def test_cli_export_aot_then_serve_bench_in_a_fresh_process_runs_no_nvcc(cuda, tmp_path):
+    import json
+
+    b = tmp_path / "bundle"
+    line = _cli_lines(["export", "--pipeline", "euro", "--out", str(b), "--paths", "4096",
+                       "--steps", "8", "--rebalance-every", "2", "--epochs-first", "20",
+                       "--epochs-warm", "10", "--aot", "--json"])[0]
+    assert line["aot_buckets"] == [8, 16, 32, 64, 128, 256, 512, 1024]
+    assert len(line["aot_topologies"]) == 1
+    out = tmp_path / "r.json"
+    _cli_child(["serve-bench", "--bundle", str(b), "--quick", "--requests", "16",
+                "--batcher-requests", "16", "--sweep-concurrency", "", "--out", str(out)],
+               {"ORP_TORCH_CACHE_DIR": str(tmp_path / "empty-cache")})
+    rec = json.loads(out.read_text())
+    assert rec["nvcc_runs"] == 0 and rec["aot_hits"] > 0, rec
+
+
+def test_cli_euro_mesh_one_rank_nccl_bitwise_no_mesh(cuda):
+    """``euro --mesh 1`` forms a one-rank NCCL group in its process (the scan
+    engine: a mesh refuses ``--engine pallas``) and prints the no-mesh line:
+    every field bitwise but the standard deviations, which the mesh forms as
+    the root of the shards' mean square deviation (``risk/controls.path_std``)
+    where one device calls ``torch.std``: those at the mesh's ``rtol=1e-5``
+    (PERF.md §2, PR 13; measured 9.8e-8 on ``cv_std``)."""
+    import json
+
+    argv = ["euro", "--paths", str(CLI_PATHS), "--steps", "364", "--rebalance-every", "7",
+            "--unconstrained", *CLI_GN]
+    plain = json.loads(_cli_child(argv))
+    meshed = json.loads(_cli_child([*argv, "--mesh", "1"]))
+    stds = {"cv_std", "acv_std", "residual_std"}
+    assert set(meshed) == set(plain)
+    assert {k: v for k, v in meshed.items() if k not in stds} == \
+        {k: v for k, v in plain.items() if k not in stds}
+    for k in stds:
+        np.testing.assert_allclose(meshed[k], plain[k], rtol=1e-5, err_msg=k)
+
+
+def test_cli_serve_bench_precision_reaches_k2_bf16(cuda, tmp_path):
+    p = tmp_path / "p"
+    _cli_lines(["export", "--pipeline", "euro", "--out", str(p), "--paths", "512", "--steps",
+                "8", "--rebalance-every", "2", "--epochs-first", "20", "--epochs-warm", "10",
+                "--json"])
+    f32, bf16 = (megakernel.mixed_head_forward.launches,
+                 megakernel.mixed_head_forward.launches_bf16)
+    rec = _cli_lines(["serve-bench", "--bundle", str(p), "--quick", "--precision",
+                      "--requests", "8", "--batcher-requests", "8", "--sweep-concurrency", "",
+                      "--out", str(tmp_path / "r.json")])[-1]
+    assert megakernel.mixed_head_forward.launches_bf16 > bf16
+    assert megakernel.mixed_head_forward.launches > f32
+    assert {lv["tier"] for lv in rec["precision_tiers"]["tiers"]} == {"f32", "bf16", "int8"}

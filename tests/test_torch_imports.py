@@ -232,6 +232,15 @@ def test_entry_points_default_to_the_card():
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+    # the command line: the card by default (raises here, in flag-speak naming the
+    # root option), the CPU with --device cpu
+    from orp_tpu_torch import cli
+    euro_argv = ["euro", "--paths", "64", "--steps", "4", "--rebalance-every", "2",
+                 "--optimizer", "gauss_newton", "--gn-iters-first", "2", "--gn-iters-warm", "1",
+                 "--json"]
+    with pytest.raises(SystemExit, match="device='cpu'.*--device cpu"):
+        cli.main(euro_argv)
+    cli.main(["--device", "cpu", *euro_argv])
     # an AOT set is CUDA graphs and sm_90a libraries: without a card it refuses
     from orp_tpu_torch.aot import AotUnsupported, export_aot
     with pytest.raises(AotUnsupported, match="needs a CUDA device"):
