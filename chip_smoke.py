@@ -218,9 +218,17 @@ last line):
     same walk without a mesh, the sharded engine bitwise, ``fused=True`` and
     ``engine="pallas"`` refused in the reference's words, and exact thinning
     at 262,144 x 50 steps a rank, the blocks bitwise the first knots of
-    [exact]'s run. Every rank is a process of its own (``tools/torch_mesh_ranks.py``)
-    under a hard timeout; a rank that fails fails the phase; no rank launches
-    a kernel;
+    [exact]'s run; in the same launch, the committed north-star policy with
+    AOT sets n4, n2 and n1 (exported in this process): each rank loads the n4
+    set with 0 ``nvcc`` runs and 0 capture fallbacks, one graph per bucket of
+    its shard, serving buckets 1 to 1,048,576 bitwise the unsharded engine;
+    then ``DegradeManager(mesh=4)`` on that bundle, a loss reporting 3
+    survivors at request 5 of 32 and a 1,048,576-row block before and after:
+    rebuilt on 2 ranks from the n2 set (0 ``nvcc``, one capture per bucket),
+    ranks 2 and 3 stood down, every answer bitwise rank 0's single-device
+    engine, 0 failed; the MTTR and the added seconds printed. Every rank is a
+    process of its own (``tools/torch_mesh_ranks.py``) under a hard timeout; a
+    rank that fails fails the phase; no rank launches a kernel;
 28. times: each kernel with CUDA events at the main paths' shapes (the
     host's queue filled ahead of each timed round, so a kernel shorter than
     its wrapper's host cost is timed on the card), its plain version's time
@@ -4279,6 +4287,90 @@ def mesh_tool():
     return mod
 
 
+#: [mesh] (b)'s degradation: a loss reporting 3 survivors of 4 at request 5 of
+#: 32, a 1,048,576-row block before and after (one dispatch each)
+MESH_DEGRADE = {"requests": 32, "loss_at": 5, "survivors": 3, "block_rows": 1 << 20,
+                "max_batch": 1 << 20, "seed": 0}
+
+
+def export_mesh_sets(bundle, sizes):
+    """The committed north-star policy as a bundle under ``bundle`` with AOT
+    sets for 4, 2 and 1 rank(s) at the buckets of ``sizes`` (one process; the
+    mesh sets are manifests, the single-device set builds and times its
+    graphs); returns the bundle and the export's seconds."""
+    import shutil
+
+    from orp_tpu_torch import NORTH_STAR_POLICY
+    from orp_tpu_torch.aot import export_aot
+    from orp_tpu_torch.serve import export_bundle, load_bundle
+
+    shutil.rmtree(bundle, ignore_errors=True)
+    t0 = time.perf_counter()
+    policy = export_bundle(load_bundle(NORTH_STAR_POLICY), bundle)
+    export_aot(bundle, policy, buckets=sizes, meshes=(4, 2, None))
+    return bundle, time.perf_counter() - t0
+
+
+def mesh_aot_degrade_checks(res, bundle, sizes, say) -> dict:
+    """[mesh] (b)'s checks of the ``aot`` and ``degrade`` jobs (each rank's
+    results ``res``): the n4 set loaded with 0 ``nvcc`` runs, 0 capture
+    fallbacks and one capture per bucket, every size bitwise the unsharded
+    and the eager mesh engines; the loss rebuilt on 2 ranks from the n2 set
+    with 0 ``nvcc`` and one capture per bucket, ranks 2 and 3 stood down,
+    every answer bitwise, 0 failed, the reference's counters. Returns the
+    MTTR and the seconds the two jobs added."""
+    import json as _json
+
+    index = _json.loads((bundle / "aot" / "aot.json").read_text())
+
+    def buckets(n):
+        [key] = [k for k, row in index["topologies"].items() if row["n_devices"] == n]
+        manifest = _json.loads((bundle / "aot" / key / "aot.json").read_text())
+        return sorted(int(b) for b in manifest["buckets"])
+
+    n4, n2 = buckets(4), buckets(2)
+    for r in res:
+        a = r["aot"]
+        say(a["topology"].endswith("-n4") and a["nvcc"] == 0 and a["captures"] == len(n4)
+            and a["fallbacks"] == {"capture": 0, "set": 0}
+            and a["cache_info"]["aot_buckets"] == n4,
+            f"[mesh] (b) rank {r['rank']}: the n4 set loaded with 0 nvcc runs, 0 capture "
+            f"fallbacks, {a['captures']} shard graphs ({a['load_s']:.3f} s)")
+        say(all(a["equal"].values()) and all(a["equal_eager_mesh"].values())
+            and a["cache_info"]["aot_hits"] == len(sizes),
+            f"[mesh] (b) rank {r['rank']}: {len(sizes)} sizes through the n4 graphs, bitwise "
+            f"the unsharded and the eager mesh engines")
+    [d] = res[0]["degrade"]
+    st = d["stats"]
+    [rc] = st["recoveries"]
+    say(d["injected"] == ["serve/dispatch"] and d["failed"] == 0 and all(d["bitwise"])
+        and all(b["bitwise"] and b["n_served"] == MESH_DEGRADE["block_rows"]
+                for b in d["blocks"].values()),
+        f"[mesh] (b) degrade: {MESH_DEGRADE['requests']} requests and "
+        f"{MESH_DEGRADE['block_rows']}-row blocks before and after, 0 failed, every answer "
+        f"bitwise the single-device engine ({rc['replayed']} replayed)")
+    say(st["mesh_devices"] == 2 and (rc["from_devices"], rc["to_devices"]) == (4, 2)
+        and rc["replay_unresolved"] == 0 and rc["rebuild_xla_compiles"] == 0
+        and rc["rebuild_graph_captures"] == len(n2) and rc["aot_buckets"] == n2
+        and d["counters"] == {"guard/device_loss{survivors=3}": 1,
+                              "guard/topology_rebuild{from_devices=4,to_devices=2}": 1},
+        f"[mesh] (b) degrade: 4 -> 2 ranks from the n2 set, 0 nvcc, "
+        f"{rc['rebuild_graph_captures']} captures, MTTR {rc['mttr_ms']} ms")
+    parts = [r["degrade"][0] for r in res[1:]]
+    say([p["role"] for p in parts] == ["follower", "stood_down", "stood_down"]
+        and parts[0]["rebuilds"][0]["nvcc"] == 0
+        and parts[0]["rebuilds"][0]["captures"] == len(n2),
+        "[mesh] (b) degrade: rank 1 rebuilt beside rank 0 from the n2 set; ranks 2 and 3 "
+        "stood down")
+    added = res[0]["aot"]["wall_s"] + d["wall_s"]
+    print(f"[mesh] (b) degrade on four gloo ranks sharing the card: MTTR {rc['mttr_ms']} ms "
+          f"(drain, rebuild from the n2 set with {rc['rebuild_graph_captures']} captures, "
+          f"replay); the aot and degrade jobs added {added:.3f} s (aot "
+          f"{res[0]['aot']['wall_s']:.3f} s, degrade {d['wall_s']:.3f} s)", flush=True)
+    return {"mesh_mttr_ms": rc["mttr_ms"], "mesh_aot_degrade_s": added,
+            "mesh_rebuild_captures": rc["rebuild_graph_captures"]}
+
+
 def mesh_phases(dev, exact_n) -> dict:
     """[mesh]: the paths mesh at the north star's width (1,048,576 paths x 364
     steps, 52 dates, the scan engine, GN 30 + 51 x 10), each mesh run in
@@ -4300,7 +4392,8 @@ def mesh_phases(dev, exact_n) -> dict:
         ``engine="pallas"`` refused with a mesh, in the reference's words;
         exact thinning at 262,144 x ``MESH_GLOO_PENSION_STEPS`` (50) steps a
         rank (the start of [exact]'s grid), the four blocks concatenated
-        bitwise the first 3 knots of [exact]'s one-process run.
+        bitwise the first 3 knots of [exact]'s one-process run; the mesh's AOT
+        sets and its degradation (:func:`mesh_aot_degrade_checks`).
 
     The mesh path runs no kernel (the JAX package's runs none): each rank
     reports its kernels' launch counters, all 0."""
@@ -4383,11 +4476,14 @@ def mesh_phases(dev, exact_n) -> dict:
             "n_steps": MESH_GLOO_PENSION_STEPS,
             "kw": dict(PENSION, store_every=PENSION_STORE, binomial_mode="exact", seed=1234)}
     t0 = time.perf_counter()
+    aot_bundle, out["aot_export_s"] = export_mesh_sets(work / "aot_bundle", sizes)
+    aot_jobs = {"aot": {"bundle": str(aot_bundle), "sizes": sizes},
+                "degrade": {"bundle": str(aot_bundle), "scenarios": [MESH_DEGRADE]}}
     res = ranks.launch(4, {"walks": [dict(walk, train=gloo_train)], "engine": engine,
-                           "refusals": walk,
-                           "pension": spec}, work / "gloo", device="cuda", backend="gloo",
-                       timeout=600)
+                           "refusals": walk, "pension": spec, **aot_jobs},
+                       work / "gloo", device="cuda", backend="gloo", timeout=600)
     out["gloo_s"] = time.perf_counter() - t0
+    out.update(mesh_aot_degrade_checks(res, aot_bundle, sizes, say))
     say(all(v == 0 for r in res for v in r["kernel_launches"].values()),
         "[mesh] (b) the mesh path launches no kernel on any rank")
     ref = gloo_ref
@@ -4415,7 +4511,8 @@ def mesh_phases(dev, exact_n) -> dict:
         f"[exact]'s one-process {PENSION_STEPS}-step run ({tuple(blocks.shape)})")
     out["gloo_walk_s"] = max(r["walks"][0]["seconds"][-1] for r in res)
     out["gloo_pension_s"] = max(r["pension"]["seconds"] for r in res)
-    print(f"[mesh] (b) four gloo ranks on cuda:0: {out['gloo_s']:.1f} s in all; the walk "
+    print(f"[mesh] (b) four gloo ranks on cuda:0: {out['gloo_s']:.1f} s in all (the AOT sets' "
+          f"export {out['aot_export_s']:.3f} s in this process); the walk "
           f"{out['gloo_walk_s']:.3f} s, exact thinning {out['gloo_pension_s']:.1f} s a rank "
           f"(four processes sharing the card)", flush=True)
     return out

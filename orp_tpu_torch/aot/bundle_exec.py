@@ -33,9 +33,14 @@ returns ``{}``; the engine then serves on its eager path, which launches the
 same kernels on the same card. ``AOT_FORMAT`` is the port's own string, so
 each package refuses the other's set through that path.
 
-Topology: a set serves the topology one process sees (no mesh, or a 1-rank
-group); a mesh of more ranks is refused in flag-speak (a rank of a mesh is a
-process of its own in the port).
+Topology: one set per topology, as in the JAX package. A mesh of N ranks is N
+processes here, each serving its contiguous shard of every bucket and
+gathering the shards (``serve/engine.py``): its set (``<platform>-<kind>-nN``)
+is a manifest of the padded buckets (``pad_to_mesh(next_bucket(b))``) that
+one process writes without a group, and lists no library, since the mesh
+engine launches no kernel (the per-date path). Each rank's :func:`load_aot`
+captures one graph per bucket of THAT RANK'S SHARD's forward; the gather stays
+outside the graph (a ``gloo`` collective cannot be captured).
 """
 
 from __future__ import annotations
@@ -52,6 +57,8 @@ import torch
 from orp_tpu_torch.aot.compile import (AotUnsupported, _need_card, aot_compile, cost_summary,
                                        device_fingerprint)
 from orp_tpu_torch.obs import count as obs_count
+# the JAX package's ``_topo_entry``: a topology's index row, built without a group
+from orp_tpu_torch.parallel.mesh import topology_entry as _topo_entry
 from orp_tpu_torch.utils import cuda_build
 from orp_tpu_torch.utils.atomic import atomic_write_text
 
@@ -82,15 +89,18 @@ class AotExecutable:
 
     @classmethod
     def capture(cls, engine, bucket: int) -> "AotExecutable":
-        """Capture ``engine``'s forward at ``bucket`` rows (its params, tier,
-        combines and cost of capital are baked in)."""
+        """Capture ``engine``'s forward of one ``bucket`` (its params, tier,
+        combines and cost of capital are baked in): all of its rows, or on a
+        mesh engine this rank's shard of them."""
+        from orp_tpu_torch.parallel.mesh import mesh_size
         from orp_tpu_torch.serve.engine import _eval_tiled
 
         dev = engine.device
         dt = engine.model.dtype
+        rows = int(bucket) // mesh_size(engine.mesh)
         date = torch.zeros((), dtype=torch.int64, device=dev)
-        feats = torch.zeros((bucket, engine.model.n_features), dtype=dt, device=dev)
-        prices = torch.zeros((bucket, engine.n_instruments), dtype=dt, device=dev)
+        feats = torch.zeros((rows, engine.model.n_features), dtype=dt, device=dev)
+        prices = torch.zeros((rows, engine.n_instruments), dtype=dt, device=dev)
         model, p1, p2, coc = engine.model, engine._p1, engine._p2, engine.cost_of_capital
 
         def forward(d, f, p, **kw):
@@ -98,15 +108,16 @@ class AotExecutable:
 
         captured, meta = aot_compile(
             forward, date, feats, prices, label=f"eval_tiled/{bucket}", site="serve_bucket",
-            cost=cost_summary(model, bucket, n_heads=1 if engine.dual_mode == "mse_only" else 2,
+            cost=cost_summary(model, rows, n_heads=1 if engine.dual_mode == "mse_only" else 2,
                               precision=engine.precision.tier),
             dual_mode=engine.dual_mode, holdings_combine=engine.holdings_combine,
             precision=engine.precision.tier)
         return cls(bucket, captured, meta)
 
     def call(self, date_idx: int, feats: torch.Tensor, prices: torch.Tensor):
-        """``(phi, psi, value)`` of the padded rows at ``date_idx``: fresh
-        tensors on the device, bitwise the eager forward's."""
+        """``(phi, psi, value)`` of the padded rows (a mesh rank's shard of
+        them) at ``date_idx``: fresh tensors on the device, bitwise the eager
+        forward's."""
         date, f, p = self.captured.args
         with self._lock:
             f.copy_(feats)
@@ -119,32 +130,6 @@ class AotExecutable:
 def _tier_key(topo_key: str, tier: str) -> str:
     """The set's directory: the bare topology for f32, ``<topo>+<tier>`` else."""
     return topo_key if tier == "f32" else f"{topo_key}+{tier}"
-
-
-def _single_rank(mesh, what: str):
-    """``mesh`` as the one-process topology it must be (None), refusing more ranks."""
-    from orp_tpu_torch.parallel.mesh import spec_of
-
-    spec = spec_of(mesh)
-    n = 1 if spec is None else spec.n_devices
-    if n is None:  # every rank of the group
-        import torch.distributed as dist
-
-        n = dist.get_world_size() if dist.is_initialized() else 1
-    if n > 1:
-        raise ValueError(
-            f"{what} serves the topology one process sees (no mesh, or a 1-rank group); a "
-            f"{n}-rank mesh is {n} processes in this package, and an AOT set across ranks is "
-            "not supported yet — export and serve it on each rank's own engine, or drop mesh=")
-    return None
-
-
-def _topo_entry(dev) -> dict:
-    from orp_tpu_torch.parallel.mesh import topology_fingerprint
-
-    fp = device_fingerprint(dev)
-    return {"dir": topology_fingerprint(None, dev), "axis": None, "n_devices": 1,
-            "mesh_shape": [1], "platform": fp["platform"], "device_kind": fp["device_kind"]}
 
 
 def _time_replays(captured, n: int = 3) -> float:
@@ -189,9 +174,43 @@ def _export_one_topology(adir: pathlib.Path, engine, buckets, policy_fingerprint
                                                       precision=engine.precision.tier)}
         del ex
     manifest = {"format": AOT_FORMAT, "fingerprint": device_fingerprint(engine.device),
-                "topology": _topo_entry(engine.device), "policy_fingerprint": policy_fingerprint,
+                "topology": _topo_entry(None, engine.device),
+                "policy_fingerprint": policy_fingerprint,
                 "precision": engine.precision.tier, "libraries": libs, "buckets": entries}
     # written last: the manifest never names a library that did not finish copying
+    atomic_write_text(adir / AOT_META, json.dumps(manifest, indent=1, sort_keys=True))
+    return manifest
+
+
+def _export_mesh_set(adir: pathlib.Path, engine, spec, buckets, policy_fingerprint) -> dict:
+    """The set of an ``spec.n_devices``-rank mesh into ``adir``: the manifest
+    of its padded buckets, each with its shard's rows and the shard forward's
+    analytic cost. No library (the mesh engine launches no kernel) and no graph
+    (each rank captures its shard's at load), so one process writes it, with
+    no group and on any device."""
+    from orp_tpu_torch.parallel.mesh import pad_to_mesh
+    from orp_tpu_torch.serve.engine import next_bucket
+
+    adir.mkdir(parents=True, exist_ok=True)
+    for stale in adir.glob("lib*.so"):
+        stale.unlink()
+    n_dev = spec.n_devices
+    tier = engine.precision.tier
+    entries = {}
+    for n in sorted({int(b) for b in buckets}):
+        b = pad_to_mesh(next_bucket(n, min_bucket=engine.min_bucket), spec)
+        if b > engine.max_bucket:
+            raise ValueError(f"bucket {b} (for {n} rows on {n_dev} ranks) exceeds "
+                             f"max_bucket={engine.max_bucket}")
+        entries[str(b)] = {"fn": f"eval_tiled/{b}", "shard_rows": b // n_dev, "precision": tier,
+                           **cost_summary(engine.model, b // n_dev, precision=tier,
+                                          n_heads=1 if engine.dual_mode == "mse_only" else 2)}
+    manifest = {"format": AOT_FORMAT, "fingerprint": device_fingerprint(engine.device),
+                "topology": _topo_entry(spec, engine.device),
+                "policy_fingerprint": policy_fingerprint, "precision": tier, "libraries": {},
+                "libraries_note": ("none: a mesh engine serves on the per-date path, which "
+                                   "launches no kernel of the package"),
+                "buckets": entries}
     atomic_write_text(adir / AOT_META, json.dumps(manifest, indent=1, sort_keys=True))
     return manifest
 
@@ -222,33 +241,49 @@ def _kept_topologies(adir: pathlib.Path, policy_fingerprint) -> dict:
 
 def export_aot(directory: str | pathlib.Path, policy, *, buckets=DEFAULT_BUCKETS,
                meshes=(None,), precision="f32", device=None) -> dict:
-    """Ship ``policy``'s AOT set for this card into ``<directory>/aot/<topo>[+tier]/``
-    (``directory`` is the policy's bundle dir): the libraries, and each
-    bucket's graph captured, timed and stamped with its roofline (the graphs
-    themselves are captured again by :func:`load_aot`). ``buckets`` are request
-    sizes, rounded up as a live request would be. ``meshes`` may hold only the
-    single-process topology (None, 1 or a 1-rank mesh). Returns the index with
-    the manifests inlined under ``"topologies"``. Raises
-    :class:`AotUnsupported` without a card."""
+    """Ship ``policy``'s AOT sets into ``<directory>/aot/<topo>[+tier]/``, one
+    per topology of ``meshes`` (``directory`` is the policy's bundle dir).
+    ``meshes`` entries are None (one device), ints, ``MeshSpec`` s or built
+    meshes; a 1-rank mesh is the single-device topology. The single-device
+    set holds the libraries and each bucket's graph captured, timed and
+    stamped with its roofline (the graphs themselves are captured again by
+    :func:`load_aot`), and needs a card (:class:`AotUnsupported` without
+    one); a mesh's set is the manifest :func:`_export_mesh_set` writes, from
+    this one process. ``buckets`` are request sizes, rounded up as a live
+    request on that topology would be. Returns the index with the manifests
+    inlined under ``"topologies"``."""
+    from orp_tpu_torch.parallel.mesh import spec_of
     from orp_tpu_torch.serve.engine import HedgeEngine
 
-    _need_card("export_aot")
+    specs = []
     for m in meshes:
-        _single_rank(m, "export_aot")
+        spec = spec_of(m)
+        if spec is not None and spec.n_devices is None:
+            import torch.distributed as dist
+
+            spec = spec_of(dist.get_world_size() if dist.is_initialized() else 1)
+        specs.append(None if spec is None or spec.n_devices == 1 else spec)
+    if None in specs:
+        _need_card("export_aot of the single-device set")
     engine = HedgeEngine(policy, use_aot=False, precision=precision, device=device)
-    if engine.device.type != "cuda":
-        raise AotUnsupported("export_aot captures CUDA graphs: pass a CUDA device "
-                             f"(got {engine.device})")
+    if None in specs and engine.device.type != "cuda":
+        raise AotUnsupported("export_aot captures CUDA graphs for the single-device set: "
+                             f"pass a CUDA device (got {engine.device})")
     adir = pathlib.Path(directory) / AOT_SUBDIR
     adir.mkdir(parents=True, exist_ok=True)
     pf = getattr(policy, "fingerprint", None)
     index = {"format": AOT_FORMAT, "topologies": _kept_topologies(adir, pf)}
-    entry = _topo_entry(engine.device)
-    key = _tier_key(entry["dir"], engine.precision.tier)
-    manifest = _export_one_topology(adir / key, engine, buckets, pf)
-    index["topologies"][key] = {**manifest["topology"], "dir": key}
+    out = {"format": AOT_FORMAT, "topologies": {}}
+    for spec in dict.fromkeys(specs):
+        key = _tier_key(_topo_entry(spec, engine.device)["dir"], engine.precision.tier)
+        if spec is None:
+            manifest = _export_one_topology(adir / key, engine, buckets, pf)
+        else:
+            manifest = _export_mesh_set(adir / key, engine, spec, buckets, pf)
+        index["topologies"][key] = {**manifest["topology"], "dir": key}
+        out["topologies"][key] = manifest
     atomic_write_text(adir / AOT_META, json.dumps(index, indent=1, sort_keys=True))
-    return {"format": AOT_FORMAT, "topologies": {key: manifest}}
+    return out
 
 
 def _fingerprint_diffs(saved: dict, device=None) -> list[str]:
@@ -259,15 +294,15 @@ def _fingerprint_diffs(saved: dict, device=None) -> list[str]:
 
 def _check_set(adir: pathlib.Path, *, mesh, precision: str, device,
                policy_fingerprint=None) -> tuple[str | None, dict | None, pathlib.Path | None]:
-    """The one check of the set for this process's topology and tier under
+    """The one check of the set for the caller's topology (``mesh``: None, a
+    rank count, a ``MeshSpec`` or the engine's built mesh) and tier under
     ``adir`` (whose index exists), shared by :func:`load_aot` and
     :func:`aot_status`: ``(reason it cannot be used or None, manifest, set
     directory)``. It checks the index and manifest format, the topology and
-    tier key, the device fingerprint, the policy fingerprint (when given), the
-    tier, and that each library was built from this checkout's ``csrc/`` and
-    is in the cache or the set; it installs nothing."""
-    from orp_tpu_torch.parallel.mesh import topology_fingerprint
-
+    tier key, the manifest's rank count, the device fingerprint, the policy
+    fingerprint (when given), the tier, and that each library was built from
+    this checkout's ``csrc/`` and is in the cache or the set; it installs
+    nothing."""
     try:
         index = json.loads((adir / AOT_META).read_text())
     except json.JSONDecodeError as e:
@@ -275,11 +310,8 @@ def _check_set(adir: pathlib.Path, *, mesh, precision: str, device,
     if index.get("format") != AOT_FORMAT:
         return (f"format {index.get('format')!r} != {AOT_FORMAT} (not this package's set — "
                 "re-export it with this package)"), None, None
-    try:
-        _single_rank(mesh, "an AOT set")
-    except ValueError as e:
-        return str(e), None, None
-    key = _tier_key(topology_fingerprint(None, device), precision)
+    topo = _topo_entry(mesh, device)
+    key = _tier_key(topo["dir"], precision)
     topos = index.get("topologies", {})
     if key not in topos:
         return f"no set for topology+tier {key!r} (bundle ships: {sorted(topos)})", None, None
@@ -290,6 +322,10 @@ def _check_set(adir: pathlib.Path, *, mesh, precision: str, device,
         return f"topology {key!r} manifest unreadable: {e}", None, None
     if manifest.get("format") != AOT_FORMAT:
         return f"format {manifest.get('format')!r} != {AOT_FORMAT}", None, None
+    got_n = (manifest.get("topology") or {}).get("n_devices")
+    if got_n != topo["n_devices"]:
+        return (f"topology mesh size mismatch: set n_devices={got_n} here="
+                f"{topo['n_devices']}"), None, None
     diffs = _fingerprint_diffs(manifest.get("fingerprint") or {}, device)
     if diffs:
         return "device/runtime fingerprint mismatch — " + "; ".join(diffs), None, None
@@ -315,8 +351,9 @@ def _check_set(adir: pathlib.Path, *, mesh, precision: str, device,
 
 def aot_status(directory: str | pathlib.Path, *, mesh=None, precision: str = "f32",
                device=None) -> dict:
-    """Non-loading coverage probe: does the bundle ship a usable set for this
-    process's topology and tier? ``{"present", "ok", "detail", "topologies"}``,
+    """Non-loading coverage probe: does the bundle ship a usable set for the
+    caller's topology (``mesh``, as :func:`load_aot`) and tier?
+    ``{"present", "ok", "detail", "topologies"}``,
     without the load path's warning; "covered" exactly where :func:`load_aot`
     would install the set (the same check)."""
     adir = pathlib.Path(directory) / AOT_SUBDIR
@@ -368,19 +405,21 @@ def _install(tdir: pathlib.Path, libs: dict) -> None:
 
 def load_aot(directory: str | pathlib.Path, *, policy_fingerprint: str | None = None,
              mesh=None, precision: str = "f32", engine=None, device=None) -> dict | None:
-    """The AOT set for this process's topology and tier from ``<directory>/aot/``.
+    """The AOT set for the caller's topology (``mesh``: None, a rank count, a
+    ``MeshSpec`` or the engine's built mesh) and tier from ``<directory>/aot/``.
 
     Returns None when the bundle ships no AOT artifacts, ``{}`` after ONE
     warning when they exist but cannot be used here (format, topology or tier
     not exported, device or runtime fingerprint, policy fingerprint, a library
     built from another ``csrc/``, a capture failure), else ``{bucket:
     AotExecutable}`` captured on ``engine`` (``{bucket: None}`` when no engine
-    is given: the set checked and its libraries installed)."""
+    is given: the set checked and its libraries installed). On a mesh engine
+    each rank captures its shard's graph of every bucket."""
     adir = pathlib.Path(directory) / AOT_SUBDIR
     if not (adir / AOT_META).exists():
         return None
     if engine is not None:
-        device = engine.device
+        device, mesh = engine.device, engine.mesh
     why, manifest, tdir = _check_set(adir, mesh=mesh, precision=precision, device=device,
                                      policy_fingerprint=policy_fingerprint)
     if why is not None:

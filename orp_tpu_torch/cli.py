@@ -228,6 +228,10 @@ def _torchrun_env() -> bool:
                                          "MASTER_PORT"))
 
 
+#: set while a process group this command formed is alive (:func:`main` ends it)
+_GROUP_FORMED: list = []
+
+
 def _join_group(args, flag: str, n: int) -> None:
     """The process group an N-rank mesh needs: torchrun's (``env://``) when its
     variables are set, a one-rank group of this process for N == 1, else the
@@ -241,11 +245,13 @@ def _join_group(args, flag: str, n: int) -> None:
         from orp_tpu_torch.parallel.multihost import initialize_multihost
 
         initialize_multihost(auto=True, backend=backend)
+        _GROUP_FORMED.append(True)
     elif n == 1:
         import tempfile
 
         store = pathlib.Path(tempfile.mkdtemp(prefix="orp-cli-group-")) / "store"
         dist.init_process_group(backend, init_method=store.as_uri(), world_size=1, rank=0)
+        _GROUP_FORMED.append(True)
     else:
         raise SystemExit(
             f"error: {flag} {n}: a mesh of {n} ranks is {n} processes in "
@@ -734,15 +740,11 @@ def cmd_export(args):
     train = _train_cfg(args, "mse_only" if args.pipeline != "pension" else "separate")
     dev = _device(args)
     if args.aot:
-        # fail BEFORE the training spend: the AOT set is card-only and one
-        # process's topology (a mesh of N ranks is N processes here)
-        _need_card(args, "export --aot")
-        for x in args.aot_mesh.split(","):
-            if int(x) > 1:
-                raise SystemExit(
-                    f"error: --aot-mesh {x}: an AOT set serves the topology one "
-                    "process sees; export it on each rank's own engine "
-                    "(--aot-mesh 1)")
+        # fail BEFORE the training spend: the single-device set (libraries and
+        # timed graphs) is card-only; a mesh's set is a manifest this one
+        # process writes on any device (each rank captures its shard at load)
+        if any(int(x) <= 1 for x in args.aot_mesh.split(",")):
+            _need_card(args, "export --aot")
     if args.pipeline == "pension":
         cfg = HedgeRunConfig(
             sim=SimConfig(n_paths=args.paths, T=args.T, dt=args.T / args.steps,
@@ -784,7 +786,7 @@ def cmd_export(args):
         out["aot_buckets"] = sorted(
             {int(b) for t in topos.values() for b in t["buckets"]})
         out["aot_compile_wall_s"] = round(sum(
-            e["compile_wall_s"] for t in topos.values()
+            e.get("compile_wall_s", 0.0) for t in topos.values()
             for e in t["buckets"].values()), 3)
     if args.json:
         print(json.dumps(out))
@@ -817,7 +819,7 @@ def _ledger_path(args, anchor: pathlib.Path | None = None) -> pathlib.Path | Non
 
 
 def cmd_serve_bench(args):
-    from orp_tpu_torch.parallel.mesh import MeshSpec
+    from orp_tpu_torch.parallel.mesh import MeshSpec, join_submesh
     from orp_tpu_torch.serve import load_bundle
     from orp_tpu_torch.serve.bench import serve_bench, write_bench_record
 
@@ -837,8 +839,8 @@ def cmd_serve_bench(args):
             if spec is None:
                 continue
             _join_group(args, flag, n)
-            try:
-                spec.build(dev)
+            try:  # a rank outside the first n builds nothing and serves no shard
+                join_submesh(spec.n_devices, device=dev)
             except ValueError as e:
                 raise SystemExit(f"error: {flag} {n}: {e}") from None
 
@@ -958,6 +960,8 @@ def cmd_serve_bench(args):
         previous=previous,
         device=dev,
     )
+    if record is None:
+        return  # a follower rank of the mesh: rank 0 records and prints
     if args.ingest:
         ing = record["ingest"]
         if not ing["submit_ns_per_row"] < ing["per_request"]["submit_ns_per_row"]:
@@ -1973,8 +1977,9 @@ def build_parser():
     px.add_argument("--aot-mesh", default="1", metavar="N[,M…]",
                     help="with --aot: mesh sizes (topologies) to ship "
                          "executable sets for — one aot/<topo>/ set per "
-                         "size (1 = single device); a set serves the "
-                         "topology one process sees, so only 1 is accepted")
+                         "size (1 = single device, card only; N > 1 = a "
+                         "manifest of the N-rank mesh's padded buckets, whose "
+                         "ranks capture their shard's graphs at load)")
     _add_train_flags(px)
     px.set_defaults(fn=cmd_export)
 
@@ -2570,6 +2575,27 @@ def main(argv=None):
     from orp_tpu_torch.aot.cache import enable_from_env
 
     enable_from_env()
+    ok = False
+    try:
+        out = _run(args)
+        ok = True
+        return out
+    finally:
+        if _GROUP_FORMED:
+            # end the group this command formed, every rank together after a
+            # run that succeeded: a rank that exits while its peer still holds
+            # the group can abort in gloo's teardown (a follower of serve-bench
+            # is done long before rank 0)
+            import torch.distributed as dist
+
+            _GROUP_FORMED.clear()
+            if dist.is_initialized():
+                if ok:
+                    dist.barrier()
+                dist.destroy_process_group()
+
+
+def _run(args):
     tdir = getattr(args, "telemetry", None)
     if tdir:
         # one session around the whole command: the pipeline binds its config
@@ -2586,7 +2612,7 @@ def main(argv=None):
         with obs.telemetry(tdir, manifest_extra={"cli_command": args.command}):
             obs.install_signal_flush()
             return args.fn(args)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -32,12 +32,25 @@ gives fingerprint mismatches) is to DEGRADE, not die:
   (``stats()``) and a first-class field of ``serve/bench.serve_bench``'s
   record (``degrade_at``).
 
-Topology: the port's manager serves the topology ONE process sees — no mesh,
-or a 1-rank group — where a loss leaves the single device to rebuild on. A
-mesh of more ranks is refused: in this package each rank is a process, a
-lost rank is a process that is gone, and rebuilding on the survivors means a
-new process group (a design of its own, not yet ported). The JAX package
-rebuilds on the surviving devices inside one process instead.
+Topology: a mesh of N ranks is N processes here, each SPMD by hand, and every
+rank constructs ``DegradeManager(policy, mesh=N)``. Rank 0 is the FRONT: it
+alone takes ``submit`` / ``submit_block`` / ``evaluate`` and runs the batcher,
+whose engine broadcasts each dispatch through a ``serve/engine.MeshChannel``
+before its forward. Every other rank is a FOLLOWER: a thread that makes each
+broadcast dispatch on its own engine (``serve/engine.follow``). One ordered
+channel on one thread per rank carries dispatch, loss and stop. A device loss
+fires on rank 0 (a ``FaultPlan`` is process-local); its recovery thread sends
+a loss message carrying the survivors over the old mesh and retires the old
+channel, under the channel's lock, so it never interleaves with a dispatch's
+broadcast or gather. Every rank then rebuilds on the first
+``largest_submesh(survivors)`` ranks (``make_mesh`` takes the first n of the
+group; ``parallel/mesh.join_submesh`` forms that subgroup, entered by every
+rank still in the manager, waiting only among its members), and the ranks
+outside it stand down. Which rank died is not known (nor is it in the JAX
+package): the survivors are a count. A real process death, seen as a failed
+collective, is outside this design. Served bits stay BITWISE the
+single-device engine's on every topology: the mesh engine's forward runs in
+fixed row tiles and its gather is exact (``serve/engine.py``).
 
 The clean path pays one pointer indirection per submit and nothing else;
 a manager that never sees a ``DeviceLostError`` is a pass-through.
@@ -52,11 +65,10 @@ from concurrent.futures import TimeoutError as _FutureTimeoutError
 
 import numpy as np
 
-from orp_tpu_torch.utils import cuda_build
-
 from orp_tpu_torch.guard.serve import DeviceLostError, GuardPolicy
 from orp_tpu_torch.obs import count as obs_count
 from orp_tpu_torch.obs import flight
+from orp_tpu_torch.utils import cuda_build
 
 
 class _Tracked:
@@ -80,14 +92,39 @@ class _Tracked:
         self.is_block = is_block
 
 
+def _healthy_spec(mesh):
+    """The manager's starting topology: None for one device (no mesh, or a
+    1-rank one), else its ``MeshSpec``, refused in flag-speak when it spans
+    more ranks than the process group holds."""
+    import torch.distributed as dist
+
+    from orp_tpu_torch.parallel.mesh import spec_of
+
+    spec = spec_of(mesh)
+    if spec is None:
+        return None
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n = world if spec.n_devices is None else spec.n_devices
+    if n > world:
+        raise ValueError(
+            f"DegradeManager(mesh={mesh!r}) spans {n} ranks, but this process group has "
+            f"{world}: start {n} ranks (torchrun --nproc-per-node {n}, or "
+            "parallel.multihost.initialize_multihost) or pass a smaller mesh")
+    return None if n == 1 else type(spec)(n_devices=n, axis=spec.axis)
+
+
 class DegradeManager:
     """Serve one policy through device loss: drain → rebuild → replay.
 
     ``policy``        — what the engine evaluates (a ``PolicyBundle`` —
     ideally one shipping its topology's AOT set — or a trained
     ``PipelineResult``). Retained: every rebuild constructs from it.
-    ``mesh``          — the healthy topology: None, or a 1-rank mesh (more
-    ranks are refused, module docstring).
+    ``mesh``          — the healthy topology: None, a rank count, a
+    ``MeshSpec`` or a built mesh, at most the ranks of the process group;
+    every rank of it constructs the manager (module docstring: rank 0 is the
+    front, the others follow, and ``role`` says which this rank is:
+    ``"front"``, ``"follower"`` or, after a loss left it outside the
+    rebuilt mesh, ``"stood_down"``).
     ``engine_kwargs`` — ``HedgeEngine`` keywords (``device``, ``precision``...).
     ``guard_policy``  — optional :class:`~orp_tpu_torch.guard.GuardPolicy` for the
     inner batcher (deadlines/watermark/retries/hard wall keep their exact
@@ -102,41 +139,70 @@ class DegradeManager:
                  engine_kwargs: dict | None = None,
                  batcher_kwargs: dict | None = None,
                  replay_timeout_s: float = 30.0):
-        from orp_tpu_torch.parallel.mesh import spec_of
-
-        spec = spec_of(mesh)
-        if spec is not None and spec.n_devices != 1:
-            raise ValueError(
-                f"DegradeManager serves the topology one process sees (no mesh, or a 1-rank "
-                f"group); mesh={mesh!r} spans {spec.n_devices or 'every'} rank(s), each a "
-                "process of its own in this package — multi-rank degradation (a new process "
-                "group over the survivors) is not supported yet; pass mesh=None")
         self._policy = policy
         self._guard_policy = guard_policy
         self.engine_kwargs = dict(engine_kwargs or {})
         self.batcher_kwargs = dict(batcher_kwargs or {})
         self.replay_timeout_s = float(replay_timeout_s)
         self._lock = threading.Lock()
-        self._spec = None  # a 1-rank mesh is the single-device topology
+        self._spec = _healthy_spec(mesh)
+        self._meshed = self._spec is not None  # started on a mesh of ranks
         self._replay: collections.deque[_Tracked] = collections.deque()
         self._recoveries: list[dict] = []
         self._recovering = False
         self._recovery_thread: threading.Thread | None = None
         self._closed = False
+        self._batcher = None
+        self._follower: threading.Thread | None = None
+        self._follower_error: Exception | None = None
+        #: a follower's rebuilds: {"to_devices", "nvcc", "captures", "aot_buckets"}
+        self.rebuilds: list[dict] = []
+        self.rank = 0
+        if self._spec is not None:
+            import torch.distributed as dist
+
+            self.rank = dist.get_rank()
         # built OUTSIDE the lock (nothing to race at construction; the
         # discipline everywhere else)
-        self.engine, self._batcher = self._build(self._spec)
+        if self.rank == 0:
+            self.role = "front"
+            self.engine, self._batcher = self._build(self._spec)
+        else:
+            self.engine = self._build_engine(self._spec)
+            self.role = "follower" if self.engine is not None else "stood_down"
+            if self.engine is not None:
+                self._follower = threading.Thread(target=self._follow, name="orp-degrade-follower",
+                                                  daemon=True)
+                self._follower.start()
 
     # -- build / swap --------------------------------------------------------
+
+    def _build_engine(self, spec):
+        """This rank's engine for ``spec`` (None when this rank is outside the
+        mesh), the front's announcing to the others through a fresh channel."""
+        from orp_tpu_torch.parallel.mesh import join_submesh
+        from orp_tpu_torch.serve.engine import HedgeEngine, MeshChannel
+
+        mesh = None
+        if spec is not None:
+            mesh = join_submesh(spec.n_devices, axis=spec.axis,
+                                device=self.engine_kwargs.get("device"))
+            if mesh is None:
+                return None
+        if self.rank != 0 and mesh is None:
+            return None  # a single device is rank 0's alone
+        engine = HedgeEngine(self._policy, mesh=mesh, **self.engine_kwargs)
+        if mesh is not None and self.rank == 0:
+            engine.front = MeshChannel(mesh)
+        return engine
 
     def _build(self, spec):
         """Engine + batcher for ``spec`` — always called OUTSIDE every lock
         (engine construction installs AOT libraries and captures graphs, or
         builds; a lock held across it would head-of-line-block submits)."""
         from orp_tpu_torch.serve.batcher import MicroBatcher
-        from orp_tpu_torch.serve.engine import HedgeEngine
 
-        engine = HedgeEngine(self._policy, mesh=spec, **self.engine_kwargs)
+        engine = self._build_engine(spec)
         batcher = MicroBatcher(engine, policy=self._guard_policy,
                                **self.batcher_kwargs)
         return engine, batcher
@@ -153,6 +219,37 @@ class DegradeManager:
         # bounding the loop) fails over another recovery round.
         return largest_submesh(max(1, min(alive, cur)))
 
+    def _follow(self) -> None:
+        """A follower's thread: mirror rank 0's dispatches; on a loss, rebuild
+        with every other rank (or stand down outside the new mesh); end at
+        rank 0's stop."""
+        from orp_tpu_torch.serve.engine import LOSS, MeshChannel, STOP, follow
+
+        try:
+            while True:
+                op, ints = follow(self.engine, MeshChannel(self.engine.mesh))
+                if op == STOP:
+                    return
+                if op != LOSS:
+                    raise RuntimeError(f"unknown mesh channel message {op}")
+                new_spec = self._surviving_spec(None if ints[0] < 0 else ints[0])
+                builds0 = dict(cuda_build.BUILD_STATS)
+                engine = self._build_engine(new_spec)
+                with self._lock:
+                    self._spec = new_spec
+                    self.engine = engine
+                    if engine is None:
+                        self.role = "stood_down"
+                self.rebuilds.append({
+                    "to_devices": 1 if new_spec is None else new_spec.n_devices,
+                    "nvcc": cuda_build.BUILD_STATS["nvcc"] - builds0["nvcc"],
+                    "captures": cuda_build.BUILD_STATS["captures"] - builds0["captures"],
+                    "aot_buckets": None if engine is None else engine.cache_info()["aot_buckets"]})
+                if engine is None:
+                    return
+        except Exception as e:  # orp: noqa[ORP009] -- kept for close(), which re-raises it
+            self._follower_error = e
+
     # -- request path --------------------------------------------------------
 
     def submit(self, date_idx: int, states, prices=None, *,
@@ -163,6 +260,7 @@ class DegradeManager:
         topology death under the request replays it instead of failing it."""
         from orp_tpu_torch.serve.batcher import SlimFuture
 
+        self._need_front("submit")
         outer = SlimFuture()
         req = _Tracked(int(date_idx), np.asarray(states), prices, deadline_s,
                        outer)
@@ -179,6 +277,7 @@ class DegradeManager:
         failing its caller."""
         from orp_tpu_torch.serve.batcher import SlimFuture
 
+        self._need_front("submit_block")
         outer = SlimFuture()
         req = _Tracked(int(date_idx),
                        np.atleast_2d(np.ascontiguousarray(states)),
@@ -188,7 +287,15 @@ class DegradeManager:
 
     def evaluate(self, date_idx: int, states, prices=None):
         """Synchronous convenience: ``submit(...).result()``."""
+        self._need_front("evaluate")
         return self.submit(date_idx, states, prices).result()
+
+    def _need_front(self, what: str) -> None:
+        if self.role != "front":
+            raise RuntimeError(
+                f"DegradeManager.{what} on rank {self.rank} ({self.role}): rank 0 is the front "
+                "of the mesh and takes every request; the other ranks only mirror its "
+                f"dispatches — call {what} on rank 0")
 
     def _submit_inner(self, req: _Tracked) -> None:
         # bounded claim loop: between reading the pointer and submitting,
@@ -256,8 +363,21 @@ class DegradeManager:
                       from_devices=from_devices)
         new_spec = self._surviving_spec(survivors)
         to_devices = 1 if new_spec is None else new_spec.n_devices
-        # rebuild FIRST and OUTSIDE every lock: new traffic starts flowing the
-        # moment the pointer swaps, while the old queue drains
+        with self._lock:
+            old_chan = self.engine.front
+        if old_chan is not None:
+            from orp_tpu_torch.serve.engine import LOSS
+
+            # tell the followers over the old mesh, then retire its channel:
+            # under the channel's lock, so no dispatch's broadcast or gather
+            # interleaves, and every later dispatch on the old engine traps
+            with old_chan.lock:
+                old_chan.send(LOSS, (-1 if survivors is None else int(survivors),))
+                old_chan.retired = True
+        # rebuild FIRST and OUTSIDE the manager's lock (the rebuild's subgroup
+        # is a collective, which the followers enter from their loss message):
+        # new traffic starts flowing the moment the pointer swaps, while the
+        # old queue drains
         builds0 = dict(cuda_build.BUILD_STATS)
         engine, batcher = self._build(new_spec)
         builds = {k: cuda_build.BUILD_STATS[k] - builds0[k] for k in ("nvcc", "captures")}
@@ -360,13 +480,28 @@ class DegradeManager:
             }
 
     def close(self, timeout: float | None = 10.0) -> None:
+        """Rank 0: drain, fail what still awaits replay, and send the followers
+        stop (on a mesh after any running recovery, without a bound: the stop
+        must follow the rebuild). A follower: wait for that stop (its part ends
+        with the front's, so it waits without a bound) and raise what ended its
+        loop otherwise."""
+        if self.role != "front":
+            with self._lock:
+                self._closed = True
+            if self._follower is not None:
+                self._follower.join()
+            if self._follower_error is not None:
+                raise RuntimeError(f"the follower on rank {self.rank} failed: "
+                                   f"{self._follower_error!r}") from self._follower_error
+            return
         with self._lock:
             if self._closed:
                 return
             self._closed = True
             t = self._recovery_thread
         if t is not None and t.is_alive():
-            t.join(timeout)
+            # a mesh's stop must follow its rebuild on the channel: no bound there
+            t.join(None if self._meshed else timeout)
         with self._lock:
             # read the pointer AFTER the recovery join: a recovery racing
             # close may have swapped in a fresh batcher
@@ -378,6 +513,14 @@ class DegradeManager:
             # never leave a caller waiting on a future nobody will resolve
             req.outer.set_exception(RuntimeError(
                 "DegradeManager closed while the request awaited replay"))
+        chan = self.engine.front
+        if chan is not None:
+            from orp_tpu_torch.serve.engine import STOP
+
+            with chan.lock:
+                if not chan.retired:
+                    chan.send(STOP)
+                    chan.retired = True
 
     def __enter__(self):
         return self

@@ -131,7 +131,26 @@ def make_mesh(n_devices: int | None = None, axis: str = AXIS, device=None):
     of the process group (all by default) on this rank's device
     (:func:`rank_device`). Needs the group
     (``parallel.multihost.initialize_multihost``); every rank of the group
-    must call it."""
+    must call it for the whole group, and every rank of the submesh for a
+    smaller one (:func:`join_submesh`, which a rank outside the submesh calls
+    instead: here it raises)."""
+    mesh = join_submesh(n_devices, axis=axis, device=device)
+    if mesh is None:
+        raise ValueError(f"rank {dist.get_rank()} is not among the first {n_devices} ranks: "
+                         "only they build that mesh (parallel.mesh.join_submesh)")
+    return mesh
+
+
+def join_submesh(n_devices: int | None = None, axis: str = AXIS, device=None):
+    """The mesh over the first ``n_devices`` ranks of the process group (all by
+    default), or None on a rank outside them. The whole group is a
+    ``DeviceMesh`` over every rank; a smaller one is a subgroup formed with
+    group-local synchronization (``dist.new_group(...,
+    use_local_synchronization=True)``), so only its members wait on each other
+    and a rank outside it returns at once: after a degradation from 4 ranks to
+    2 the standing-down ranks 2 and 3 make the same call and leave, and a later
+    rebuild from 2 to 1 needs nothing of them. Meshes are cached by size, axis
+    and device, so every later call is local."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a torch.distributed process group: call "
                            "parallel.multihost.initialize_multihost first")
@@ -140,13 +159,20 @@ def make_mesh(n_devices: int | None = None, axis: str = AXIS, device=None):
         raise ValueError(f"requested {n_devices} devices, have {world}")
     n = world if n_devices is None else n_devices
     dev = rank_device(device)
-    world_group, mesh = _MESHES.get((n, axis, dev), (None, None))
-    if mesh is None or world_group is not dist.group.WORLD:  # built in this group
-        if dev.type == "cuda":
-            torch.cuda.set_device(dev)
+    key = (n, axis, dev)
+    if key in _MESHES and _MESHES[key][0] is dist.group.WORLD:  # built in this group
+        return _MESHES[key][1]
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if n == world:
         mesh = _device_mesh_cls()(dev.type, list(range(n)), mesh_dim_names=(axis,))
+    else:
+        group = dist.new_group(ranks=list(range(n)), use_local_synchronization=True)
+        mesh = (None if dist.get_rank() >= n
+                else _device_mesh_cls().from_group(group, dev.type, mesh_dim_names=(axis,)))
+    if mesh is not None:
         mesh._orp_device = dev
-        _MESHES[n, axis, dev] = (dist.group.WORLD, mesh)
+    _MESHES[key] = (dist.group.WORLD, mesh)
     return mesh
 
 
@@ -185,19 +211,43 @@ def _platform_kind(dev: torch.device) -> tuple[str, str]:
 def topology_fingerprint(mesh=None, device=None) -> str:
     """Filesystem-safe key of a topology, ``<platform>-<device kind>-n<mesh
     size>``, as the JAX package spells it: ``gpu-NVIDIA_H100_80GB_HBM3-n1`` on
-    one card, ``cpu-cpu-n1`` on the CPU. Without a mesh the device is
-    ``device``, else the default device (the card when one is present, the
+    one card, ``cpu-cpu-n4`` for four CPU ranks. A built mesh names its own
+    device; a ``MeshSpec`` or int that gives its rank count is spelled without
+    building it (no group needed: one process names every topology it exports),
+    on ``device``, else the default device (the card when one is present, the
     CPU otherwise, as JAX's default backend)."""
-    m = as_mesh(mesh, device)
-    if m is not None:
-        dev = mesh_device(m)
-    elif device is not None:
+    return topology_entry(mesh, device)["dir"]
+
+
+def topology_entry(mesh=None, device=None) -> dict:
+    """The JAX package's index row of a topology (``aot/bundle_exec._topo_entry``):
+    ``dir`` (:func:`topology_fingerprint`), ``axis`` (None for one device),
+    ``n_devices``, ``mesh_shape``, ``platform`` and ``device_kind``, without
+    building the mesh."""
+    n, dev = _topology_of(mesh, device)
+    platform, kind = _platform_kind(dev)
+    spec = None if _is_mesh(mesh) else spec_of(mesh)
+    axis = (mesh.mesh_dim_names[0] if _is_mesh(mesh) else
+            None if spec is None or n == 1 else spec.axis)
+    safe = lambda s: "".join(c if c.isalnum() else "_" for c in str(s))  # noqa: E731
+    return {"dir": f"{safe(platform)}-{safe(kind)}-n{n}", "axis": axis, "n_devices": n,
+            "mesh_shape": [n], "platform": platform, "device_kind": kind}
+
+
+def _topology_of(mesh, device) -> tuple[int, torch.device]:
+    """``(rank count, device)`` of a topology, building nothing where the count
+    is given."""
+    if _is_mesh(mesh):
+        return mesh.size(), mesh_device(mesh)
+    spec = spec_of(mesh)
+    if spec is not None and spec.n_devices is None:
+        m = spec.build(device)
+        return m.size(), mesh_device(m)
+    if device is not None:
         dev = torch.device(device)
     else:
         dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    platform, kind = _platform_kind(dev)
-    safe = lambda s: "".join(c if c.isalnum() else "_" for c in str(s))  # noqa: E731
-    return f"{safe(platform)}-{safe(kind)}-n{mesh_size(m)}"
+    return (1 if spec is None else spec.n_devices), dev
 
 
 def path_sharding(mesh, ndim: int = 1) -> tuple:
@@ -346,3 +396,44 @@ def replicate_from_first(value: float, mesh, device) -> float:
         return value
     t = torch.tensor([value if mesh_rank(mesh) == 0 else 0.0], dtype=torch.float64)  # orp: noqa[ORP001] -- a host scalar summed across ranks in f64 so the reduction is exact to the caller's float
     return float(path_sum(t.to(device), mesh).cpu()[0])
+
+
+#: int64 slots of a :func:`broadcast_from_first` header
+HEADER_INTS = 8
+
+
+def broadcast_from_first(mesh, header=None, payload=None):
+    """Rank 0's small host message on every rank of ``mesh``: ``header``, at
+    most :data:`HEADER_INTS` ints, and an optional 1-D ``payload`` sent as
+    float64 (exact for the f32 and f64 rows a request carries). Rank 0 passes
+    them; every other rank passes nothing and gets ``(header, payload)``, the
+    payload a CPU tensor or None. Two broadcasts over the mesh's group (the
+    header, then the payload when there is one), on the CPU for ``gloo`` and on
+    the rank's card for NCCL; every rank of the mesh must call it."""
+    group = mesh.get_group()
+    dev = torch.device("cpu") if dist_backend(mesh) == "gloo" else mesh_device(mesh)
+    src = dist.get_global_rank(group, 0)
+    first = mesh_rank(mesh) == 0
+    hdr = torch.zeros(HEADER_INTS + 2, dtype=torch.int64)
+    if first:
+        ints = [int(x) for x in header]
+        if len(ints) > HEADER_INTS:
+            raise ValueError(f"header of {len(ints)} ints; at most {HEADER_INTS}")
+        hdr[0] = len(ints)
+        hdr[1:1 + len(ints)] = torch.tensor(ints, dtype=torch.int64)
+        hdr[-1] = -1 if payload is None else int(payload.numel())
+    hdr = hdr.to(dev)
+    dist.broadcast(hdr, src=src, group=group)
+    hdr = hdr.cpu()
+    n_ints, n_pay = int(hdr[0]), int(hdr[-1])
+    ints = [int(x) for x in hdr[1:1 + n_ints]]
+    if n_pay < 0:
+        return ints, None
+    # f64 carries the f32 and f64 rows of a request exactly
+    wire = torch.float64  # orp: noqa[ORP001] -- a host message, not a device path
+    if first:
+        buf = payload.reshape(-1).to(device=dev, dtype=wire).contiguous()
+    else:
+        buf = torch.empty(n_pay, dtype=wire, device=dev)
+    dist.broadcast(buf, src=src, group=group)
+    return ints, buf.cpu()

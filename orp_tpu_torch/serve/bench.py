@@ -980,6 +980,24 @@ def _sweep_level_once(engine, *, concurrency: int, n_requests: int, max_batch: i
             "batch_occupancy": s["batch_occupancy"]}
 
 
+def _mesh_front(engine):
+    """The lockstep of a multi-rank mesh engine (``serve/engine.MeshChannel``):
+    None without one; else the channel, through which rank 0's engine now
+    announces each dispatch and which the other ranks follow.
+    ``serve_bench``'s batcher phases coalesce by timing, so without it two
+    ranks' batchers cut one stream into different buckets and their gathers
+    meet at different sizes (``gloo`` aborts) or different requests."""
+    from orp_tpu_torch.parallel.mesh import mesh_size
+    from orp_tpu_torch.serve.engine import MeshChannel
+
+    if mesh_size(engine.mesh) <= 1:
+        return None
+    chan = MeshChannel(engine.mesh)
+    if chan.is_front:
+        engine.front = chan
+    return chan
+
+
 def _mesh_sweep_phase(policy, mesh_sizes, *, rows: int, repeats: int, seed: int,
                       device=None) -> list[dict]:
     """Throughput by topology: one engine per mesh size over the same policy,
@@ -989,7 +1007,7 @@ def _mesh_sweep_phase(policy, mesh_sizes, *, rows: int, repeats: int, seed: int,
     make the call."""
     import torch.distributed as dist
 
-    from orp_tpu_torch.parallel.mesh import make_mesh, pad_to_mesh
+    from orp_tpu_torch.parallel.mesh import join_submesh, pad_to_mesh
 
     world = dist.get_world_size() if dist.is_initialized() else 1
     if any(int(n) > world for n in mesh_sizes):
@@ -998,7 +1016,9 @@ def _mesh_sweep_phase(policy, mesh_sizes, *, rows: int, repeats: int, seed: int,
                          "(parallel.multihost.initialize_multihost) or lower the sizes")
     out, ref = [], None
     for n_dev in mesh_sizes:
-        mesh = None if n_dev <= 1 else make_mesh(int(n_dev), device=device)
+        mesh = None if n_dev <= 1 else join_submesh(int(n_dev), device=device)
+        if n_dev > 1 and mesh is None:
+            continue  # this rank is outside the first n_dev: their rows only
         engine = HedgeEngine(policy, max_bucket=1 << 22, mesh=mesh, device=device)
         n = pad_to_mesh(rows, mesh)
         rng = np.random.default_rng(seed)
@@ -1081,10 +1101,17 @@ def _degrade_drill(policy, *, degrade_at: int, n_requests: int, survivors: int |
     request ``degrade_at``. The record: the drain -> rebuild -> replay MTTR,
     ``failed_during_window`` (the contract is 0: trapped requests replay), the
     rebuild's build count (``rebuild_xla_compiles``: ``nvcc`` runs), and
-    whether the recovered engine serves the healthy engine's exact bits."""
+    whether the recovered engine serves the healthy single-device engine's
+    exact bits. The topology is ``mesh``, by default the largest power-of-two
+    submesh of the process group (one device without a group), as the JAX
+    package takes its visible devices; on a mesh every rank of the group
+    calls it, rank 0 drives the stream and returns the record, and the other
+    ranks mirror it (or stand down) and return None."""
+    import torch.distributed as dist
+
     from orp_tpu_torch import guard
     from orp_tpu_torch.guard import DegradeManager, FaultPlan
-    from orp_tpu_torch.parallel.mesh import spec_of
+    from orp_tpu_torch.parallel.mesh import largest_submesh, spec_of
 
     if not 0 <= int(degrade_at) < int(n_requests):
         raise ValueError(f"degrade_at={degrade_at} is outside the request stream "
@@ -1092,8 +1119,14 @@ def _degrade_drill(policy, *, degrade_at: int, n_requests: int, survivors: int |
                          "degrade_requests or lower degrade_at")
     kw = {"device": device, **(engine_kwargs or {})}
     spec = spec_of(mesh)
-    n_dev = 1 if spec is None else (spec.n_devices or 1)
-    ref = HedgeEngine(policy, **kw)  # the healthy engine's bits
+    if spec is None:
+        spec = largest_submesh(dist.get_world_size() if dist.is_initialized() else 1)
+    n_dev = 1 if spec is None else (spec.n_devices or dist.get_world_size())
+    if n_dev > 1 and dist.get_rank() != 0:
+        with DegradeManager(policy, mesh=spec, engine_kwargs=kw):
+            pass  # a follower: its close waits for rank 0's stop
+        return None
+    ref = HedgeEngine(policy, **kw)  # the healthy single-device engine's bits
     nf = ref.model.n_features
     rng = np.random.default_rng(seed)
     feats = [(1.0 + 0.1 * rng.standard_normal((1, nf))).astype(np.float32)
@@ -1713,6 +1746,20 @@ def serve_bench(
     tier's baseline forward as ``batcher_before`` and the phase blocks this run
     did not re-measure (:data:`STICKY_PHASES`)."""
     engine = HedgeEngine(policy, mesh=mesh, device=device)
+    chan = _mesh_front(engine)
+    if chan is not None and not chan.is_front:
+        # a follower rank: mirror rank 0's engine, batcher and sweep phases,
+        # then join the phases every rank of the group runs; rank 0 records
+        from orp_tpu_torch.serve.engine import follow
+
+        follow(engine, chan)
+        if mesh_sweep:
+            _mesh_sweep_phase(policy, mesh_sweep, rows=mesh_sweep_rows,
+                              repeats=mesh_sweep_repeats, seed=seed, device=device)
+        if degrade_at is not None:
+            _degrade_drill(policy, degrade_at=degrade_at, n_requests=degrade_requests,
+                           survivors=degrade_survivors, mesh=mesh, seed=seed, device=device)
+        return None
     n_features = engine.model.n_features
     rng = np.random.default_rng(seed)
 
@@ -1769,6 +1816,11 @@ def serve_bench(
              for c in sweep_concurrency]
     best = max(sweep, key=lambda r: r["requests_per_s"]) if sweep else None
     after = engine.cache_info()
+    if chan is not None:
+        from orp_tpu_torch.serve.engine import STOP
+
+        chan.send(STOP)  # the followers' mirrored phases end here
+        engine.front = None
 
     record = {
         "metric": "serve_requests_per_sec",
@@ -1917,7 +1969,9 @@ def serve_bench(
         if getattr(policy, "validation", None) is not None:
             from orp_tpu_torch.obs.quality import evaluate_quality
 
-            record["quality"] = evaluate_quality(policy, engine=engine)
+            # a mesh engine's followers stopped mirroring: measure on one device
+            record["quality"] = (evaluate_quality(policy, engine=engine) if chan is None
+                                 else evaluate_quality(policy, device=device))
     if sweep:
         record["sweep"] = sweep
         record["batcher_sustained_requests_per_s"] = best["requests_per_s"]

@@ -22,9 +22,14 @@ multiple of the mesh size (``pad_to_mesh``), each rank runs the per-date
 forward on its contiguous shard of the padded rows, and the shards are
 gathered, so every rank returns the whole ``(phi, psi, value)``. A mesh engine
 keeps the per-date path (``evaluate_mixed_async`` refuses, as in the JAX
-package). The per-date forward runs in row tiles of :data:`ROW_TILE` rows
-(the last one padded), so every product it makes has the same shape whatever
-the request or the shard: cuBLAS picks its kernel by shape, and a 262,144-row
+package). Where one rank takes the traffic (a batcher, a degradation
+manager), the others mirror it through a :class:`MeshChannel`: rank 0's engine
+broadcasts each dispatch, and :func:`follow` makes the same call on each other
+rank. With an AOT set the rank replays its shard's bucket graph and gathers
+outside it (a ``gloo`` collective cannot be captured). The per-date forward
+runs in row tiles of :data:`ROW_TILE` rows (the last one padded), so every
+product it makes has the same shape whatever the request or the shard:
+cuBLAS picks its kernel by shape, and a 262,144-row
 shard of a 1,048,576-row bucket otherwise rounds differently from the whole
 on an H100 (``tools/torch_mesh_probe.py``), which would part the sharded
 engine from the whole one.
@@ -67,6 +72,8 @@ launch shapes and the caching allocator's block sizes to a small fixed set.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 import warnings
 
@@ -74,13 +81,13 @@ import numpy as np
 import torch
 
 from orp_tpu_torch.guard import inject as _inject
-from orp_tpu_torch.guard.serve import CircuitBreaker
+from orp_tpu_torch.guard.serve import CircuitBreaker, DeviceLostError
 from orp_tpu_torch.obs import count as obs_count
 from orp_tpu_torch.obs import devprof as _devprof
 from orp_tpu_torch.obs import enabled as obs_enabled
 from orp_tpu_torch.obs import span as obs_span
-from orp_tpu_torch.parallel.mesh import (as_mesh, mesh_device, mesh_size, pad_to_mesh,
-                                         path_gather, shard_rows)
+from orp_tpu_torch.parallel.mesh import (as_mesh, broadcast_from_first, mesh_device, mesh_rank,
+                                         mesh_size, pad_to_mesh, path_gather, shard_rows)
 from orp_tpu_torch.serve.megakernel import (
     _eval_core_mixed,
     check_head_shape,
@@ -155,6 +162,59 @@ def next_bucket(n: int, *, min_bucket: int = 8) -> int:
     return max(min_bucket, 1 << (n - 1).bit_length())
 
 
+#: the messages of a :class:`MeshChannel`: a dispatch to mirror, a device loss
+#: (its header carries the survivors), and the end of the front's traffic
+DISPATCH, LOSS, STOP = 1, 2, 3
+
+
+class MeshChannel:
+    """The ordered channel from rank 0 of a mesh engine to the other ranks.
+
+    A mesh engine is SPMD by hand: every rank must make the same engine calls
+    in the same order, or two ranks' gathers meet at different sizes (``gloo``
+    aborts) or at different requests (the answer mixes them). A
+    ``MicroBatcher`` coalesces by timing, so the batchers of two ranks cut one
+    stream into different buckets. The channel makes rank 0 the front: its
+    engine (``engine.front = channel``) broadcasts each dispatch (the date, the
+    rows, the states and prices) just before its forward, and the other ranks
+    run :func:`follow`, which makes the same call. The lock holds a dispatch's
+    broadcast and gather together, and the front's other messages (a loss, the
+    stop) take it too, so nothing interleaves on the group. A ``retired``
+    channel (its mesh was rebuilt) refuses dispatches with ``DeviceLostError``.
+    """
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.is_front = mesh_rank(mesh) == 0
+        self.lock = threading.RLock()
+        self.retired = False
+
+    def send(self, op: int, ints=(), payload=None) -> None:
+        """Rank 0: one message (``op``, a few ints, an optional float tensor)."""
+        with self.lock:
+            broadcast_from_first(self.mesh, [op, *ints], payload)
+
+    def recv(self):
+        """Any other rank: rank 0's next message, ``(op, ints, payload)``."""
+        ints, payload = broadcast_from_first(self.mesh)
+        return ints[0], ints[1:], payload
+
+
+def follow(engine, channel: MeshChannel):
+    """A follower rank's half of :class:`MeshChannel`: make every dispatch rank
+    0 broadcasts on this rank's ``engine`` (its shard's forward and the
+    gather), until another message arrives; return that one as ``(op, ints)``."""
+    while True:
+        # a broadcast on the mesh's group, bounded by the group's timeout
+        op, ints, payload = channel.recv()  # orp: noqa[ORP014] -- a collective, not a socket
+        if op != DISPATCH:
+            return op, ints
+        date, n, f, k = ints
+        rows = payload.numpy()
+        engine.evaluate_async(date, rows[:n * f].reshape(n, f),
+                              rows[n * f:].reshape(n, k) if k else None)
+
+
 class PendingEval:
     """A launched evaluation: the device owns it until :meth:`result` copies
     the rows back to the host and slices the padding off. ``prof`` and
@@ -203,7 +263,7 @@ class ResidentParams:
     """A policy's params as one engine serves them: the tier's per-date params
     on ``device`` (``p1``, ``p2``) and, once a mixed-date batch needed them,
     the mixed-date kernel's dequantized and packed params (``mixed``), and
-    the AOT sets loaded for them (``aot``: ``{(aot_dir, policy fingerprint):
+    the AOT sets loaded for them (``aot``: ``{(aot_dir, policy fingerprint, mesh size):
     {bucket: AotExecutable}}``, the graphs captured on these params at this
     tier; a set that fell back to the eager path is not kept).
     Engines built with ``resident=`` share them: no host-to-device copy, no
@@ -247,6 +307,8 @@ class HedgeEngine:
             raise ValueError("policy has no per-date params to serve")
         self.mesh = as_mesh(mesh, device)
         self.device = mesh_device(self.mesh) if self.mesh is not None else resolve_device(device)
+        # rank 0's channel to the mirroring ranks of its mesh (MeshChannel), or None
+        self.front = None
         full_f32()
         self.model = model
         self.dual_mode = policy.dual_mode
@@ -278,7 +340,7 @@ class HedgeEngine:
         aot_dir = getattr(policy, "aot_dir", None)
         if use_aot and aot_dir is not None:
             fingerprint = getattr(policy, "fingerprint", None)
-            key = (str(aot_dir), fingerprint)
+            key = (str(aot_dir), fingerprint, mesh_size(self.mesh))
             aot = resident.aot.get(key)
             if aot is None:
                 from orp_tpu_torch.aot.bundle_exec import load_aot
@@ -402,25 +464,53 @@ class HedgeEngine:
                 # may sleep and/or raise a TransientDispatchError, which the
                 # batcher's retry-with-backoff policy handles
                 inj.fire("serve/dispatch", bucket=b)
-            if aot_ex is not None:
-                phi, psi, v = self._dispatch_aot(aot_ex, b, idx, feats, pr, inj)
-            else:
-                phi, psi, v = self._eager_eval(idx, feats, pr)
+            with self._lockstep(idx, states, prices):
+                if aot_ex is not None:
+                    local = self._dispatch_aot(aot_ex, b, idx, feats, pr, inj)
+                else:
+                    local = self._eager_eval(idx, feats, pr)
+                phi, psi, v = self._gather(*local)
         self._count(self._buckets, b, n, aot=aot_ex is not None)
         return self._pending(phi, psi, v, n, prices is not None, b)
 
+    @contextlib.contextmanager
+    def _lockstep(self, idx: int, states, prices):
+        """On the front of a mirrored mesh (``front`` a :class:`MeshChannel`),
+        broadcast this dispatch to the other ranks and hold the channel until
+        the gather is done; a no-op otherwise. It runs after validation and the
+        dispatch fault site, so a request refused or failed there never reaches
+        the other ranks, who would wait in its gather."""
+        chan = self.front
+        if chan is None:
+            yield
+            return
+        with chan.lock:
+            if chan.retired:
+                raise DeviceLostError(
+                    "the mesh this engine served was rebuilt after a device loss; the "
+                    "request replays on the rebuilt engine")
+            n, f = states.shape
+            k = 0 if prices is None else prices.shape[1]
+            rows = [states.reshape(-1)] + ([] if prices is None else [prices.reshape(-1)])
+            chan.send(DISPATCH, (idx, n, f, k),
+                      torch.from_numpy(np.concatenate(rows).astype(np.float64)))
+            yield
+
     def _eager_eval(self, idx: int, feats, pr):
-        """The always-correct eager path: the tiled forward, op by op."""
-        return self._gather(*_eval_tiled(
+        """The always-correct eager path: the tiled forward of this rank's rows,
+        op by op (the caller gathers a mesh's shards)."""
+        return _eval_tiled(
             self.model, self._p1, self._p2, idx, feats, pr, self.cost_of_capital,
             dual_mode=self.dual_mode, holdings_combine=self.holdings_combine,
-            precision=self.precision.tier))
+            precision=self.precision.tier)
 
     def _dispatch_aot(self, aot_ex, b: int, idx: int, feats, pr, inj):
-        """Replay bucket ``b``'s graph; any failure serves this request eagerly
-        (the same forward, the same bits) and feeds the circuit breaker, which
-        after ``aot_failure_threshold`` failures in a row demotes the bucket to
-        the eager path for the process's lifetime (``guard/circuit_open``)."""
+        """Replay bucket ``b``'s graph of this rank's rows (the caller gathers a
+        mesh's shards, outside the graph); any failure serves this request
+        eagerly (the same forward, the same bits) and feeds the circuit
+        breaker, which after ``aot_failure_threshold`` failures in a row
+        demotes the bucket to the eager path for the process's lifetime
+        (``guard/circuit_open``)."""
         try:
             if inj is not None:
                 inj.fire("serve/aot_dispatch", bucket=b)

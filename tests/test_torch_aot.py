@@ -1,9 +1,11 @@
 """The port's AOT plane on the CPU (``orp_tpu_torch/aot``): the build-cache
 entry point, the index and manifest logic of a bundle's AOT set (the other
-package's set refused with one warning and one counter event, the policy and
-tier checks, tier keys, stale sets pruned on re-export, the shipped
-libraries' digests and their install into the cache), the refusals of what
-needs a card, and the engine's AOT dispatch — the copy-in, replay and
+package's set refused with one warning and one counter event, the policy,
+tier and rank-count checks, tier keys, stale sets pruned on re-export, the
+shipped libraries' digests and their install into the cache), the sets of
+multi-rank meshes one process writes (index rows spelled as the JAX
+package's, padded buckets), the refusals of what needs a card, and the
+engine's AOT dispatch — the copy-in, replay and
 breaker — driven through a stand-in for the captured graph that runs the same
 forward eagerly on the graph's static buffers, bitwise the eager engine at
 every bucket, date and tier. The graphs themselves run in
@@ -185,10 +187,14 @@ def test_policy_tier_fingerprint_and_topology_checks(tmp_path):
     with pytest.warns(UserWarning, match="device/runtime fingerprint mismatch"):
         assert load_aot(d) == {}
     assert "fingerprint mismatch" in bundle_exec.aot_status(d)["detail"]
-    # a multi-rank mesh refuses in flag-speak
+    # a multi-rank mesh resolves its own topology, which this bundle does not ship
     (tdir / "aot.json").write_text(json.dumps(m))
-    with pytest.warns(UserWarning, match="2-rank mesh"):
+    with pytest.warns(UserWarning, match="no set for topology\\+tier 'cpu-cpu-n2'"):
         assert load_aot(d, mesh=2) == {}
+    # a manifest whose rank count is not its directory's
+    (tdir / "aot.json").write_text(json.dumps({**m, "topology": {"n_devices": 2}}))
+    with pytest.warns(UserWarning, match="topology mesh size mismatch"):
+        assert load_aot(d) == {}
     assert load_aot(tmp_path / "nothing") is None
 
 
@@ -468,3 +474,51 @@ def test_a_failed_capture_is_not_kept_for_the_next_engine(tmp_path, monkeypatch)
     assert len(rec) == 1 and first.cache_info()["aot_buckets"] == [] and first.resident.aot == {}
     second = HedgeEngine(loaded, device="cpu", resident=first.resident)
     assert second.cache_info()["aot_buckets"] == [8] and calls == [8, 8]
+
+
+def test_mesh_sets_are_written_by_one_process_with_the_references_rows(tmp_path):
+    """``export_aot(meshes=(4, 2))`` from this one CPU process (no group): the
+    index rows and ``dir`` spellings are the JAX package's ``_topo_entry`` and
+    ``topology_fingerprint`` of the same ``MeshSpec`` (the single-device row
+    too, which the card writes); each set lists its buckets padded as the JAX
+    package pads them and no library, and resolves for that topology's ranks. The single-device set
+    still needs a card, refused before anything is written."""
+    from orp_tpu.parallel.mesh import MeshSpec as JMeshSpec
+    from orp_tpu.parallel.mesh import pad_to_mesh as jpad_to_mesh
+    from orp_tpu.parallel.mesh import topology_fingerprint as jtopology_fingerprint
+    from orp_tpu.serve.engine import next_bucket as jnext_bucket
+    from orp_tpu_torch.parallel import MeshSpec
+
+    pol = _pair(n_dates=3, seed=14)[1]
+    d, fp = _bundle(tmp_path, pol)
+    if not torch.cuda.is_available():
+        with pytest.raises(AotUnsupported, match="single-device set needs a CUDA device"):
+            export_aot(d, load_bundle(d), meshes=(None, 4, 2), device="cpu")
+        assert not (d / "aot").exists()
+    out = export_aot(d, load_bundle(d), buckets=(1, 8, 9, 100), meshes=(4, MeshSpec(2), 4),
+                     device="cpu")
+    index = json.loads((d / "aot" / "aot.json").read_text())
+    assert sorted(index["topologies"]) == sorted(out["topologies"]) == ["cpu-cpu-n2",
+                                                                        "cpu-cpu-n4"]
+    for n in (4, 2):
+        want = jbundle_exec._topo_entry(JMeshSpec(n))
+        assert want["dir"] == jtopology_fingerprint(JMeshSpec(n)) == f"cpu-cpu-n{n}"
+        assert index["topologies"][want["dir"]] == want
+        manifest = out["topologies"][want["dir"]]
+        assert manifest["topology"] == want and manifest["libraries"] == {}
+        assert "launches no kernel" in manifest["libraries_note"]
+        assert manifest["policy_fingerprint"] == fp and manifest["precision"] == "f32"
+        assert sorted(int(b) for b in manifest["buckets"]) == sorted(
+            {jpad_to_mesh(jnext_bucket(k), JMeshSpec(n)) for k in (1, 8, 9, 100)})
+        assert all(e["shard_rows"] * n == int(b) for b, e in manifest["buckets"].items())
+        assert bundle_exec.aot_status(d, mesh=n)["ok"]
+        assert load_aot(d, mesh=MeshSpec(n), policy_fingerprint=fp) == {
+            int(b): None for b in manifest["buckets"]}
+    assert bundle_exec._topo_entry(None, "cpu") == jbundle_exec._topo_entry(None)
+    with pytest.warns(UserWarning, match="no set for topology\\+tier 'cpu-cpu-n8'"):
+        assert load_aot(d, mesh=8) == {}
+    # a 3-rank set pads every bucket to a multiple of 3, as the reference's engine
+    out = export_aot(d, load_bundle(d), buckets=(1, 16), meshes=(3,), device="cpu")
+    assert sorted(int(b) for b in out["topologies"]["cpu-cpu-n3"]["buckets"]) == [9, 18]
+    assert sorted(json.loads((d / "aot" / "aot.json").read_text())["topologies"]) == [
+        "cpu-cpu-n2", "cpu-cpu-n3", "cpu-cpu-n4"]

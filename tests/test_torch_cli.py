@@ -7,7 +7,9 @@
 - The reference's CLI tests, ported: config conflicts in flag-speak,
   ``--resume``, the ``--mesh`` flag-speak, a one-rank ``gloo`` ``euro --mesh 1``
   bitwise no mesh and a two-rank ``torchrun``-style run (one process a rank,
-  rank 0 alone prints), ``--telemetry``, ``report``, ``trace``, ``top``,
+  rank 0 alone prints), two-rank ``serve-bench --mesh 2`` (its batcher
+  phases mirrored from rank 0) and its degradation drill, ``export --aot
+  --aot-mesh`` and ``doctor --mesh``, ``--telemetry``, ``report``, ``trace``, ``top``,
   ``store``, ``pilot``, ``lint``, ``doctor`` against a live and a closed
   endpoint, ``serve-gateway``'s ready file and drain, ``serve-bench --quick``,
   ``profile --quick``, and the refusals: no default names a file of the
@@ -278,6 +280,69 @@ def test_euro_mesh_one_rank_and_two_ranks():
     assert [rc for rc, _, _ in runs] == [0, 0], runs[0][2][-2000:] + runs[1][2][-2000:]
     line = json.loads(runs[0][1])
     assert runs[1][1] == "" and np.isfinite(line["v0"]) and np.isfinite(line["v0_cv"])
+
+
+#: serve-bench at the CLI test's quick size, with the batcher phases (a burst and a
+#: concurrent sweep) that coalesce requests by timing
+QUICK_BENCH = ["serve-bench", "--bundle", str(NORTH_STAR_POLICY), "--quick", "--requests", "8",
+               "--batcher-requests", "64", "--sweep-concurrency", "4", "--sweep-requests",
+               "256", "--repeats", "2"]
+
+
+def test_serve_bench_two_ranks_mirror_rank_0s_batcher(tmp_path):
+    """``serve-bench --quick --mesh 2`` on two ranks: each rank's batcher used to
+    coalesce the same stream by its own timing, so the two ranks' gathers met
+    at different sizes (``gloo`` aborted in 2 of 6 runs) or different
+    requests. Rank 0 now drives every phase and the other rank mirrors its
+    engine's dispatches; both exit 0, rank 0 alone prints and writes."""
+    out = tmp_path / "r.json"
+    runs = _cli_procs([*CPU, *QUICK_BENCH, "--mesh", "2", "--out", str(out)], 2)
+    assert [rc for rc, _, _ in runs] == [0, 0], runs[0][2][-2000:] + runs[1][2][-2000:]
+    rec = json.loads(runs[0][1])
+    assert runs[1][1] == "" and json.loads(out.read_text()) == rec
+    assert rec["mesh_devices"] == 2 and rec["batcher_requests"] == 64
+    assert rec["sweep"][0]["concurrency"] == 4 and rec["sweep"][0]["requests"] == 256
+
+
+def test_serve_bench_two_ranks_degrade_drill(tmp_path):
+    """``serve-bench --quick --mesh 2 --degrade-at 3`` on two ranks: the loss
+    leaves 1 survivor, rank 0 rebuilds alone (rank 1 stands down), the drill
+    fails no request and serves the single-device engine's bits after it."""
+    runs = _cli_procs([*CPU, *QUICK_BENCH[:-6], "--sweep-concurrency", "", "--mesh", "2",
+                       "--degrade-at", "3", "--degrade-requests", "8", "--out", ""], 2)
+    assert [rc for rc, _, _ in runs] == [0, 0], runs[0][2][-2000:] + runs[1][2][-2000:]
+    drill = json.loads(runs[0][1])["degrade"]
+    assert runs[1][1] == ""
+    assert drill["devices_before"] == 2 and drill["devices_after"] == 1
+    assert drill["failed_during_window"] == 0 and drill["post_recovery_bitwise_equal"]
+    assert drill["replayed"] >= 1 and drill["rebuild_xla_compiles"] == 0
+
+
+def test_export_aot_mesh_sets(tmp_path):
+    """``export --aot --aot-mesh 4,2,1``: the single-device set is card-only, so
+    ``--device cpu`` refuses it before training; the meshes' sets need no card
+    and no group, and ``--aot-mesh 4,2`` writes their index here, spelled as
+    the reference's; ``doctor --mesh 4`` reads that topology's set."""
+    train = ["--paths", "64", "--steps", "4", "--rebalance-every", "2", "--epochs-first", "2",
+             "--epochs-warm", "1", "--batch-size", "64", "--json"]
+    with pytest.raises(SystemExit, match="no --device cpu form"):
+        tcli.main([*CPU, "export", "--out", str(tmp_path / "a"), "--aot", "--aot-mesh", "4,2,1",
+                   *train])
+    assert not (tmp_path / "a").exists()
+    out = _json(tcli.main, [*CPU, "export", "--out", str(tmp_path / "b"), "--aot", "--aot-mesh",
+                            "4,2", "--aot-buckets", "1,8,100", *train])[0]
+    assert out["aot_topologies"] == ["cpu-cpu-n2", "cpu-cpu-n4"]
+    assert out["aot_buckets"] == [8, 128] and out["aot_compile_wall_s"] == 0.0
+    index = json.loads((tmp_path / "b" / "aot" / "aot.json").read_text())
+    assert {k: v["n_devices"] for k, v in index["topologies"].items()} == {
+        "cpu-cpu-n2": 2, "cpu-cpu-n4": 4}
+    buf = io.StringIO()
+    # exit 1 all the same: the reference's devices check wants 4 visible devices
+    with contextlib.redirect_stdout(buf), pytest.raises(SystemExit):
+        tcli.main([*CPU, "doctor", "--bundle", str(tmp_path / "b"), "--mesh", "4", "--json"])
+    rep = json.loads(buf.getvalue())
+    [row] = [c for c in rep["checks"] if c["check"] == "bundle_aot"]
+    assert row["ok"] and "'cpu-cpu-n4' covered (buckets [8, 128])" in row["detail"]
 
 
 def test_telemetry_flag_drops_bundle_and_report_reads_it(tmp_path):

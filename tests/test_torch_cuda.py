@@ -1214,6 +1214,42 @@ def test_degrade_drill_from_the_aot_bundle(cuda, aot_bundle):
     assert drill["aot_buckets"] == list(AOT_TEST_BUCKETS) and drill["mttr_ms"] > 0
 
 
+def test_two_gloo_ranks_capture_their_shards_from_the_n2_set(cuda, tmp_path):
+    """Two ``gloo`` ranks share the card: each loads the bundle's 2-rank set
+    (a manifest one process wrote, no library) with 0 ``nvcc`` runs and 0
+    capture fallbacks, captures one graph per bucket of its shard's forward,
+    and serves every size bitwise the eager mesh engine and the unsharded
+    one; the mesh path launches no kernel."""
+    import importlib.util
+    import pathlib
+
+    from orp_tpu_torch.aot import export_aot
+    from orp_tpu_torch.serve import export_bundle
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location("torch_mesh_ranks",
+                                                  root / "tools" / "torch_mesh_ranks.py")
+    ranks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ranks)
+    d = tmp_path / "bundle"
+    policy = export_bundle(load_bundle(NORTH_STAR_POLICY), d)
+    out = export_aot(d, policy, buckets=AOT_TEST_BUCKETS, meshes=(2,))
+    [manifest] = out["topologies"].values()
+    assert manifest["libraries"] == {} and manifest["topology"]["n_devices"] == 2
+    sizes = [1, 7, 64, 1000, 65_536]
+    res = ranks.launch(2, {"aot": {"bundle": str(d), "sizes": sizes}}, tmp_path / "ranks",
+                       device="cuda", backend="gloo", timeout=600)
+    for r in res:
+        a = r["aot"]
+        assert a["topology"].endswith("-n2") and "covered" in a["status"]
+        assert a["nvcc"] == 0 and a["captures"] == len(AOT_TEST_BUCKETS)
+        assert a["fallbacks"] == {"capture": 0, "set": 0}
+        assert a["cache_info"]["aot_buckets"] == list(AOT_TEST_BUCKETS)
+        assert a["cache_info"]["aot_hits"] == len(sizes)
+        assert all(a["equal"].values()) and all(a["equal_eager_mesh"].values())
+        assert all(v == 0 for v in r["kernel_launches"].values())
+
+
 def test_aot_tenant_warm_re_activation_captures_no_graph(cuda, aot_bundle):
     from orp_tpu_torch.serve.host import ServeHost
     from orp_tpu_torch.utils import cuda_build

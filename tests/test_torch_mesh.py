@@ -151,6 +151,17 @@ def test_divisibility_error_and_fingerprint_in_the_references_words():
         largest_submesh(0)
 
 
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+def test_a_specs_topology_is_spelled_without_a_group(n):
+    """One process names every topology it exports: a ``MeshSpec`` or rank
+    count is spelled as the JAX package spells the same spec, building no
+    mesh (no group here)."""
+    assert not dist.is_initialized()
+    want = jmesh.topology_fingerprint(jmesh.MeshSpec(n))
+    assert topology_fingerprint(MeshSpec(n), "cpu") == topology_fingerprint(n, "cpu") == want
+    assert want == f"cpu-cpu-n{n}"
+
+
 def test_one_rank_group_in_process(tmp_path):
     """A 1-rank ``gloo`` group: the mesh, its description, the collectives as
     identities, the mesh-free ``path_indices`` on the CPU, the multihost no-op."""

@@ -31,6 +31,28 @@ Jobs (keys of ``jobs``, run in this order on every rank):
   session (``obs.telemetry``, its bundle under ``out_dir/telemetry``) on the
   ranks listed in ``telemetry_ranks`` only: the bundle's manifest, its
   ``train/walk`` span and the mesh's ``describe()`` as this rank sees it;
+- ``aot``: the bundle at ``bundle`` (exported with a set for this world,
+  ``aot/bundle_exec.export_aot(meshes=...)``) loaded into
+  ``HedgeEngine(policy, mesh=)``: the ``nvcc`` runs, graph captures and
+  capture fallbacks of the load, the buckets served by graphs, and each of
+  ``sizes`` bitwise the unsharded eager engine and the eager mesh engine;
+- ``degrade``: each of ``scenarios`` through ``DegradeManager(policy,
+  mesh=world)`` on the bundle at ``bundle``: rank 0 (the front) streams
+  ``requests`` single-row requests with a device loss at request ``loss_at``
+  reporting ``survivors`` (``loss_budget`` losses, ``replay_timeout_s``) and
+  ``block_rows``-row blocks before and after (``block_loss``: the loss under
+  a block instead; ``sync``: each request answered before the next is sent;
+  ``max_batch``, ``hard_wall_ms``: the batcher's), against its single-device
+  eager engine, recording the
+  served bits, ``stats()``, the ``guard/`` counters and events; every other
+  rank records its part (follower or stood down), its rebuilds and the text
+  of a ``submit`` there;
+- ``stand_in`` (with ``aot`` / ``degrade`` on the CPU): a bucket's graph
+  capture becomes an eager stand-in on the graph's static buffers (counted as
+  a capture), since the CPU captures no CUDA graph;
+- ``device_mesh_probe``: what this torch's ``DeviceMesh`` does on a rank
+  outside its rank list (every rank builds one over ranks 0 and 1): its
+  coordinate there, or the refusal's text;
 - ``fail_rank``: that rank raises before the walks, while the others enter
   them (a launch must fail, not hang);
 - ``sync_check``: the fused walks' date loops run under
@@ -252,6 +274,194 @@ def _telemetry(spec: dict, mesh, device, rank: int, out: pathlib.Path):
             "describe": MeshSpec(mesh.size()).describe(device)}
 
 
+class _EagerGraph:
+    """A stand-in for a captured bucket graph on the CPU: its static buffers,
+    and a replay that runs the engine's forward on them eagerly into fixed
+    output buffers (a graph's replay overwrites its outputs the same way)."""
+
+    def __init__(self, engine, rows: int):
+        import torch
+
+        dt = engine.model.dtype
+        self.args = (torch.zeros((), dtype=torch.int64),
+                     torch.zeros((rows, engine.model.n_features), dtype=dt),
+                     torch.zeros((rows, engine.n_instruments), dtype=dt))
+        self.engine = engine
+        self.outputs = None
+
+    def replay(self):
+        import torch
+
+        from orp_tpu_torch.serve.engine import _eval_tiled
+
+        e = self.engine
+        outs = _eval_tiled(e.model, e._p1, e._p2, *self.args, e.cost_of_capital,
+                           dual_mode=e.dual_mode, holdings_combine=e.holdings_combine,
+                           precision=e.precision.tier)
+        if self.outputs is None:
+            self.outputs = tuple(torch.empty_like(o) for o in outs)
+        for buf, o in zip(self.outputs, outs):
+            buf.copy_(o)
+        return self.outputs
+
+
+def _stand_in_captures(device) -> None:
+    """Bucket graphs captured as :class:`_EagerGraph` (the CPU has no CUDA graph)."""
+    from orp_tpu_torch.aot import bundle_exec
+    from orp_tpu_torch.parallel.mesh import mesh_size
+    from orp_tpu_torch.utils import cuda_build
+
+    if device != "cpu":
+        raise ValueError("stand_in is the CPU's: a card captures its graphs")
+
+    def capture(cls, engine, bucket):
+        cuda_build.count_capture(0.0, site="serve_bucket")
+        return cls(bucket, _EagerGraph(engine, int(bucket) // mesh_size(engine.mesh)), {})
+
+    bundle_exec.AotExecutable.capture = classmethod(capture)
+
+
+def _requests(n: int, n_features: int, n_instruments: int, seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.7, 1.3, (n, n_features)).astype(np.float32),
+            rng.uniform(0.5, 1.5, (n, n_instruments)).astype(np.float32))
+
+
+def _same(a, b) -> bool:
+    import numpy as np
+
+    return all((x is None and y is None) or np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def _aot(spec: dict, mesh, device):
+    from orp_tpu_torch.aot import bundle_exec
+    from orp_tpu_torch.parallel.mesh import topology_fingerprint
+    from orp_tpu_torch.serve import HedgeEngine, load_bundle
+    from orp_tpu_torch.utils import cuda_build
+
+    t_job = time.perf_counter()
+    policy = load_bundle(spec["bundle"])
+    whole = HedgeEngine(policy, device=device, use_aot=False)
+    eager = HedgeEngine(policy, mesh=mesh, use_aot=False)
+    b0, f0 = dict(cuda_build.BUILD_STATS), dict(bundle_exec.FALLBACKS)
+    t0 = time.perf_counter()
+    sharded = HedgeEngine(policy, mesh=mesh)
+    load_s = time.perf_counter() - t0
+    out = {"topology": topology_fingerprint(mesh), "load_s": load_s,
+           "nvcc": cuda_build.BUILD_STATS["nvcc"] - b0["nvcc"],
+           "captures": cuda_build.BUILD_STATS["captures"] - b0["captures"],
+           "fallbacks": {k: bundle_exec.FALLBACKS[k] - f0[k] for k in f0},
+           "status": bundle_exec.aot_status(spec["bundle"], mesh=mesh,
+                                            device=sharded.device)["detail"],
+           "equal": {}, "equal_eager_mesh": {}, "buckets": {}}
+    for i, n in enumerate(spec["sizes"]):
+        states, prices = _requests(n, whole.model.n_features, whole.n_instruments,
+                                   spec.get("seed", 7) + i)
+        t = i % whole.n_dates
+        got = sharded.evaluate(t, states, prices)
+        out["equal"][n] = _same(got, whole.evaluate(t, states, prices))
+        out["equal_eager_mesh"][n] = _same(got, eager.evaluate(t, states, prices))
+        out["buckets"][n] = sharded.bucket_for(n)
+    out["cache_info"] = sharded.cache_info()
+    out["wall_s"] = time.perf_counter() - t_job
+    return out
+
+
+def _degrade(spec: dict, mesh, device, rank: int):
+    from orp_tpu_torch.serve import load_bundle
+
+    policy = load_bundle(spec["bundle"])
+    return [_degrade_one(policy, sc, mesh.size(), device, rank) for sc in spec["scenarios"]]
+
+
+def _degrade_one(policy, sc: dict, world: int, device, rank: int) -> dict:
+    import numpy as np
+
+    from orp_tpu_torch import guard, obs
+    from orp_tpu_torch.guard import DegradeManager, FaultPlan, GuardPolicy
+    from orp_tpu_torch.serve import HedgeEngine
+    from orp_tpu_torch.utils import cuda_build
+
+    kw = dict(mesh=world, engine_kwargs={"device": device},
+              replay_timeout_s=sc.get("replay_timeout_s", 30.0),
+              batcher_kwargs={"max_batch": sc.get("max_batch", 1024)},
+              guard_policy=(GuardPolicy(hard_wall_ms=sc["hard_wall_ms"])
+                            if "hard_wall_ms" in sc else None))
+    b0 = dict(cuda_build.BUILD_STATS)
+    if rank != 0:
+        with DegradeManager(policy, **kw) as mgr:
+            role = mgr.role
+            try:
+                mgr.submit(0, np.ones((1, mgr.engine.model.n_features), np.float32))
+                refusal = None
+            except RuntimeError as e:
+                refusal = str(e)
+        return {"role_at_start": role, "role": mgr.role, "rebuilds": mgr.rebuilds,
+                "refusal": refusal, "mesh_devices": mgr.stats()["mesh_devices"]}
+    ref = HedgeEngine(policy, device=device, use_aot=False)
+    nf, ni, nd = ref.model.n_features, ref.n_instruments, ref.n_dates
+    n_req, seed = sc["requests"], sc.get("seed", 0)
+    states, prices = _requests(n_req, nf, ni, seed)
+    want = [ref.evaluate(i % nd, states[i:i + 1], prices[i:i + 1]) for i in range(n_req)]
+    rows = sc.get("block_rows", 0)
+    if rows:
+        bstates, bprices = _requests(rows, nf, ni, seed + 1)
+        bwant = ref.evaluate(1 % nd, bstates, bprices)
+    plan = FaultPlan(device_loss={"serve/dispatch": sc.get("loss_budget", 1)},
+                     survivors=sc.get("survivors"))
+    reg, sink = obs.Registry(), obs.ListSink()
+    log, blocks, loss_error = [], {}, None
+    t0 = time.perf_counter()
+    with obs.active(reg, sink):
+        with DegradeManager(policy, **kw) as mgr:
+            if rows:
+                blocks["healthy"] = mgr.submit_block(1 % nd, bstates, bprices).result(timeout=600)
+            futures = []
+            for i in range(n_req):
+                args = (i % nd, states[i:i + 1], prices[i:i + 1])
+                if i == sc.get("loss_at"):
+                    with guard.faults(plan) as inj:
+                        futures.append(mgr.submit(*args))
+                        loss_error = futures[-1].exception(timeout=600)
+                    log += [site for site, _ in inj.log]
+                else:
+                    futures.append(mgr.submit(*args))
+                if sc.get("sync"):  # one request in flight at a time
+                    futures[-1].exception(timeout=600)
+            if rows and sc.get("block_loss"):
+                with guard.faults(plan) as inj:
+                    blocks["replayed"] = mgr.submit_block(1 % nd, bstates, bprices).result(
+                        timeout=600)
+                log += [site for site, _ in inj.log]
+            errors = [f.exception(timeout=600) for f in futures]
+            got = [f.result() if e is None else None for f, e in zip(futures, errors)]
+            if rows:
+                blocks["recovered"] = mgr.submit_block(1 % nd, bstates, bprices).result(
+                    timeout=600)
+            if mgr._recovery_thread is not None:  # the replays resolve before the record
+                mgr._recovery_thread.join(timeout=600)
+            st = mgr.stats()
+    return {"role": mgr.role, "wall_s": time.perf_counter() - t0, "stats": st,
+            "injected": log, "loss_error": None if loss_error is None else str(loss_error),
+            "failed": sum(e is not None for e in errors),
+            "errors": [None if e is None else repr(e) for e in errors],
+            "bitwise": [g is not None and _same(g, w) for g, w in zip(got, want)],
+            "got": got, "states": states, "prices": prices,
+            "block_inputs": (bstates, bprices) if rows else None,
+            "blocks": {k: {"n_served": b.n_served, "bitwise": _same((b.phi, b.psi, b.value),
+                                                                    bwant),
+                           "phi": b.phi[:64], "psi": b.psi[:64]}
+                       for k, b in blocks.items()},
+            "counters": {k: v["value"] for k, v in reg.collect().items()
+                         if k.startswith("guard/")},
+            "guard_events": [e.get("name") for e in sink.events
+                             if str(e.get("name", "")).startswith("guard/")],
+            "nvcc": cuda_build.BUILD_STATS["nvcc"] - b0["nvcc"],
+            "captures": cuda_build.BUILD_STATS["captures"] - b0["captures"]}
+
+
 def _kernel_wrappers() -> dict:
     """Each CUDA kernel's wrapper and its launch counter: a rank reports what
     its jobs launched (the mesh path launches none)."""
@@ -264,6 +474,12 @@ def _kernel_wrappers() -> dict:
             "pension": (fused_mf.pension_fused, "launches"),
             "mixed_head": (megakernel.mixed_head_forward, "launches"),
             "mixed_head_bf16": (megakernel.mixed_head_forward, "launches_bf16")}
+
+
+def _device_mesh_cls():
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh
 
 
 def _rank_main(args) -> None:
@@ -297,6 +513,21 @@ def _rank_main(args) -> None:
         res.setdefault("walks", []).append(_walk(spec, mesh, device))
     if "engine" in jobs:
         res["engine"] = _engine(jobs["engine"], mesh, device)
+    if jobs.get("device_mesh_probe"):
+        from orp_tpu_torch.parallel.mesh import mesh_device
+
+        try:
+            probe = _device_mesh_cls()(mesh_device(mesh).type, [0, 1],
+                                       mesh_dim_names=("probe",))
+            res["device_mesh_probe"] = {"coordinate": probe.get_coordinate()}
+        except Exception as e:  # orp: noqa[ORP009] -- the refusal is the probe's answer, recorded
+            res["device_mesh_probe"] = {"refused": f"{type(e).__name__}: {e}"[:300]}
+    if jobs.get("stand_in"):
+        _stand_in_captures(args.device)
+    if "aot" in jobs:
+        res["aot"] = _aot(jobs["aot"], mesh, device)
+    if "degrade" in jobs:
+        res["degrade"] = _degrade(jobs["degrade"], mesh, device, args.rank)
     if "guard" in jobs:
         res["guard"] = _guard(jobs["guard"], mesh, device, args.rank)
     if "kill" in jobs:
